@@ -1,0 +1,49 @@
+"""repro_torch: the PyTorch + CUDA port of the co-design CNN inference
+stack, for an NVIDIA H100.
+
+The JAX package ``repro`` stays the reference; this package imports
+neither it nor JAX.  The public surface mirrors it::
+
+    import repro_torch
+    from repro_torch.configs import yolov3
+
+    compiled = repro_torch.compile(yolov3.TINY_MODEL, params,
+                                   repro_torch.ExecutionOptions())
+    y = compiled.run(x)          # (B, 416, 416, 3) NHWC on the card
+
+``ExecutionOptions(impl='cuda')`` (the default) runs the hand-written CUDA
+kernels under ``kernels/*/csrc``, built with nvcc at first use;
+``impl='torch'`` runs their plain PyTorch versions.
+"""
+__version__ = "0.1.0"
+
+from repro_torch.api import CNNModel, CompiledCNN, ExecutionOptions, compile
+from repro_torch.core import (
+    ConvAlgorithm,
+    ConvPlan,
+    ConvSpec,
+    Epilogue,
+    Layout,
+    NetworkExecutor,
+    NetworkPlan,
+    Planner,
+    conv2d,
+    conv2d_reference,
+)
+
+__all__ = [
+    "CNNModel",
+    "CompiledCNN",
+    "ExecutionOptions",
+    "compile",
+    "ConvAlgorithm",
+    "ConvPlan",
+    "ConvSpec",
+    "Epilogue",
+    "Layout",
+    "NetworkExecutor",
+    "NetworkPlan",
+    "Planner",
+    "conv2d",
+    "conv2d_reference",
+]

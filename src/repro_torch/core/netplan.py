@@ -1,0 +1,434 @@
+"""Network-level inference planning and execution.
+
+The port of ``repro/core/netplan.py`` (single device, no jit):
+
+  Layout        the physical channel layout an NHWC activation carries
+                relative to its logical shape (trailing zero channels the
+                next kernel needs).
+  NetworkPlan   the whole network resolved ahead of time: per-layer
+                ConvPlans, network-adjusted kernel blocks (the im2col row
+                tile snapped to a divisor of OH), and the inter-layer layout
+                decisions — which crop+re-pad pairs are elided so a padded
+                activation flows straight into the next kernel.
+  NetworkExecutor  runs a NetworkPlan: offline parameter preparation
+                (batchnorm folding, channel padding, Winograd weight
+                pre-transform), then ``run_network`` per call.
+
+Elision is legal exactly when the padded region stays zero: the producer's
+weight/bias pads make its extra output channels act(0 + 0) = 0, maxpool and
+upsample preserve zero channels, and the consumer's zero weight pads ignore
+them.  Any consumer that needs logical channels (route, shortcut, fc,
+avgpool, or a layer referenced by one) forces a crop back to logical.
+
+The channel multiples come from the CUDA kernels (kernels/conv_ops.py), not
+from the TPU's 128 lanes: the GEMM takes any C, the Winograd and im2col
+kernels take multiples of 8, and every kernel masks its out channels, so a
+producer pads its out channels only to its consumer's multiple and the
+network's output needs no crop.  Plans and elision choices differ from the
+reference; outputs do not.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.conv_spec import (
+    ConvAlgorithm,
+    ConvSpec,
+    Epilogue,
+    apply_activation,
+)
+from repro_torch.core.planner import ConvPlan, Planner
+from repro_torch.models.cnn import _conv_spec
+from repro_torch.util import ceil_to, pad_bias_row
+
+# ---------------------------------------------------------------------------
+# Layout and plan records
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Physical channel layout of an NHWC activation: ``c`` logical
+    channels plus ``pad_c`` trailing channels that are exactly zero."""
+
+    c: int
+    pad_c: int = 0
+
+    @property
+    def phys_c(self) -> int:
+        return self.c + self.pad_c
+
+    @property
+    def trivial(self) -> bool:
+        return self.pad_c == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class NetStep:
+    """One planned layer: its spec/plan plus the layouts it consumes and
+    produces."""
+
+    index: int
+    layer: Any                      # CNNLayer (duck-typed: .kind, ...)
+    spec: Optional[ConvSpec]         # None for a layer that is not a conv
+    plan: Optional[ConvPlan]         # likewise; every conv has one
+    in_hw: Tuple[int, int]
+    out_hw: Tuple[int, int]
+    in_layout: Layout
+    out_layout: Layout
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkPlan:
+    """A whole network resolved for one (input shape, batch, impl)."""
+
+    steps: Tuple[NetStep, ...]
+    input_hw: Tuple[int, int]
+    in_channels: int
+    batch: int
+    impl: str
+
+    @property
+    def elided_boundaries(self) -> int:
+        """Conv boundaries whose crop+re-pad pair was elided."""
+        return sum(
+            1 for s in self.steps
+            if s.layer.kind == "conv" and not s.out_layout.trivial
+        )
+
+    def algorithm_counts(self) -> Dict[ConvAlgorithm, int]:
+        """Planned conv steps per algorithm — one kernel launch each."""
+        counts: Dict[ConvAlgorithm, int] = {}
+        for s in self.steps:
+            if s.layer.kind == "conv":
+                counts[s.plan.algorithm] = counts.get(s.plan.algorithm, 0) + 1
+        return counts
+
+
+# ---------------------------------------------------------------------------
+# Algorithm / block helpers
+
+
+def _in_channel_multiple(algo: ConvAlgorithm) -> int:
+    from repro_torch.kernels.conv_ops import in_channel_multiple
+
+    return in_channel_multiple(algo)
+
+
+def _snap_row_tile(plan: ConvPlan, algo: ConvAlgorithm, oh: int) -> ConvPlan:
+    """Network-level adjustment: make the im2col row tile divide OH.
+
+    The snap takes the largest divisor of OH no bigger than the tile, and
+    only when it keeps at least half the tile: a prime OH (best divisor 1)
+    must not explode the grid into one block per output row.  The CUDA
+    kernel masks a ragged last row tile, so an unsnapped tile stays exact.
+    """
+    if algo is not ConvAlgorithm.IM2COL_GEMM:
+        return plan
+    toh, bc, bo = plan.kernel_blocks
+    snapped = min(toh, oh)
+    while oh % snapped:
+        snapped -= 1
+    if snapped < min(toh, oh) / 2 or (snapped, bc, bo) == plan.kernel_blocks:
+        return plan
+    return dataclasses.replace(plan, kernel_blocks=(snapped, bc, bo))
+
+
+# ---------------------------------------------------------------------------
+# Building the plan
+
+
+def _propagate_shapes(
+    layers: Tuple[Any, ...], h: int, w: int, in_channels: int
+) -> List[Dict[str, Any]]:
+    """Per-layer {'spec', 'in': (h,w,c), 'out': (h,w,c)} — the single shape
+    walk shared by planning and layout resolution."""
+    infos: List[Dict[str, Any]] = []
+    shapes: List[Tuple[int, int, int]] = []
+    cur_c, cur_h, cur_w = in_channels, h, w
+    for l in layers:
+        in_shape = (cur_h, cur_w, cur_c)
+        spec = None
+        if l.kind == "conv":
+            spec = _conv_spec(l, cur_c)
+            cur_h, cur_w = spec.out_hw(cur_h, cur_w)
+            cur_c = l.out_channels
+        elif l.kind == "maxpool":
+            cur_h, cur_w = -(-cur_h // l.stride), -(-cur_w // l.stride)
+        elif l.kind == "upsample":
+            cur_h, cur_w = cur_h * l.size, cur_w * l.size
+        elif l.kind == "route":
+            cur_c = sum(shapes[j][2] for j in l.from_layers)
+            cur_h, cur_w = shapes[l.from_layers[0]][:2]
+        elif l.kind in ("avgpool", "fc"):
+            cur_h, cur_w = 1, 1
+            if l.kind == "fc":
+                cur_c = l.out_channels
+        shapes.append((cur_h, cur_w, cur_c))
+        infos.append({"spec": spec, "in": in_shape, "out": shapes[-1]})
+    return infos
+
+
+def build_network_plan(
+    layers: Sequence[Any],
+    h: int,
+    w: int,
+    plans: Sequence[Optional[ConvPlan]],
+    in_channels: int = 3,
+    batch: int = 1,
+    impl: str = "cuda",
+) -> NetworkPlan:
+    """Pure layout resolution: layer table + per-layer plans -> NetworkPlan.
+
+    ``plans`` has one entry per layer: a ConvPlan for every conv, None for
+    every other layer."""
+    layers = tuple(layers)
+    n = len(layers)
+    plans = tuple(plans)
+    assert len(plans) == n, (len(plans), n)
+    assert all((p is not None) == (l.kind == "conv")
+               for l, p in zip(layers, plans)), "a ConvPlan per conv only"
+    referenced = {j for l in layers for j in getattr(l, "from_layers", ())}
+    infos = _propagate_shapes(layers, h, w, in_channels)
+
+    def next_conv(i: int) -> Optional[int]:
+        """Follow ``cur`` from layer i through layout-transparent layers:
+        the index of the conv that consumes it, or None when a layer that
+        needs logical channels comes first, the network ends, or an
+        intermediate output is referenced by a route/shortcut (a padded
+        tensor must not land in the saved outputs of a logical consumer)."""
+        for j in range(i + 1, n):
+            kind = layers[j].kind
+            if kind == "conv":
+                return None if any(x in referenced for x in range(i, j)) else j
+            if kind not in ("maxpool", "upsample"):
+                return None
+        return None
+
+    steps: List[NetStep] = []
+    carry = Layout(in_channels)             # layout of `cur` entering layer i
+    for i, l in enumerate(layers):
+        info = infos[i]
+        ih, iw, ic = info["in"]
+        oh_, ow_, oc = info["out"]
+        plan = plans[i]
+        if l.kind == "conv":
+            algo = plan.algorithm
+            plan = _snap_row_tile(plan, algo, oh_)
+            in_mult = _in_channel_multiple(algo)
+            if carry.pad_c and carry.phys_c % in_mult == 0:
+                in_layout = carry           # producer elided into us
+            else:
+                in_layout = Layout(ic, ceil_to(ic, in_mult) - ic)
+            # Every kernel emits exactly its weights' out channels, so
+            # padding them offline to the next conv's multiple makes the
+            # extra channels act(0 + 0) = 0 and the next conv takes them as
+            # they are: no crop here and no re-pad there.
+            out_phys = oc
+            j = next_conv(i)
+            if j is not None:
+                out_phys = ceil_to(oc, _in_channel_multiple(plans[j].algorithm))
+            out_layout = Layout(oc, out_phys - oc)
+            carry = out_layout
+        elif l.kind in ("maxpool", "upsample"):
+            in_layout = carry
+            out_layout = carry
+        else:
+            if not carry.trivial:           # pragma: no cover - by invariant
+                raise AssertionError(
+                    f"padded activation reached logical consumer {l.kind!r}"
+                )
+            in_layout = Layout(ic)
+            out_layout = Layout(oc)
+            carry = out_layout
+        steps.append(NetStep(
+            index=i, layer=l, spec=info["spec"], plan=plan,
+            in_hw=(ih, iw), out_hw=(oh_, ow_),
+            in_layout=in_layout, out_layout=out_layout,
+        ))
+    return NetworkPlan(steps=tuple(steps), input_hw=(h, w),
+                       in_channels=in_channels, batch=batch, impl=impl)
+
+
+def plan_network(
+    layers: Sequence[Any],
+    h: int,
+    w: int,
+    planner: Planner,
+    in_channels: int = 3,
+    batch: int = 1,
+) -> NetworkPlan:
+    """Resolve every conv's ConvPlan through ``planner``, then the layouts."""
+    layers = tuple(layers)
+    plans: List[Optional[ConvPlan]] = [
+        (planner.plan(info["spec"], info["in"][0], info["in"][1], batch=batch)
+         if l.kind == "conv" else None)
+        for l, info in zip(layers, _propagate_shapes(layers, h, w, in_channels))
+    ]
+    return build_network_plan(layers, h, w, plans, in_channels=in_channels,
+                              batch=batch, impl=planner.impl)
+
+
+# ---------------------------------------------------------------------------
+# Parameter preparation (offline: folding, padding, weight pre-transform)
+
+
+def pretransform_flags(
+    netplan: NetworkPlan, pretransform: bool = True
+) -> Tuple[bool, ...]:
+    """Per-step "weights carry the offline Winograd transform" flags: the
+    conv steps whose resolved algorithm is Winograd.  The flag travels
+    explicitly from preparation to execution, never sniffed from shapes."""
+    if not pretransform:
+        return (False,) * len(netplan.steps)
+    return tuple(
+        s.layer.kind == "conv" and s.plan.algorithm is ConvAlgorithm.WINOGRAD
+        for s in netplan.steps
+    )
+
+
+def prepare_net_params(
+    netplan: NetworkPlan,
+    params: Sequence[Dict],
+    pretransform: bool = False,
+) -> List[Dict]:
+    """Offline fp32 parameter preparation for a NetworkPlan.
+
+    Folds inference batchnorm into conv weights + bias, pads every conv's
+    weights/bias to the step's physical channel layouts, and — with
+    ``pretransform`` — applies the offline Winograd weight transform to
+    exactly the layers ``pretransform_flags(netplan, pretransform)`` names.
+    """
+    from repro_torch.core.winograd import transform_weights
+    from repro_torch.models.cnn import fold_batchnorm
+
+    flags = pretransform_flags(netplan, pretransform)
+    params = fold_batchnorm(params, [s.layer for s in netplan.steps])
+    out: List[Dict] = []
+    for s, p, pre in zip(netplan.steps, params, flags):
+        if s.layer.kind != "conv":
+            out.append(p)
+            continue
+        w, b = p["w"], p["b"]
+        cin_pad = s.in_layout.phys_c - w.shape[2]
+        o_pad = s.out_layout.phys_c - w.shape[3]
+        if cin_pad or o_pad:
+            w = F.pad(w, (0, o_pad, 0, cin_pad))
+            b = pad_bias_row(b, s.out_layout.phys_c)
+        if pre:
+            w = transform_weights(w)                    # (8, 8, Cp, Op)
+        out.append({"w": w.contiguous(), "b": b.contiguous()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Execution
+
+
+def _align_channels(x: torch.Tensor, want_phys: int) -> torch.Tensor:
+    """Zero-pad a logical activation to a conv's input layout (a padded one
+    already matches it: build_network_plan pads only for that consumer)."""
+    have = x.shape[-1]
+    return F.pad(x, (0, want_phys - have)) if have < want_phys else x
+
+
+def _maxpool_same(x: torch.Tensor, size: int, stride: int) -> torch.Tensor:
+    """Max pool with XLA's "SAME" padding of -inf: the pad is split with
+    the larger half after, so YOLOv3-tiny's size-2 stride-1 pool pads only
+    the right and bottom, by 1 (``nn.MaxPool2d`` pads both sides)."""
+    _, h, w, _ = x.shape
+
+    def pads(n: int) -> Tuple[int, int]:
+        total = max((-(-n // stride) - 1) * stride + size - n, 0)
+        return total // 2, total - total // 2
+
+    (pt, pb), (pl, pr) = pads(h), pads(w)
+    y = x.permute(0, 3, 1, 2)                           # NCHW view
+    if pt or pb or pl or pr:
+        y = F.pad(y, (pl, pr, pt, pb), value=float("-inf"))
+    y = F.max_pool2d(y, size, stride)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def run_network(
+    netplan: NetworkPlan,
+    params: Sequence[Dict],
+    x: torch.Tensor,
+    pretransformed: Optional[Sequence[bool]] = None,
+) -> torch.Tensor:
+    """The planned whole-network forward on prepared params.
+
+    Pads at entry (the first conv's input layout) and after a logical
+    consumer (route, shortcut), and flows padded activations across every
+    elided boundary; the last layer's output is logical.
+    ``pretransformed`` is the per-step flag tuple from
+    ``pretransform_flags`` (None: no weight carries the transform).
+    """
+    from repro_torch.core.conv2d import conv2d
+
+    flags = (tuple(pretransformed) if pretransformed is not None
+             else (False,) * len(netplan.steps))
+    outputs: List[torch.Tensor] = []
+    cur = x
+    for s in netplan.steps:
+        l = s.layer
+        if l.kind == "conv":
+            p = params[s.index]
+            cur = _align_channels(cur, s.in_layout.phys_c)
+            epi = Epilogue(bias=p["b"], activation=l.activation)
+            cur = conv2d(
+                cur, p["w"], s.spec, plan=s.plan, epilogue=epi,
+                in_layout=s.in_layout, out_layout=s.out_layout,
+                pretransformed=flags[s.index],
+            )
+        elif l.kind == "maxpool":
+            cur = _maxpool_same(cur, l.size, l.stride)
+        elif l.kind == "avgpool":
+            cur = cur.mean(dim=(1, 2))
+        elif l.kind == "upsample":
+            cur = cur.repeat_interleave(l.size, dim=1).repeat_interleave(
+                l.size, dim=2)
+        elif l.kind == "shortcut":
+            cur = cur + outputs[l.from_layers[0]]
+        elif l.kind == "route":
+            cur = torch.cat([outputs[j] for j in l.from_layers], dim=-1)
+        elif l.kind == "fc":
+            p = params[s.index]
+            if cur.ndim == 4:
+                cur = cur.mean(dim=(1, 2))
+            cur = apply_activation(cur @ p["w"] + p["b"], l.activation)
+        outputs.append(cur)
+    return cur
+
+
+class NetworkExecutor:
+    """Whole-network inference over a NetworkPlan on one device.
+
+    Prepares parameters offline (fold + pad + optional Winograd
+    pre-transform) once, then runs ``run_network`` eagerly per call.
+    """
+
+    def __init__(
+        self,
+        netplan: NetworkPlan,
+        params: Sequence[Dict],
+        pretransform: bool = True,
+    ):
+        self.netplan = netplan
+        self.params = prepare_net_params(netplan, params,
+                                         pretransform=pretransform)
+        self.pretransformed = pretransform_flags(netplan, pretransform)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w = x.shape[0], x.shape[1], x.shape[2]
+        if (h, w) != self.netplan.input_hw or b != self.netplan.batch:
+            raise ValueError(
+                f"executor planned for batch {self.netplan.batch} at "
+                f"{self.netplan.input_hw}, got {tuple(x.shape)}"
+            )
+        with torch.inference_mode():
+            return run_network(self.netplan, self.params, x,
+                               pretransformed=self.pretransformed)

@@ -1,0 +1,153 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled on first
+use, for ``sm_90a``, into its own shared library under ``build/repro_torch/``
+at the repository root (the file name carries a digest of the source and
+the flags, so an edited source is rebuilt and never confused with an old
+library).  ``build`` starts one nvcc per source, all at once.  A failed
+build raises with nvcc's output: nothing falls back to a plain version.
+
+Nothing here runs at import time, so the CPU tests import every module of
+the port on a machine that has neither nvcc nor a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Sequence
+
+import torch
+
+_KERNELS_DIR = Path(__file__).resolve().parent
+
+#: name -> source, relative to this directory.
+SOURCES: Dict[str, str] = {
+    "gemm": "gemm/csrc/gemm.cu",
+    "im2col_conv": "im2col_gemm/csrc/im2col_conv.cu",
+    "winograd_fused": "winograd/csrc/winograd_fused.cu",
+}
+
+BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_libraries: Dict[str, ctypes.CDLL] = {}
+#: name -> nvcc's output of the build this process made (ptxas register and
+#: spill counts), for reports; empty for a library that was already built.
+build_logs: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "repro_torch cannot be built"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = _KERNELS_DIR / SOURCES[name]
+    digest = hashlib.sha1(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile every named source whose library is missing, all at once.
+
+    Returns name -> library path.  Raises RuntimeError naming each source
+    nvcc rejected, with its output.
+    """
+    names = list(SOURCES if names is None else names)
+    paths = {n: library_path(n) for n in names}
+    todo = [n for n in names if not paths[n].exists()]
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n in todo:
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_KERNELS_DIR / SOURCES[n])]
+        procs[n] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        build_logs[n] = log
+        if proc.returncode == 0:
+            os.replace(tmp, paths[n])
+        else:
+            os.unlink(tmp)
+            failed.append(f"--- {SOURCES[n]} (nvcc exit {proc.returncode})\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str, symbol: str, argtypes: Sequence[type]):
+    """The C entry ``symbol`` of library ``name``, built on first use.
+
+    ``argtypes`` must name ``ctypes.c_void_p`` for every pointer and the
+    stream and ``ctypes.c_int`` for every int; every entry returns the int
+    value of ``cudaGetLastError()``.
+    """
+    if name not in _libraries:
+        _libraries[name] = ctypes.CDLL(str(build([name])[name]))
+    fn = getattr(_libraries[name], symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise unless a C entry returned cudaSuccess (0)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def require_cuda_operands(what: str, *tensors) -> None:
+    """Raise unless every given tensor (None skipped) is a contiguous fp32
+    tensor on the first card — what the C entries take.
+
+    The libraries link the CUDA runtime statically and launch on its
+    current device, which is device 0; a CPU tensor is refused, never
+    computed with the plain version instead.
+    """
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"{what}: impl='cuda' needs CUDA tensors, got one on "
+                f"{t.device} (ask for impl='torch' to run the plain version)"
+            )
+        if t.device.index not in (None, 0):
+            raise ValueError(f"{what}: the kernels launch on cuda:0, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what}: needs float32 tensors, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: needs contiguous tensors")
+
+
+def stream_handle(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as a pointer-sized int."""
+    return torch.cuda.current_stream(t.device).cuda_stream

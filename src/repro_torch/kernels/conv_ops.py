@@ -1,0 +1,148 @@
+"""Kernel-level conv dispatch used by core.conv2d for planned convs.
+
+The port of ``repro/kernels/conv_ops.py``: 1x1 stride-1 -> the GEMM
+kernel (direct), 3x3 stride-1 -> the fused Winograd kernel, everything
+else -> the implicit-GEMM conv kernel, each with bias + activation fused in
+its output stage.  ``impl='cuda'`` runs the hand-written kernels,
+``impl='torch'`` their plain versions through the same layouts, so the two
+differ only inside the kernels.
+
+With an explicit ``Layout`` pair (core/netplan.py) the dispatcher runs the
+network executor's contract: the input activation and the offline-prepared
+weights/bias already carry the padded channels the kernel needs, so no
+channel pad happens here.  The kernels mask out channels themselves and
+emit exactly the weights' out channels: zero pad channels that the next
+conv needs stay in the output, and no crop happens here either.
+"""
+from __future__ import annotations
+
+from typing import TYPE_CHECKING, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec, Epilogue
+from repro_torch.util import ceil_to
+
+if TYPE_CHECKING:
+    from repro_torch.core.netplan import Layout
+    from repro_torch.core.planner import ConvPlan
+
+
+def in_channel_multiple(algo: ConvAlgorithm) -> int:
+    """The input-channel multiple the algorithm's kernel takes.
+
+    The GEMM kernel masks its K edge, so direct convs take any C; the
+    Winograd and implicit-GEMM kernels reduce in steps of 8 channels with
+    16-byte loads, so their C is padded to a multiple of 8.
+    """
+    if algo is ConvAlgorithm.DIRECT:
+        return 1
+    if algo is ConvAlgorithm.WINOGRAD:
+        from repro_torch.kernels.winograd.ops import BC
+    else:
+        from repro_torch.kernels.im2col_gemm.ops import BC
+    return BC
+
+
+def conv2d_cuda(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    spec: ConvSpec,
+    algo: ConvAlgorithm,
+    plan: Optional["ConvPlan"] = None,
+    epilogue: Optional[Epilogue] = None,
+    in_layout: Optional["Layout"] = None,
+    out_layout: Optional["Layout"] = None,
+    pretransformed: bool = False,
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """x (B,H,W,C), w (kh,kw,C,O) [or (8,8,C,O) pretransformed] ->
+    (B,OH,OW,O) through the kernels.
+
+    Without layouts the call is self-contained: it pads the input channels
+    (and the weights) to the kernel's multiple itself.  ``pretransformed``
+    declares offline Winograd-transformed weights; it is an explicit
+    contract, never inferred from the weight shape.
+    """
+    if in_layout is None and out_layout is None:
+        from repro_torch.core.netplan import Layout
+
+        c = x.shape[-1]
+        cp = ceil_to(c, in_channel_multiple(algo))
+        if cp != c:
+            x = F.pad(x, (0, cp - c))
+            w = F.pad(w, (0, 0, 0, cp - c))
+        in_layout = Layout(c, cp - c)
+    return _conv2d_cuda_laidout(x, w, spec, algo, plan, epilogue, in_layout,
+                                out_layout, pretransformed, impl)
+
+
+def _conv2d_cuda_laidout(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    spec: ConvSpec,
+    algo: ConvAlgorithm,
+    plan: Optional["ConvPlan"],
+    epilogue: Optional[Epilogue],
+    in_layout: Optional["Layout"],
+    out_layout: Optional["Layout"],
+    pretransformed: bool,
+    impl: str,
+) -> torch.Tensor:
+    """Executor path: channels pre-padded in, out channels as the weights'.
+
+    Contract (enforced by core/netplan): ``x``'s channel count equals
+    ``in_layout.phys_c`` and is a multiple of the kernel's channel step;
+    ``w``/``bias`` were padded offline to (in phys, out phys).
+    """
+    blocks = plan.kernel_blocks if plan is not None else None
+    bias = epilogue.bias if epilogue is not None else None
+    activation = epilogue.activation if epilogue is not None else "linear"
+    if in_layout is not None:
+        assert x.shape[-1] == in_layout.phys_c, (x.shape, in_layout)
+    assert w.shape[2] == x.shape[-1], (w.shape, x.shape)
+    if out_layout is not None:
+        assert w.shape[-1] == out_layout.phys_c, (w.shape, out_layout)
+    if x.dtype == torch.int8:
+        assert algo is not ConvAlgorithm.WINOGRAD, (
+            "int8 never routes to Winograd (transform-stage error budget)"
+        )
+
+    if algo is ConvAlgorithm.DIRECT:
+        from repro_torch.kernels.gemm.ops import matmul_bias_act
+
+        sh, sw = spec.stride
+        ph, pw = spec.padding
+        # Pad BEFORE subsampling, exactly like core.im2col.conv2d_direct_1x1.
+        if ph or pw:
+            x = F.pad(x, (0, 0, pw, pw, ph, ph))
+        if (sh, sw) != (1, 1):
+            x = x[:, ::sh, ::sw, :]
+        b, oh, ow, cp = x.shape
+        o = w.shape[-1]
+        out = matmul_bias_act(
+            x.reshape(b * oh * ow, cp), w.reshape(cp, o), bias=bias,
+            activation=activation, impl=impl,
+        )
+        return out.reshape(b, oh, ow, o)
+
+    if algo is ConvAlgorithm.WINOGRAD:
+        from repro_torch.core.winograd import transform_weights
+        from repro_torch.kernels.winograd.ops import conv2d_winograd_padded_call
+
+        _, h, ww, _ = x.shape
+        oh, ow = spec.out_hw(h, ww)
+        ph, pw = spec.padding
+        if ph or pw:
+            x = F.pad(x, (0, 0, pw, pw, ph, ph))
+        u = w if pretransformed else transform_weights(w)
+        return conv2d_winograd_padded_call(
+            x, u.contiguous(), oh, ow, blocks, bias=bias,
+            activation=activation, impl=impl,
+        )
+
+    from repro_torch.kernels.im2col_gemm.ops import im2col_conv
+
+    return im2col_conv(x.contiguous(), w.contiguous(), spec, blocks,
+                       bias=bias, activation=activation, impl=impl)
