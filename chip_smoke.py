@@ -5,31 +5,43 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each on its own printed line:
+Phases, each on its own printed lines:
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    and the card's reported properties beside ``repro_torch.hw.H100``;
 2. build every CUDA kernel of the port with nvcc (one process per source,
    all at once) and print the build seconds and ptxas' register counts;
-3. each kernel against its plain PyTorch version at every shape the three
-   model cells below give it (YOLOv3-tiny at 416x416, batch 1 and 4;
-   MODEL_20 at 608x608, batch 1): the max-abs error of every call; and at
-   the shapes of YOLOv3-tiny at batch 1, the kernel's, the plain
-   version's and one library call's median time over CUDA events (L2
-   flushed before each call, as a forward finds it cold), and the least
-   time the card could take (bytes over 3.35 TB/s or FLOPs over the 67
-   TFLOP/s fp32 peak, whichever is larger), both counted for the conv's
-   logical operands, before the channel padding the kernels take;
+3. each kernel against its plain PyTorch version at every shape the model
+   cells below give it (YOLOv3-tiny at 416x416, batch 1 and 4; MODEL_20 at
+   608x608, batch 1; VGG-16 at 224x224, batch 1, with the fused Winograd
+   kernel and with the 3-pass pipeline): the max-abs error of every call.
+   At the shapes of YOLOv3-tiny at batch 1 (GEMM, im2col, fused Winograd)
+   and of VGG-16's Winograd layers (fused, and the three 3-pass kernels),
+   also the kernel's, the plain version's and one library call's device
+   time per call (``cuda_ms``: runs of launches, each between one event
+   pair, each launch on its own cold operands), and the least time the card
+   could take (bytes over 3.35 TB/s or FLOPs over the 67 TFLOP/s fp32
+   peak, whichever is larger), counted for the logical operands, before
+   the channel padding the kernels take; then, per VGG-16 Winograd layer,
+   the fused kernel's time beside the 3-pass pipeline's;
 4. YOLOv3-tiny at 416x416, batch 1 and 4, through ``repro_torch.compile``
    with ``impl='cuda'``, held against ``impl='torch'`` on the card; each
-   kernel's launch count in one forward must equal the plan's count of
-   steps of its algorithm; ms per forward and images/s; a profiler
-   breakdown of the batch-1 forward by CUDA kernel, with the device's idle
-   share of the forward;
+   kernel's launch count in one forward must equal the plan's count
+   (``NetworkPlan.kernel_launches``); ms per forward and images/s; a
+   profiler breakdown of the batch-1 forward by CUDA kernel, with the
+   device's idle share of the forward;
 5. the first 20 layers of Darknet-53 (MODEL_20) at 608x608, batch 1: the
    same comparison (stride-2 im2col, shortcut);
-6. one JSON line with every kernel's numbers — its launches in the batch-1
-   YOLOv3-tiny forward, and its times, errors and bounds summed over the
+6. VGG-16 at 224x224, batch 1, three forwards: the default (fused
+   Winograd), ``winograd_fused=False`` (the 3-pass pipeline on all seven
+   Winograd layers) and ``mode='measure'`` (each layer's candidates timed
+   on the card; its per-layer choice printed), each the same comparison
+   and each profiled; then every kernel call of the measure-mode plan held
+   against its plain version, as in phase 3;
+7. one JSON line with every kernel's numbers — its launches in the forward
+   its ``cell`` names (YOLOv3-tiny 416 b1 for the GEMM, im2col and fused
+   Winograd kernels, VGG-16 224 b1 with ``winograd_fused=False`` for the
+   three 3-pass kernels), and its times, errors and bounds summed over the
    calls of that forward — then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises and exits non-zero before the last line is printed.  It
@@ -48,91 +60,118 @@ import time
 import numpy as np
 
 SEED = 0
-REPS = 25                 # timed repetitions per kernel measurement
-FORWARD_REPS = 20         # timed forwards per model cell
-KERNEL_TOL = {"gemm": 1e-4, "im2col_conv": 1e-4, "winograd_fused": 5e-4}
+ROUNDS = 5                # timed runs of launches per kernel measurement
+FORWARD_REPS = 20         # timed forwards of the main cells
+SHORT_FORWARD_REPS = 10   # YOLOv3-tiny b4 and MODEL_20, to keep to the time
+KERNEL_TOL = {"gemm": 1e-4, "im2col_conv": 1e-4, "winograd_fused": 5e-4,
+              "input_transform": 5e-4, "tuple_multiply": 1e-4,
+              "output_transform": 5e-4}
 # Whole-network tolerance, relative to max|ref|: both impls run fp32 on the
-# same card with the same plans and layouts; they differ only in the order
-# of the sums inside each kernel, which compounds over the network's depth.
+# same card with the same layouts; they differ only in the order of the sums
+# inside each kernel (and, in measure mode, in the algorithm a layer takes),
+# which compounds over the network's depth.
 NET_RTOL = 1e-3
 
 REPLACES = {
     "gemm": "src/repro/kernels/gemm/kernel.py:140",
     "im2col_conv": "src/repro/kernels/im2col_gemm/kernel.py:162",
     "winograd_fused": "src/repro/kernels/winograd/kernel.py:143",
+    "input_transform": "src/repro/kernels/winograd/kernel.py:195",
+    "tuple_multiply": "src/repro/kernels/winograd/kernel.py:216",
+    "output_transform": "src/repro/kernels/winograd/kernel.py:244",
 }
+SOURCE = {"gemm": "gemm", "im2col_conv": "im2col_conv",
+          "winograd_fused": "winograd_fused",
+          "input_transform": "winograd_3pass",
+          "tuple_multiply": "winograd_3pass",
+          "output_transform": "winograd_3pass"}
+# The CUDA function of each kernel, as the profiler names it.
+CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
+              "im2col_conv": "im2col_conv_kernel",
+              "winograd_fused": "winograd_fused_kernel",
+              "input_transform": "winograd_input_transform_kernel",
+              "tuple_multiply": "winograd_tuple_multiply_kernel",
+              "output_transform": "winograd_output_transform_kernel"}
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median device milliseconds of ``fn()`` over ``reps`` calls, each
-    bracketed by CUDA events, after three warm-up calls.
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
-    Before each timed call a write of twice the L2 size evicts the 50 MB
-    L2, because in a forward a layer finds its weights and input cold: a
-    call repeated on the same operands would run from L2 instead.
+
+def cuda_ms(fn, args, rounds: int = ROUNDS) -> float:
+    """Median device milliseconds per call of ``fn(*args)``.
+
+    Each round times the calls in runs, each between one pair of CUDA
+    events, with the host's launches hidden behind a hold of the stream
+    (``repro_torch.util.device_ms``).  Every call of the run gets its own
+    copy of ``args``, and the copies together exceed twice the 50 MB L2, so
+    each call finds its operands cold, as a layer of a forward finds its
+    weights.
     """
-    import torch
-
     from repro_torch.hw import H100
+    from repro_torch.util import device_ms
 
-    flush = torch.empty(2 * H100.l2_bytes // 4, dtype=torch.float32,
-                        device="cuda")
-    for _ in range(3):
-        fn()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    for start, end in events:
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
-def launch_counts():
-    from repro_torch.kernels.gemm.ops import matmul_bias_act
-    from repro_torch.kernels.im2col_gemm.ops import im2col_conv
-    from repro_torch.kernels.winograd.ops import fused_winograd
-
-    return {"gemm": matmul_bias_act, "im2col_conv": im2col_conv,
-            "winograd_fused": fused_winograd}
+    n = max(4, -(-2 * H100.l2_bytes // max(1, nbytes(args))) + 1)
+    copies = [tuple(a.clone() for a in args) for _ in range(n)]
+    fn(*copies[0])                                  # build, warm the allocator
+    calls = [lambda c=c: fn(*c) for c in copies]
+    return statistics.median(device_ms(calls) for _ in range(rounds))
 
 
 def reset_counts() -> None:
-    for fn in launch_counts().values():
+    from repro_torch.kernels.conv_ops import kernel_wrappers
+
+    for fn in kernel_wrappers().values():
         fn.launches = 0
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in launch_counts().items()}
+    """Launches per kernel since the last reset, kernels never launched
+    left out."""
+    from repro_torch.kernels.conv_ops import kernel_wrappers
+
+    return {k: fn.launches for k, fn in kernel_wrappers().items()
+            if fn.launches}
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: kernel calls at the main path's shapes
+# Phase 3: kernel calls at the main paths' shapes
 
 
-def kernel_cases(netplan, rng, cell):
-    """One case per conv step of ``netplan``: the kernel's name, a label,
-    and closures for the kernel, its plain version and one library call on
-    the same seeded inputs, plus the work the call must do.
+def kernel_cases(netplan, rng, cell, winograd_only=False):
+    """One case per kernel call of one forward of ``netplan``: the kernel's
+    name, the conv step, a label, the call's operands and closures for the
+    kernel (and, with ``impl='torch'``, its plain version) and for one
+    library call on the logical operands, plus the work the call must do.
 
     Inputs are made at the conv's logical in-channels and zero-padded to
     the step's physical layout, as the path hands them to the kernel; the
     library call and the bound see the logical operands: the function the
-    layer computes, not the padding the kernel takes."""
+    call computes, not the padding the kernel takes.  The 3-pass stages
+    are chained: V is the plain input transform of the step's tiles, M the
+    plain product of V and U."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.core.conv_spec import ConvAlgorithm, apply_activation
-    from repro_torch.core.winograd import _tile_input, transform_weights
+    from repro_torch.core.winograd import AT, BT, _const, _tile_input, \
+        transform_weights
     from repro_torch.kernels.gemm.ops import matmul_bias_act
     from repro_torch.kernels.im2col_gemm.ops import im2col_conv
-    from repro_torch.kernels.winograd.ops import fused_winograd
+    from repro_torch.kernels.winograd.ops import (
+        fused_winograd,
+        input_transform,
+        output_transform,
+        tuple_multiply,
+    )
+    from repro_torch.kernels.winograd.ref import (
+        input_transform_ref,
+        tuple_multiply_ref,
+    )
 
     def t(*shape):
         return torch.tensor(rng.standard_normal(shape).astype(np.float32),
@@ -140,6 +179,7 @@ def kernel_cases(netplan, rng, cell):
 
     cases = []
     b = netplan.batch
+
     def pad_c(v, dim):
         """Zero-pad dimension ``dim`` of ``v`` from ``c`` to ``phys_c``."""
         extra = phys_c - c
@@ -152,23 +192,27 @@ def kernel_cases(netplan, rng, cell):
     for s in netplan.steps:
         if s.layer.kind != "conv":
             continue
+        algo = s.plan.algorithm
+        if winograd_only and algo is not ConvAlgorithm.WINOGRAD:
+            continue
         spec, act, blocks = s.spec, s.layer.activation, s.plan.kernel_blocks
         (h, w), (oh, ow) = s.in_hw, s.out_hw
         c, phys_c, o = spec.in_channels, s.in_layout.phys_c, spec.out_channels
         kh, kw = spec.kh, spec.kw
         bias = t(o)
-        algo = s.plan.algorithm
         head = f"{cell} L{s.index}"
+        base = dict(step=s.index)
         if algo is ConvAlgorithm.DIRECT:
             m = b * oh * ow
             a, wm = t(m, c), t(c, o)
-            ap, wmp = pad_c(a, 1), pad_c(wm, 0)
-            label = f"{head} gemm M={m} K={phys_c} N={o}"
             cases.append(dict(
-                kernel="gemm", label=label,
-                run=lambda a=ap, wm=wmp, bias=bias, act=act, impl="cuda":
+                base, kernel="gemm",
+                label=f"{head} gemm M={m} K={phys_c} N={o}",
+                args=(pad_c(a, 1), pad_c(wm, 0), bias),
+                run=lambda a, wm, bias, act=act, impl="cuda":
                     matmul_bias_act(a, wm, bias, act, impl=impl),
-                library=lambda a=a, wm=wm, bias=bias, act=act:
+                lib_args=(a, wm, bias),
+                library=lambda a, wm, bias, act=act:
                     apply_activation(torch.addmm(bias, a, wm), act),
                 flops=2 * m * c * o,
                 bytes=4 * (m * c + c * o + o + m * o),
@@ -178,56 +222,99 @@ def kernel_cases(netplan, rng, cell):
         # and the output written once.
         x, wt = t(b, h, w, c), t(kh, kw, c, o)
         xp, wtp = pad_c(x, 3), pad_c(wt, 2)
-        w_oihw = wt.permute(3, 2, 0, 1).contiguous()
         conv_bytes = 4 * (b * h * w * c + kh * kw * c * o + o + b * oh * ow * o)
-        library = (lambda x=x, w_oihw=w_oihw, spec=spec, bias=bias, act=act:
-                   apply_activation(F.conv2d(
-                       x.permute(0, 3, 1, 2), w_oihw, bias, spec.stride,
-                       spec.padding), act).permute(0, 2, 3, 1))
+        conv_lib = dict(
+            lib_args=(x, wt.permute(3, 2, 0, 1).contiguous(), bias),
+            library=lambda x, w_oihw, bias, spec=spec, act=act:
+                apply_activation(F.conv2d(
+                    x.permute(0, 3, 1, 2), w_oihw, bias, spec.stride,
+                    spec.padding), act).permute(0, 2, 3, 1))
         if algo is ConvAlgorithm.IM2COL_GEMM:
-            label = (f"{head} im2col {h}x{w}x{phys_c}->{oh}x{ow}x{o} "
-                     f"k{kh} s{spec.stride[0]} blocks={blocks}")
             cases.append(dict(
-                kernel="im2col_conv", label=label,
-                run=lambda x=xp, wt=wtp, spec=spec, blocks=blocks, bias=bias,
-                act=act, impl="cuda":
-                    im2col_conv(x, wt, spec, blocks, bias, act, impl=impl),
-                library=library,
+                base, **conv_lib, kernel="im2col_conv",
+                label=(f"{head} im2col {h}x{w}x{phys_c}->{oh}x{ow}x{o} "
+                       f"k{kh} s{spec.stride[0]} blocks={blocks}"),
+                args=(xp, wtp, bias),
+                run=lambda x, wt, bias, spec=spec, blocks=blocks, act=act,
+                impl="cuda": im2col_conv(x, wt, spec, blocks, bias, act,
+                                         impl=impl),
                 flops=2 * b * oh * ow * o * kh * kw * c,
                 bytes=conv_bytes,
             ))
-        else:
-            tiles, _, _ = _tile_input(F.pad(xp, (0, 0, 1, 1, 1, 1)), oh, ow)
-            tiles = tiles.reshape(-1, 8, 8, phys_c).contiguous()
-            u = transform_weights(wtp).contiguous()
-            n_t = tiles.shape[0]
-            label = (f"{head} winograd T={n_t} C={phys_c} O={o} "
-                     f"blocks={blocks}")
+            continue
+        tiles, _, _ = _tile_input(F.pad(xp, (0, 0, 1, 1, 1, 1)), oh, ow)
+        tiles = tiles.reshape(-1, 8, 8, phys_c).contiguous()
+        u = transform_weights(wtp).contiguous()
+        n_t = tiles.shape[0]
+        shape = f"T={n_t} C={phys_c} O={o}"
+        if s.plan.winograd_fused:
             cases.append(dict(
-                kernel="winograd_fused", label=label,
-                run=lambda tiles=tiles, u=u, blocks=blocks, bias=bias,
-                act=act, impl="cuda":
-                    fused_winograd(tiles, u, blocks, bias, act, impl=impl),
-                library=library,
+                base, **conv_lib, kernel="winograd_fused",
+                label=f"{head} winograd {shape} blocks={blocks}",
+                args=(tiles, u, bias),
+                run=lambda tiles, u, bias, blocks=blocks, act=act,
+                impl="cuda": fused_winograd(tiles, u, blocks, bias, act,
+                                            impl=impl),
                 # F(6,3) at the logical C: 64 per-position products +
                 # B^T d B (2048 per tile-channel) + A^T M A (1344 per
                 # tile-out), the reference's count.
                 flops=2 * n_t * 64 * c * o + n_t * c * 2048 + n_t * o * 1344,
                 bytes=conv_bytes,
             ))
+            continue
+        # The 3-pass stages, each with its own reads and writes of V and M.
+        bt_m, at_m = _const(BT, tiles), _const(AT, tiles)
+        v = input_transform_ref(tiles).reshape(64, n_t, phys_c).contiguous()
+        u64 = u.reshape(64, phys_c, o)
+        mm = tuple_multiply_ref(v, u64).reshape(8, 8, n_t, o).contiguous()
+        cases.append(dict(
+            base, kernel="input_transform",
+            label=f"{head} input_transform {shape}",
+            args=(tiles,),
+            run=lambda tiles, impl="cuda": input_transform(tiles, impl=impl),
+            lib_args=(tiles[..., :c].contiguous(),),
+            library=lambda d, bt_m=bt_m:
+                torch.einsum("ai,bj,tijc->abtc", bt_m, bt_m, d),
+            flops=2048 * n_t * c,
+            bytes=4 * 2 * 64 * n_t * c,
+        ))
+        cases.append(dict(
+            base, kernel="tuple_multiply",
+            label=f"{head} tuple_multiply {shape} blocks={blocks}",
+            args=(v, u64),
+            run=lambda v, u, impl="cuda": tuple_multiply(v, u, impl=impl),
+            lib_args=(v[..., :c].contiguous(), u64[:, :c].contiguous()),
+            library=torch.bmm,
+            flops=2 * 64 * n_t * c * o,
+            bytes=4 * 64 * (n_t * c + c * o + n_t * o),
+        ))
+        cases.append(dict(
+            base, kernel="output_transform",
+            label=f"{head} output_transform {shape} act={act}",
+            args=(mm, bias),
+            run=lambda m, bias, act=act, impl="cuda":
+                output_transform(m, bias, act, impl=impl),
+            lib_args=(mm, bias),
+            library=lambda m, bias, at_m=at_m, act=act: apply_activation(
+                torch.einsum("xa,yb,abto->txyo", at_m, at_m, m) + bias, act),
+            flops=1344 * n_t * o,
+            bytes=4 * (64 * n_t * o + o + 36 * n_t * o),
+        ))
     return cases
 
 
-def check_kernels(netplan, rng, hw, cell, timed):
+def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
     """Phase 3: every kernel call of one forward held against its plain
-    version; with ``timed``, also timed, and summed per kernel."""
-    summary = {}
+    version; the calls of the kernels named in ``timed`` also timed.
+    Returns the timed calls' sums per kernel, and their ms per conv step
+    and kernel."""
     import torch
 
-    for case in kernel_cases(netplan, rng, cell):
-        name = case["kernel"]
-        got = case["run"]()
-        ref = case["run"](impl="torch")
+    summary, per_step = {}, {}
+    for case in kernel_cases(netplan, rng, cell, winograd_only):
+        name, args = case["kernel"], case["args"]
+        got = case["run"](*args)
+        ref = case["run"](*args, impl="torch")
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         scale = max(1.0, float(ref.abs().max()))
@@ -238,12 +325,13 @@ def check_kernels(netplan, rng, hw, cell, timed):
                 f"{case['label']}: kernel disagrees with its plain version:"
                 f" max_abs_err {err} > {tol}"
             )
-        if not timed:
+        if name not in timed:
             log(f"kernel {case['label']}: max_abs_err={err:.3g} (tol {tol:.3g})")
             continue
-        ms = cuda_ms(case["run"])
-        plain_ms = cuda_ms(lambda: case["run"](impl="torch"))
-        library_ms = cuda_ms(case["library"])
+        ms = cuda_ms(case["run"], args)
+        plain_ms = cuda_ms(lambda *a, run=case["run"]: run(*a, impl="torch"),
+                           args)
+        library_ms = cuda_ms(case["library"], case["lib_args"])
         t_ops = case["flops"] / hw.peak_flops_fp32 * 1e3
         t_bytes = case["bytes"] / hw.hbm_bandwidth * 1e3
         bound_ms = max(t_ops, t_bytes)
@@ -260,31 +348,53 @@ def check_kernels(netplan, rng, hw, cell, timed):
         agg["library_ms"] += library_ms
         agg["bound_ms"] += bound_ms
         agg["ops_ms" if t_ops >= t_bytes else "bytes_ms"] += bound_ms
-    return summary
+        per_step.setdefault(case["step"], {})[name] = ms
+    return summary, per_step
 
 
 # ---------------------------------------------------------------------------
-# Phases 4 and 5: whole networks
+# Phases 4 to 6: whole networks
 
 
-def run_cell(model, batch, rng, profile=False):
-    """Compile ``model`` both ways, drive the cuda one once with counts at
-    zero, compare, and time.  Returns the launch counts of that forward."""
+def forward_ms(fn, reps: int) -> float:
+    """Host milliseconds per call of ``fn`` over ``reps`` calls that end in
+    a synchronize, after three warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def run_cell(model, batch, rng, params=None, options=None, name=None,
+             profile=False, reps=FORWARD_REPS):
+    """Compile ``model`` with ``options`` and with ``impl='torch'``, drive
+    the cuda one once with counts at zero, compare, and time.  Returns the
+    launch counts of that forward and the compiled model."""
     import torch
 
     import repro_torch
-    from repro_torch.core.conv_spec import ConvAlgorithm
     from repro_torch.models.cnn import init_cnn, random_batchnorm
 
+    options = dict(options or {})
+    name = name or f"{model.name} {model.input_hw[0]} b{batch}"
     # Seeded weights with random batchnorm statistics, so folding is
     # exercised.
-    params = random_batchnorm(init_cnn(rng, model.layers), rng)
+    if params is None:
+        params = random_batchnorm(init_cnn(rng, model.layers), rng)
     h, w = model.input_hw
     x = torch.tensor(
         rng.standard_normal((batch, h, w, model.in_channels)).astype(np.float32),
         device="cuda")
-    cu = repro_torch.compile(model, params,
-                             repro_torch.ExecutionOptions(batch=batch))
+    t0 = time.perf_counter()
+    cu = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
+        batch=batch, **options))
+    compile_s = time.perf_counter() - t0
     plain = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
         impl="torch", device="cuda", batch=batch))
 
@@ -293,15 +403,9 @@ def run_cell(model, batch, rng, profile=False):
     torch.cuda.synchronize()
     counts = read_counts()
 
-    planned = cu.network_plan(batch).algorithm_counts()
-    want = {
-        "gemm": planned.get(ConvAlgorithm.DIRECT, 0),
-        "im2col_conv": planned.get(ConvAlgorithm.IM2COL_GEMM, 0),
-        "winograd_fused": planned.get(ConvAlgorithm.WINOGRAD, 0),
-    }
+    want = cu.network_plan(batch).kernel_launches()
     if counts != want:
-        raise AssertionError(f"{model.name} b{batch}: launches {counts} != "
-                             f"planned steps {want}")
+        raise AssertionError(f"{name}: launches {counts} != planned {want}")
     y_ref = plain.run(x)
     torch.cuda.synchronize()
     scale = float(y_ref.abs().max())
@@ -310,28 +414,22 @@ def run_cell(model, batch, rng, profile=False):
             and err <= NET_RTOL * max(scale, 1.0)
             and torch.allclose(y, y_ref, rtol=NET_RTOL,
                                atol=NET_RTOL * max(scale, 1.0))):
-        raise AssertionError(f"{model.name} b{batch}: cuda vs torch max_abs_err"
-                             f" {err} (max|ref| {scale})")
+        raise AssertionError(f"{name}: cuda vs torch max_abs_err {err} "
+                             f"(max|ref| {scale})")
 
-    for _ in range(3):
-        cu.run(x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(FORWARD_REPS):
-        cu.run(x)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / FORWARD_REPS
-    plain_ms = cuda_ms(lambda: plain.run(x), reps=5)
-    log(f"model {model.name} {h}x{w} b{batch}: out {tuple(y.shape)} "
-        f"max_abs_err={err:.3g} max|ref|={scale:.3g} launches={counts} "
+    ms = forward_ms(lambda: cu.run(x), reps)
+    plain_ms = forward_ms(lambda: plain.run(x), 5)
+    log(f"model {name}: out {tuple(y.shape)} max_abs_err={err:.3g} "
+        f"max|ref|={scale:.3g} launches={counts} compile_s={compile_s:.2f} "
         f"ms_per_forward={ms:.3f} images_per_s={batch * 1e3 / ms:.1f} "
         f"plain_ms_per_forward={plain_ms:.3f}")
     if profile:
-        profile_forward(cu, x, ms)
-    return counts
+        profile_forward(cu, x, ms, name)
+    return counts, cu
 
 
-def profile_forward(compiled, x, ms_per_forward: float, reps: int = 5) -> None:
+def profile_forward(compiled, x, ms_per_forward: float, name: str,
+                    reps: int = 5) -> None:
     """Device time of one forward by CUDA kernel (torch.profiler), and the
     share of the measured forward time in which the device was idle."""
     import torch
@@ -350,19 +448,21 @@ def profile_forward(compiled, x, ms_per_forward: float, reps: int = 5) -> None:
         reverse=True,
     )
     busy_ms = sum(r[0] for r in rows) / 1e3
-    log(f"profile b{x.shape[0]}: device busy {busy_ms:.4f} ms per forward in "
-        f"{sum(r[1] for r in rows)} kernel launches; idle share "
-        f"{max(0.0, 1.0 - busy_ms / ms_per_forward):.3f} of {ms_per_forward:.3f} ms")
-    for us, n, key in rows[:12]:
+    log(f"profile {name}: device busy "
+        f"{busy_ms:.4f} ms per forward in {sum(r[1] for r in rows)} kernel "
+        f"launches; idle share {max(0.0, 1.0 - busy_ms / ms_per_forward):.3f}"
+        f" of {ms_per_forward:.3f} ms")
+    for us, n, key in rows[:14]:
         log(f"  profile {us / 1e3:.4f} ms x{n} {key[:90]}")
     # Each port kernel's launches in forward order, median over the reps.
     kernels = sorted((ev for ev in prof.events()
                       if ev.device_type == DeviceType.CUDA),
                      key=lambda ev: ev.time_range.start)
-    for name in ("winograd_fused_kernel", "im2col_conv_kernel",
-                 "gemm_bias_act_kernel"):
+    for name in CUDA_NAMES.values():
         us = [ev.time_range.elapsed_us() for ev in kernels if name in ev.name]
         n = len(us) // reps
+        if not n:
+            continue
         per_call = [statistics.median(us[i::n]) / 1e3 for i in range(n)]
         log(f"  in forward order, {name} ms: "
             + " ".join(f"{t:.4f}" for t in per_call))
@@ -377,12 +477,15 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "src"))
-    from repro_torch.configs import yolov3
+    from repro_torch.configs import vgg16, yolov3
+    from repro_torch.core.conv_spec import ConvAlgorithm
     from repro_torch.core.netplan import plan_network
     from repro_torch.core.planner import Planner
     from repro_torch.hw import H100, check_device
     from repro_torch.kernels import _build
+    from repro_torch.models.cnn import init_cnn, random_batchnorm
 
+    t_start = time.perf_counter()
     # Phase 1: the card.
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -399,51 +502,107 @@ def main() -> int:
     # Phase 2: build every kernel, all nvcc processes at once.
     t0 = time.perf_counter()
     paths = _build.build()
-    log(f"build: {len(paths)} kernels in {time.perf_counter() - t0:.1f} s")
+    log(f"build: {len(paths)} sources in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # Phase 3: each kernel against its plain version at every shape the
-    # three model cells give it; timed at the main path's (tiny, batch 1).
+    # model cells give it; timed at YOLOv3-tiny b1's shapes and at
+    # VGG-16's Winograd layers.
     rng = np.random.default_rng(SEED)
-    summary = None
-    for model, batch in ((yolov3.TINY_MODEL, 1), (yolov3.TINY_MODEL, 4),
-                         (yolov3.MODEL_20, 1)):
-        netplan = plan_network(model.layers, *model.input_hw, Planner(),
-                               in_channels=model.in_channels, batch=batch)
-        got = check_kernels(netplan, rng, H100, f"{model.name} b{batch}",
-                            timed=summary is None)
-        summary = got if summary is None else summary
+    tiny_cell, vgg3_cell = "yolov3-tiny 416 b1", "vgg16 224 b1 winograd_fused=False"
 
-    # Phase 4: YOLOv3-tiny end to end; batch 1 is the main path whose
-    # launch counts the kernels line reports.
-    launches = run_cell(yolov3.TINY_MODEL, 1, rng, profile=True)
-    run_cell(yolov3.TINY_MODEL, 4, rng)
+    def netplan_of(model, batch, **planner):
+        return plan_network(model.layers, *model.input_hw, Planner(**planner),
+                            in_channels=model.in_channels, batch=batch)
+
+    summaries = {}
+    summaries[tiny_cell], _ = check_kernels(
+        netplan_of(yolov3.TINY_MODEL, 1), rng, H100, tiny_cell,
+        timed=("gemm", "im2col_conv", "winograd_fused"))
+    check_kernels(netplan_of(yolov3.TINY_MODEL, 4), rng, H100,
+                  "yolov3-tiny 416 b4")
+    check_kernels(netplan_of(yolov3.MODEL_20, 1), rng, H100, "yolov3-20 608 b1")
+    _, fused_steps = check_kernels(
+        netplan_of(vgg16.MODEL, 1), rng, H100, "vgg16 224 b1",
+        timed=("winograd_fused",))
+    summaries[vgg3_cell], three_steps = check_kernels(
+        netplan_of(vgg16.MODEL, 1, winograd_fused=False), rng, H100, vgg3_cell,
+        timed=("input_transform", "tuple_multiply", "output_transform"),
+        winograd_only=True)
+    for i, fused in sorted(fused_steps.items()):
+        parts = three_steps[i]
+        total = sum(parts.values())
+        log(f"vgg16 224 b1 L{i}: fused {fused['winograd_fused']:.4f} ms, "
+            f"3-pass {total:.4f} ms ("
+            + " + ".join(f"{k} {v:.4f}" for k, v in parts.items())
+            + f"), 3-pass / fused {total / fused['winograd_fused']:.2f}")
+    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
+
+    # Phase 4: YOLOv3-tiny end to end; batch 1 is the main path of the
+    # GEMM, im2col and fused Winograd kernels.
+    launches = {}
+    launches[tiny_cell], _ = run_cell(yolov3.TINY_MODEL, 1, rng, profile=True)
+    run_cell(yolov3.TINY_MODEL, 4, rng, reps=SHORT_FORWARD_REPS)
 
     # Phase 5: MODEL_20 at 608 (stride-2 im2col, shortcut).
-    run_cell(yolov3.MODEL_20, 1, rng)
+    run_cell(yolov3.MODEL_20, 1, rng, reps=SHORT_FORWARD_REPS)
 
-    # Phase 6: the kernels line, then the last line.
+    # Phase 6: VGG-16 at 224, batch 1: fused, 3-pass (the main path of the
+    # three 3-pass kernels), measure mode; one set of weights.
+    params = random_batchnorm(init_cnn(rng, vgg16.MODEL.layers), rng)
+    run_cell(vgg16.MODEL, 1, rng, params, profile=True)
+    launches[vgg3_cell], _ = run_cell(
+        vgg16.MODEL, 1, rng, params, {"winograd_fused": False}, vgg3_cell,
+        profile=True)
+    want = {k: 7 for k in ("input_transform", "tuple_multiply",
+                           "output_transform")}
+    if any(launches[vgg3_cell].get(k) != n for k, n in want.items()):
+        raise AssertionError(f"{vgg3_cell}: launches {launches[vgg3_cell]}, "
+                             f"want {want} of the 3-pass kernels")
+    _, measured = run_cell(vgg16.MODEL, 1, rng, params, {"mode": "measure"},
+                           "vgg16 224 b1 mode=measure", profile=True)
+    for row in measured.plan_report()["layers"]:
+        if row["source"] != "measured":
+            raise AssertionError(f"measure mode: layer {row['index']} planned "
+                                 f"by {row['source']}")
+        log(f"measure L{row['index']} {row['in_hw'][0]}x{row['in_hw'][1]}: "
+            f"chose {row['algorithm']}"
+            + (f" fused={row['winograd_fused']}"
+               if row["algorithm"] == ConvAlgorithm.WINOGRAD.value else "")
+            + " (" + ", ".join(f"{k} {v:.4f} ms"
+                               for k, v in row["measured_ms"].items()) + ")")
+    # Every kernel call of the plan measure mode chose, one at a time, at
+    # the kernel tolerances (phase 3 saw only the cost-mode plans).
+    check_kernels(measured.network_plan(1), rng, H100,
+                  "vgg16 224 b1 mode=measure")
+
+    # Phase 7: the kernels line, then the last line.
     kernels = []
-    for name, agg in summary.items():
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "src/repro_torch/kernels/" + _build.SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": launches[name],
-            "max_abs_err": agg["max_abs_err"],
-            "ms": agg["ms"],
-            "plain_ms": agg["plain_ms"],
-            "bound_ms": agg["bound_ms"],
-            "bound_by": ("operations" if agg["ops_ms"] >= agg["bytes_ms"]
-                         else "bytes"),
-            "library_ms": agg["library_ms"],
-        })
+    for cell, summary in summaries.items():
+        for name, agg in summary.items():
+            if launches[cell].get(name, 0) <= 0:
+                raise AssertionError(f"{name} was not launched in {cell}")
+            kernels.append({
+                "name": name,
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/" + _build.SOURCES[SOURCE[name]],
+                "replaces": REPLACES[name],
+                "cell": cell,
+                "launches": launches[cell][name],
+                "max_abs_err": agg["max_abs_err"],
+                "ms": agg["ms"],
+                "plain_ms": agg["plain_ms"],
+                "bound_ms": agg["bound_ms"],
+                "bound_by": ("operations" if agg["ops_ms"] >= agg["bytes_ms"]
+                             else "bytes"),
+                "library_ms": agg["library_ms"],
+            })
+    if sorted(k["name"] for k in kernels) != sorted(REPLACES):
+        raise AssertionError(f"kernels line lists {[k['name'] for k in kernels]}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -29,7 +29,9 @@ class CompiledCNN:
         self.options = options
         self.device = torch.device(options.device)
         self.params = params_from_numpy(params, self.device)
-        self.planner = Planner(impl=options.impl)
+        self.planner = Planner(impl=options.impl, mode=options.mode,
+                               winograd_fused=options.winograd_fused,
+                               device=self.device)
         self._netplans: Dict[int, Any] = {}
         self._executors: Dict[int, Any] = {}
         self.executor(options.batch)
@@ -83,7 +85,9 @@ class CompiledCNN:
                 "stride": getattr(s.layer, "stride", None),
                 "in_hw": list(s.in_hw),
                 "kernel_blocks": list(s.plan.kernel_blocks),
+                "winograd_fused": s.plan.winograd_fused,
                 "source": s.plan.source,
+                "measured_ms": dict(s.plan.measured_ms),
                 "in_layout": [s.in_layout.c, s.in_layout.pad_c],
                 "elided": not s.out_layout.trivial,
             }
@@ -94,6 +98,8 @@ class CompiledCNN:
             "kind": "cnn",
             "batch": netplan.batch,
             "impl": netplan.impl,
+            "mode": self.planner.mode,
+            "winograd_fused": self.planner.winograd_fused,
             "device": str(self.device),
             "elided_boundaries": netplan.elided_boundaries,
             "layers": rows,

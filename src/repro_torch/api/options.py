@@ -5,10 +5,12 @@ The port of ``repro/api/options.py``, cut to what this slice runs.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 _IMPLS = ("cuda", "torch")
+_MODES = ("cost", "measure")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,6 +23,16 @@ class ExecutionOptions:
       device        where parameters and activations live; 'cuda' by
                     default.  The CPU is used only when asked for
                     (``device='cpu', impl='torch'``).
+      mode          'cost' (default): the planner's tile rule;
+                    'measure': time every eligible algorithm (and, under
+                    impl='cuda', both Winograd realizations) per layer on
+                    ``device`` and keep the fastest (paper §VII.A).
+      winograd_fused
+                    the Winograd realization policy: None (default) lets
+                    the planner choose (the fused kernel in cost mode, the
+                    faster in measure mode); True forces the fused kernel,
+                    False the 3-pass pipeline (input transform, tuple
+                    multiply, output transform).
       batch         the batch size planned and prepared by ``compile``.
       pretransform  apply the offline Winograd weight transform during
                     parameter preparation (paper §VII.A excludes it from
@@ -29,12 +41,19 @@ class ExecutionOptions:
 
     impl: str = "cuda"
     device: str = "cuda"
+    mode: str = "cost"
+    winograd_fused: Optional[bool] = None
     batch: int = 1
     pretransform: bool = True
 
     def __post_init__(self) -> None:
         if self.impl not in _IMPLS:
             raise ValueError(f"impl must be one of {_IMPLS}, got {self.impl!r}")
+        if self.mode not in _MODES:
+            raise ValueError(f"mode must be one of {_MODES}, got {self.mode!r}")
+        if self.winograd_fused not in (None, True, False):
+            raise ValueError(f"winograd_fused must be None, True or False, "
+                             f"got {self.winograd_fused!r}")
         if self.batch < 1:
             raise ValueError(f"batch must be >= 1, got {self.batch}")
         dev = torch.device(self.device)

@@ -107,6 +107,19 @@ class NetworkPlan:
                 counts[s.plan.algorithm] = counts.get(s.plan.algorithm, 0) + 1
         return counts
 
+    def kernel_launches(self) -> Dict[str, int]:
+        """Planned launches per CUDA kernel in one forward: one per conv
+        step, and one of each of the three kernels per 3-pass Winograd
+        step (kernel names as ``kernels.conv_ops.plan_kernels``)."""
+        from repro_torch.kernels.conv_ops import plan_kernels
+
+        counts: Dict[str, int] = {}
+        for s in self.steps:
+            if s.layer.kind == "conv":
+                for name in plan_kernels(s.plan):
+                    counts[name] = counts.get(name, 0) + 1
+        return counts
+
 
 # ---------------------------------------------------------------------------
 # Algorithm / block helpers

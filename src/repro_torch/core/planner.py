@@ -1,12 +1,14 @@
-"""Per-layer convolution planner (cost mode, in memory).
+"""Per-layer convolution planner (cost and measure modes, in memory).
 
 The port of ``repro/core/planner.py``'s ``ConvPlan`` and ``Planner``: the
-algorithm and kernel blocks of a conv layer are decided once per (layer,
-input shape, batch) and reused.  This slice keeps the plans in a dict; the
-reference's JSON cache and measure mode are not ported yet.
+algorithm, Winograd realization and kernel blocks of a conv layer are
+decided once per (layer, input shape, batch, mode, policy) and reused.
+This slice keeps the plans in a dict; the reference's JSON cache is not
+ported yet.
 
-The algorithm rule stands in for the reference's roofline selection
-(``select_algorithm_by_cost``) until a cost model of this card is ported:
+**Cost mode.**  The algorithm rule stands in for the reference's roofline
+selection (``select_algorithm_by_cost``) until a cost model of this card is
+ported:
 
 - a 3x3 stride-1 conv goes to Winograd when it has at least
   ``WINOGRAD_MIN_TILES`` 6x6 output tiles (B * ceil(OH/6) * ceil(OW/6)),
@@ -18,16 +20,40 @@ An explicit ``ConvSpec.algorithm`` wins over the rule.  The rule is a
 stand-in, not a cost model: its threshold was chosen so that on YOLOv3-tiny
 at 416x416, batch 1, it gives the reference planner's split (Winograd on
 layers 0, 2, 4, 6, im2col on 8, 10, 12, 14, 20, direct on the 1x1 convs).
+A Winograd layer runs the fused kernel unless the planner's
+``winograd_fused`` policy is False: the policy None (auto) resolves to
+fused, the port's stand-in for the reference's modeled comparison, whose
+TPU model never picks the 3-pass pipeline.
+
+**Measure mode** (the paper's §VII.A method, the port of
+``_tune_measured``): every eligible algorithm runs on seeded inputs, and
+the fastest is kept with ``source='measured'``.  Under ``impl='cuda'`` a
+3x3 stride-1 layer's candidates are both Winograd realizations (unless the
+policy forces one) and im2col.  Each candidate runs with its own kernel
+blocks, the bias + activation epilogue the executor replays, and the
+executor's channel padding and weight pre-transform, so it times what the
+forward will run.  On the card the time is the device's: CUDA events
+around a run of calls with the host's launches hidden (at batch 1 a
+call's host time exceeds its kernels' time, and in a forward the host
+runs ahead of the card).  On the CPU it is ``perf_counter`` per call.  A candidate that raises
+stops planning: a failed build or launch is never skipped.
+
 Kernel blocks come from each CUDA kernel's own ``pick_blocks``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+import statistics
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec
 
 WINOGRAD_MIN_TILES = 64
+MODES = ("cost", "measure")
+MEASURE_REPS = 10         # timed calls per measure-mode candidate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,13 +62,33 @@ class ConvPlan:
 
     ``kernel_blocks`` is what the kernel wrappers consume: (bm, bn, bk) for
     the direct GEMM, (toh, bc, bo) for the implicit-GEMM conv, (bt, bc, bo)
-    for the fused Winograd kernel.
+    for the Winograd realization that runs — the fused kernel's, or the
+    3-pass tuple multiply's tile.  ``winograd_fused`` picks that
+    realization (False on every plan that is not Winograd).
+    ``measured_ms`` holds, in measure mode, each candidate's label and its
+    measured milliseconds per call.
     """
 
     algorithm: ConvAlgorithm
     impl: str
     kernel_blocks: Tuple[int, int, int]
     source: str = "tile_rule"
+    winograd_fused: bool = True
+    measured_ms: Tuple[Tuple[str, float], ...] = ()
+
+    @property
+    def label(self) -> str:
+        """The algorithm, and for Winograd its realization."""
+        if self.algorithm is ConvAlgorithm.WINOGRAD:
+            return "winograd_fused" if self.winograd_fused else "winograd_3pass"
+        return self.algorithm.value
+
+
+def plan_key(spec: ConvSpec, h: int, w: int, batch: int, impl: str,
+             mode: str, winograd_fused: Optional[bool]) -> Tuple[Any, ...]:
+    """The plan cache key: layer and shape, and every planner setting that
+    changes the decision (the Winograd policy and the mode among them)."""
+    return (spec, h, w, batch, impl, mode, winograd_fused)
 
 
 def winograd_tiles(spec: ConvSpec, h: int, w: int, batch: int) -> int:
@@ -68,38 +114,157 @@ def select_algorithm_by_tiles(spec: ConvSpec, h: int, w: int,
     return ConvAlgorithm.IM2COL_GEMM
 
 
+def eligible_algorithms(spec: ConvSpec) -> List[ConvAlgorithm]:
+    """Measure mode's candidates (a forced spec collapses to one)."""
+    if spec.algorithm is not ConvAlgorithm.AUTO:
+        return [spec.algorithm]
+    if spec.kernel_size == (1, 1) and spec.stride == (1, 1):
+        return [ConvAlgorithm.DIRECT, ConvAlgorithm.IM2COL_GEMM]
+    if (
+        spec.kernel_size == (3, 3)
+        and spec.stride == (1, 1)
+        and spec.dilation == (1, 1)
+    ):
+        return [ConvAlgorithm.WINOGRAD, ConvAlgorithm.IM2COL_GEMM]
+    return [ConvAlgorithm.IM2COL_GEMM]
+
+
 class Planner:
     """Resolves and caches ConvPlans in memory.
 
-    ``stats`` counts ``hits`` and ``tunes`` (misses that ran the rule).
+    ``mode`` is 'cost' (the tile rule) or 'measure' (time the candidates on
+    ``device``).  ``winograd_fused`` is the Winograd realization policy:
+    None lets the planner choose (fused in cost mode, the faster in measure
+    mode under ``impl='cuda'``), True/False force one.  ``stats`` counts
+    ``hits`` and ``tunes`` (misses that decided).
     """
 
-    def __init__(self, impl: str = "cuda"):
+    def __init__(self, impl: str = "cuda", mode: str = "cost",
+                 winograd_fused: Optional[bool] = None,
+                 device: Any = "cuda"):
         if impl not in ("cuda", "torch"):
             raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if winograd_fused not in (None, True, False):
+            raise ValueError(f"winograd_fused must be None, True or False, "
+                             f"got {winograd_fused!r}")
         self.impl = impl
+        self.mode = mode
+        self.winograd_fused = winograd_fused
+        self.device = torch.device(device)
         self._plans: Dict[Any, ConvPlan] = {}
         self.stats = {"hits": 0, "tunes": 0}
 
     def plan(self, spec: ConvSpec, h: int, w: int, batch: int = 1) -> ConvPlan:
         """The fp32 plan for one layer at one input shape; decides on the
         first miss."""
-        key = (spec, h, w, batch)
+        key = plan_key(spec, h, w, batch, self.impl, self.mode,
+                       self.winograd_fused)
         cached = self._plans.get(key)
         if cached is not None:
             self.stats["hits"] += 1
             return cached
         self.stats["tunes"] += 1
-        algo = select_algorithm_by_tiles(spec, h, w, batch)
-        plan = ConvPlan(algorithm=algo, impl=self.impl,
-                        kernel_blocks=kernel_blocks(spec, algo, h, w, batch))
+        if self.mode == "measure":
+            plan = self._tune_measured(spec, h, w, batch)
+        else:
+            plan = self._tune_cost(spec, h, w, batch)
         self._plans[key] = plan
         return plan
 
+    def _candidate(self, spec: ConvSpec, algo: ConvAlgorithm, wf: bool,
+                   h: int, w: int, batch: int, source: str) -> ConvPlan:
+        wf = wf and algo is ConvAlgorithm.WINOGRAD
+        return ConvPlan(algorithm=algo, impl=self.impl,
+                        kernel_blocks=kernel_blocks(spec, algo, h, w, batch, wf),
+                        source=source, winograd_fused=wf)
+
+    def _tune_cost(self, spec: ConvSpec, h: int, w: int,
+                   batch: int) -> ConvPlan:
+        algo = select_algorithm_by_tiles(spec, h, w, batch)
+        wf = self.winograd_fused if self.winograd_fused is not None else True
+        return self._candidate(spec, algo, wf, h, w, batch, "tile_rule")
+
+    def _tune_measured(self, spec: ConvSpec, h: int, w: int,
+                       batch: int) -> ConvPlan:
+        """Time every eligible candidate on seeded inputs; keep the fastest."""
+        import numpy as np
+        import torch.nn.functional as F
+
+        from repro_torch.core.conv2d import conv2d
+        from repro_torch.core.conv_spec import Epilogue
+        from repro_torch.core.netplan import Layout
+        from repro_torch.core.winograd import transform_weights
+        from repro_torch.kernels.conv_ops import in_channel_multiple
+        from repro_torch.util import ceil_to
+
+        cin, cout = spec.in_channels, spec.out_channels
+        rng = np.random.default_rng(0)
+
+        def tensor(a):
+            return torch.as_tensor(a.astype(np.float32), device=self.device)
+
+        x = tensor(rng.normal(size=(batch, h, w, cin)))
+        wts = tensor(rng.normal(size=(spec.kh, spec.kw, cin, cout)) * 0.05)
+        # Every conv of a planned network replays the bias + activation
+        # variant of its kernel.
+        epi = Epilogue(bias=tensor(rng.normal(size=(cout,))), activation="relu")
+
+        candidates = []
+        for algo in eligible_algorithms(spec):
+            if algo is not ConvAlgorithm.WINOGRAD:
+                candidates.append((algo, False))
+            elif self.winograd_fused is not None:
+                candidates.append((algo, self.winograd_fused))
+            elif self.impl == "cuda":
+                candidates += [(algo, True), (algo, False)]
+            else:
+                candidates.append((algo, True))
+
+        timed = []
+        with torch.inference_mode():
+            for algo, wf in candidates:
+                plan = self._candidate(spec, algo, wf, h, w, batch, "measured")
+                # The executor's contract: channels padded to the kernel's
+                # multiple offline, Winograd weights pre-transformed.
+                pad = ceil_to(cin, in_channel_multiple(algo)) - cin
+                xp, wp = F.pad(x, (0, pad)), F.pad(wts, (0, 0, 0, pad))
+                pre = algo is ConvAlgorithm.WINOGRAD
+                if pre:
+                    wp = transform_weights(wp)
+                ms = self._time_ms(
+                    lambda plan=plan, xp=xp, wp=wp, pre=pre, pad=pad: conv2d(
+                        xp, wp, spec, plan=plan, epilogue=epi,
+                        in_layout=Layout(cin, pad), pretransformed=pre))
+                timed.append((plan, ms))
+        best = min(timed, key=lambda pm: pm[1])[0]
+        return dataclasses.replace(
+            best, measured_ms=tuple((p.label, ms) for p, ms in timed))
+
+    def _time_ms(self, fn) -> float:
+        """Milliseconds per call of ``fn`` after one call that builds and
+        warms it: on the card, the device time of ``MEASURE_REPS`` calls
+        between CUDA events (``util.device_ms``: the card's work, not the
+        host's launches); on the CPU, the median of as many
+        ``perf_counter`` calls."""
+        fn()
+        if self.device.type == "cuda":
+            from repro_torch.util import device_ms
+
+            return device_ms([fn] * MEASURE_REPS)
+        times = []
+        for _ in range(MEASURE_REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
 
 def kernel_blocks(spec: ConvSpec, algo: ConvAlgorithm, h: int, w: int,
-                  batch: int) -> Tuple[int, int, int]:
-    """The kernel block tuple for one algorithm choice, from the kernel."""
+                  batch: int, winograd_fused: bool = True) -> Tuple[int, int, int]:
+    """The kernel block tuple for one algorithm (and Winograd realization)
+    choice, from the kernel."""
     oh, ow = spec.out_hw(h, w)
     if algo is ConvAlgorithm.DIRECT:
         from repro_torch.kernels.gemm.ops import default_block
@@ -110,7 +275,8 @@ def kernel_blocks(spec: ConvSpec, algo: ConvAlgorithm, h: int, w: int,
         from repro_torch.kernels.winograd.ops import pick_blocks
 
         return pick_blocks(winograd_tiles(spec, h, w, batch),
-                           spec.in_channels, spec.out_channels)
+                           spec.in_channels, spec.out_channels,
+                           fused=winograd_fused)
     from repro_torch.kernels.im2col_gemm.ops import pick_blocks
 
     return pick_blocks(oh, ow)

@@ -8,7 +8,7 @@ a batched GEMM over the 64 transform positions:
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,8 +64,21 @@ AT = np.array(
 )
 
 
+_CONSTS: Dict[Tuple[int, torch.dtype, torch.device], torch.Tensor] = {}
+
+
 def _const(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(m, dtype=like.dtype, device=like.device)
+    """The transform matrix ``m`` in ``like``'s dtype and on its device,
+    made once per (matrix, dtype, device): a copy from pageable host memory
+    synchronizes the host with the card, so no call may make one."""
+    key = (id(m), like.dtype, like.device)
+    t = _CONSTS.get(key)
+    if t is None:
+        # A plain tensor even when first asked for under inference_mode.
+        with torch.inference_mode(False):
+            t = _CONSTS[key] = torch.as_tensor(m, dtype=like.dtype,
+                                               device=like.device)
+    return t
 
 
 def transform_weights(w: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
-Each ``csrc/*.cu`` file has a plain C interface and is compiled on first
-use, for ``sm_90a``, into its own shared library under ``build/repro_torch/``
-at the repository root (the file name carries a digest of the source and
-the flags, so an edited source is rebuilt and never confused with an old
+Each ``csrc/*.cu`` file has a plain C interface (it may include the
+``.cuh`` headers beside it) and is compiled on first use, for ``sm_90a``,
+into its own shared library under ``build/repro_torch/`` at the repository
+root (the file name carries a digest of the source, its headers and the
+flags, so an edited source is rebuilt and never confused with an old
 library).  ``build`` starts one nvcc per source, all at once.  A failed
 build raises with nvcc's output: nothing falls back to a plain version.
 
@@ -30,6 +31,7 @@ SOURCES: Dict[str, str] = {
     "gemm": "gemm/csrc/gemm.cu",
     "im2col_conv": "im2col_gemm/csrc/im2col_conv.cu",
     "winograd_fused": "winograd/csrc/winograd_fused.cu",
+    "winograd_3pass": "winograd/csrc/winograd_3pass.cu",
 }
 
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch"
@@ -61,10 +63,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of source ``name``; its digest covers the source, the
+    ``.cuh`` headers beside it (which it may include) and the flags."""
     src = _KERNELS_DIR / SOURCES[name]
-    digest = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,7 +1,8 @@
 """Kernel-level conv dispatch used by core.conv2d for planned convs.
 
 The port of ``repro/kernels/conv_ops.py``: 1x1 stride-1 -> the GEMM
-kernel (direct), 3x3 stride-1 -> the fused Winograd kernel, everything
+kernel (direct), 3x3 stride-1 -> Winograd (the fused kernel, or the three
+3-pass kernels when the plan says ``winograd_fused=False``), everything
 else -> the implicit-GEMM conv kernel, each with bias + activation fused in
 its output stage.  ``impl='cuda'`` runs the hand-written kernels,
 ``impl='torch'`` their plain versions through the same layouts, so the two
@@ -16,7 +17,7 @@ conv needs stay in the output, and no crop happens here either.
 """
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +44,37 @@ def in_channel_multiple(algo: ConvAlgorithm) -> int:
     else:
         from repro_torch.kernels.im2col_gemm.ops import BC
     return BC
+
+
+def plan_kernels(plan: "ConvPlan") -> Tuple[str, ...]:
+    """The CUDA kernels one planned conv step launches, once each."""
+    if plan.algorithm is ConvAlgorithm.DIRECT:
+        return ("gemm",)
+    if plan.algorithm is ConvAlgorithm.WINOGRAD:
+        if plan.winograd_fused:
+            return ("winograd_fused",)
+        return ("input_transform", "tuple_multiply", "output_transform")
+    return ("im2col_conv",)
+
+
+def kernel_wrappers() -> Dict[str, Callable]:
+    """Every CUDA kernel's wrapper by kernel name (the names of
+    ``plan_kernels``); each counts the launches of its kernel in its
+    ``launches`` attribute."""
+    from repro_torch.kernels.gemm.ops import matmul_bias_act
+    from repro_torch.kernels.im2col_gemm.ops import im2col_conv
+    from repro_torch.kernels.winograd.ops import (
+        fused_winograd,
+        input_transform,
+        output_transform,
+        tuple_multiply,
+    )
+
+    return {"gemm": matmul_bias_act, "im2col_conv": im2col_conv,
+            "winograd_fused": fused_winograd,
+            "input_transform": input_transform,
+            "tuple_multiply": tuple_multiply,
+            "output_transform": output_transform}
 
 
 def conv2d_cuda(
@@ -137,9 +169,11 @@ def _conv2d_cuda_laidout(
         if ph or pw:
             x = F.pad(x, (0, 0, pw, pw, ph, ph))
         u = w if pretransformed else transform_weights(w)
+        # The self-contained path (no plan) runs the fused kernel.
         return conv2d_winograd_padded_call(
             x, u.contiguous(), oh, ow, blocks, bias=bias,
             activation=activation, impl=impl,
+            fused=plan.winograd_fused if plan is not None else True,
         )
 
     from repro_torch.kernels.im2col_gemm.ops import im2col_conv

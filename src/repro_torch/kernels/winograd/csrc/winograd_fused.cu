@@ -27,55 +27,13 @@
 // of U, so load issue, not the FMA rate, limits it.  fp32 FMA only.
 #include <cuda_runtime.h>
 
+#include "winograd_transforms.cuh"
+
 namespace {
 
 constexpr int BC = 8;          // in channels per reduction step
 constexpr int THREADS = 256;   // bt * bo
 constexpr int MAX_BT = 16;     // bo >= 16
-
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == 1) return fmaxf(v, 0.f);
-  if (act == 2) return v > 0.f ? v : 0.1f * v;
-  return v;
-}
-
-// out[a] = sum_i BT[a][i] * in[i]  (one 8-point input transform)
-__device__ __forceinline__ void bt_apply(const float in[8], float out[8]) {
-  const float BT[8][8] = {
-      {1.f, 0.f, -5.25f, 0.f, 5.25f, 0.f, -1.f, 0.f},
-      {0.f, 1.f, 1.f, -4.25f, -4.25f, 1.f, 1.f, 0.f},
-      {0.f, -1.f, 1.f, 4.25f, -4.25f, -1.f, 1.f, 0.f},
-      {0.f, 0.5f, 0.25f, -2.5f, -1.25f, 2.f, 1.f, 0.f},
-      {0.f, -0.5f, 0.25f, 2.5f, -1.25f, -2.f, 1.f, 0.f},
-      {0.f, 2.f, 4.f, -2.5f, -5.f, 0.5f, 1.f, 0.f},
-      {0.f, -2.f, 4.f, 2.5f, -5.f, -0.5f, 1.f, 0.f},
-      {0.f, -1.f, 0.f, 5.25f, 0.f, -5.25f, 0.f, 1.f}};
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s = fmaf(BT[a][i], in[i], s);
-    out[a] = s;
-  }
-}
-
-// out[x] = sum_a AT[x][a] * in[a]  (one 8-point output transform)
-__device__ __forceinline__ void at_apply(const float in[8], float out[6]) {
-  const float AT[6][8] = {
-      {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 0.f},
-      {0.f, 1.f, -1.f, 2.f, -2.f, 0.5f, -0.5f, 0.f},
-      {0.f, 1.f, 1.f, 4.f, 4.f, 0.25f, 0.25f, 0.f},
-      {0.f, 1.f, -1.f, 8.f, -8.f, 0.125f, -0.125f, 0.f},
-      {0.f, 1.f, 1.f, 16.f, 16.f, 0.0625f, 0.0625f, 0.f},
-      {0.f, 1.f, -1.f, 32.f, -32.f, 0.03125f, -0.03125f, 1.f}};
-#pragma unroll
-  for (int x = 0; x < 6; ++x) {
-    float s = 0.f;
-#pragma unroll
-    for (int a = 0; a < 8; ++a) s = fmaf(AT[x][a], in[a], s);
-    out[x] = s;
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 winograd_fused_kernel(const float* __restrict__ tiles,
@@ -111,7 +69,7 @@ winograd_fused_kernel(const float* __restrict__ tiles,
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           row[j] = tg < T ? __ldg(d + (size_t)(i * 8 + j) * C) : 0.f;
-        bt_apply(row, r);                   // r[b] = sum_j BT[b][j] d[i][j]
+        winograd::bt_apply(row, r);                   // r[b] = sum_j BT[b][j] d[i][j]
 #pragma unroll
         for (int b = 0; b < 8; ++b) v[(i * 8 + b) * vstride] = r[b];
       }
@@ -120,7 +78,7 @@ winograd_fused_kernel(const float* __restrict__ tiles,
         float col[8], r[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) col[i] = v[(i * 8 + b) * vstride];
-        bt_apply(col, r);                   // V[a][b] = sum_i BT[a][i] col[i]
+        winograd::bt_apply(col, r);                   // V[a][b] = sum_i BT[a][i] col[i]
 #pragma unroll
         for (int a = 0; a < 8; ++a) v[(a * 8 + b) * vstride] = r[a];
       }
@@ -149,26 +107,8 @@ winograd_fused_kernel(const float* __restrict__ tiles,
   }
 
   if (t >= T || !o_ok) return;
-  // Output transform Y = A^T M A: columns first, then rows.
-  float tmp[6][8];
-#pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    float col[8], r[6];
-#pragma unroll
-    for (int a = 0; a < 8; ++a) col[a] = acc[a * 8 + b];
-    at_apply(col, r);
-#pragma unroll
-    for (int x = 0; x < 6; ++x) tmp[x][b] = r[x];
-  }
-  const float bv = bias != nullptr ? __ldg(bias + o) : 0.f;
-  float* dst = out + (size_t)t * 36 * O + o;
-#pragma unroll
-  for (int x = 0; x < 6; ++x) {
-    float r[6];
-    at_apply(tmp[x], r);
-#pragma unroll
-    for (int y = 0; y < 6; ++y) dst[(x * 6 + y) * O] = activate(r[y] + bv, act);
-  }
+  winograd::output_tile(acc, bias != nullptr ? __ldg(bias + o) : 0.f, act,
+                        out + (size_t)t * 36 * O + o, O);
 }
 
 }  // namespace

@@ -7,11 +7,12 @@ it also runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the GEMM and the implicit-GEMM conv sum the same products as
-their plain versions in another order, rtol = 1e-4 with atol = 1e-4 *
-max|ref|; the fused Winograd kernel also rounds inside its transforms,
-5e-4 (tests/test_conv_conformance.py); a whole network compounds the
-per-layer differences over its depth, 1e-3 of max|ref|.
+Tolerances: the GEMM, the implicit-GEMM conv and the 3-pass tuple
+multiply sum the same products as their plain versions in another order,
+rtol = 1e-4 with atol = 1e-4 * max|ref|; the fused Winograd kernel and the
+3-pass transforms also round inside their transforms, 5e-4
+(tests/test_conv_conformance.py); a whole network compounds the per-layer
+differences over its depth, 1e-3 of max|ref|.
 """
 import numpy as np
 import pytest
@@ -19,9 +20,15 @@ import torch
 
 import repro_torch
 from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec
+from repro_torch.kernels.conv_ops import kernel_wrappers
 from repro_torch.kernels.gemm.ops import matmul_bias_act
 from repro_torch.kernels.im2col_gemm.ops import im2col_conv
-from repro_torch.kernels.winograd.ops import fused_winograd
+from repro_torch.kernels.winograd.ops import (
+    fused_winograd,
+    input_transform,
+    output_transform,
+    tuple_multiply,
+)
 from repro_torch.models.cnn import CNNLayer, init_cnn, random_batchnorm
 
 pytestmark = pytest.mark.cuda
@@ -77,6 +84,22 @@ def test_winograd_kernel_on_card(cuda_device, t, c, o):
     _close(got, ref, 5e-4)
 
 
+@pytest.mark.parametrize("t,c,o", [(1444, 64, 64), (103, 8, 20)])
+def test_winograd_3pass_kernels_on_card(cuda_device, t, c, o):
+    """Each 3-pass kernel against its plain version on the same inputs: a
+    VGG-16 224 b1 shape (layer 1) and a ragged one."""
+    tiles, u, bias = _randn(cuda_device, 9, (t, 8, 8, c), (64, c, o), (o,))
+    v = input_transform(tiles)
+    _close(v, input_transform(tiles, impl="torch"), 5e-4)
+    v = v.reshape(64, t, c)
+    m = tuple_multiply(v, u)
+    _close(m, tuple_multiply(v, u, impl="torch"), 1e-4)
+    m = m.reshape(8, 8, t, o)
+    for b, act in ((bias, "leaky"), (None, "linear")):
+        _close(output_transform(m, b, act),
+               output_transform(m, b, act, impl="torch"), 5e-4)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     x, wt = _randn(cuda_device, 8, (1, 6, 6, 12), (3, 3, 12, 4))
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -85,9 +108,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         matmul_bias_act(x[0, 0].double(), wt[0, 0].double())
 
 
-def test_small_network_on_card(cuda_device):
+def _small_network_on_card(device, **options):
     """A narrow YOLOv3-tiny-shaped net: impl='cuda' against impl='torch',
-    with one kernel launch per planned conv step."""
+    with each kernel launched as often as the plan says."""
     def conv(ch, k=3):
         return CNNLayer("conv", out_channels=ch, kernel=k)
 
@@ -101,17 +124,46 @@ def test_small_network_on_card(cuda_device):
     rng = np.random.default_rng(0)
     params = random_batchnorm(init_cnn(rng, layers), rng)
     x = torch.tensor(rng.standard_normal((2, 64, 64, 3)).astype(np.float32),
-                     device=cuda_device)
-    cu = repro_torch.compile(model, params, repro_torch.ExecutionOptions(batch=2))
+                     device=device)
+    cu = repro_torch.compile(model, params,
+                             repro_torch.ExecutionOptions(batch=2, **options))
     plain = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
-        impl="torch", batch=2))
-    wrappers = {ConvAlgorithm.DIRECT: matmul_bias_act,
-                ConvAlgorithm.IM2COL_GEMM: im2col_conv,
-                ConvAlgorithm.WINOGRAD: fused_winograd}
+        impl="torch", batch=2, **options))
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     got = cu.run(x)
-    counts = cu.network_plan().algorithm_counts()
-    assert set(counts) == set(wrappers)
-    assert {a: fn.launches for a, fn in wrappers.items()} == counts
+    launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
     _close(got, plain.run(x), 1e-3)
+    return cu.network_plan(), launches
+
+
+def test_small_network_on_card(cuda_device):
+    netplan, launches = _small_network_on_card(cuda_device)
+    assert set(netplan.algorithm_counts()) == {
+        ConvAlgorithm.DIRECT, ConvAlgorithm.IM2COL_GEMM, ConvAlgorithm.WINOGRAD}
+    assert launches == netplan.kernel_launches() == {
+        "gemm": 2, "im2col_conv": 1, "winograd_fused": 2}
+
+
+def test_small_network_3pass_on_card(cuda_device):
+    """The same net with the 3-pass pipeline on both Winograd layers."""
+    netplan, launches = _small_network_on_card(cuda_device,
+                                               winograd_fused=False)
+    assert launches == netplan.kernel_launches() == {
+        "gemm": 2, "im2col_conv": 1, "input_transform": 2,
+        "tuple_multiply": 2, "output_transform": 2}
+
+
+def test_device_ms_times_the_card_and_refuses_a_synchronizing_call(cuda_device):
+    """``util.device_ms`` times runs longer than the card's launch queue
+    (here 1500 launches, split into held runs) and raises on a call that
+    synchronizes the host, whose events would time the host."""
+    from repro_torch.util import device_ms
+
+    y = torch.zeros(16, device=cuda_device)
+    ms = device_ms([lambda: y.add_(1)] * 1500)
+    torch.cuda.synchronize()
+    assert 0 < ms < 0.1
+    with pytest.raises(RuntimeError, match="synchronizes"):
+        device_ms([lambda: (y.add_(1), torch.cuda.synchronize())] * 4)

@@ -26,7 +26,12 @@ from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec, Epilogue
 from repro_torch.kernels.conv_ops import conv2d_cuda
 from repro_torch.kernels.gemm.ops import matmul_bias_act
 from repro_torch.kernels.im2col_gemm.ops import im2col_conv
-from repro_torch.kernels.winograd.ops import fused_winograd
+from repro_torch.kernels.winograd.ops import (
+    fused_winograd,
+    input_transform,
+    output_transform,
+    tuple_multiply,
+)
 
 TOL = dict(rtol=5e-4, atol=5e-4)
 
@@ -159,5 +164,13 @@ def test_cuda_impl_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_winograd(torch.from_numpy(_np(rng, 3, 8, 8, 8)),
                        torch.from_numpy(_np(rng, 8, 8, 8, 4)), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        input_transform(torch.from_numpy(_np(rng, 3, 8, 8, 8)), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tuple_multiply(torch.from_numpy(_np(rng, 64, 3, 8)),
+                       torch.from_numpy(_np(rng, 64, 8, 4)), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        output_transform(torch.from_numpy(_np(rng, 8, 8, 3, 4)),
+                         torch.from_numpy(_np(rng, 4)), impl="cuda")
     with pytest.raises(ValueError, match="CUDA tensors"):
         conv2d(x, w, ConvSpec(8, 4), impl="cuda")

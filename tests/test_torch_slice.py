@@ -152,30 +152,47 @@ def _models(spec_rows, hw, name):
     return ours, ref
 
 
-@pytest.mark.parametrize("rows,hw,batch,seed,algos,pretransform", [
-    (_narrow_tiny(), (64, 64), 1, 0, ALL_ALGOS, True),
-    (_narrow_tiny(), (64, 64), 2, 1, ALL_ALGOS, True),
-    (_narrow_tiny(), (64, 64), 2, 1, ALL_ALGOS, False),
-    (_narrow_layers_20(), (64, 56), 1, 2, ALL_ALGOS, True),
+@pytest.mark.parametrize("rows,hw,batch,seed,algos,options", [
+    (_narrow_tiny(), (64, 64), 1, 0, ALL_ALGOS, {}),
+    (_narrow_tiny(), (64, 64), 2, 1, ALL_ALGOS, {}),
+    (_narrow_tiny(), (64, 64), 2, 1, ALL_ALGOS, {"pretransform": False}),
+    (_narrow_layers_20(), (64, 56), 1, 2, ALL_ALGOS, {}),
     (_narrow_vgg16(), (48, 48), 2, 3,
-     {ConvAlgorithm.IM2COL_GEMM, ConvAlgorithm.WINOGRAD}, True),
+     {ConvAlgorithm.IM2COL_GEMM, ConvAlgorithm.WINOGRAD}, {}),
+    (_narrow_tiny(), (64, 64), 2, 1, ALL_ALGOS, {"winograd_fused": False}),
+    (_narrow_vgg16(), (48, 48), 2, 3,
+     {ConvAlgorithm.IM2COL_GEMM, ConvAlgorithm.WINOGRAD},
+     {"winograd_fused": False}),
+    # Measure mode picks per layer from the CPU's timings: any split is
+    # right, as long as the output matches.
+    (_narrow_vgg16(), (48, 48), 2, 3, None, {"mode": "measure"}),
 ], ids=["tiny-b1", "tiny-b2", "tiny-b2-no-pretransform", "layers20-b1",
-        "vgg16-b2"])
+        "vgg16-b2", "tiny-b2-3pass", "vgg16-b2-3pass", "vgg16-b2-measure"])
 def test_compiled_slice_matches_reference(rows, hw, batch, seed, algos,
-                                          pretransform):
+                                          options):
     ours, ref_model = _models(rows, hw, "narrow")
     rng = np.random.default_rng(seed)
     params = random_batchnorm(init_cnn(rng, ours.layers), rng)
     x = _np(rng, batch, *hw, 3)
 
     compiled = repro_torch.compile(ours, params, repro_torch.ExecutionOptions(
-        impl="torch", device="cpu", batch=batch, pretransform=pretransform))
-    assert set(compiled.network_plan().algorithm_counts()) == algos
-    # Winograd layers keep (8, 8, C, O) weights from the offline transform,
-    # or their (3, 3, C, O) weights to be transformed on every forward.
+        impl="torch", device="cpu", batch=batch, **options))
+    if algos is not None:
+        assert set(compiled.network_plan().algorithm_counts()) == algos
+    pretransform = options.get("pretransform", True)
+    # Every Winograd step runs the realization the policy asks for (the
+    # fused kernel under impl='torch' unless forced to 3-pass), and keeps
+    # (8, 8, C, O) weights from the offline transform, or its (3, 3, C, O)
+    # weights to be transformed on every forward.
     executor = compiled.executor()
     for s in executor.netplan.steps:
-        if s.layer.kind == "conv" and s.plan.algorithm is ConvAlgorithm.WINOGRAD:
+        if s.layer.kind != "conv":
+            continue
+        assert s.plan.source == ("measured" if options.get("mode") == "measure"
+                                 else "tile_rule")
+        if s.plan.algorithm is ConvAlgorithm.WINOGRAD:
+            assert s.plan.winograd_fused is (
+                options.get("winograd_fused") is not False)
             assert executor.params[s.index]["w"].shape[0] == (
                 8 if pretransform else 3)
     got = compiled.run(x).numpy()
