@@ -14,7 +14,9 @@ Phases, each on its own printed lines:
 3. each kernel against its plain PyTorch version at every shape the model
    cells below give it (YOLOv3-tiny at 416x416, batch 1 and 4; MODEL_20 at
    608x608, batch 1; VGG-16 at 224x224, batch 1, with the fused Winograd
-   kernel and with the 3-pass pipeline): the max-abs error of every call.
+   kernel and with the 3-pass pipeline; the int8 plans of YOLOv3-tiny 416,
+   VGG-16 224 and MODEL_20 608 at batch 1, on seeded int8 operands): the
+   max-abs error of every call.
    At the shapes of YOLOv3-tiny at batch 1 (GEMM, im2col, fused Winograd)
    and of VGG-16's Winograd layers (fused, and the three 3-pass kernels),
    also the kernel's, the plain version's and one library call's device
@@ -22,8 +24,12 @@ Phases, each on its own printed lines:
    pair, each launch on its own cold operands), and the least time the card
    could take (bytes over 3.35 TB/s or FLOPs over the 67 TFLOP/s fp32
    peak, whichever is larger), counted for the logical operands, before
-   the channel padding the kernels take; then, per VGG-16 Winograd layer,
-   the fused kernel's time beside the 3-pass pipeline's;
+   the channel padding the kernels take; the same at the int8 plan of
+   YOLOv3-tiny b1 for the two int8 kernels, with int8 operations over the
+   1979 TOP/s int8 peak, bytes of int8 operands and fp32 output, scale and
+   bias, and ``torch._int_mm`` plus the epilogue as the GEMM's library call
+   (no PyTorch call computes an int8 convolution); then, per VGG-16
+   Winograd layer, the fused kernel's time beside the 3-pass pipeline's;
 4. YOLOv3-tiny at 416x416, batch 1 and 4, through ``repro_torch.compile``
    with ``impl='cuda'``, held against ``impl='torch'`` on the card; each
    kernel's launch count in one forward must equal the plan's count
@@ -38,11 +44,23 @@ Phases, each on its own printed lines:
    on the card; its per-layer choice printed), each the same comparison
    and each profiled; then every kernel call of the measure-mode plan held
    against its plain version, as in phase 3;
-7. one JSON line with every kernel's numbers — its launches in the forward
+7. int8 (``dtype='int8'``): YOLOv3-tiny 416 b1 and MODEL_20 608 b1
+   (both profiled, beside their fp32 forwards) and VGG-16 224 b1, each
+   with identity batchnorm and calibrated on its input: every step of the
+   cuda forward against the plain step fed the same input
+   (``check_steps``), the output against ``impl='torch', dtype='int8'``
+   (an SQNR of at least 40 dB; printed only for MODEL_20) and against the
+   fp32 CUDA forward of the same weights (at least 30 dB), the int8
+   kernels' launches equal to the plan's, ms per forward and images/s
+   beside the fp32 forward's; then, printed and not gated, the same two
+   SQNRs of YOLOv3-tiny and VGG-16 with random batchnorm and the default
+   calibration batch (``deployment_sqnr``);
+8. one JSON line with every kernel's numbers — its launches in the forward
    its ``cell`` names (YOLOv3-tiny 416 b1 for the GEMM, im2col and fused
    Winograd kernels, VGG-16 224 b1 with ``winograd_fused=False`` for the
-   three 3-pass kernels), and its times, errors and bounds summed over the
-   calls of that forward — then the last line ``{"ok": true, "device": ...}``.
+   three 3-pass kernels, YOLOv3-tiny 416 b1 int8 for the two int8
+   kernels), and its times, errors and bounds summed over the calls of
+   that forward — then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises and exits non-zero before the last line is printed.  It
 exits 1 at once when no CUDA device is visible, and fails to import the
@@ -63,31 +81,50 @@ SEED = 0
 ROUNDS = 5                # timed runs of launches per kernel measurement
 FORWARD_REPS = 20         # timed forwards of the main cells
 SHORT_FORWARD_REPS = 10   # YOLOv3-tiny b4 and MODEL_20, to keep to the time
+# The int8 kernels sum exactly in int32, as their plain versions do; only
+# the fp32 epilogue could differ (FMA contraction, which the kernels avoid).
 KERNEL_TOL = {"gemm": 1e-4, "im2col_conv": 1e-4, "winograd_fused": 5e-4,
               "input_transform": 5e-4, "tuple_multiply": 1e-4,
-              "output_transform": 5e-4}
+              "output_transform": 5e-4, "gemm_q8": 1e-5,
+              "im2col_conv_q8": 1e-5}
 # Whole-network tolerance, relative to max|ref|: both impls run fp32 on the
 # same card with the same layouts; they differ only in the order of the sums
 # inside each kernel (and, in measure mode, in the algorithm a layer takes),
 # which compounds over the network's depth.
 NET_RTOL = 1e-3
+# int8 networks.  Step by step, each step of the impl='cuda' forward, fed
+# that forward's own input, against the impl='torch' step on the same
+# input: int8 steps and the layers between convs exactly as their kernels'
+# tolerance says, fp32 steps at theirs.  End to end, against the
+# impl='torch' forward (the same integer sums, but an fp32 layer before an
+# int8 one sums in another order, so a value near a quantization step may
+# round the other way, and such flips compound over the int8 layers), and
+# against the fp32 forward of the same weights (the reference's
+# acceptance gate).
+INT8_VS_PLAIN_DB = 40.0
+INT8_VS_FP32_DB = 30.0
 
 REPLACES = {
     "gemm": "src/repro/kernels/gemm/kernel.py:140",
+    "gemm_q8": "src/repro/kernels/gemm/kernel.py:107-137",
     "im2col_conv": "src/repro/kernels/im2col_gemm/kernel.py:162",
+    "im2col_conv_q8": "src/repro/kernels/im2col_gemm/kernel.py:97-159",
     "winograd_fused": "src/repro/kernels/winograd/kernel.py:143",
     "input_transform": "src/repro/kernels/winograd/kernel.py:195",
     "tuple_multiply": "src/repro/kernels/winograd/kernel.py:216",
     "output_transform": "src/repro/kernels/winograd/kernel.py:244",
 }
 SOURCE = {"gemm": "gemm", "im2col_conv": "im2col_conv",
+          "gemm_q8": "gemm_q8", "im2col_conv_q8": "im2col_conv_q8",
           "winograd_fused": "winograd_fused",
           "input_transform": "winograd_3pass",
           "tuple_multiply": "winograd_3pass",
           "output_transform": "winograd_3pass"}
 # The CUDA function of each kernel, as the profiler names it.
 CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
+              "gemm_q8": "gemm_q8_bias_act_kernel",
               "im2col_conv": "im2col_conv_kernel",
+              "im2col_conv_q8": "im2col_conv_q8_kernel",
               "winograd_fused": "winograd_fused_kernel",
               "input_transform": "winograd_input_transform_kernel",
               "tuple_multiply": "winograd_tuple_multiply_kernel",
@@ -142,7 +179,7 @@ def read_counts():
 # Phase 3: kernel calls at the main paths' shapes
 
 
-def kernel_cases(netplan, rng, cell, winograd_only=False):
+def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
     """One case per kernel call of one forward of ``netplan``: the kernel's
     name, the conv step, a label, the call's operands and closures for the
     kernel (and, with ``impl='torch'``, its plain version) and for one
@@ -160,8 +197,8 @@ def kernel_cases(netplan, rng, cell, winograd_only=False):
     from repro_torch.core.conv_spec import ConvAlgorithm, apply_activation
     from repro_torch.core.winograd import AT, BT, _const, _tile_input, \
         transform_weights
-    from repro_torch.kernels.gemm.ops import matmul_bias_act
-    from repro_torch.kernels.im2col_gemm.ops import im2col_conv
+    from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
+    from repro_torch.kernels.im2col_gemm.ops import im2col_conv, im2col_conv_q8
     from repro_torch.kernels.winograd.ops import (
         fused_winograd,
         input_transform,
@@ -176,6 +213,21 @@ def kernel_cases(netplan, rng, cell, winograd_only=False):
     def t(*shape):
         return torch.tensor(rng.standard_normal(shape).astype(np.float32),
                             device="cuda")
+
+    def q8(*shape):
+        return torch.tensor(rng.integers(-127, 128, shape).astype(np.int8),
+                            device="cuda")
+
+    def dequant(o):
+        """A dequant row of the size calibration gives (about 1e-3)."""
+        return torch.tensor(rng.uniform(0.5, 2.0, o).astype(np.float32) * 1e-3,
+                            device="cuda")
+
+    def pad_to(v, shape):
+        """Zero-pad ``v`` up to ``shape`` (the padding ``torch._int_mm``
+        needs: K and N multiples of 8)."""
+        return F.pad(v, [p for d, n in zip(reversed(v.shape), reversed(shape))
+                         for p in (0, n - d)]).contiguous()
 
     cases = []
     b = netplan.batch
@@ -201,7 +253,46 @@ def kernel_cases(netplan, rng, cell, winograd_only=False):
         kh, kw = spec.kh, spec.kw
         bias = t(o)
         head = f"{cell} L{s.index}"
-        base = dict(step=s.index)
+        base = dict(step=s.index, peak=hw.peak_flops_fp32)
+        if s.plan.dtype == "int8":
+            # int8 operands, fp32 dequant row, bias and output; the bound
+            # divides by the int8 tensor-core peak.
+            base["peak"], scale = hw.peak_ops_int8, dequant(o)
+            m = b * oh * ow
+            out_bytes = 4 * (2 * o + m * o)
+            if algo is ConvAlgorithm.DIRECT:
+                a, wm = q8(m, c), q8(c, o)
+                k8, n8 = -(-c // 8) * 8, -(-o // 8) * 8
+                cases.append(dict(
+                    base, kernel="gemm_q8",
+                    label=f"{head} gemm_q8 M={m} K={phys_c} N={o}",
+                    args=(pad_c(a, 1), pad_c(wm, 0), scale, bias),
+                    run=lambda a, wm, scale, bias, act=act, impl="cuda":
+                        matmul_q8_bias_act(a, wm, scale, bias, act, impl=impl),
+                    lib_args=(pad_to(a, (m, k8)), pad_to(wm, (k8, n8)), scale,
+                              bias),
+                    library=lambda a, wm, scale, bias, o=o, act=act:
+                        apply_activation(torch._int_mm(a, wm)[:, :o].float()
+                                         * scale + bias, act),
+                    flops=2 * m * c * o,
+                    bytes=m * c + c * o + out_bytes,
+                ))
+                continue
+            x, wt = q8(b, h, w, c), q8(kh, kw, c, o)
+            cases.append(dict(
+                base, kernel="im2col_conv_q8",
+                label=(f"{head} im2col_q8 {h}x{w}x{phys_c}->{oh}x{ow}x{o} "
+                       f"k{kh} s{spec.stride[0]} blocks={blocks}"),
+                args=(pad_c(x, 3), pad_c(wt, 2), scale, bias),
+                run=lambda x, wt, scale, bias, spec=spec, blocks=blocks,
+                act=act, impl="cuda": im2col_conv_q8(
+                    x, wt, spec, scale, blocks, bias, act, impl=impl),
+                # No single PyTorch call computes an int8 convolution.
+                lib_args=None, library=None,
+                flops=2 * m * o * kh * kw * c,
+                bytes=b * h * w * c + kh * kw * c * o + out_bytes,
+            ))
+            continue
         if algo is ConvAlgorithm.DIRECT:
             m = b * oh * ow
             a, wm = t(m, c), t(c, o)
@@ -311,7 +402,9 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
     import torch
 
     summary, per_step = {}, {}
-    for case in kernel_cases(netplan, rng, cell, winograd_only):
+    t0, n = time.perf_counter(), 0
+    for case in kernel_cases(netplan, rng, hw, cell, winograd_only):
+        n += 1
         name, args = case["kernel"], case["args"]
         got = case["run"](*args)
         ref = case["run"](*args, impl="torch")
@@ -331,13 +424,16 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
         ms = cuda_ms(case["run"], args)
         plain_ms = cuda_ms(lambda *a, run=case["run"]: run(*a, impl="torch"),
                            args)
-        library_ms = cuda_ms(case["library"], case["lib_args"])
-        t_ops = case["flops"] / hw.peak_flops_fp32 * 1e3
+        library_ms = (cuda_ms(case["library"], case["lib_args"])
+                      if case["library"] is not None else None)
+        t_ops = case["flops"] / case["peak"] * 1e3
         t_bytes = case["bytes"] / hw.hbm_bandwidth * 1e3
         bound_ms = max(t_ops, t_bytes)
         log(f"kernel {case['label']}: max_abs_err={err:.3g} (tol {tol:.3g})"
-            f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f}"
-            f" bound_ms={bound_ms:.5f} ({'operations' if t_ops >= t_bytes else 'bytes'})")
+            f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+            + ("-" if library_ms is None else f"{library_ms:.4f}")
+            + f" bound_ms={bound_ms:.5f} "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'})")
         agg = summary.setdefault(name, dict(
             calls=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
             bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0))
@@ -345,10 +441,13 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
         agg["ms"] += ms
         agg["plain_ms"] += plain_ms
-        agg["library_ms"] += library_ms
+        agg["library_ms"] = (None if library_ms is None or agg["library_ms"]
+                             is None else agg["library_ms"] + library_ms)
         agg["bound_ms"] += bound_ms
         agg["ops_ms" if t_ops >= t_bytes else "bytes_ms"] += bound_ms
         per_step.setdefault(case["step"], {})[name] = ms
+    log(f"kernels {cell}: {n} calls checked in "
+        f"{time.perf_counter() - t0:.1f} s")
     return summary, per_step
 
 
@@ -371,17 +470,73 @@ def forward_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def check_steps(compiled, plain, x, name) -> None:
+    """Every step of ``compiled``'s forward on ``x`` against ``plain``'s
+    step on the same input (the cuda forward's own activation), the
+    forward continuing with the cuda step's output: a conv step within its
+    kernels' tolerance of ``max(1, max|ref|)``, any other step equal.
+    Also prints, after each conv step, the SQNR between the two forwards
+    each run on its own outputs, which shows where they drift apart."""
+    import torch
+
+    from repro_torch.core.netplan import run_step
+    from repro_torch.core.quant import sqnr_db
+    from repro_torch.kernels.conv_ops import plan_kernels
+
+    ex, ex_plain = compiled.executor(int(x.shape[0])), plain.executor(
+        int(x.shape[0]))
+    outputs, outputs_plain, cur, cur_plain = [], [], x, x
+    worst, drift = {}, []
+    with torch.inference_mode():
+        for s, sp in zip(ex.netplan.steps, ex_plain.netplan.steps):
+            y = run_step(s, ex.params[s.index], cur, outputs,
+                         ex.pretransformed[s.index])
+            ref = run_step(sp, ex_plain.params[s.index], cur, outputs,
+                           ex_plain.pretransformed[s.index])
+            cur_plain = run_step(sp, ex_plain.params[s.index], cur_plain,
+                                 outputs_plain, ex_plain.pretransformed[s.index])
+            err = float((y - ref).abs().max())
+            tol = 0.0
+            if s.layer.kind == "conv":
+                tol = max(KERNEL_TOL[k] for k in plan_kernels(s.plan)) * max(
+                    1.0, float(ref.abs().max()))
+                worst[s.plan.dtype] = max(worst.get(s.plan.dtype, 0.0), err)
+                drift.append(f"{s.index}:{sqnr_db(cur_plain, y):.1f}")
+            if not (bool(torch.isfinite(y).all()) and err <= tol):
+                raise AssertionError(
+                    f"{name} step {s.index} ({s.layer.kind}"
+                    f"{'' if s.plan is None else ' ' + s.plan.label}): cuda vs"
+                    f" torch on the same input max_abs_err {err} > {tol}")
+            outputs.append(y)
+            outputs_plain.append(cur_plain)
+            cur = y
+    log(f"steps {name}: every step matches its plain version on the cuda "
+        f"forward's own input; max_abs_err by conv dtype {worst}; "
+        f"free-running SQNR (dB) after each conv: {' '.join(drift)}")
+
+
 def run_cell(model, batch, rng, params=None, options=None, name=None,
-             profile=False, reps=FORWARD_REPS):
+             profile=False, reps=FORWARD_REPS,
+             min_sqnr_vs_plain=INT8_VS_PLAIN_DB):
     """Compile ``model`` with ``options`` and with ``impl='torch'``, drive
     the cuda one once with counts at zero, compare, and time.  Returns the
-    launch counts of that forward and the compiled model."""
+    launch counts of that forward and the compiled model.
+
+    Under ``dtype='int8'`` both compilations calibrate on the cell's input
+    (made from the seed with numpy); every step is held against its plain
+    version on the same input (``check_steps``); the output is held at an
+    SQNR of at least ``min_sqnr_vs_plain`` against the plain forward (None:
+    printed only) and at ``INT8_VS_FP32_DB`` against the fp32 CUDA forward
+    of the same weights, whose time is printed beside the int8 one (and
+    which is profiled too when ``profile`` is set)."""
     import torch
 
     import repro_torch
+    from repro_torch.core.quant import sqnr_db
     from repro_torch.models.cnn import init_cnn, random_batchnorm
 
     options = dict(options or {})
+    int8 = options.get("dtype") == "int8"
     name = name or f"{model.name} {model.input_hw[0]} b{batch}"
     # Seeded weights with random batchnorm statistics, so folding is
     # exercised.
@@ -391,12 +546,14 @@ def run_cell(model, batch, rng, params=None, options=None, name=None,
     x = torch.tensor(
         rng.standard_normal((batch, h, w, model.in_channels)).astype(np.float32),
         device="cuda")
+    calibration = x if int8 else None
     t0 = time.perf_counter()
     cu = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
-        batch=batch, **options))
+        batch=batch, **options), calibration=calibration)
     compile_s = time.perf_counter() - t0
     plain = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
-        impl="torch", device="cuda", batch=batch))
+        impl="torch", device="cuda", batch=batch,
+        dtype=options.get("dtype", "float32")), calibration=calibration)
 
     reset_counts()
     y = cu.run(x)
@@ -410,22 +567,69 @@ def run_cell(model, batch, rng, params=None, options=None, name=None,
     torch.cuda.synchronize()
     scale = float(y_ref.abs().max())
     err = float((y - y_ref).abs().max())
-    if not (bool(torch.isfinite(y).all()) and y.shape == y_ref.shape
-            and err <= NET_RTOL * max(scale, 1.0)
-            and torch.allclose(y, y_ref, rtol=NET_RTOL,
-                               atol=NET_RTOL * max(scale, 1.0))):
-        raise AssertionError(f"{name}: cuda vs torch max_abs_err {err} "
-                             f"(max|ref| {scale})")
+    ok = bool(torch.isfinite(y).all()) and y.shape == y_ref.shape
+    fp32 = None
+    if int8:
+        check_steps(cu, plain, x, name)
+        quality = sqnr_db(y_ref, y)
+        if not (ok and (min_sqnr_vs_plain is None
+                        or quality >= min_sqnr_vs_plain)):
+            raise AssertionError(f"{name}: cuda vs torch SQNR {quality:.2f} dB"
+                                 f" < {min_sqnr_vs_plain} (max_abs_err {err})")
+        fp32 = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
+            batch=batch))
+        y32 = fp32.run(x)
+        vs_fp32 = sqnr_db(y32, y)
+        if not vs_fp32 >= INT8_VS_FP32_DB:
+            raise AssertionError(f"{name}: int8 vs fp32 SQNR {vs_fp32:.2f} dB"
+                                 f" < {INT8_VS_FP32_DB}")
+        fp32_ms = forward_ms(lambda: fp32.run(x), reps)
+        detail = (f"sqnr_vs_plain_db={quality:.2f} sqnr_vs_fp32_db={vs_fp32:.2f}"
+                  f" int8_layers={sum(r['dtype'] == 'int8' for r in cu.plan_report()['layers'])}"
+                  f" fp32_ms_per_forward={fp32_ms:.3f}"
+                  f" fp32_images_per_s={batch * 1e3 / fp32_ms:.1f}")
+    else:
+        if not (ok and err <= NET_RTOL * max(scale, 1.0)
+                and torch.allclose(y, y_ref, rtol=NET_RTOL,
+                                   atol=NET_RTOL * max(scale, 1.0))):
+            raise AssertionError(f"{name}: cuda vs torch max_abs_err {err} "
+                                 f"(max|ref| {scale})")
+        detail = ""
 
     ms = forward_ms(lambda: cu.run(x), reps)
     plain_ms = forward_ms(lambda: plain.run(x), 5)
     log(f"model {name}: out {tuple(y.shape)} max_abs_err={err:.3g} "
         f"max|ref|={scale:.3g} launches={counts} compile_s={compile_s:.2f} "
         f"ms_per_forward={ms:.3f} images_per_s={batch * 1e3 / ms:.1f} "
-        f"plain_ms_per_forward={plain_ms:.3f}")
+        f"plain_ms_per_forward={plain_ms:.3f} {detail}".rstrip())
     if profile:
         profile_forward(cu, x, ms, name)
+        if fp32 is not None:
+            profile_forward(fp32, x, fp32_ms, f"{name} (its fp32 forward)")
     return counts, cu
+
+
+def deployment_sqnr(model, rng, name) -> None:
+    """Prints, without gating, the int8 forward's SQNR against the fp32
+    forward and against the plain int8 forward, with random batchnorm
+    statistics and ``compile``'s default calibration batch (seeded, two
+    images, not the input): how far that setup sits from the int8 cells'
+    gates, which use identity batchnorm and calibrate on the input."""
+    import repro_torch
+    from repro_torch.core.quant import sqnr_db
+    from repro_torch.models.cnn import init_cnn, random_batchnorm
+
+    params = random_batchnorm(init_cnn(rng, model.layers), rng)
+    h, w = model.input_hw
+    x = rng.standard_normal((1, h, w, model.in_channels)).astype(np.float32)
+    opts = repro_torch.ExecutionOptions
+    y = repro_torch.compile(model, params, opts(dtype="int8")).run(x)
+    y_plain = repro_torch.compile(model, params, opts(
+        impl="torch", dtype="int8")).run(x)
+    y32 = repro_torch.compile(model, params, opts()).run(x)
+    log(f"deployment {name}: random batchnorm, default calibration batch: "
+        f"sqnr_vs_fp32_db={sqnr_db(y32, y):.2f} "
+        f"sqnr_vs_plain_db={sqnr_db(y_plain, y):.2f} (printed, not gated)")
 
 
 def profile_forward(compiled, x, ms_per_forward: float, name: str,
@@ -513,10 +717,12 @@ def main() -> int:
     # VGG-16's Winograd layers.
     rng = np.random.default_rng(SEED)
     tiny_cell, vgg3_cell = "yolov3-tiny 416 b1", "vgg16 224 b1 winograd_fused=False"
+    tiny8_cell = "yolov3-tiny 416 b1 int8"
 
-    def netplan_of(model, batch, **planner):
+    def netplan_of(model, batch, dtype="float32", **planner):
         return plan_network(model.layers, *model.input_hw, Planner(**planner),
-                            in_channels=model.in_channels, batch=batch)
+                            in_channels=model.in_channels, batch=batch,
+                            dtype=dtype)
 
     summaries = {}
     summaries[tiny_cell], _ = check_kernels(
@@ -539,6 +745,16 @@ def main() -> int:
             f"3-pass {total:.4f} ms ("
             + " + ".join(f"{k} {v:.4f}" for k, v in parts.items())
             + f"), 3-pass / fused {total / fused['winograd_fused']:.2f}")
+    # The int8 kernels: every call of the int8 plans, timed at YOLOv3-tiny
+    # b1's shapes; MODEL_20's stride-2 int8 im2col with 8x8 tiles is on no
+    # other cell.
+    summaries[tiny8_cell], _ = check_kernels(
+        netplan_of(yolov3.TINY_MODEL, 1, "int8"), rng, H100, tiny8_cell,
+        timed=("gemm_q8", "im2col_conv_q8"))
+    check_kernels(netplan_of(vgg16.MODEL, 1, "int8"), rng, H100,
+                  "vgg16 224 b1 int8")
+    check_kernels(netplan_of(yolov3.MODEL_20, 1, "int8"), rng, H100,
+                  "yolov3-20 608 b1 int8")
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # Phase 4: YOLOv3-tiny end to end; batch 1 is the main path of the
@@ -579,7 +795,31 @@ def main() -> int:
     check_kernels(measured.network_plan(1), rng, H100,
                   "vgg16 224 b1 mode=measure")
 
-    # Phase 7: the kernels line, then the last line.
+    # Phase 7: int8 (YOLOv3-tiny 416 b1 is the main path of both int8
+    # kernels), with the reference acceptance test's weights: seeded, with
+    # identity batchnorm.
+    int8 = {"dtype": "int8"}
+    launches[tiny8_cell], _ = run_cell(
+        yolov3.TINY_MODEL, 1, rng, init_cnn(rng, yolov3.TINY_LAYERS), int8,
+        tiny8_cell, profile=True)
+    vgg8, _ = run_cell(vgg16.MODEL, 1, rng, init_cnn(rng, vgg16.MODEL.layers),
+                       int8, "vgg16 224 b1 int8")
+    # Its end-to-end SQNR against the plain forward is printed, not gated:
+    # with every step exact on the same input (check_steps), flips at the
+    # quantization steps after its two fp32 Winograd layers compound over
+    # 13 int8 layers to about 40 dB (PERF.md, section 6).
+    run_cell(yolov3.MODEL_20, 1, rng, init_cnn(rng, yolov3.LAYERS_20), int8,
+             "yolov3-20 608 b1 int8", profile=True, reps=SHORT_FORWARD_REPS,
+             min_sqnr_vs_plain=None)
+    deployment_sqnr(yolov3.TINY_MODEL, rng, tiny8_cell)
+    deployment_sqnr(vgg16.MODEL, rng, "vgg16 224 b1 int8")
+    for cell, counts, names in ((tiny8_cell, launches[tiny8_cell],
+                                 ("gemm_q8", "im2col_conv_q8")),
+                                ("vgg16 224 b1 int8", vgg8, ("im2col_conv_q8",))):
+        if any(counts.get(k, 0) <= 0 for k in names):
+            raise AssertionError(f"{cell}: launches {counts}, want {names}")
+
+    # Phase 8: the kernels line, then the last line.
     kernels = []
     for cell, summary in summaries.items():
         for name, agg in summary.items():

@@ -2,8 +2,9 @@
 
 The port of ``repro/api/compiled.py``'s CNN path: plan (per-layer
 ConvPlans + whole-network layouts) -> prepare (batchnorm fold, channel
-padding, offline Winograd weight transform) -> run.  Serving, save and
-load come in a later slice.
+padding, offline Winograd weight transform; under int8, calibration and
+weight quantization) -> run.  Serving, save and load come in a later
+slice.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ class CompiledCNN:
     batch sizes on first use."""
 
     def __init__(self, model: CNNModel, params: Sequence[Dict],
-                 options: ExecutionOptions):
+                 options: ExecutionOptions, calibration: Optional[Any] = None):
         from repro_torch.core.planner import Planner
         from repro_torch.models.cnn import params_from_numpy
 
@@ -29,6 +30,9 @@ class CompiledCNN:
         self.options = options
         self.device = torch.device(options.device)
         self.params = params_from_numpy(params, self.device)
+        # int8 activation-scale calibration batch (B, H, W, C); None: the
+        # seeded default batch, made only if some layer resolves to int8.
+        self.calibration = calibration
         self.planner = Planner(impl=options.impl, mode=options.mode,
                                winograd_fused=options.winograd_fused,
                                device=self.device)
@@ -45,6 +49,7 @@ class CompiledCNN:
             self._netplans[b] = plan_network(
                 self.model.layers, *self.model.input_hw, self.planner,
                 in_channels=self.model.in_channels, batch=b,
+                dtype=self.options.dtype,
             )
         return self._netplans[b]
 
@@ -57,6 +62,7 @@ class CompiledCNN:
             self._executors[b] = NetworkExecutor(
                 self.network_plan(b), self.params,
                 pretransform=self.options.pretransform,
+                calibration=self.calibration,
             )
         return self._executors[b]
 
@@ -80,6 +86,7 @@ class CompiledCNN:
             {
                 "index": s.index,
                 "algorithm": s.plan.algorithm.value,
+                "dtype": s.plan.dtype,
                 "impl": s.plan.impl,
                 "kernel": getattr(s.layer, "kernel", None),
                 "stride": getattr(s.layer, "stride", None),
@@ -98,6 +105,7 @@ class CompiledCNN:
             "kind": "cnn",
             "batch": netplan.batch,
             "impl": netplan.impl,
+            "dtype": netplan.dtype,
             "mode": self.planner.mode,
             "winograd_fused": self.planner.winograd_fused,
             "device": str(self.device),
@@ -112,13 +120,17 @@ def compile(  # noqa: A001 - deliberate: mirrors repro.compile
     model: CNNModel,
     params: Sequence[Dict],
     options: Optional[ExecutionOptions] = None,
+    calibration: Optional[Any] = None,
 ) -> CompiledCNN:
     """Plan, prepare and return a runnable CNN.
 
     ``params`` is the reference's parameter list (numpy arrays or tensors,
     HWIO conv weights); it is moved to ``options.device`` as float32.
     ``options`` defaults to ``ExecutionOptions()``: the CUDA kernels on the
-    card.
+    card.  ``calibration`` is an fp32 (B, H, W, C) sample batch that
+    calibrates the int8 activation scales under ``dtype='int8'``
+    (``quant.default_calibration_batch`` when None); unused otherwise.
     """
     return CompiledCNN(model, params,
-                       options if options is not None else ExecutionOptions())
+                       options if options is not None else ExecutionOptions(),
+                       calibration=calibration)

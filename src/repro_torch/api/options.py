@@ -11,6 +11,9 @@ import torch
 
 _IMPLS = ("cuda", "torch")
 _MODES = ("cost", "measure")
+_DTYPES = ("float32", "int8")
+#: The reference's other execution dtypes, not ported yet (ROADMAP.md).
+_UNPORTED_DTYPES = ("bfloat16", "float16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +40,12 @@ class ExecutionOptions:
       pretransform  apply the offline Winograd weight transform during
                     parameter preparation (paper §VII.A excludes it from
                     timing); the flag is carried explicitly.
+      dtype         'float32' (default) or 'int8': quantized inference,
+                    resolved per layer by the planner's int8 gate (a layer
+                    where int8 does not pay stays fp32); int8 layers run
+                    the int8 kernels on inputs quantized at their entry
+                    with scales calibrated in ``compile``.  Inputs stay
+                    fp32.
     """
 
     impl: str = "cuda"
@@ -45,6 +54,7 @@ class ExecutionOptions:
     winograd_fused: Optional[bool] = None
     batch: int = 1
     pretransform: bool = True
+    dtype: str = "float32"
 
     def __post_init__(self) -> None:
         if self.impl not in _IMPLS:
@@ -54,6 +64,12 @@ class ExecutionOptions:
         if self.winograd_fused not in (None, True, False):
             raise ValueError(f"winograd_fused must be None, True or False, "
                              f"got {self.winograd_fused!r}")
+        if self.dtype in _UNPORTED_DTYPES:
+            raise ValueError(
+                f"dtype={self.dtype!r} is not ported yet (ROADMAP.md, queue "
+                f"1); the port runs {_DTYPES}")
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {_DTYPES}, got {self.dtype!r}")
         if self.batch < 1:
             raise ValueError(f"batch must be >= 1, got {self.batch}")
         dev = torch.device(self.device)

@@ -2,10 +2,11 @@
 
 The port of ``repro/core/conv2d.py``.  Routing comes from an explicit
 ``ConvPlan`` (the planner's decision: algorithm, impl and kernel blocks)
-or, without one, the per-call selector in core/conv_spec.py.  A planned conv, or any conv under ``impl='cuda'``,
-runs through the kernel dispatch (kernels/conv_ops.py), where ``impl``
-picks the hand-written CUDA kernels or their plain versions; an unplanned
-conv under ``impl='torch'`` runs the plain algorithms of core/ directly.
+or, without one, the per-call selector in core/conv_spec.py.  A planned
+conv, an int8 conv, or any conv under ``impl='cuda'``, runs through the
+kernel dispatch (kernels/conv_ops.py), where ``impl`` picks the
+hand-written CUDA kernels or their plain versions; an unplanned fp32 conv
+under ``impl='torch'`` runs the plain algorithms of core/ directly.
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ def conv2d(
     if impl not in ("cuda", "torch"):
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
     if impl == "cuda" or plan is not None or in_layout is not None \
-            or out_layout is not None:
+            or out_layout is not None or x.dtype == torch.int8:
         from repro_torch.kernels import conv_ops
 
         return conv_ops.conv2d_cuda(

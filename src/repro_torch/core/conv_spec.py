@@ -63,11 +63,15 @@ class Epilogue:
     (``models/cnn.fold_batchnorm``), so every conv layer reduces to
     conv + bias + activation, applied on the fp32 accumulator before the
     store.  ``bias`` is an (out_channels,) tensor or None; ``activation``
-    is 'linear' | 'relu' | 'leaky'.
+    is 'linear' | 'relu' | 'leaky'.  ``scale`` is the int8 dequant row: an
+    (out_channels,) fp32 tensor multiplied into the int32 accumulator
+    before the bias, y = act(acc * scale + bias) (core/quant.py); None for
+    an fp32 conv.
     """
 
     bias: Optional[torch.Tensor] = None
     activation: str = "linear"
+    scale: Optional[torch.Tensor] = None
 
 
 #: Activation codes the CUDA kernels take (``act`` argument of every entry).
@@ -86,9 +90,12 @@ def apply_activation(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def apply_epilogue(y: torch.Tensor, epilogue: Optional[Epilogue]) -> torch.Tensor:
-    """Plain epilogue: y + bias, then activation."""
+    """Plain epilogue: y * scale (int8 dequant, in fp32), + bias, then
+    activation, in that order, as the kernels apply it."""
     if epilogue is None:
         return y
+    if epilogue.scale is not None:
+        y = y.float() * epilogue.scale
     if epilogue.bias is not None:
         y = y + epilogue.bias
     return apply_activation(y, epilogue.activation)

@@ -12,7 +12,8 @@ The port of ``repro/core/netplan.py`` (single device, no jit):
                 activation flows straight into the next kernel.
   NetworkExecutor  runs a NetworkPlan: offline parameter preparation
                 (batchnorm folding, channel padding, Winograd weight
-                pre-transform), then ``run_network`` per call.
+                pre-transform, and for int8 steps calibration and weight
+                quantization), then ``run_network`` per call.
 
 Elision is legal exactly when the padded region stays zero: the producer's
 weight/bias pads make its extra output channels act(0 + 0) = 0, maxpool and
@@ -21,10 +22,10 @@ them.  Any consumer that needs logical channels (route, shortcut, fc,
 avgpool, or a layer referenced by one) forces a crop back to logical.
 
 The channel multiples come from the CUDA kernels (kernels/conv_ops.py), not
-from the TPU's 128 lanes: the GEMM takes any C, the Winograd and im2col
-kernels take multiples of 8, and every kernel masks its out channels, so a
-producer pads its out channels only to its consumer's multiple and the
-network's output needs no crop.  Plans and elision choices differ from the
+from the TPU's 128 lanes: the fp32 GEMM takes any C, the Winograd and fp32
+im2col kernels take multiples of 8, both int8 kernels multiples of 16, and
+every kernel masks its out channels, so a producer pads its out channels
+only to its consumer's multiple and the network's output needs no crop.  Plans and elision choices differ from the
 reference; outputs do not.
 """
 from __future__ import annotations
@@ -83,13 +84,15 @@ class NetStep:
 
 @dataclasses.dataclass(frozen=True)
 class NetworkPlan:
-    """A whole network resolved for one (input shape, batch, impl)."""
+    """A whole network resolved for one (input shape, batch, impl,
+    requested dtype); each conv's plan carries its resolved dtype."""
 
     steps: Tuple[NetStep, ...]
     input_hw: Tuple[int, int]
     in_channels: int
     batch: int
     impl: str
+    dtype: str = "float32"
 
     @property
     def elided_boundaries(self) -> int:
@@ -109,8 +112,9 @@ class NetworkPlan:
 
     def kernel_launches(self) -> Dict[str, int]:
         """Planned launches per CUDA kernel in one forward: one per conv
-        step, and one of each of the three kernels per 3-pass Winograd
-        step (kernel names as ``kernels.conv_ops.plan_kernels``)."""
+        step (of the int8 kernel on an int8 step), and one of each of the
+        three kernels per 3-pass Winograd step (kernel names as
+        ``kernels.conv_ops.plan_kernels``)."""
         from repro_torch.kernels.conv_ops import plan_kernels
 
         counts: Dict[str, int] = {}
@@ -125,10 +129,10 @@ class NetworkPlan:
 # Algorithm / block helpers
 
 
-def _in_channel_multiple(algo: ConvAlgorithm) -> int:
+def _in_channel_multiple(plan: ConvPlan) -> int:
     from repro_torch.kernels.conv_ops import in_channel_multiple
 
-    return in_channel_multiple(algo)
+    return in_channel_multiple(plan.algorithm, plan.dtype)
 
 
 def _snap_row_tile(plan: ConvPlan, algo: ConvAlgorithm, oh: int) -> ConvPlan:
@@ -193,6 +197,7 @@ def build_network_plan(
     in_channels: int = 3,
     batch: int = 1,
     impl: str = "cuda",
+    dtype: str = "float32",
 ) -> NetworkPlan:
     """Pure layout resolution: layer table + per-layer plans -> NetworkPlan.
 
@@ -231,7 +236,7 @@ def build_network_plan(
         if l.kind == "conv":
             algo = plan.algorithm
             plan = _snap_row_tile(plan, algo, oh_)
-            in_mult = _in_channel_multiple(algo)
+            in_mult = _in_channel_multiple(plan)
             if carry.pad_c and carry.phys_c % in_mult == 0:
                 in_layout = carry           # producer elided into us
             else:
@@ -243,7 +248,7 @@ def build_network_plan(
             out_phys = oc
             j = next_conv(i)
             if j is not None:
-                out_phys = ceil_to(oc, _in_channel_multiple(plans[j].algorithm))
+                out_phys = ceil_to(oc, _in_channel_multiple(plans[j]))
             out_layout = Layout(oc, out_phys - oc)
             carry = out_layout
         elif l.kind in ("maxpool", "upsample"):
@@ -263,7 +268,8 @@ def build_network_plan(
             in_layout=in_layout, out_layout=out_layout,
         ))
     return NetworkPlan(steps=tuple(steps), input_hw=(h, w),
-                       in_channels=in_channels, batch=batch, impl=impl)
+                       in_channels=in_channels, batch=batch, impl=impl,
+                       dtype=dtype)
 
 
 def plan_network(
@@ -273,16 +279,19 @@ def plan_network(
     planner: Planner,
     in_channels: int = 3,
     batch: int = 1,
+    dtype: str = "float32",
 ) -> NetworkPlan:
-    """Resolve every conv's ConvPlan through ``planner``, then the layouts."""
+    """Resolve every conv's ConvPlan through ``planner`` under the
+    requested ``dtype`` (int8 resolves per layer), then the layouts."""
     layers = tuple(layers)
     plans: List[Optional[ConvPlan]] = [
-        (planner.plan(info["spec"], info["in"][0], info["in"][1], batch=batch)
+        (planner.plan(info["spec"], info["in"][0], info["in"][1], batch=batch,
+                      dtype=dtype)
          if l.kind == "conv" else None)
         for l, info in zip(layers, _propagate_shapes(layers, h, w, in_channels))
     ]
     return build_network_plan(layers, h, w, plans, in_channels=in_channels,
-                              batch=batch, impl=planner.impl)
+                              batch=batch, impl=planner.impl, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -307,19 +316,43 @@ def prepare_net_params(
     netplan: NetworkPlan,
     params: Sequence[Dict],
     pretransform: bool = False,
+    calibration=None,
 ) -> List[Dict]:
-    """Offline fp32 parameter preparation for a NetworkPlan.
+    """Offline parameter preparation for a NetworkPlan.
 
     Folds inference batchnorm into conv weights + bias, pads every conv's
     weights/bias to the step's physical channel layouts, and — with
     ``pretransform`` — applies the offline Winograd weight transform to
     exactly the layers ``pretransform_flags(netplan, pretransform)`` names.
+
+    The steps whose plan resolved to int8 are quantized (core/quant.py): a
+    plain fp32 walk over ``calibration`` (a sample input batch; the seeded
+    ``default_calibration_batch`` when None) gives each one's
+    per-input-channel activation scales, folded into the weights before
+    per-output-channel int8 quantization.  Such a step's entry holds ``w``
+    (int8), ``b``, ``w_scale`` (the dequant row) and ``x_scale`` (the entry
+    quantization's scales, padded with ones so zero pad channels quantize
+    to 0 and act(0 * scale + 0) = 0 still holds); it never carries the
+    Winograd transform.
     """
     from repro_torch.core.winograd import transform_weights
     from repro_torch.models.cnn import fold_batchnorm
 
     flags = pretransform_flags(netplan, pretransform)
     params = fold_batchnorm(params, [s.layer for s in netplan.steps])
+    int8_steps = {s.index for s in netplan.steps
+                  if s.layer.kind == "conv" and s.plan.dtype == "int8"}
+    act_scales: Dict[int, torch.Tensor] = {}
+    if int8_steps:
+        from repro_torch.core.quant import (
+            calibrate_activation_scales,
+            default_calibration_batch,
+        )
+
+        if calibration is None:
+            calibration = default_calibration_batch(*netplan.input_hw,
+                                                    netplan.in_channels)
+        act_scales = calibrate_activation_scales(netplan, params, calibration)
     out: List[Dict] = []
     for s, p, pre in zip(netplan.steps, params, flags):
         if s.layer.kind != "conv":
@@ -328,6 +361,20 @@ def prepare_net_params(
         w, b = p["w"], p["b"]
         cin_pad = s.in_layout.phys_c - w.shape[2]
         o_pad = s.out_layout.phys_c - w.shape[3]
+        if s.index in int8_steps:
+            from repro_torch.core.quant import quantize_conv_weights
+
+            assert not pre, "int8 steps never carry the Winograd transform"
+            x_scale = act_scales[s.index]
+            w, w_scale = quantize_conv_weights(w, x_scale)
+            w = F.pad(w, (0, o_pad, 0, cin_pad))
+            # Ones, not zeros: the entry quantization divides by these.
+            x_scale = F.pad(x_scale, (0, cin_pad), value=1.0)
+            out.append({"w": w.contiguous(),
+                        "b": pad_bias_row(b, s.out_layout.phys_c).contiguous(),
+                        "w_scale": pad_bias_row(w_scale, s.out_layout.phys_c),
+                        "x_scale": x_scale})
+            continue
         if cin_pad or o_pad:
             w = F.pad(w, (0, o_pad, 0, cin_pad))
             b = pad_bias_row(b, s.out_layout.phys_c)
@@ -366,13 +413,72 @@ def _maxpool_same(x: torch.Tensor, size: int, stride: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def run_step(
+    step: NetStep,
+    p: Dict,
+    cur: torch.Tensor,
+    outputs: Sequence[torch.Tensor],
+    pretransformed: bool = False,
+) -> torch.Tensor:
+    """One planned layer of ``run_network`` on its input ``cur``, with the
+    earlier steps' ``outputs`` (for route and shortcut) and the step's
+    prepared params ``p``.
+
+    A conv pads its input to its layout; an int8 conv (its params carry
+    ``w_scale``) quantizes its fp32 input with ``x_scale`` and dequantizes
+    in the kernel's epilogue, so the activations between layers stay fp32.
+    """
+    from repro_torch.core.conv2d import conv2d
+    from repro_torch.core.quant import quantize_activation
+
+    l = step.layer
+    if l.kind == "conv":
+        cur = _align_channels(cur, step.in_layout.phys_c)
+        if "w_scale" in p:
+            cur = quantize_activation(cur, p["x_scale"])
+            epi = Epilogue(bias=p["b"], activation=l.activation,
+                           scale=p["w_scale"])
+        else:
+            epi = Epilogue(bias=p["b"], activation=l.activation)
+        return conv2d(
+            cur, p["w"], step.spec, plan=step.plan, epilogue=epi,
+            in_layout=step.in_layout, out_layout=step.out_layout,
+            pretransformed=pretransformed,
+        )
+    return layer_op(l, p, cur, outputs)
+
+
+def layer_op(l: Any, p: Dict, cur: torch.Tensor,
+             outputs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Layer ``l`` that is not a conv: Darknet's maxpool (SAME, -inf pad),
+    avgpool, nearest upsample, shortcut, route, and fc on the spatial
+    mean.  Shared by the forward and the int8 calibration walk."""
+    if l.kind == "maxpool":
+        return _maxpool_same(cur, l.size, l.stride)
+    if l.kind == "avgpool":
+        return cur.mean(dim=(1, 2))
+    if l.kind == "upsample":
+        return cur.repeat_interleave(l.size, dim=1).repeat_interleave(
+            l.size, dim=2)
+    if l.kind == "shortcut":
+        return cur + outputs[l.from_layers[0]]
+    if l.kind == "route":
+        return torch.cat([outputs[j] for j in l.from_layers], dim=-1)
+    if l.kind == "fc":
+        if cur.ndim == 4:
+            cur = cur.mean(dim=(1, 2))
+        return apply_activation(cur @ p["w"] + p["b"], l.activation)
+    raise ValueError(f"unknown layer kind {l.kind!r}")
+
+
 def run_network(
     netplan: NetworkPlan,
     params: Sequence[Dict],
     x: torch.Tensor,
     pretransformed: Optional[Sequence[bool]] = None,
 ) -> torch.Tensor:
-    """The planned whole-network forward on prepared params.
+    """The planned whole-network forward on prepared params: ``run_step``
+    over every step.
 
     Pads at entry (the first conv's input layout) and after a logical
     consumer (route, shortcut), and flows padded activations across every
@@ -380,39 +486,12 @@ def run_network(
     ``pretransformed`` is the per-step flag tuple from
     ``pretransform_flags`` (None: no weight carries the transform).
     """
-    from repro_torch.core.conv2d import conv2d
-
     flags = (tuple(pretransformed) if pretransformed is not None
              else (False,) * len(netplan.steps))
     outputs: List[torch.Tensor] = []
     cur = x
     for s in netplan.steps:
-        l = s.layer
-        if l.kind == "conv":
-            p = params[s.index]
-            cur = _align_channels(cur, s.in_layout.phys_c)
-            epi = Epilogue(bias=p["b"], activation=l.activation)
-            cur = conv2d(
-                cur, p["w"], s.spec, plan=s.plan, epilogue=epi,
-                in_layout=s.in_layout, out_layout=s.out_layout,
-                pretransformed=flags[s.index],
-            )
-        elif l.kind == "maxpool":
-            cur = _maxpool_same(cur, l.size, l.stride)
-        elif l.kind == "avgpool":
-            cur = cur.mean(dim=(1, 2))
-        elif l.kind == "upsample":
-            cur = cur.repeat_interleave(l.size, dim=1).repeat_interleave(
-                l.size, dim=2)
-        elif l.kind == "shortcut":
-            cur = cur + outputs[l.from_layers[0]]
-        elif l.kind == "route":
-            cur = torch.cat([outputs[j] for j in l.from_layers], dim=-1)
-        elif l.kind == "fc":
-            p = params[s.index]
-            if cur.ndim == 4:
-                cur = cur.mean(dim=(1, 2))
-            cur = apply_activation(cur @ p["w"] + p["b"], l.activation)
+        cur = run_step(s, params[s.index], cur, outputs, flags[s.index])
         outputs.append(cur)
     return cur
 
@@ -421,7 +500,8 @@ class NetworkExecutor:
     """Whole-network inference over a NetworkPlan on one device.
 
     Prepares parameters offline (fold + pad + optional Winograd
-    pre-transform) once, then runs ``run_network`` eagerly per call.
+    pre-transform; calibration and quantization of the int8 steps, from
+    ``calibration``) once, then runs ``run_network`` eagerly per call.
     """
 
     def __init__(
@@ -429,10 +509,12 @@ class NetworkExecutor:
         netplan: NetworkPlan,
         params: Sequence[Dict],
         pretransform: bool = True,
+        calibration=None,
     ):
         self.netplan = netplan
         self.params = prepare_net_params(netplan, params,
-                                         pretransform=pretransform)
+                                         pretransform=pretransform,
+                                         calibration=calibration)
         self.pretransformed = pretransform_flags(netplan, pretransform)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

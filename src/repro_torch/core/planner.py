@@ -38,6 +38,20 @@ call's host time exceeds its kernels' time, and in a forward the host
 runs ahead of the card).  On the CPU it is ``perf_counter`` per call.  A candidate that raises
 stops planning: a failed build or launch is never skipped.
 
+**int8** (``plan(..., dtype='int8')``, the port of ``_tune_int8``): a
+layer quantizes only when it passes the gates of core/quant.py.  Its fp32
+cost plan is taken first; a layer that fails ``int8_worthwhile`` keeps it;
+a 1x1 stride-1 conv goes to the int8 GEMM; an fp32 Winograd plan stays
+fp32 Winograd when the layer has at least ``INT8_WINOGRAD_MIN_TILES`` 6x6
+output tiles; every other layer goes to the int8 implicit-GEMM conv.  The
+tile threshold stands in for the reference's modeled-time comparison
+(fp32 Winograd against int8 im2col on the TPU model) until a cost model
+of this card lands: any value in (361, 1225] reproduces the reference's
+split on YOLOv3-tiny 416 (batch 1 and 4), VGG-16 224 and MODEL_20 608 at
+batch 1, and nothing more is claimed for it.  As in the reference, an
+int8 request in measure mode is planned by this rule too: int8
+candidates are not timed.
+
 Kernel blocks come from each CUDA kernel's own ``pick_blocks``.
 """
 from __future__ import annotations
@@ -52,6 +66,8 @@ import torch
 from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec
 
 WINOGRAD_MIN_TILES = 64
+INT8_WINOGRAD_MIN_TILES = 1024
+DTYPES = ("float32", "int8")
 MODES = ("cost", "measure")
 MEASURE_REPS = 10         # timed calls per measure-mode candidate
 
@@ -66,7 +82,9 @@ class ConvPlan:
     3-pass tuple multiply's tile.  ``winograd_fused`` picks that
     realization (False on every plan that is not Winograd).
     ``measured_ms`` holds, in measure mode, each candidate's label and its
-    measured milliseconds per call.
+    measured milliseconds per call.  ``dtype`` is the resolved precision:
+    'int8' runs the int8 kernels on an input quantized at the layer's
+    entry, 'float32' the fp32 ones.
     """
 
     algorithm: ConvAlgorithm
@@ -75,20 +93,24 @@ class ConvPlan:
     source: str = "tile_rule"
     winograd_fused: bool = True
     measured_ms: Tuple[Tuple[str, float], ...] = ()
+    dtype: str = "float32"
 
     @property
     def label(self) -> str:
-        """The algorithm, and for Winograd its realization."""
+        """The algorithm, for Winograd its realization, and '_int8' on an
+        int8 plan."""
         if self.algorithm is ConvAlgorithm.WINOGRAD:
             return "winograd_fused" if self.winograd_fused else "winograd_3pass"
-        return self.algorithm.value
+        return self.algorithm.value + ("_int8" if self.dtype == "int8" else "")
 
 
 def plan_key(spec: ConvSpec, h: int, w: int, batch: int, impl: str,
-             mode: str, winograd_fused: Optional[bool]) -> Tuple[Any, ...]:
+             mode: str, winograd_fused: Optional[bool],
+             dtype: str = "float32") -> Tuple[Any, ...]:
     """The plan cache key: layer and shape, and every planner setting that
-    changes the decision (the Winograd policy and the mode among them)."""
-    return (spec, h, w, batch, impl, mode, winograd_fused)
+    changes the decision (the Winograd policy, the mode and the requested
+    dtype among them)."""
+    return (spec, h, w, batch, impl, mode, winograd_fused, dtype)
 
 
 def winograd_tiles(spec: ConvSpec, h: int, w: int, batch: int) -> int:
@@ -156,17 +178,23 @@ class Planner:
         self._plans: Dict[Any, ConvPlan] = {}
         self.stats = {"hits": 0, "tunes": 0}
 
-    def plan(self, spec: ConvSpec, h: int, w: int, batch: int = 1) -> ConvPlan:
-        """The fp32 plan for one layer at one input shape; decides on the
-        first miss."""
+    def plan(self, spec: ConvSpec, h: int, w: int, batch: int = 1,
+             dtype: str = "float32") -> ConvPlan:
+        """The plan for one layer at one input shape under the requested
+        ``dtype`` ('float32', or 'int8': resolved per layer, so the plan's
+        own ``dtype`` may be 'float32'); decides on the first miss."""
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {DTYPES}, got {dtype!r}")
         key = plan_key(spec, h, w, batch, self.impl, self.mode,
-                       self.winograd_fused)
+                       self.winograd_fused, dtype)
         cached = self._plans.get(key)
         if cached is not None:
             self.stats["hits"] += 1
             return cached
         self.stats["tunes"] += 1
-        if self.mode == "measure":
+        if dtype == "int8":
+            plan = self._tune_int8(spec, h, w, batch)
+        elif self.mode == "measure":
             plan = self._tune_measured(spec, h, w, batch)
         else:
             plan = self._tune_cost(spec, h, w, batch)
@@ -174,17 +202,47 @@ class Planner:
         return plan
 
     def _candidate(self, spec: ConvSpec, algo: ConvAlgorithm, wf: bool,
-                   h: int, w: int, batch: int, source: str) -> ConvPlan:
+                   h: int, w: int, batch: int, source: str,
+                   dtype: str = "float32") -> ConvPlan:
         wf = wf and algo is ConvAlgorithm.WINOGRAD
         return ConvPlan(algorithm=algo, impl=self.impl,
-                        kernel_blocks=kernel_blocks(spec, algo, h, w, batch, wf),
-                        source=source, winograd_fused=wf)
+                        kernel_blocks=kernel_blocks(spec, algo, h, w, batch,
+                                                    wf, dtype),
+                        source=source, winograd_fused=wf, dtype=dtype)
 
     def _tune_cost(self, spec: ConvSpec, h: int, w: int,
                    batch: int) -> ConvPlan:
         algo = select_algorithm_by_tiles(spec, h, w, batch)
         wf = self.winograd_fused if self.winograd_fused is not None else True
         return self._candidate(spec, algo, wf, h, w, batch, "tile_rule")
+
+    def _tune_int8(self, spec: ConvSpec, h: int, w: int,
+                   batch: int) -> ConvPlan:
+        """The int8 gate of the module docstring.  As in the reference,
+        Winograd is an int8 candidate only when
+        ``quant.winograd_int8_budget_ok()`` holds; F(6,3) misses that
+        transform-stage error budget, so an int8 3x3 layer runs the
+        implicit-GEMM conv (the dispatcher has no int8 Winograd kernel and
+        refuses such a plan)."""
+        from repro_torch.core.quant import int8_worthwhile, winograd_int8_budget_ok
+
+        fp32_plan = self._tune_cost(spec, h, w, batch)
+        if not int8_worthwhile(spec, h, w, batch):
+            return fp32_plan
+        winograd = fp32_plan.algorithm is ConvAlgorithm.WINOGRAD
+        if spec.kernel_size == (1, 1) and spec.stride == (1, 1):
+            algo = ConvAlgorithm.DIRECT
+        elif winograd and winograd_int8_budget_ok():
+            algo = ConvAlgorithm.WINOGRAD
+        else:
+            algo = ConvAlgorithm.IM2COL_GEMM
+        # The stand-in for the reference's time gate: a layer with many
+        # tiles keeps fp32 Winograd rather than int8 im2col.
+        if (winograd and algo is ConvAlgorithm.IM2COL_GEMM
+                and winograd_tiles(spec, h, w, batch) >= INT8_WINOGRAD_MIN_TILES):
+            return fp32_plan
+        return self._candidate(spec, algo, fp32_plan.winograd_fused, h, w,
+                               batch, "tile_rule", dtype="int8")
 
     def _tune_measured(self, spec: ConvSpec, h: int, w: int,
                        batch: int) -> ConvPlan:
@@ -262,9 +320,10 @@ class Planner:
 
 
 def kernel_blocks(spec: ConvSpec, algo: ConvAlgorithm, h: int, w: int,
-                  batch: int, winograd_fused: bool = True) -> Tuple[int, int, int]:
-    """The kernel block tuple for one algorithm (and Winograd realization)
-    choice, from the kernel."""
+                  batch: int, winograd_fused: bool = True,
+                  dtype: str = "float32") -> Tuple[int, int, int]:
+    """The kernel block tuple for one algorithm (Winograd realization, and
+    dtype) choice, from the kernel."""
     oh, ow = spec.out_hw(h, w)
     if algo is ConvAlgorithm.DIRECT:
         from repro_torch.kernels.gemm.ops import default_block
@@ -279,4 +338,4 @@ def kernel_blocks(spec: ConvSpec, algo: ConvAlgorithm, h: int, w: int,
                            fused=winograd_fused)
     from repro_torch.kernels.im2col_gemm.ops import pick_blocks
 
-    return pick_blocks(oh, ow)
+    return pick_blocks(oh, ow, dtype)

@@ -2,8 +2,11 @@
 
 From NVIDIA's H100 data sheet and the Hopper architecture white paper.
 ``check_device`` holds the card's reported properties against these.
-The fp32 peak is the non-tensor-core rate: every kernel of the port runs
-fp32 FMA on CUDA cores (no TF32), so that is the rate a bound divides by.
+The fp32 peak is the non-tensor-core rate: every fp32 kernel of the port
+runs fp32 FMA on CUDA cores (no TF32), so that is the rate an fp32 bound
+divides by.  An int8 bound divides by the dense int8 tensor-core peak, the
+least time the card could take for the work, though the int8 kernels run
+dp4a on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ class ChipSpec:
     hbm_bytes: int = 80 * 1000**3            # 80 GB
     hbm_bandwidth: float = 3.35e12           # B/s
     peak_flops_fp32: float = 67e12           # FLOP/s, CUDA cores, no TF32
+    peak_ops_int8: float = 1979e12           # OP/s, dense int8 tensor cores
 
 
 H100 = ChipSpec()

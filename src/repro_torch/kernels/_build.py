@@ -29,7 +29,9 @@ _KERNELS_DIR = Path(__file__).resolve().parent
 #: name -> source, relative to this directory.
 SOURCES: Dict[str, str] = {
     "gemm": "gemm/csrc/gemm.cu",
+    "gemm_q8": "gemm/csrc/gemm_q8.cu",
     "im2col_conv": "im2col_gemm/csrc/im2col_conv.cu",
+    "im2col_conv_q8": "im2col_gemm/csrc/im2col_conv_q8.cu",
     "winograd_fused": "winograd/csrc/winograd_fused.cu",
     "winograd_3pass": "winograd/csrc/winograd_3pass.cu",
 }
@@ -128,9 +130,11 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def require_cuda_operands(what: str, *tensors) -> None:
-    """Raise unless every given tensor (None skipped) is a contiguous fp32
-    tensor on the first card — what the C entries take.
+def require_cuda_operands(what: str, *tensors,
+                          dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless every given tensor (None skipped) is a contiguous
+    tensor of ``dtype`` on the first card — what the C entries take (an
+    int8 entry checks its int8 operands and its fp32 ones in two calls).
 
     The libraries link the CUDA runtime statically and launch on its
     current device, which is device 0; a CPU tensor is refused, never
@@ -146,10 +150,19 @@ def require_cuda_operands(what: str, *tensors) -> None:
             )
         if t.device.index not in (None, 0):
             raise ValueError(f"{what}: the kernels launch on cuda:0, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{what}: needs float32 tensors, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{what}: needs {str(dtype).split('.')[-1]} "
+                             f"tensors, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: needs contiguous tensors")
+
+
+def require_int32_exact(what: str, k: int) -> None:
+    """Raise unless an int8 x int8 sum over ``k`` products is exact in
+    int32: k * 127^2 < 2^31 (the operands are clipped to [-127, 127])."""
+    if k * 127 * 127 >= 2 ** 31:
+        raise ValueError(f"{what}: K = {k} products of int8 values can "
+                         f"overflow the int32 accumulator (K * 127^2 >= 2^31)")
 
 
 def stream_handle(t) -> int:

@@ -4,9 +4,11 @@ The port of ``repro/kernels/conv_ops.py``: 1x1 stride-1 -> the GEMM
 kernel (direct), 3x3 stride-1 -> Winograd (the fused kernel, or the three
 3-pass kernels when the plan says ``winograd_fused=False``), everything
 else -> the implicit-GEMM conv kernel, each with bias + activation fused in
-its output stage.  ``impl='cuda'`` runs the hand-written kernels,
-``impl='torch'`` their plain versions through the same layouts, so the two
-differ only inside the kernels.
+its output stage.  An int8 input (an int8 plan's step, quantized at entry)
+runs the int8 GEMM or the int8 implicit-GEMM conv kernel, with the dequant
+scale fused before the bias; int8 never runs Winograd.  ``impl='cuda'``
+runs the hand-written kernels, ``impl='torch'`` their plain versions
+through the same layouts, so the two differ only inside the kernels.
 
 With an explicit ``Layout`` pair (core/netplan.py) the dispatcher runs the
 network executor's contract: the input activation and the offline-prepared
@@ -30,15 +32,25 @@ if TYPE_CHECKING:
     from repro_torch.core.planner import ConvPlan
 
 
-def in_channel_multiple(algo: ConvAlgorithm) -> int:
+def in_channel_multiple(algo: ConvAlgorithm, dtype: str = "float32") -> int:
     """The input-channel multiple the algorithm's kernel takes.
 
-    The GEMM kernel masks its K edge, so direct convs take any C; the
-    Winograd and implicit-GEMM kernels reduce in steps of 8 channels with
-    16-byte loads, so their C is padded to a multiple of 8.
+    The fp32 GEMM kernel masks its K edge, so fp32 direct convs take any
+    C; the Winograd and fp32 implicit-GEMM kernels reduce in steps of 8
+    channels with 16-byte loads, so their C is padded to a multiple of 8.
+    Both int8 kernels load 16 channels (16 bytes) at a time: each
+    wrapper's own multiple.
     """
     if algo is ConvAlgorithm.DIRECT:
+        if dtype == "int8":
+            from repro_torch.kernels.gemm.ops import K_MULTIPLE_Q8
+
+            return K_MULTIPLE_Q8
         return 1
+    if dtype == "int8":
+        from repro_torch.kernels.im2col_gemm.ops import BC_Q8
+
+        return BC_Q8
     if algo is ConvAlgorithm.WINOGRAD:
         from repro_torch.kernels.winograd.ops import BC
     else:
@@ -48,21 +60,22 @@ def in_channel_multiple(algo: ConvAlgorithm) -> int:
 
 def plan_kernels(plan: "ConvPlan") -> Tuple[str, ...]:
     """The CUDA kernels one planned conv step launches, once each."""
+    q8 = "_q8" if plan.dtype == "int8" else ""
     if plan.algorithm is ConvAlgorithm.DIRECT:
-        return ("gemm",)
+        return ("gemm" + q8,)
     if plan.algorithm is ConvAlgorithm.WINOGRAD:
         if plan.winograd_fused:
             return ("winograd_fused",)
         return ("input_transform", "tuple_multiply", "output_transform")
-    return ("im2col_conv",)
+    return ("im2col_conv" + q8,)
 
 
 def kernel_wrappers() -> Dict[str, Callable]:
     """Every CUDA kernel's wrapper by kernel name (the names of
     ``plan_kernels``); each counts the launches of its kernel in its
     ``launches`` attribute."""
-    from repro_torch.kernels.gemm.ops import matmul_bias_act
-    from repro_torch.kernels.im2col_gemm.ops import im2col_conv
+    from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
+    from repro_torch.kernels.im2col_gemm.ops import im2col_conv, im2col_conv_q8
     from repro_torch.kernels.winograd.ops import (
         fused_winograd,
         input_transform,
@@ -70,7 +83,8 @@ def kernel_wrappers() -> Dict[str, Callable]:
         tuple_multiply,
     )
 
-    return {"gemm": matmul_bias_act, "im2col_conv": im2col_conv,
+    return {"gemm": matmul_bias_act, "gemm_q8": matmul_q8_bias_act,
+            "im2col_conv": im2col_conv, "im2col_conv_q8": im2col_conv_q8,
             "winograd_fused": fused_winograd,
             "input_transform": input_transform,
             "tuple_multiply": tuple_multiply,
@@ -101,7 +115,8 @@ def conv2d_cuda(
         from repro_torch.core.netplan import Layout
 
         c = x.shape[-1]
-        cp = ceil_to(c, in_channel_multiple(algo))
+        dtype = "int8" if x.dtype == torch.int8 else "float32"
+        cp = ceil_to(c, in_channel_multiple(algo, dtype))
         if cp != c:
             x = F.pad(x, (0, cp - c))
             w = F.pad(w, (0, 0, 0, cp - c))
@@ -131,18 +146,25 @@ def _conv2d_cuda_laidout(
     blocks = plan.kernel_blocks if plan is not None else None
     bias = epilogue.bias if epilogue is not None else None
     activation = epilogue.activation if epilogue is not None else "linear"
+    scale = epilogue.scale if epilogue is not None else None
     if in_layout is not None:
         assert x.shape[-1] == in_layout.phys_c, (x.shape, in_layout)
     assert w.shape[2] == x.shape[-1], (w.shape, x.shape)
     if out_layout is not None:
         assert w.shape[-1] == out_layout.phys_c, (w.shape, out_layout)
-    if x.dtype == torch.int8:
-        assert algo is not ConvAlgorithm.WINOGRAD, (
-            "int8 never routes to Winograd (transform-stage error budget)"
-        )
+    quantized = x.dtype == torch.int8
+    if quantized:
+        if algo is ConvAlgorithm.WINOGRAD:
+            raise ValueError("int8 never routes to Winograd "
+                             "(transform-stage error budget)")
+        if scale is None:
+            raise ValueError("an int8 conv needs the epilogue's dequant scale")
 
     if algo is ConvAlgorithm.DIRECT:
-        from repro_torch.kernels.gemm.ops import matmul_bias_act
+        from repro_torch.kernels.gemm.ops import (
+            matmul_bias_act,
+            matmul_q8_bias_act,
+        )
 
         sh, sw = spec.stride
         ph, pw = spec.padding
@@ -153,10 +175,13 @@ def _conv2d_cuda_laidout(
             x = x[:, ::sh, ::sw, :]
         b, oh, ow, cp = x.shape
         o = w.shape[-1]
-        out = matmul_bias_act(
-            x.reshape(b * oh * ow, cp), w.reshape(cp, o), bias=bias,
-            activation=activation, impl=impl,
-        )
+        a, wm = x.reshape(b * oh * ow, cp), w.reshape(cp, o)
+        if quantized:
+            out = matmul_q8_bias_act(a.contiguous(), wm, scale, bias,
+                                     activation, impl=impl)
+        else:
+            out = matmul_bias_act(a, wm, bias=bias, activation=activation,
+                                  impl=impl)
         return out.reshape(b, oh, ow, o)
 
     if algo is ConvAlgorithm.WINOGRAD:
@@ -176,7 +201,14 @@ def _conv2d_cuda_laidout(
             fused=plan.winograd_fused if plan is not None else True,
         )
 
-    from repro_torch.kernels.im2col_gemm.ops import im2col_conv
+    from repro_torch.kernels.im2col_gemm.ops import (
+        im2col_conv,
+        im2col_conv_q8,
+    )
 
+    if quantized:
+        return im2col_conv_q8(x.contiguous(), w.contiguous(), spec, scale,
+                              blocks, bias=bias, activation=activation,
+                              impl=impl)
     return im2col_conv(x.contiguous(), w.contiguous(), spec, blocks,
                        bias=bias, activation=activation, impl=impl)

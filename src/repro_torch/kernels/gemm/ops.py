@@ -1,9 +1,12 @@
-"""Wrapper of the hand-written GEMM kernel (csrc/gemm.cu).
+"""Wrappers of the hand-written GEMM kernels (csrc/gemm.cu, csrc/gemm_q8.cu).
 
-``matmul_bias_act`` computes act(a @ b + bias).  ``impl='cuda'`` launches
-the kernel on CUDA tensors and raises on anything else; ``impl='torch'``
-runs the plain version (ref.py), on any device.  The kernel masks the
-ragged M, N and K edges itself, so no operand is padded here.
+``matmul_bias_act`` computes act(a @ b + bias) in fp32;
+``matmul_q8_bias_act`` computes act(float(a_q @ b_q) * scale + bias) from
+int8 operands with an exact int32 sum.  ``impl='cuda'`` launches the
+kernel on CUDA tensors and raises on anything else; ``impl='torch'`` runs
+the plain version (ref.py), on any device.  The kernels mask the ragged
+M, N and K edges themselves (the int8 one takes K in multiples of 16), so
+no operand is padded here.
 """
 from __future__ import annotations
 
@@ -14,12 +17,16 @@ import torch
 
 from repro_torch.core.conv_spec import ACTIVATION_CODES
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm.ref import matmul_ref
+from repro_torch.kernels.gemm.ref import matmul_q8_ref, matmul_ref
 
 #: The kernel's compiled tile: 64x64 outputs per block, K steps of 16.
 TILE: Tuple[int, int, int] = (64, 64, 16)
 
+#: The int8 kernel's K multiple (one 16-byte load of A per thread).
+K_MULTIPLE_Q8 = 16
+
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES_Q8 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def default_block(m: int, n: int, k: int) -> Tuple[int, int, int]:
@@ -63,3 +70,49 @@ def matmul_bias_act(
 
 #: Kernel launches since the count was last set to 0.
 matmul_bias_act.launches = 0
+
+
+def matmul_q8_bias_act(
+    a_q: torch.Tensor,
+    b_q: torch.Tensor,
+    scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    activation: str = "linear",
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """(M, K) x (K, N) int8 -> act(float(a_q @ b_q) * scale + bias), fp32;
+    ``scale`` is (N,), ``bias`` (N,) or None.  Raises when K * 127^2 could
+    overflow the int32 sum, and under ``impl='cuda'`` unless K % 16 == 0.
+    """
+    m, k = a_q.shape
+    k2, n = b_q.shape
+    if k != k2 or scale.shape != (n,) or (bias is not None
+                                          and bias.shape != (n,)):
+        raise ValueError(
+            f"gemm_q8: shapes {tuple(a_q.shape)} x {tuple(b_q.shape)} with "
+            f"scale {tuple(scale.shape)} and bias "
+            f"{None if bias is None else tuple(bias.shape)}")
+    _build.require_int32_exact("gemm_q8", k)
+    if impl == "torch":
+        return matmul_q8_ref(a_q, b_q, scale, bias, activation)
+    if impl != "cuda":
+        raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+    _build.require_cuda_operands("gemm_q8", a_q, b_q, dtype=torch.int8)
+    _build.require_cuda_operands("gemm_q8", scale, bias)
+    if k % K_MULTIPLE_Q8 or a_q.data_ptr() % 16:
+        raise ValueError(f"gemm_q8: K must be a multiple of {K_MULTIPLE_Q8} "
+                         f"and A 16-byte aligned, got K = {k}")
+    out = torch.empty((m, n), device=a_q.device, dtype=torch.float32)
+    if m and n:
+        fn = _build.load("gemm_q8", "repro_gemm_q8_bias_act", _ARGTYPES_Q8)
+        err = fn(a_q.data_ptr(), b_q.data_ptr(), scale.data_ptr(),
+                 bias.data_ptr() if bias is not None else None,
+                 out.data_ptr(), m, n, k, ACTIVATION_CODES[activation],
+                 _build.stream_handle(a_q))
+        _build.check(err, "gemm_q8")
+        matmul_q8_bias_act.launches += 1
+    return out
+
+
+#: Kernel launches since the count was last set to 0.
+matmul_q8_bias_act.launches = 0

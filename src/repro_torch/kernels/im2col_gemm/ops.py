@@ -1,10 +1,13 @@
-"""Wrapper of the hand-written implicit-GEMM conv kernel
-(csrc/im2col_conv.cu).
+"""Wrappers of the hand-written implicit-GEMM conv kernels
+(csrc/im2col_conv.cu, csrc/im2col_conv_q8.cu).
 
 ``im2col_conv`` computes act(conv(x, w) + bias) on NHWC input whose channel
-count is a multiple of ``BC``.  The conv's spatial zero padding is applied
-inside the kernel, and out channels and ragged row/column tiles are masked
-there, so the only layout the caller owns is the channel multiple.
+count is a multiple of ``BC``; ``im2col_conv_q8`` computes
+act(float(conv(x_q, w_q)) * scale + bias) on int8 input whose channel
+count is a multiple of ``BC_Q8``, with an exact int32 sum.  The conv's
+spatial zero padding is applied inside the kernels, and out channels and
+ragged row/column tiles are masked there, so the only layout the caller
+owns is the channel multiple.
 ``impl='cuda'`` launches the kernel on CUDA tensors and raises on anything
 else; ``impl='torch'`` runs the plain version (ref.py).
 """
@@ -17,31 +20,56 @@ import torch
 
 from repro_torch.core.conv_spec import ACTIVATION_CODES, ConvSpec
 from repro_torch.kernels import _build
-from repro_torch.kernels.im2col_gemm.ref import im2col_conv_ref
+from repro_torch.kernels.im2col_gemm.ref import (
+    im2col_conv_q8_ref,
+    im2col_conv_ref,
+)
 
 BC = 8          # in channels per reduction step: C must be a multiple
+BC_Q8 = 16      # the int8 kernel's step (one 16-byte load per pixel)
 BO = 64         # out channels per block
 PIXELS = 64     # output pixels per block: toh * tow <= PIXELS
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+_ARGTYPES_Q8 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
 
 
-def pick_blocks(oh: int, ow: int) -> Tuple[int, int, int]:
-    """(toh, bc, bo) for an OH x OW output map.
+def pick_blocks(oh: int, ow: int, dtype: str = "float32") -> Tuple[int, int, int]:
+    """(toh, bc, bo) for an OH x OW output map, for the fp32 or the int8
+    kernel (which differ only in bc).
 
     A block computes a toh x tow tile of 64 output pixels: whole rows when a
     row fits (tow = OW, toh = 64 // OW), else 8 x 8 tiles.  The input window
     a tile needs, halo included, is what the block stages in shared memory —
-    ((toh-1)*sh + kh) x ((tow-1)*sw + kw) x BC floats, at most 12 KB here —
+    ((toh-1)*sh + kh) x ((tow-1)*sw + kw) x bc values, at most 12 KB here —
     instead of the whole padded image the TPU kernel holds.
     """
     toh = min(oh, PIXELS // ow) if ow <= PIXELS else 8
-    return max(toh, 1), BC, BO
+    return max(toh, 1), BC_Q8 if dtype == "int8" else BC, BO
 
 
 def tile_width(toh: int, ow: int) -> int:
     """Output columns per block for a row tile of ``toh`` rows."""
     return min(ow, PIXELS // toh)
+
+
+def _conv_geometry(what: str, x: torch.Tensor, w: torch.Tensor,
+                   spec: ConvSpec, blocks: Optional[Tuple[int, int, int]],
+                   bc: int) -> Tuple[int, int, int]:
+    """(OH, OW, toh) of one call; raises on what the kernel does not take."""
+    c = x.shape[-1]
+    kh, kw, wc, _ = w.shape
+    if (kh, kw) != spec.kernel_size or wc != c or c % bc:
+        raise ValueError(f"{what}: x {tuple(x.shape)}, w {tuple(w.shape)}"
+                         f" for {spec} (C must be a multiple of {bc})")
+    if spec.dilation != (1, 1):
+        raise ValueError(f"{what}: dilation is not supported")
+    oh, ow = spec.out_hw(x.shape[1], x.shape[2])
+    toh = blocks[0] if blocks is not None else pick_blocks(oh, ow)[0]
+    if (blocks is not None and tuple(blocks[1:]) != (bc, BO)) or not 1 <= toh <= PIXELS:
+        raise ValueError(f"{what}: blocks {blocks} (kernel takes "
+                         f"(toh <= {PIXELS}, {bc}, {BO}))")
+    return oh, ow, toh
 
 
 def im2col_conv(
@@ -58,23 +86,14 @@ def im2col_conv(
     ``blocks`` is a (toh, bc, bo) plan tuple; only toh is free (bc and bo
     are the kernel's compiled BC and BO).
     """
-    b, h, ww, c = x.shape
-    kh, kw, wc, o = w.shape
-    if (kh, kw) != spec.kernel_size or wc != c or c % BC:
-        raise ValueError(f"im2col_conv: x {tuple(x.shape)}, w {tuple(w.shape)}"
-                         f" for {spec} (C must be a multiple of {BC})")
-    if spec.dilation != (1, 1):
-        raise ValueError("im2col_conv: dilation is not supported")
-    oh, ow = spec.out_hw(h, ww)
-    toh = blocks[0] if blocks is not None else pick_blocks(oh, ow)[0]
-    if (blocks is not None and tuple(blocks[1:]) != (BC, BO)) or not 1 <= toh <= PIXELS:
-        raise ValueError(f"im2col_conv: blocks {blocks} (kernel takes "
-                         f"(toh <= {PIXELS}, {BC}, {BO}))")
+    oh, ow, toh = _conv_geometry("im2col_conv", x, w, spec, blocks, BC)
     if impl == "torch":
         return im2col_conv_ref(x, w, spec, bias, activation)
     if impl != "cuda":
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
     _build.require_cuda_operands("im2col_conv", x, w, bias)
+    b, h, ww, c = x.shape
+    kh, kw, _, o = w.shape
     out = torch.empty((b, oh, ow, o), device=x.device, dtype=torch.float32)
     if out.numel():
         fn = _build.load("im2col_conv", "repro_im2col_conv", _ARGTYPES)
@@ -91,3 +110,55 @@ def im2col_conv(
 
 #: Kernel launches since the count was last set to 0.
 im2col_conv.launches = 0
+
+
+def im2col_conv_q8(
+    x_q: torch.Tensor,
+    w_q: torch.Tensor,
+    spec: ConvSpec,
+    scale: torch.Tensor,
+    blocks: Optional[Tuple[int, int, int]] = None,
+    bias: Optional[torch.Tensor] = None,
+    activation: str = "linear",
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """int8 x_q (B, H, W, C), w_q (kh, kw, C, O) -> fp32 (B, OH, OW, O) =
+    act(float(conv) * scale + bias); C % BC_Q8 == 0, ``scale`` (O,).
+
+    ``blocks`` is a (toh, BC_Q8, BO) plan tuple.  Raises when
+    K = kh * kw * C could overflow the int32 sum (K * 127^2 >= 2^31).
+    """
+    oh, ow, toh = _conv_geometry("im2col_conv_q8", x_q, w_q, spec, blocks,
+                                 BC_Q8)
+    b, h, ww, c = x_q.shape
+    kh, kw, _, o = w_q.shape
+    if scale.shape != (o,) or (bias is not None and bias.shape != (o,)):
+        raise ValueError(f"im2col_conv_q8: scale {tuple(scale.shape)}, bias "
+                         f"{None if bias is None else tuple(bias.shape)} for "
+                         f"{o} out channels")
+    _build.require_int32_exact("im2col_conv_q8", kh * kw * c)
+    if impl == "torch":
+        return im2col_conv_q8_ref(x_q, w_q, spec, scale, bias, activation)
+    if impl != "cuda":
+        raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+    _build.require_cuda_operands("im2col_conv_q8", x_q, w_q, dtype=torch.int8)
+    _build.require_cuda_operands("im2col_conv_q8", scale, bias)
+    if x_q.data_ptr() % 16:
+        raise ValueError("im2col_conv_q8: x must be 16-byte aligned")
+    out = torch.empty((b, oh, ow, o), device=x_q.device, dtype=torch.float32)
+    if out.numel():
+        fn = _build.load("im2col_conv_q8", "repro_im2col_conv_q8",
+                         _ARGTYPES_Q8)
+        (sh, sw), (ph, pw) = spec.stride, spec.padding
+        err = fn(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                 bias.data_ptr() if bias is not None else None,
+                 out.data_ptr(), b, h, ww, c, o, oh, ow, kh, kw, sh, sw,
+                 ph, pw, toh, tile_width(toh, ow), ACTIVATION_CODES[activation],
+                 _build.stream_handle(x_q))
+        _build.check(err, "im2col_conv_q8")
+        im2col_conv_q8.launches += 1
+    return out
+
+
+#: Kernel launches since the count was last set to 0.
+im2col_conv_q8.launches = 0

@@ -57,9 +57,11 @@ def device_ms(calls: Sequence[Callable[[], Any]]) -> float:
     from the host's enqueue time of one call, the least over the last
     three calls, which run once before the timed runs.  A run starts as
     all of ``calls``.  If its hold ran out before it was enqueued, the
-    events would time the host: the runs are halved and their holds
-    doubled, since the card's launch queue holds about a thousand kernels
-    and the host blocks once it is full.  If single calls still outlast a
+    events would time the host: the runs are halved, since the card's
+    launch queue holds about a thousand kernels and the host blocks once
+    it is full; once they are single calls, their holds are doubled
+    instead, so that a run of short calls does not sleep longer than its
+    enqueue needs.  If single calls still outlast a
     hold of ``MAX_HOLD_S``, a call synchronizes the host with the card,
     and it raises.
     """
@@ -87,4 +89,7 @@ def device_ms(calls: Sequence[Callable[[], Any]]) -> float:
                 f"device_ms: a hold of {hold_s:.3f} s ran out before one "
                 f"call was enqueued; the call synchronizes the host with "
                 f"the card, so the events would time the host")
-        run, slack = max(1, run // 2), 2 * slack
+        if run > 1:
+            run = max(1, run // 2)
+        else:
+            slack *= 2

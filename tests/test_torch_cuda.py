@@ -9,7 +9,9 @@ it also runs on a machine without JAX:
 
 Tolerances: the GEMM, the implicit-GEMM conv and the 3-pass tuple
 multiply sum the same products as their plain versions in another order,
-rtol = 1e-4 with atol = 1e-4 * max|ref|; the fused Winograd kernel and the
+rtol = 1e-4 with atol = 1e-4 * max|ref|; the int8 kernels sum exactly in
+int32, as their plain versions do, and differ at most in the fp32
+epilogue, 1e-5; the fused Winograd kernel and the
 3-pass transforms also round inside their transforms, 5e-4
 (tests/test_conv_conformance.py); a whole network compounds the per-layer
 differences over its depth, 1e-3 of max|ref|.
@@ -21,8 +23,8 @@ import torch
 import repro_torch
 from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec
 from repro_torch.kernels.conv_ops import kernel_wrappers
-from repro_torch.kernels.gemm.ops import matmul_bias_act
-from repro_torch.kernels.im2col_gemm.ops import im2col_conv
+from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
+from repro_torch.kernels.im2col_gemm.ops import im2col_conv, im2col_conv_q8
 from repro_torch.kernels.winograd.ops import (
     fused_winograd,
     input_transform,
@@ -100,12 +102,56 @@ def test_winograd_3pass_kernels_on_card(cuda_device, t, c, o):
                output_transform(m, b, act, impl="torch"), 5e-4)
 
 
+def _int8(device, seed, *shapes):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randint(-127, 128, s, generator=g, dtype=torch.int8).to(device)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("m,n,k", [(169, 255, 512), (70, 100, 48),
+                                   (676, 128, 256), (169, 256, 1024)])
+def test_gemm_q8_kernel_on_card(cuda_device, m, n, k):
+    """Ragged M and N (the 255-wide detection head), K a multiple of 16
+    but not of the kernel's 32-deep step (48)."""
+    a, b = _int8(cuda_device, 10, (m, k), (k, n))
+    scale, bias = _randn(cuda_device, 11, (n,), (n,))
+    scale = scale.abs() * 1e-3
+    for bb, act in ((bias, "leaky"), (None, "linear")):
+        got = matmul_q8_bias_act(a, b, scale, bb, act)
+        _close(got, matmul_q8_bias_act(a, b, scale, bb, act, impl="torch"), 1e-5)
+
+
+@pytest.mark.parametrize("h,w,c,o,s,k", [
+    (13, 13, 512, 100, 1, 3),     # whole rows per block, ragged out channels
+    (19, 70, 16, 20, 2, 3),       # stride 2, 8x8 tiles, ragged column tile
+    (9, 80, 32, 16, 1, 3),        # OW > 64: 8x8 tiles
+    (10, 11, 16, 9, 2, 1),        # a 1x1 stride-2 conv
+])
+def test_im2col_q8_kernel_on_card(cuda_device, h, w, c, o, s, k):
+    x, wt = _int8(cuda_device, 12, (2, h, w, c), (k, k, c, o))
+    scale, bias = _randn(cuda_device, 13, (o,), (o,))
+    scale = scale.abs() * 1e-3
+    spec = ConvSpec(c, o, (k, k), (s, s), ((k - 1) // 2,) * 2)
+    got = im2col_conv_q8(x, wt, spec, scale, bias=bias, activation="leaky")
+    ref = im2col_conv_q8(x, wt, spec, scale, bias=bias, activation="leaky",
+                         impl="torch")
+    _close(got, ref, 1e-5)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     x, wt = _randn(cuda_device, 8, (1, 6, 6, 12), (3, 3, 12, 4))
     with pytest.raises(ValueError, match="multiple of 8"):
         im2col_conv(x, wt, ConvSpec(12, 4))
     with pytest.raises(ValueError, match="float32"):
         matmul_bias_act(x[0, 0].double(), wt[0, 0].double())
+    xq, wq = _int8(cuda_device, 14, (1, 6, 6, 8), (3, 3, 8, 4))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        im2col_conv_q8(xq, wq, ConvSpec(8, 4), torch.ones(4, device=cuda_device))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        matmul_q8_bias_act(xq[0, 0], wq[0, 0], torch.ones(4, device=cuda_device))
+    with pytest.raises(ValueError, match="int8"):
+        matmul_q8_bias_act(x[0, 0, :, :8], wt[0, 0, :8],
+                           torch.ones(4, device=cuda_device))
 
 
 def _small_network_on_card(device, **options):
@@ -126,15 +172,22 @@ def _small_network_on_card(device, **options):
     x = torch.tensor(rng.standard_normal((2, 64, 64, 3)).astype(np.float32),
                      device=device)
     cu = repro_torch.compile(model, params,
-                             repro_torch.ExecutionOptions(batch=2, **options))
+                             repro_torch.ExecutionOptions(batch=2, **options),
+                             calibration=x)
     plain = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
-        impl="torch", batch=2, **options))
+        impl="torch", batch=2, **options), calibration=x)
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     got = cu.run(x)
     launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
-    _close(got, plain.run(x), 1e-3)
+    if options.get("dtype") == "int8":
+        from repro_torch.core.quant import sqnr_db
+
+        ref = plain.run(x)
+        assert torch.isfinite(got).all() and sqnr_db(ref, got) >= 40.0
+    else:
+        _close(got, plain.run(x), 1e-3)
     return cu.network_plan(), launches
 
 
@@ -153,6 +206,18 @@ def test_small_network_3pass_on_card(cuda_device):
     assert launches == netplan.kernel_launches() == {
         "gemm": 2, "im2col_conv": 1, "input_transform": 2,
         "tuple_multiply": 2, "output_transform": 2}
+
+
+def test_small_network_int8_on_card(cuda_device):
+    """The same net under dtype='int8': the 3x3 convs run the int8 conv
+    kernel (the 13-wide stem passes the traffic gate, its input padded
+    from 3 to 16 channels), the narrow 1x1s fail the gate and stay fp32,
+    and the output is within 40 dB of the plain int8 forward (an fp32
+    difference before an int8 layer may round a value near a quantization
+    step the other way)."""
+    netplan, launches = _small_network_on_card(cuda_device, dtype="int8")
+    assert launches == netplan.kernel_launches() == {
+        "im2col_conv_q8": 3, "gemm": 2}
 
 
 def test_device_ms_times_the_card_and_refuses_a_synchronizing_call(cuda_device):
