@@ -55,12 +55,41 @@ Phases, each on its own printed lines:
    beside the fp32 forward's; then, printed and not gated, the same two
    SQNRs of YOLOv3-tiny and VGG-16 with random batchnorm and the default
    calibration batch (``deployment_sqnr``);
-8. one JSON line with every kernel's numbers — its launches in the forward
+8. the LM stack (``repro_torch.compile(cfg, params)`` on an LM config,
+   random weights from a seeded ``torch.Generator`` on the card):
+   the flash-attention kernel against its plain version at the shapes of
+   the cells below, in bf16 and fp32 (Llama-3.2-1B: H 32, KV 8, hd 64,
+   causal, S 4096; Gemma2-27B: H 32, KV 16, hd 128, softcap 50, S 8192,
+   with and without the 4096 window; a non-causal case with a ragged Sk),
+   each element within 2e-4 (fp32) or 3e-2 (bf16) of max(1, max|ref|) and
+   each query row's difference within 1e-4 (fp32) or 1e-2 (bf16) of that
+   row's norm, each timed beside its plain version, ``F.scaled_dot_product_attention``
+   where one PyTorch call computes the case, and its bound (FLOPs of the
+   unmasked pairs over the 67 TFLOP/s fp32 or the 989 TFLOP/s bf16
+   tensor-core peak, or bytes of q, k, v and o over 3.35 TB/s); the
+   global Gemma2 case again with q scaled by 8, so the scores reach the
+   softcap's bend (untimed; the plain version without the cap must fail
+   the row gate there); then
+   Llama-3.2-1B prefill at full width (16 layers, B 1, S 4096, bf16):
+   ``impl='cuda'`` against ``impl='torch'`` in fp32 (within 1e-3 of
+   max(1, max|ref|)) and in bf16 on the same weights (the bf16 logits'
+   relative distance from the fp32 forward at most 1.25 times the plain
+   bf16 forward's), exactly 16 flash launches per forward, ms per
+   forward, tokens/s and a profile with the kernel's share; Gemma2-27B at
+   full width cut to 2 layers (local, attn), B 1, S 8192: the same checks
+   with 2 launches; Llama-3.2-1B serving (``.serve(batch_size=4,
+   capacity=128)``, 6 requests of 8 prompt tokens and 12 new ones,
+   greedy): the engine's tokens against a greedy ``decode_step`` loop,
+   ``prefill_with_cache`` (the kernel) then one decode step against
+   token-by-token decode (fp32 within 1e-3 of max(1, max|ref|); bf16
+   printed), tokens/s; each LM cell prints its peak device memory;
+9. one JSON line with every kernel's numbers — its launches in the forward
    its ``cell`` names (YOLOv3-tiny 416 b1 for the GEMM, im2col and fused
    Winograd kernels, VGG-16 224 b1 with ``winograd_fused=False`` for the
    three 3-pass kernels, YOLOv3-tiny 416 b1 int8 for the two int8
-   kernels), and its times, errors and bounds summed over the calls of
-   that forward — then the last line ``{"ok": true, "device": ...}``.
+   kernels, the Llama-3.2-1B prefill for flash attention), and its times,
+   errors and bounds summed over the calls of that forward — then the
+   last line ``{"ok": true, "device": ...}``.
 
 Any failure raises and exits non-zero before the last line is printed.  It
 exits 1 at once when no CUDA device is visible, and fails to import the
@@ -68,6 +97,7 @@ port when run outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -103,6 +133,29 @@ NET_RTOL = 1e-3
 # acceptance gate).
 INT8_VS_PLAIN_DB = 40.0
 INT8_VS_FP32_DB = 30.0
+# Flash attention against its plain version, two gates.  Per element, of
+# max(1, max|ref|): fp32 at the reference suite's tolerance; bf16 two units
+# of bf16's last place at the largest output.  Per query row (one head's hd
+# outputs), the norm of the difference over the norm of the plain row, so
+# that late causal rows, whose outputs are 100 times smaller than the
+# first rows', are held at their own scale: bf16 rounds each output to 8
+# significant bits (at most 2^-8 of it on each side) and p before P.V (the
+# kernel p = exp(s - m), the plain version p / l, so the two round apart;
+# rows of a few keys whose outputs cancel lose most): at most 0.006 of the
+# row norm in scripts/flash_bf16_replay.py, a CPU replay of the kernel's
+# arithmetic, where a per-element bound of 2^-6|ref| + 1e-3 fails at such
+# rows and the row gate catches a 3 % error on the later rows, a dropped
+# key per tile, the wrong KV head and a missing softcap.
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+FLASH_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# An LM's bf16 logits against the fp32 forward of the same weights (relative
+# norm of the difference): the kernel's bf16 forward within this factor of
+# the plain bf16 forward's distance.  With random weights the distance
+# between any two bf16 forwards is of the order of bf16's own distance
+# from fp32 (each layer's rounding is carried by the later layers), so
+# bf16 against bf16 gives no tighter bound.
+LM_BF16_SPREAD = 1.25
+LM_REPS = 5               # timed forwards of the LM prefill cells
 
 REPLACES = {
     "gemm": "src/repro/kernels/gemm/kernel.py:140",
@@ -113,13 +166,15 @@ REPLACES = {
     "input_transform": "src/repro/kernels/winograd/kernel.py:195",
     "tuple_multiply": "src/repro/kernels/winograd/kernel.py:216",
     "output_transform": "src/repro/kernels/winograd/kernel.py:244",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:69",
 }
 SOURCE = {"gemm": "gemm", "im2col_conv": "im2col_conv",
           "gemm_q8": "gemm_q8", "im2col_conv_q8": "im2col_conv_q8",
           "winograd_fused": "winograd_fused",
           "input_transform": "winograd_3pass",
           "tuple_multiply": "winograd_3pass",
-          "output_transform": "winograd_3pass"}
+          "output_transform": "winograd_3pass",
+          "flash_attention": "flash_attention"}
 # The CUDA function of each kernel, as the profiler names it.
 CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
               "gemm_q8": "gemm_q8_bias_act_kernel",
@@ -128,7 +183,8 @@ CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
               "winograd_fused": "winograd_fused_kernel",
               "input_transform": "winograd_input_transform_kernel",
               "tuple_multiply": "winograd_tuple_multiply_kernel",
-              "output_transform": "winograd_output_transform_kernel"}
+              "output_transform": "winograd_output_transform_kernel",
+              "flash_attention": "flash_attention_kernel"}
 
 
 def log(*parts) -> None:
@@ -159,20 +215,23 @@ def cuda_ms(fn, args, rounds: int = ROUNDS) -> float:
     return statistics.median(device_ms(calls) for _ in range(rounds))
 
 
-def reset_counts() -> None:
+def wrappers():
+    """Every kernel's wrapper by kernel name; each counts its launches."""
     from repro_torch.kernels.conv_ops import kernel_wrappers
+    from repro_torch.kernels.flash_attention import flash_attention
 
-    for fn in kernel_wrappers().values():
+    return {**kernel_wrappers(), "flash_attention": flash_attention}
+
+
+def reset_counts() -> None:
+    for fn in wrappers().values():
         fn.launches = 0
 
 
 def read_counts():
     """Launches per kernel since the last reset, kernels never launched
     left out."""
-    from repro_torch.kernels.conv_ops import kernel_wrappers
-
-    return {k: fn.launches for k, fn in kernel_wrappers().items()
-            if fn.launches}
+    return {k: fn.launches for k, fn in wrappers().items() if fn.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -455,12 +514,12 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
 # Phases 4 to 6: whole networks
 
 
-def forward_ms(fn, reps: int) -> float:
+def forward_ms(fn, reps: int, warmup: int = 3) -> float:
     """Host milliseconds per call of ``fn`` over ``reps`` calls that end in
-    a synchronize, after three warm-up calls."""
+    a synchronize, after ``warmup`` warm-up calls."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -603,9 +662,10 @@ def run_cell(model, batch, rng, params=None, options=None, name=None,
         f"ms_per_forward={ms:.3f} images_per_s={batch * 1e3 / ms:.1f} "
         f"plain_ms_per_forward={plain_ms:.3f} {detail}".rstrip())
     if profile:
-        profile_forward(cu, x, ms, name)
+        profile_forward(lambda: cu.run(x), ms, name)
         if fp32 is not None:
-            profile_forward(fp32, x, fp32_ms, f"{name} (its fp32 forward)")
+            profile_forward(lambda: fp32.run(x), fp32_ms,
+                            f"{name} (its fp32 forward)")
     return counts, cu
 
 
@@ -632,17 +692,19 @@ def deployment_sqnr(model, rng, name) -> None:
         f"sqnr_vs_plain_db={sqnr_db(y_plain, y):.2f} (printed, not gated)")
 
 
-def profile_forward(compiled, x, ms_per_forward: float, name: str,
-                    reps: int = 5) -> None:
-    """Device time of one forward by CUDA kernel (torch.profiler), and the
-    share of the measured forward time in which the device was idle."""
+def profile_forward(forward, ms_per_forward: float, name: str,
+                    reps: int = 5, host_rows: int = 0) -> None:
+    """Device time of one call of ``forward`` by CUDA kernel
+    (torch.profiler), the share of the measured time per call in which the
+    device was idle and, with ``host_rows``, the operators that take the
+    most host time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            compiled.run(x)
+            forward()
         torch.cuda.synchronize()
     # Kernel rows only: an operator's row repeats the time of its kernels.
     rows = sorted(
@@ -658,6 +720,11 @@ def profile_forward(compiled, x, ms_per_forward: float, name: str,
         f" of {ms_per_forward:.3f} ms")
     for us, n, key in rows[:14]:
         log(f"  profile {us / 1e3:.4f} ms x{n} {key[:90]}")
+    host = sorted(((ev.self_cpu_time_total / reps, ev.count // reps, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CPU), reverse=True)
+    for us, n, key in host[:host_rows]:
+        log(f"  host {us / 1e3:.4f} ms x{n} {key[:90]}")
     # Each port kernel's launches in forward order, median over the reps.
     kernels = sorted((ev for ev in prof.events()
                       if ev.device_type == DeviceType.CUDA),
@@ -669,7 +736,315 @@ def profile_forward(compiled, x, ms_per_forward: float, name: str,
             continue
         per_call = [statistics.median(us[i::n]) / 1e3 for i in range(n)]
         log(f"  in forward order, {name} ms: "
-            + " ".join(f"{t:.4f}" for t in per_call))
+            + " ".join(f"{t:.4f}" for t in per_call)
+            + f" (share of device busy {sum(us) / reps / 1e3 / busy_ms:.3f})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the LM stack
+
+
+def unmasked_pairs(s: int, sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs an attention call must compute: keys below
+    Sk, at or before the query (causal) and inside its window."""
+    q = np.arange(s)
+    hi = np.minimum(q, sk - 1) if causal else np.full(s, sk - 1)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(s, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_errors(got, ref, dname):
+    """(max |got - ref|, its gate, the largest per-row relative error)."""
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    tol = FLASH_TOL[dname] * max(1.0, float(ref.abs().max()))
+    row = float(((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max())
+    return err, tol, row
+
+
+def check_flash(hw, cells, saturated=()):
+    """Phase 8a: the flash-attention kernel against its plain version at
+    each cell's shapes, in bf16 and fp32, timed beside its plain version,
+    one library call where PyTorch has one, and its bound.  The cells named
+    in ``saturated`` take q scaled by 8, so that the scaled scores (std 8)
+    reach the softcap's bend; they are not timed, and the plain version
+    without the cap must fail the row gate there.  Returns each timed
+    case's numbers by (cell, dtype)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for cell, (b, s, sk, h, kv, hd, causal, window, cap) in cells.items():
+            q = torch.randn(b, s, h, hd, generator=g, device="cuda")
+            q = (q * 8 if cell in saturated else q).to(dtype)
+            k, v = (torch.randn(b, sk, kv, hd, generator=g, device="cuda")
+                    .to(dtype) for _ in range(2))
+            kw = dict(causal=causal, window=window, logit_cap=cap)
+            got = flash_attention(q, k, v, **kw)
+            ref = flash_attention(q, k, v, impl="torch", **kw)
+            torch.cuda.synchronize()
+            err, tol, row = flash_errors(got, ref, dname)
+            row_tol = FLASH_ROW_RTOL[dname]
+            label = (f"flash_attention {cell} {dname} B={b} S={s} Sk={sk} "
+                     f"H={h} KV={kv} hd={hd} causal={causal} window={window} "
+                     f"cap={cap}")
+            if not (bool(torch.isfinite(got).all()) and got.dtype == dtype
+                    and err <= tol and row <= row_tol):
+                raise AssertionError(
+                    f"{label}: kernel disagrees with its plain version: "
+                    f"max_abs_err {err} (tol {tol}), row error {row} "
+                    f"(tol {row_tol})")
+            if cell in saturated:
+                nocap = flash_attention(q, k, v, impl="torch",
+                                        **dict(kw, logit_cap=0.0))
+                _, _, row_nocap = flash_errors(got, nocap, dname)
+                if not row_nocap > row_tol:
+                    raise AssertionError(f"{label}: the plain version without "
+                                         f"the cap passes too ({row_nocap})")
+                log(f"kernel {label} (q x 8): max_abs_err={err:.3g} (tol "
+                    f"{tol:.3g}) row_err={row:.3g} (tol {row_tol:.3g}); "
+                    f"against the plain version without the cap "
+                    f"row_err={row_nocap:.3g}: the cap is computed")
+                continue
+            ms = cuda_ms(lambda q, k, v: flash_attention(q, k, v, **kw),
+                         (q, k, v), rounds=3)
+            plain_ms = cuda_ms(lambda q, k, v: flash_attention(
+                q, k, v, impl="torch", **kw), (q, k, v), rounds=3)
+            if cap > 0:
+                library_ms, why = None, "no PyTorch call computes the tanh softcap"
+            else:
+                # No window on these cases: the causal flag or nothing.
+                library_ms = cuda_ms(
+                    lambda q, k, v: F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        is_causal=causal, enable_gqa=True),
+                    (q, k, v), rounds=3)
+                why = "F.scaled_dot_product_attention"
+            pairs = unmasked_pairs(s, sk, causal, window)
+            peak = hw.peak_flops_bf16 if dtype == torch.bfloat16 else hw.peak_flops_fp32
+            t_ops = 4 * b * h * hd * pairs / peak * 1e3
+            t_bytes = nbytes((q, k, v, got)) / hw.hbm_bandwidth * 1e3
+            bound_ms = max(t_ops, t_bytes)
+            out[cell, dname] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+            log(f"kernel {label}: max_abs_err={err:.3g} (tol {tol:.3g}) "
+                f"row_err={row:.3g} (tol {row_tol:.3g}) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+                + ("-" if library_ms is None else f"{library_ms:.4f}")
+                + f" ({why}) bound_ms={bound_ms:.5f} "
+                f"({out[cell, dname]['bound_by']}) pairs={pairs} "
+                f"share_of_bound={bound_ms / ms:.4f}")
+    return out
+
+
+def compare_logits(y, ref, chunk: int = 1024):
+    """(relative norm of y - ref, max |y - ref|, max |ref|), in fp32, a
+    chunk of positions at a time (the logits reach 8 GB)."""
+    diff2 = ref2 = err = scale = 0.0
+    for i in range(0, y.shape[1], chunk):
+        a, r = y[:, i:i + chunk].float(), ref[:, i:i + chunk].float()
+        diff2 += float((a - r).square().sum())
+        ref2 += float(r.square().sum())
+        err = max(err, float((a - r).abs().max()))
+        scale = max(scale, float(r.abs().max()))
+    return (diff2 / ref2) ** 0.5, err, scale
+
+
+def lm_prefill_cell(cfg, seq, name, profile=False, keep=False):
+    """Phase 8b: one LM prefill cell at full width, on seeded weights and
+    tokens: ``impl='cuda'`` against ``impl='torch'`` in fp32 (within
+    ``NET_RTOL`` of max(1, max|ref|)) and, on the same weights, in
+    ``cfg.dtype`` (bf16: the kernel's logits no further from the fp32
+    forward than the plain version's, in relative norm, within
+    ``LM_BF16_SPREAD``); the flash kernel launched once per layer and
+    nothing else; ms per forward and tokens/s in ``cfg.dtype``.  Returns
+    the launch counts and, with ``keep``, the weights in both dtypes."""
+    import torch
+
+    import repro_torch
+    from repro_torch.models import transformer as tf
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, g)
+    toks = torch.randint(0, cfg.vocab_size, (1, seq), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plain_opts = repro_torch.ExecutionOptions(impl="torch")
+    want = {"flash_attention": cfg.num_layers}
+    result, ref32 = {}, None
+    for dname in ("float32", cfg.dtype):
+        c = dataclasses.replace(cfg, dtype=dname)
+        p = params if dname == cfg.dtype else tf.tree_map(lambda t: t.float(), params)
+        cu, plain = repro_torch.compile(c, p), repro_torch.compile(c, p, plain_opts)
+        reset_counts()
+        y = cu.run(toks)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"{name} {dname}: launches {counts} != {want}")
+        y_ref = plain.run(toks)
+        rel, err, scale = compare_logits(y, y_ref)
+        ok = (bool(torch.isfinite(y).all()) and y.shape == y_ref.shape
+              == (1, seq, cfg.vocab_size) and y.dtype == tf.torch_dtype(dname))
+        if dname == "float32":
+            ref32 = y_ref
+            tol = NET_RTOL * max(1.0, scale)
+            gate = f"max_abs_err <= {tol:.3g}"
+            ok = ok and err <= tol
+        else:
+            # Two bf16 forwards that round at other places land at
+            # comparable distances from the fp32 forward of the same
+            # weights; the kernel's must not land further than
+            # LM_BF16_SPREAD times the plain version's.
+            rel_plain = compare_logits(y_ref, ref32)[0]
+            rel_cuda = compare_logits(y, ref32)[0]
+            gate = (f"vs plain float32: cuda rel {rel_cuda:.3g} <= "
+                    f"{LM_BF16_SPREAD} x plain rel {rel_plain:.3g}")
+            ok = ok and rel_cuda <= LM_BF16_SPREAD * rel_plain
+            ref32 = None
+        if not ok:
+            raise AssertionError(f"{name} {dname}: cuda vs torch rel {rel:.3g} "
+                                 f"max_abs_err {err:.3g} (max|ref| {scale:.3g}; "
+                                 f"gate {gate})")
+        del y, y_ref
+        # Each compilation has run once; the cell's dtype is timed in full
+        # and beside its plain forward.
+        is_main = dname == cfg.dtype
+        ms = forward_ms(lambda: cu.run(toks), LM_REPS if is_main else 2, warmup=1)
+        plain_part = (f"plain_ms_per_forward="
+                      f"{forward_ms(lambda: plain.run(toks), 2, warmup=0):.3f}"
+                      if is_main else "")
+        log(f"model {name} {dname}: logits (1, {seq}, {cfg.vocab_size}) "
+            f"rel={rel:.3g} max_abs_err={err:.3g} max|ref|={scale:.3g} ({gate}) "
+            f"launches={counts} init_s={init_s:.2f} ms_per_forward={ms:.3f} "
+            f"tokens_per_s={seq * 1e3 / ms:.1f} {plain_part}".rstrip())
+        if profile and is_main:
+            profile_forward(lambda: cu.run(toks), ms, f"{name} {dname}", reps=3)
+        if keep:
+            result[dname] = p
+        result["launches"] = counts
+        del cu, plain, p
+        torch.cuda.empty_cache()
+    log(f"model {name}: peak device memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return result
+
+
+def lm_serving_cell(cfg, params, params32, name):
+    """Phase 8c: ``.serve(batch_size=4, capacity=128)`` answers 6 requests
+    (8 prompt tokens, 12 new, greedy); its tokens against a greedy
+    ``decode_step`` loop on the card (the request in row 0 of a batch of
+    4, the other rows fed token 0); then ``prefill_with_cache`` (through
+    the kernel) against token-by-token decode, and one decode step from
+    each cache."""
+    import torch
+
+    import repro_torch
+    from repro_torch.models import transformer as tf
+
+    batch, capacity, n_req, prompt_len, new = 4, 128, 6, 8, 12
+    torch.cuda.reset_peak_memory_stats()
+    compiled = repro_torch.compile(cfg, params)
+    # A throwaway engine first: the decode path's first launches load its
+    # kernels, which the timed run should not pay.
+    warm = compiled.serve(batch_size=batch, capacity=capacity)
+    warm.submit([1, 2], max_new_tokens=2)
+    warm.run()
+    engine = compiled.serve(batch_size=batch, capacity=capacity)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, size=prompt_len)
+               for _ in range(n_req)]
+    uids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    total = sum(len(v) for v in results.values())
+
+    def greedy(prompt):
+        cache = tf.init_cache(cfg, batch, capacity, "cuda")
+        toks, out = list(prompt), []
+        live = torch.tensor([True] + [False] * (batch - 1), device="cuda")
+        with torch.no_grad():
+            for pos in range(len(prompt) + new - 1):
+                t = torch.zeros((batch, 1), dtype=torch.int64, device="cuda")
+                t[0, 0] = int(toks[pos])
+                logits, cache = tf.decode_step(
+                    cfg, params, cache, t,
+                    torch.full((batch,), pos, dtype=torch.int64, device="cuda"),
+                    live=live)
+                if pos >= len(prompt) - 1:
+                    out.append(int(logits[0].argmax()))
+                    toks.append(out[-1])
+        return out
+
+    for uid, p in zip(uids, prompts):
+        if results[uid] != greedy(p):
+            raise AssertionError(f"{name}: request {uid} got {results[uid]}, "
+                                 f"a greedy decode_step loop gives {greedy(p)}")
+    log(f"serve {name}: {n_req} requests, {total} tokens in {dt:.3f} s "
+        f"({total / dt:.1f} tokens/s) batch={batch} capacity={capacity}; "
+        f"tokens equal a greedy decode_step loop; first request "
+        f"{results[uids[0]]}")
+    # Where a decode step's time goes: one batched step of the engine.
+    cache = tf.init_cache(cfg, batch, capacity, "cuda")
+    step_args = (torch.zeros((batch, 1), dtype=torch.int64, device="cuda"),
+                 torch.arange(batch, device="cuda"))
+
+    def step():
+        with torch.no_grad():
+            return tf.decode_step(cfg, params, cache, *step_args,
+                                  live=torch.ones(batch, dtype=torch.bool,
+                                                  device="cuda"))
+
+    step_ms = forward_ms(step, 10)
+    log(f"decode step {name}: batch={batch} ms_per_step={step_ms:.3f}")
+    profile_forward(step, step_ms, f"decode step {name}", host_rows=8)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
+                         device="cuda")
+    nxt = torch.ones((batch, 1), dtype=torch.int64, device="cuda")
+    for dname, p in ((cfg.dtype, params), ("float32", params32)):
+        c = dataclasses.replace(cfg, dtype=dname)
+        reset_counts()
+        with torch.no_grad():
+            logits_pf, cache_pf = tf.prefill_with_cache(c, p, toks, capacity)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            cache = tf.init_cache(c, batch, capacity, "cuda")
+            for t in range(prompt_len):
+                logits_dec, cache = tf.decode_step(c, p, cache, toks[:, t:t + 1], t)
+            l1, _ = tf.decode_step(c, p, cache_pf, nxt, prompt_len)
+            l2, _ = tf.decode_step(c, p, cache, nxt, prompt_len)
+        if counts != {"flash_attention": cfg.num_layers}:
+            raise AssertionError(f"{name} prefill_with_cache: launches {counts}")
+        line = []
+        for what, a, ref in (("prefill", logits_pf, logits_dec),
+                             ("next step", l1, l2)):
+            rel, err, scale = compare_logits(a[:, None], ref[:, None])
+            line.append(f"{what} rel={rel:.3g} max_abs_err={err:.3g} "
+                        f"max|ref|={scale:.3g}")
+            if dname == "float32" and not (
+                    bool(torch.isfinite(a).all())
+                    and err <= NET_RTOL * max(1.0, scale)):
+                raise AssertionError(f"{name} {dname}: {what} logits differ "
+                                     f"from token-by-token decode: {line[-1]}")
+        log(f"prefill vs decode {name} {dname}: " + "; ".join(line)
+            + (" (gated: within 1e-3 of max(1, max|ref|))" if dname == "float32"
+               else " (printed, not gated)"))
+    log(f"serve {name}: peak device memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (both weight "
+        f"copies included)")
 
 
 def main() -> int:
@@ -681,6 +1056,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "src"))
+    from repro_torch import configs as lm_configs
     from repro_torch.configs import vgg16, yolov3
     from repro_torch.core.conv_spec import ConvAlgorithm
     from repro_torch.core.netplan import plan_network
@@ -819,7 +1195,40 @@ def main() -> int:
         if any(counts.get(k, 0) <= 0 for k in names):
             raise AssertionError(f"{cell}: launches {counts}, want {names}")
 
-    # Phase 8: the kernels line, then the last line.
+    # Phase 8: the LM stack.  Llama-3.2-1B's prefill is the main path of
+    # the flash-attention kernel; Gemma2-27B (full width, 2 of its 46
+    # layers: one local, one global) the path of its window and softcap.
+    llama = lm_configs.get_config("llama3.2-1b")
+    gemma = dataclasses.replace(lm_configs.get_config("gemma2-27b"), num_layers=2)
+    llama_cell = "llama3.2-1b prefill S4096 b1"
+    gemma_cell = "gemma2-27b (2 layers) prefill S8192 b1"
+    saturated = "gemma2-27b attn S8192 softcap saturated"
+    flash = check_flash(H100, {
+        llama_cell: (1, 4096, 4096, 32, 8, 64, True, 0, 0.0),
+        "gemma2-27b local S8192": (1, 8192, 8192, 32, 16, 128, True, 4096, 50.0),
+        "gemma2-27b attn S8192": (1, 8192, 8192, 32, 16, 128, True, 0, 50.0),
+        saturated: (1, 8192, 8192, 32, 16, 128, True, 0, 50.0),
+        "non-causal ragged Sk": (2, 1000, 777, 32, 8, 64, False, 0, 0.0),
+    }, saturated=(saturated,))
+    log(f"phase 8a done at {time.perf_counter() - t_start:.1f} s")
+    llama_run = lm_prefill_cell(llama, 4096, llama_cell, profile=True, keep=True)
+    launches[llama_cell] = llama_run["launches"]
+    lm_serving_cell(llama, llama_run[llama.dtype], llama_run["float32"],
+                    "llama3.2-1b")
+    del llama_run
+    torch.cuda.empty_cache()
+    lm_prefill_cell(gemma, 8192, gemma_cell)
+    n = launches[llama_cell]["flash_attention"]
+    f = flash[llama_cell, llama.dtype]
+    summaries[llama_cell] = {"flash_attention": dict(
+        max_abs_err=f["max_abs_err"], ms=n * f["ms"], plain_ms=n * f["plain_ms"],
+        library_ms=None if f["library_ms"] is None else n * f["library_ms"],
+        bound_ms=n * f["bound_ms"],
+        ops_ms=n * f["bound_ms"] if f["bound_by"] == "operations" else 0.0,
+        bytes_ms=n * f["bound_ms"] if f["bound_by"] == "bytes" else 0.0)}
+    log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+
+    # Phase 9: the kernels line, then the last line.
     kernels = []
     for cell, summary in summaries.items():
         for name, agg in summary.items():

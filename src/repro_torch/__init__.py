@@ -1,5 +1,5 @@
 """repro_torch: the PyTorch + CUDA port of the co-design CNN inference
-stack, for an NVIDIA H100.
+stack, and of its dense LM stack, for an NVIDIA H100.
 
 The JAX package ``repro`` stays the reference; this package imports
 neither it nor JAX.  The public surface mirrors it::
@@ -11,13 +11,27 @@ neither it nor JAX.  The public surface mirrors it::
                                    repro_torch.ExecutionOptions())
     y = compiled.run(x)          # (B, 416, 416, 3) NHWC on the card
 
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config("llama3.2-1b")
+    lm = repro_torch.compile(cfg, init_params(cfg, generator))
+    logits = lm.run(tokens)      # (B, S) -> (B, S, V), prefill
+    engine = lm.serve(batch_size=4, capacity=128)
+
 ``ExecutionOptions(impl='cuda')`` (the default) runs the hand-written CUDA
 kernels under ``kernels/*/csrc``, built with nvcc at first use;
 ``impl='torch'`` runs their plain PyTorch versions.
 """
 __version__ = "0.1.0"
 
-from repro_torch.api import CNNModel, CompiledCNN, ExecutionOptions, compile
+from repro_torch.api import (
+    CNNModel,
+    CompiledCNN,
+    CompiledLM,
+    ExecutionOptions,
+    compile,
+)
 from repro_torch.core import (
     ConvAlgorithm,
     ConvPlan,
@@ -34,6 +48,7 @@ from repro_torch.core import (
 __all__ = [
     "CNNModel",
     "CompiledCNN",
+    "CompiledLM",
     "ExecutionOptions",
     "compile",
     "ConvAlgorithm",

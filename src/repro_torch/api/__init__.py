@@ -1,5 +1,6 @@
-from repro_torch.api.compiled import CompiledCNN, compile
-from repro_torch.api.model import CNNModel
+from repro_torch.api.compiled import CompiledCNN, CompiledLM, compile
+from repro_torch.api.model import CNNModel, is_lm_config
 from repro_torch.api.options import ExecutionOptions
 
-__all__ = ["CNNModel", "CompiledCNN", "ExecutionOptions", "compile"]
+__all__ = ["CNNModel", "CompiledCNN", "CompiledLM", "ExecutionOptions",
+           "compile", "is_lm_config"]

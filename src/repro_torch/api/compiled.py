@@ -1,10 +1,12 @@
-"""``compile(model, params, options) -> CompiledCNN`` — the facade core.
+"""``compile(model, params, options)`` — the facade core.
 
-The port of ``repro/api/compiled.py``'s CNN path: plan (per-layer
-ConvPlans + whole-network layouts) -> prepare (batchnorm fold, channel
-padding, offline Winograd weight transform; under int8, calibration and
-weight quantization) -> run.  Serving, save and load come in a later
-slice.
+The port of ``repro/api/compiled.py``.  A CNN compiles to a
+``CompiledCNN``: plan (per-layer ConvPlans + whole-network layouts) ->
+prepare (batchnorm fold, channel padding, offline Winograd weight
+transform; under int8, calibration and weight quantization) -> run.  An LM
+``ModelConfig`` compiles to a ``CompiledLM``: the full-sequence forward
+(prefill) for ``run``, the continuous-batching engine for ``serve``.  CNN
+serving, save and load come in a later slice.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from repro_torch.api.model import CNNModel
+from repro_torch.api.model import CNNModel, is_lm_config
 from repro_torch.api.options import ExecutionOptions
 
 
@@ -116,21 +118,85 @@ class CompiledCNN:
         }
 
 
+class CompiledLM:
+    """An LM config compiled through the same facade: the full-sequence
+    forward for ``run`` (every attention through the flash-attention
+    kernel under ``impl='cuda'``, its plain version under
+    ``impl='torch'``), the continuous-batching engine for ``serve``.  The
+    model computes in ``cfg.dtype``."""
+
+    def __init__(self, cfg, params, options: ExecutionOptions):
+        from repro_torch.models import transformer as tf
+
+        tf.check_supported(cfg)
+        if options.dtype != "float32":
+            raise ValueError(f"dtype={options.dtype!r} applies to CNNs; an LM "
+                             f"computes in its config's dtype ({cfg.dtype})")
+        self.model = cfg
+        self.options = options
+        self.device = torch.device(options.device)
+        self._tf = tf
+        self.params = tf.tree_map(lambda t: t.to(self.device), params)
+
+    def run(self, tokens) -> torch.Tensor:
+        """Full-sequence logits: (B, S) int tokens (tensor or array) ->
+        (B, S, V) in ``cfg.dtype``, on ``options.device``."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        if tokens.ndim != 2:
+            raise ValueError(f"run() expects (B, S) tokens, got shape "
+                             f"{tuple(tokens.shape)}")
+        with torch.inference_mode():
+            return self._tf.forward(self.model, self.params, tokens,
+                                    impl=self.options.impl)
+
+    def __call__(self, tokens) -> torch.Tensor:
+        return self.run(tokens)
+
+    def serve(self, batch_size: Optional[int] = None, capacity: int = 256,
+              **engine_opts):
+        """A continuous-batching ServingEngine for this model;
+        ``batch_size`` defaults to ``options.batch``."""
+        from repro_torch.serving.engine import ServingEngine
+
+        return ServingEngine.from_compiled(
+            self, batch_size=batch_size, capacity=capacity, **engine_opts)
+
+    def plan_report(self) -> Dict[str, Any]:
+        return {
+            "model": self.model.name,
+            "kind": "lm",
+            "num_layers": self.model.num_layers,
+            "layer_pattern": list(self.model.pattern_layers),
+            "supports_decode": self.model.supports_decode,
+            "dtype": self.model.dtype,
+            "impl": self.options.impl,
+            "device": str(self.device),
+            "attention": ("flash_attention kernel" if self.options.impl == "cuda"
+                          else "attention_ref (plain)"),
+        }
+
+
 def compile(  # noqa: A001 - deliberate: mirrors repro.compile
-    model: CNNModel,
-    params: Sequence[Dict],
+    model: Any,
+    params: Any,
     options: Optional[ExecutionOptions] = None,
     calibration: Optional[Any] = None,
-) -> CompiledCNN:
-    """Plan, prepare and return a runnable CNN.
+):
+    """Plan, prepare and return a runnable model.
 
-    ``params`` is the reference's parameter list (numpy arrays or tensors,
-    HWIO conv weights); it is moved to ``options.device`` as float32.
+    ``model`` is a ``CNNModel`` or an LM ``ModelConfig``
+    (``repro_torch.configs.get_config``).  For a CNN, ``params`` is the
+    reference's parameter list (numpy arrays or tensors, HWIO conv
+    weights), moved to ``options.device`` as float32, and ``calibration``
+    an fp32 (B, H, W, C) sample batch that calibrates the int8 activation
+    scales under ``dtype='int8'`` (``quant.default_calibration_batch`` when
+    None; unused otherwise).  For an LM, ``params`` is the port's
+    (``transformer.init_params``, or ``transformer.params_from_numpy`` of
+    the reference's tree).
     ``options`` defaults to ``ExecutionOptions()``: the CUDA kernels on the
-    card.  ``calibration`` is an fp32 (B, H, W, C) sample batch that
-    calibrates the int8 activation scales under ``dtype='int8'``
-    (``quant.default_calibration_batch`` when None); unused otherwise.
+    card.
     """
-    return CompiledCNN(model, params,
-                       options if options is not None else ExecutionOptions(),
-                       calibration=calibration)
+    opts = options if options is not None else ExecutionOptions()
+    if is_lm_config(model):
+        return CompiledLM(model, params, opts)
+    return CompiledCNN(model, params, opts, calibration=calibration)

@@ -1,5 +1,6 @@
-"""The facade's model descriptor: a Darknet-style layer table plus its
-input geometry (the port of ``repro/api/model.py``'s ``CNNModel``)."""
+"""The facade's model descriptors: a Darknet-style layer table plus its
+input geometry (the port of ``repro/api/model.py``'s ``CNNModel``), and
+``is_lm_config`` for the LM configs."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,3 +21,9 @@ class CNNModel:
         object.__setattr__(self, "input_hw", tuple(self.input_hw))
         if len(self.input_hw) != 2:
             raise ValueError(f"input_hw must be (H, W), got {self.input_hw!r}")
+
+
+def is_lm_config(model: Any) -> bool:
+    """True for an LM ``ModelConfig`` (duck-typed, as the reference, so the
+    facade never imports the LM stack for CNN work)."""
+    return hasattr(model, "supports_decode") and hasattr(model, "layer_pattern")

@@ -1,1 +1,80 @@
-"""Layer tables of the paper's networks, as plain data."""
+"""Model configurations as plain data: the paper's CNN layer tables
+(``yolov3``, ``vgg16``) and the LM configs of the dense, attention-only
+text archs.
+
+``get_config(name)`` returns an LM arch's full-size config and
+``smoke_config(name)`` its reduced variant for CPU tests, the same
+reduction as ``repro/configs/__init__.py``.  The other archs of the
+reference (MoE, recurrent, audio and vision) are not ported yet: asking
+for one raises ``NotImplementedError`` naming ROADMAP.md.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+#: The LM archs the port runs, and their modules.
+_MODULES = {
+    "granite-34b": "granite_34b",
+    "qwen1.5-0.5b": "qwen15_05b",
+    "llama3.2-1b": "llama32_1b",
+    "gemma2-27b": "gemma2_27b",
+}
+ARCHS = tuple(_MODULES)
+
+#: The reference's other archs, a later slice of the port.
+UNPORTED_ARCHS = (
+    "hubert-xlarge",
+    "arctic-480b",
+    "granite-moe-1b-a400m",
+    "internvl2-2b",
+    "recurrentgemma-9b",
+    "xlstm-125m",
+)
+
+
+def get_config(name: str) -> ModelConfig:
+    """The full-size config of LM arch ``name``."""
+    if name in UNPORTED_ARCHS:
+        raise NotImplementedError(
+            f"{name} (MoE, recurrent or frontend blocks) is not ported yet; "
+            f"the port runs {ARCHS} (ROADMAP.md, queue 1, item 7)")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; the port runs {ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}").CONFIG
+
+
+def smoke_config(name: str, seq_len: int = 32) -> ModelConfig:
+    """Reduced config of the same family: small width, layers and vocab,
+    the same block pattern and feature flags, fp32."""
+    cfg = get_config(name)
+    pat = cfg.layer_pattern
+    num_layers = min(cfg.num_layers, 2 * len(pat) + 1)
+    heads = 4
+    kv = max(1, round(heads * cfg.num_kv_heads / cfg.num_heads))
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        num_layers=num_layers,
+        d_model=64,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=16 if cfg.head_dim else 0,
+        d_ff=min(cfg.d_ff, 128),
+        vocab_size=128,
+        num_experts=min(cfg.num_experts, 8),
+        top_k=min(cfg.top_k, 4) if cfg.top_k else 0,
+        moe_dense_ff=min(cfg.moe_dense_ff, 64),
+        d_rnn=64 if cfg.d_rnn else 0,
+        frontend_dim=16 if cfg.frontend_dim else 0,
+        num_patches=4 if cfg.num_patches else 0,
+        local_window=min(cfg.local_window, seq_len // 2),
+        attn_chunked_threshold=cfg.attn_chunked_threshold,
+        dtype="float32",
+    )
+
+
+__all__ = ["ARCHS", "UNPORTED_ARCHS", "ModelConfig", "get_config",
+           "smoke_config"]

@@ -6,7 +6,9 @@ The fp32 peak is the non-tensor-core rate: every fp32 kernel of the port
 runs fp32 FMA on CUDA cores (no TF32), so that is the rate an fp32 bound
 divides by.  An int8 bound divides by the dense int8 tensor-core peak, the
 least time the card could take for the work, though the int8 kernels run
-dp4a on the CUDA cores.
+dp4a on the CUDA cores.  Likewise a bf16 bound divides by the dense bf16
+tensor-core peak, though the flash-attention kernel runs fp32 FMA on the
+CUDA cores.
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ class ChipSpec:
     hbm_bandwidth: float = 3.35e12           # B/s
     peak_flops_fp32: float = 67e12           # FLOP/s, CUDA cores, no TF32
     peak_ops_int8: float = 1979e12           # OP/s, dense int8 tensor cores
+    # FLOP/s, dense bf16 tensor cores (NVIDIA H100 SXM data sheet, without
+    # sparsity).
+    peak_flops_bf16: float = 989e12
 
 
 H100 = ChipSpec()

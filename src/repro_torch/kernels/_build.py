@@ -34,6 +34,7 @@ SOURCES: Dict[str, str] = {
     "im2col_conv_q8": "im2col_gemm/csrc/im2col_conv_q8.cu",
     "winograd_fused": "winograd/csrc/winograd_fused.cu",
     "winograd_3pass": "winograd/csrc/winograd_3pass.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
 }
 
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch"

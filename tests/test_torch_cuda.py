@@ -14,7 +14,14 @@ int32, as their plain versions do, and differ at most in the fp32
 epilogue, 1e-5; the fused Winograd kernel and the
 3-pass transforms also round inside their transforms, 5e-4
 (tests/test_conv_conformance.py); a whole network compounds the per-layer
-differences over its depth, 1e-3 of max|ref|.
+differences over its depth, 1e-3 of max|ref|.  Flash attention: fp32
+within 2e-4 (the reference suite's tolerance); bf16 within 3e-2 of
+max(1, max|ref|), two units of bf16's last place (both versions round p and
+the output to bf16, the sums in another order); and each query row's
+difference within 1e-4 (fp32) or 1e-2 (bf16) of that row's norm, which
+holds the late causal rows at their own scale (scripts/flash_bf16_replay.py
+replays the kernel's bf16 arithmetic on the CPU: at most 0.006).  An LM
+forward compounds that over its layers: fp32 within 1e-3 of max|ref|.
 """
 import numpy as np
 import pytest
@@ -23,6 +30,7 @@ import torch
 import repro_torch
 from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec
 from repro_torch.kernels.conv_ops import kernel_wrappers
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
 from repro_torch.kernels.im2col_gemm.ops import im2col_conv, im2col_conv_q8
 from repro_torch.kernels.winograd.ops import (
@@ -49,6 +57,12 @@ def cuda_device():
 def _randn(device, seed, *shapes):
     g = torch.Generator(device="cpu").manual_seed(seed)
     return [torch.randn(*s, generator=g).to(device) for s in shapes]
+
+
+def _row_err(got, ref):
+    """The largest per-row relative error over the last dimension."""
+    got, ref = got.float(), ref.float()
+    return float(((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max())
 
 
 def _close(got, ref, rtol):
@@ -232,3 +246,76 @@ def test_device_ms_times_the_card_and_refuses_a_synchronizing_call(cuda_device):
     assert 0 < ms < 0.1
     with pytest.raises(RuntimeError, match="synchronizes"):
         device_ms([lambda: (y.add_(1), torch.cuda.synchronize())] * 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,sk,h,kv,hd,causal,window,cap", [
+    (2, 64, 64, 3, 3, 16, True, 0, 0.0),
+    (1, 128, 128, 2, 2, 32, True, 32, 0.0),
+    (2, 200, 200, 8, 2, 64, True, 0, 0.0),       # Llama grouping, ragged S
+    (1, 300, 300, 4, 2, 128, True, 100, 50.0),   # gemma2: window + softcap
+    (1, 50, 37, 4, 2, 64, False, 0, 0.0),        # non-causal, ragged Sk
+    (1, 130, 130, 4, 4, 128, False, 40, 0.0),    # bidirectional window
+])
+def test_flash_attention_kernel_on_card(cuda_device, dtype, b, s, sk, h, kv,
+                                        hd, causal, window, cap):
+    q, k, v = (t.to(dtype) for t in _randn(
+        cuda_device, 20, (b, s, h, hd), (b, sk, kv, hd), (b, sk, kv, hd)))
+    got = flash_attention(q, k, v, causal, window, cap)
+    ref = flash_attention(q, k, v, causal, window, cap, impl="torch")
+    assert got.dtype == dtype
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    _close(got.float(), ref.float(), tol)
+    assert _row_err(got, ref) <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_softcap_saturated_on_card(cuda_device, dtype):
+    """q scaled by 8: scaled scores of std 8 reach the cap's bend, so the
+    kernel must compute it; the plain version without the cap fails the
+    same row gate."""
+    q, k, v = _randn(cuda_device, 22, (1, 300, 4, 128), (1, 300, 2, 128),
+                     (1, 300, 2, 128))
+    q, k, v = (q * 8).to(dtype), k.to(dtype), v.to(dtype)
+    got = flash_attention(q, k, v, True, 0, 50.0)
+    ref = flash_attention(q, k, v, True, 0, 50.0, impl="torch")
+    nocap = flash_attention(q, k, v, True, 0, 0.0, impl="torch")
+    row_tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert _row_err(got, ref) <= row_tol
+    assert _row_err(got, nocap) > row_tol
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda_device):
+    q, k = _randn(cuda_device, 21, (1, 8, 4, 48), (1, 8, 2, 48))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash_attention(q[..., :32].contiguous(), k[..., :32].cpu().contiguous(),
+                        k[..., :32].cpu().contiguous())
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-27b"])
+def test_small_lm_on_card(cuda_device, arch):
+    """A smoke LM: the flash kernel launched once per attention layer,
+    impl='cuda' against impl='torch', and prefill through the kernel
+    against token-by-token decode."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.smoke_config(arch)
+    params = tf.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(1))
+    flash_attention.launches = 0
+    got = repro_torch.compile(cfg, params).run(toks)
+    assert flash_attention.launches == cfg.num_layers
+    ref = repro_torch.compile(cfg, params, repro_torch.ExecutionOptions(
+        impl="torch")).run(toks)
+    _close(got, ref, 1e-3)
+    logits_pf, cache_pf = tf.prefill_with_cache(cfg, params, toks[:, :8], 16)
+    cache = tf.init_cache(cfg, 2, 16, cuda_device)
+    for t in range(8):
+        logits_dec, cache = tf.decode_step(cfg, params, cache, toks[:, t:t + 1], t)
+    _close(logits_pf, logits_dec, 1e-3)

@@ -13,11 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as j_configs
 from repro.configs import vgg16 as j_vgg16
 from repro.configs import yolov3 as j_yolov3
 from repro.core import winograd as j_winograd
 from repro.models.cnn import init_cnn as j_init_cnn
-from repro_torch import hw, util
+from repro_torch import configs, hw, util
 from repro_torch.configs import vgg16, yolov3
 from repro_torch.core import winograd
 from repro_torch.core.conv_spec import ConvAlgorithm
@@ -112,5 +113,24 @@ def test_h100_spec():
     assert (spec.sm_count, spec.smem_per_block_bytes) == (132, 232_448)
     assert spec.l2_bytes == 50 * 1024**2 and spec.hbm_bytes == 80 * 10**9
     assert (spec.hbm_bandwidth, spec.peak_flops_fp32) == (3.35e12, 67e12)
+    assert spec.peak_flops_bf16 == 989e12
     assert not any(hasattr(spec, f) for f in
                    ("vmem_bytes", "sublanes", "lane_width", "mxu_dim"))
+
+
+@pytest.mark.parametrize("arch", configs.ARCHS)
+def test_lm_configs_equal_reference(arch):
+    """The copied ModelConfigs and their smoke reductions, field by field,
+    with the derived quantities."""
+    for ours, ref in ((configs.get_config(arch), j_configs.get_config(arch)),
+                      (configs.smoke_config(arch), j_configs.smoke_config(arch))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+        assert ours.param_count() == ref.param_count()
+        assert ours.pattern_layers == ref.pattern_layers
+        assert ours.resolved_head_dim == ref.resolved_head_dim
+    fields = [f.name for f in dataclasses.fields(configs.ModelConfig)]
+    assert fields == [f.name for f in dataclasses.fields(type(ref))]
+
+
+def test_unported_lm_archs_are_the_reference_rest():
+    assert sorted(configs.ARCHS + configs.UNPORTED_ARCHS) == sorted(j_configs.ARCHS)
