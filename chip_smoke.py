@@ -10,7 +10,8 @@ Phases, each on its own printed lines:
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    and the card's reported properties beside ``repro_torch.hw.H100``;
 2. build every CUDA kernel of the port with nvcc (one process per source,
-   all at once) and print the build seconds and ptxas' register counts;
+   all at once) and print the build seconds and ptxas' register, spill
+   and shared-memory counts;
 3. each kernel against its plain PyTorch version at every shape the model
    cells below give it (YOLOv3-tiny at 416x416, batch 1 and 4; MODEL_20 at
    608x608, batch 1; VGG-16 at 224x224, batch 1, with the fused Winograd
@@ -28,14 +29,21 @@ Phases, each on its own printed lines:
    YOLOv3-tiny b1 for the two int8 kernels, with int8 operations over the
    1979 TOP/s int8 peak, bytes of int8 operands and fp32 output, scale and
    bias, and ``torch._int_mm`` plus the epilogue as the GEMM's library call
-   (no PyTorch call computes an int8 convolution); then, per VGG-16
-   Winograd layer, the fused kernel's time beside the 3-pass pipeline's;
+   (no PyTorch call computes an int8 convolution); each timed line also
+   gives the kernel's time over the library call's, and each fp32 im2col
+   line the number of split-K ranges the wrapper chose (``splits``); then,
+   per VGG-16 Winograd layer, the fused kernel's time beside the 3-pass
+   pipeline's;
 4. YOLOv3-tiny at 416x416, batch 1 and 4, through ``repro_torch.compile``
    with ``impl='cuda'``, held against ``impl='torch'`` on the card; each
    kernel's launch count in one forward must equal the plan's count
    (``NetworkPlan.kernel_launches``); ms per forward and images/s; a
    profiler breakdown of the batch-1 forward by CUDA kernel, with the
-   device's idle share of the forward;
+   device's idle share of the forward; in every profiled forward each port
+   kernel the plan launches must appear in the trace, at most as often as
+   the plan says (the fp32 im2col conv's split-K reduce kernel once for
+   each call with ``splits > 1``), and no other port kernel (the trace
+   may lose records, so the exact counts are the wrappers');
 5. the first 20 layers of Darknet-53 (MODEL_20) at 608x608, batch 1: the
    same comparison (stride-2 im2col, shortcut);
 6. VGG-16 at 224x224, batch 1, three forwards: the default (fused
@@ -66,7 +74,8 @@ Phases, each on its own printed lines:
    row's norm, each timed beside its plain version, ``F.scaled_dot_product_attention``
    where one PyTorch call computes the case, and its bound (FLOPs of the
    unmasked pairs over the 67 TFLOP/s fp32 or the 989 TFLOP/s bf16
-   tensor-core peak, or bytes of q, k, v and o over 3.35 TB/s); the
+   tensor-core peak, or bytes of q, k, v and o over 3.35 TB/s), the
+   achieved TFLOP/s of those FLOPs and the time over SDPA's; the
    global Gemma2 case again with q scaled by 8, so the scores reach the
    softcap's bend (untimed; the plain version without the cap must fail
    the row gate there); then
@@ -140,7 +149,7 @@ INT8_VS_FP32_DB = 30.0
 # that late causal rows, whose outputs are 100 times smaller than the
 # first rows', are held at their own scale: bf16 rounds each output to 8
 # significant bits (at most 2^-8 of it on each side) and p before P.V (the
-# kernel p = exp(s - m), the plain version p / l, so the two round apart;
+# kernel p = exp2(x - m), the plain version p / l, so the two round apart;
 # rows of a few keys whose outputs cancel lose most): at most 0.006 of the
 # row norm in scripts/flash_bf16_replay.py, a CPU replay of the kernel's
 # arithmetic, where a per-element bound of 2^-6|ref| + 1e-3 fails at such
@@ -175,7 +184,8 @@ SOURCE = {"gemm": "gemm", "im2col_conv": "im2col_conv",
           "tuple_multiply": "winograd_3pass",
           "output_transform": "winograd_3pass",
           "flash_attention": "flash_attention"}
-# The CUDA function of each kernel, as the profiler names it.
+# The CUDA function of each kernel, as the profiler names it (a substring
+# of it: flash attention has an fp32 and a bf16 kernel).
 CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
               "gemm_q8": "gemm_q8_bias_act_kernel",
               "im2col_conv": "im2col_conv_kernel",
@@ -184,7 +194,9 @@ CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
               "input_transform": "winograd_input_transform_kernel",
               "tuple_multiply": "winograd_tuple_multiply_kernel",
               "output_transform": "winograd_output_transform_kernel",
-              "flash_attention": "flash_attention_kernel"}
+              "flash_attention": "flash_attention"}
+# The fp32 im2col conv's second kernel, launched by the calls that split K.
+SPLITK_REDUCE = "im2col_conv_splitk_reduce_kernel"
 
 
 def log(*parts) -> None:
@@ -257,7 +269,11 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
     from repro_torch.core.winograd import AT, BT, _const, _tile_input, \
         transform_weights
     from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
-    from repro_torch.kernels.im2col_gemm.ops import im2col_conv, im2col_conv_q8
+    from repro_torch.kernels.im2col_gemm.ops import (
+        call_splits,
+        im2col_conv,
+        im2col_conv_q8,
+    )
     from repro_torch.kernels.winograd.ops import (
         fused_winograd,
         input_transform,
@@ -383,7 +399,8 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
             cases.append(dict(
                 base, **conv_lib, kernel="im2col_conv",
                 label=(f"{head} im2col {h}x{w}x{phys_c}->{oh}x{ow}x{o} "
-                       f"k{kh} s{spec.stride[0]} blocks={blocks}"),
+                       f"k{kh} s{spec.stride[0]} blocks={blocks} splits="
+                       f"{call_splits(b, oh, ow, phys_c, o, blocks[0])}"),
                 args=(xp, wtp, bias),
                 run=lambda x, wt, bias, spec=spec, blocks=blocks, act=act,
                 impl="cuda": im2col_conv(x, wt, spec, blocks, bias, act,
@@ -492,7 +509,9 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
             f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
             + ("-" if library_ms is None else f"{library_ms:.4f}")
             + f" bound_ms={bound_ms:.5f} "
-            f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+            f"({'operations' if t_ops >= t_bytes else 'bytes'})"
+            + ("" if library_ms is None
+               else f" ms/library_ms={ms / library_ms:.3f}"))
         agg = summary.setdefault(name, dict(
             calls=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
             bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0))
@@ -662,10 +681,12 @@ def run_cell(model, batch, rng, params=None, options=None, name=None,
         f"ms_per_forward={ms:.3f} images_per_s={batch * 1e3 / ms:.1f} "
         f"plain_ms_per_forward={plain_ms:.3f} {detail}".rstrip())
     if profile:
-        profile_forward(lambda: cu.run(x), ms, name)
+        profile_forward(lambda: cu.run(x), ms, name,
+                        want=planned_cuda_launches(cu.network_plan(batch)))
         if fp32 is not None:
             profile_forward(lambda: fp32.run(x), fp32_ms,
-                            f"{name} (its fp32 forward)")
+                            f"{name} (its fp32 forward)",
+                            want=planned_cuda_launches(fp32.network_plan(batch)))
     return counts, cu
 
 
@@ -692,12 +713,33 @@ def deployment_sqnr(model, rng, name) -> None:
         f"sqnr_vs_plain_db={sqnr_db(y_plain, y):.2f} (printed, not gated)")
 
 
+def planned_cuda_launches(netplan):
+    """CUDA launches of each port kernel in one forward of ``netplan``, by
+    the profiler's name: the plan's count of each kernel, and the split-K
+    reduce kernel once for each fp32 im2col call that splits."""
+    from repro_torch.core.conv_spec import ConvAlgorithm
+    from repro_torch.kernels.im2col_gemm.ops import call_splits
+
+    want = {CUDA_NAMES[k]: n for k, n in netplan.kernel_launches().items()}
+    splits = sum(
+        call_splits(netplan.batch, *s.out_hw, s.in_layout.phys_c,
+                    s.out_layout.phys_c, s.plan.kernel_blocks[0]) > 1
+        for s in netplan.steps
+        if s.layer.kind == "conv" and s.plan.dtype == "float32"
+        and s.plan.algorithm is ConvAlgorithm.IM2COL_GEMM)
+    if splits:
+        want[SPLITK_REDUCE] = splits
+    return want
+
+
 def profile_forward(forward, ms_per_forward: float, name: str,
-                    reps: int = 5, host_rows: int = 0) -> None:
+                    reps: int = 5, host_rows: int = 0, want=None) -> None:
     """Device time of one call of ``forward`` by CUDA kernel
     (torch.profiler), the share of the measured time per call in which the
     device was idle and, with ``host_rows``, the operators that take the
-    most host time."""
+    most host time.  With ``want`` (profiler name -> launches per
+    forward), every port kernel in it must appear in the trace, at most as
+    often, and no other port kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -729,13 +771,28 @@ def profile_forward(forward, ms_per_forward: float, name: str,
     kernels = sorted((ev for ev in prof.events()
                       if ev.device_type == DeviceType.CUDA),
                      key=lambda ev: ev.time_range.start)
-    for name in CUDA_NAMES.values():
-        us = [ev.time_range.elapsed_us() for ev in kernels if name in ev.name]
+    if want is not None:
+        # The trace may lose kernel records here (86 of 95 launches in one
+        # forward's profile), never add them: every planned port kernel
+        # appears, at most as often as planned, and no other one.
+        seen = {c: sum(c in ev.name for ev in kernels)
+                for c in (*CUDA_NAMES.values(), SPLITK_REDUCE)}
+        bad = {c: n for c, n in seen.items()
+               if not (0 < n <= want[c] * reps if c in want else n == 0)}
+        if bad:
+            raise AssertionError(f"profile {name}: port kernel launches in "
+                                 f"{reps} forwards {bad}, the plan's per "
+                                 f"forward {want}")
+        log(f"  profile {name}: port kernel launches in {reps} forwards "
+            f"{ {c: n for c, n in seen.items() if n} }, the plan's per forward "
+            f"{want}")
+    for cname in (*CUDA_NAMES.values(), SPLITK_REDUCE):
+        us = [ev.time_range.elapsed_us() for ev in kernels if cname in ev.name]
         n = len(us) // reps
         if not n:
             continue
         per_call = [statistics.median(us[i::n]) / 1e3 for i in range(n)]
-        log(f"  in forward order, {name} ms: "
+        log(f"  in forward order, {cname} ms: "
             + " ".join(f"{t:.4f}" for t in per_call)
             + f" (share of device busy {sum(us) / reps / 1e3 / busy_ms:.3f})")
 
@@ -826,8 +883,9 @@ def check_flash(hw, cells, saturated=()):
                     (q, k, v), rounds=3)
                 why = "F.scaled_dot_product_attention"
             pairs = unmasked_pairs(s, sk, causal, window)
+            flops = 4 * b * h * hd * pairs
             peak = hw.peak_flops_bf16 if dtype == torch.bfloat16 else hw.peak_flops_fp32
-            t_ops = 4 * b * h * hd * pairs / peak * 1e3
+            t_ops = flops / peak * 1e3
             t_bytes = nbytes((q, k, v, got)) / hw.hbm_bandwidth * 1e3
             bound_ms = max(t_ops, t_bytes)
             out[cell, dname] = dict(
@@ -839,7 +897,10 @@ def check_flash(hw, cells, saturated=()):
                 + ("-" if library_ms is None else f"{library_ms:.4f}")
                 + f" ({why}) bound_ms={bound_ms:.5f} "
                 f"({out[cell, dname]['bound_by']}) pairs={pairs} "
-                f"share_of_bound={bound_ms / ms:.4f}")
+                f"share_of_bound={bound_ms / ms:.4f} "
+                f"tflops={flops / ms * 1e-9:.1f}"
+                + ("" if library_ms is None
+                   else f" ms/library_ms={ms / library_ms:.3f}"))
     return out
 
 
@@ -927,7 +988,8 @@ def lm_prefill_cell(cfg, seq, name, profile=False, keep=False):
             f"launches={counts} init_s={init_s:.2f} ms_per_forward={ms:.3f} "
             f"tokens_per_s={seq * 1e3 / ms:.1f} {plain_part}".rstrip())
         if profile and is_main:
-            profile_forward(lambda: cu.run(toks), ms, f"{name} {dname}", reps=3)
+            profile_forward(lambda: cu.run(toks), ms, f"{name} {dname}", reps=3,
+                            want={CUDA_NAMES["flash_attention"]: cfg.num_layers})
         if keep:
             result[dname] = p
         result["launches"] = counts

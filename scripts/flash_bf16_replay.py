@@ -2,10 +2,14 @@
 """The flash-attention kernel's bf16 arithmetic replayed on the CPU, held
 against its plain version, to size the bf16 tolerance.
 
-``replay`` follows ``kernels/flash_attention/csrc/flash_attention.cu`` step
-by step: 64-key tiles, fp32 scores, the softcap and the mask, the running
-max m and sum l, p = exp(s - m) rounded to bf16 before P.V, the output
-acc / l rounded to bf16.  The plain version (``attention_ref``) rounds the
+``replay`` follows the bf16 kernel, ``kernels/flash_attention/csrc/
+flash_attention_bf16.cuh``, step by step: 64-key tiles, fp32 scores, then
+in base 2 with log2 e folded into the scale — x = s * (scale * log2 e), or
+with the softcap x = tanh(s * (scale / cap)) * (cap * log2 e), each
+bracket one fp32 constant and tanh(y) = 1 - 2 / (exp2(2 y log2 e) + 1) —
+the mask (-inf), the running max m of x and sum l, p = exp2(x - m)
+rounded to bf16 before P.V, the output acc / l rounded to bf16 (exp2 here
+is exact to fp32; the kernel's SFU exp2 is within about 2^-22 of it).  The plain version (``attention_ref``) rounds the
 normalized p / l instead, so the two round each weight apart.  For each
 case the script prints the largest per-element error over its two
 candidate gates (2^-6 |ref| + 1e-3, and 3e-2 max(1, max|ref|)), and the
@@ -26,15 +30,13 @@ from __future__ import annotations
 import argparse
 import math
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.flash_attention.ref import (
-    NEG_INF,
-    attention_mask,
-    attention_ref,
-)
+from repro_torch.kernels.flash_attention.ref import attention_mask, attention_ref
 
 BK = 64
+LOG2E = np.float32(1.4426950408889634)
 FAULTS = (None, "noround", "late", "lastkey", "nocap", "mod")
 # (S, H, KV, hd, causal, window, cap, q scale): Llama's grouping, Gemma2's
 # local and global layers, a non-causal case, the softcap saturated.
@@ -50,13 +52,18 @@ def replay(q, k, v, causal, window, cap, fault=None):
     b, s, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     mask = attention_mask(s, sk, causal, window)
+    scale = np.float32(1.0 / math.sqrt(hd))
+    capped = cap > 0 and fault != "nocap"
+    # The kernel's two fp32 constants (flash_bf16::launch).
+    x_scale = float(scale / np.float32(cap) if capped else scale * LOG2E)
+    cap_out = float(np.float32(cap) * LOG2E) if capped else 0.0
     out = torch.empty_like(q)
     for bi in range(b):
         for hh in range(h):
             kh = hh % kv if fault == "mod" else hh // (h // kv)
             qq, kk, vv = (q[bi, :, hh].float(), k[bi, :, kh].float(),
                           v[bi, :, kh].float())
-            m = torch.full((s,), NEG_INF)
+            m = torch.full((s,), -math.inf)
             l, acc = torch.zeros(s), torch.zeros(s, hd)
             for k0 in range(0, sk, BK):
                 valid = mask[:, k0:k0 + BK].clone()
@@ -64,13 +71,15 @@ def replay(q, k, v, causal, window, cap, fault=None):
                     valid[:, -1] = False
                 if not valid.any():
                     continue        # the kernel skips fully masked tiles
-                sc = qq @ kk[k0:k0 + BK].T / math.sqrt(hd)
-                if cap > 0 and fault != "nocap":
-                    sc = torch.tanh(sc / cap) * cap
-                sc = torch.where(valid, sc, NEG_INF)
-                m_new = torch.maximum(m, sc.max(1).values)
-                alpha = torch.exp(m - m_new)
-                p = torch.where(valid, torch.exp(sc - m_new[:, None]), 0.0)
+                x = (qq @ kk[k0:k0 + BK].T) * x_scale
+                if capped:    # tanh(y) = 1 - 2 / (exp2(2 y log2 e) + 1)
+                    x = (1 - 2 / (torch.exp2(2 * float(LOG2E) * x) + 1)) * cap_out
+                x = torch.where(valid, x, -math.inf)
+                m_new = torch.maximum(m, x.max(1).values)
+                # A row with no valid key yet takes 0 as its max: p = 0.
+                m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+                alpha = torch.exp2(m - m_use)
+                p = torch.exp2(x - m_use[:, None])
                 l = l * alpha + p.sum(1)
                 if fault != "noround":
                     p = p.to(v.dtype).float()

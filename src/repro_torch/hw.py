@@ -6,9 +6,9 @@ The fp32 peak is the non-tensor-core rate: every fp32 kernel of the port
 runs fp32 FMA on CUDA cores (no TF32), so that is the rate an fp32 bound
 divides by.  An int8 bound divides by the dense int8 tensor-core peak, the
 least time the card could take for the work, though the int8 kernels run
-dp4a on the CUDA cores.  Likewise a bf16 bound divides by the dense bf16
-tensor-core peak, though the flash-attention kernel runs fp32 FMA on the
-CUDA cores.
+dp4a on the CUDA cores.  A bf16 bound divides by the dense bf16
+tensor-core peak: the units the bf16 flash-attention kernel runs on
+(through mma.sync).
 """
 from __future__ import annotations
 

@@ -1,30 +1,32 @@
 // Flash attention (forward) for sm_90a: online-softmax attention that never
-// writes the (S, Sk) score matrix to device memory.
+// writes the (S, Sk) score matrix to device memory.  One C entry,
+// repro_flash_attention, dispatches by type: fp32 inputs run the CUDA-core
+// kernel below, bf16 inputs the tensor-core kernel of
+// flash_attention_bf16.cuh.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas and
 // computes what its body _flash_kernel computes, row by row:
 //   s = (q . k) * (1/sqrt(hd)); s = tanh(s / cap) * cap when cap > 0;
 //   masked pairs get the finite NEG_INF; an online softmax with fp32 running
-//   max m, sum l and accumulator acc; p is rounded to the input type before
-//   the P.V product; out = acc / max(l, 1e-37), stored in the input type.
+//   max m, sum l and accumulator acc; out = acc / max(l, 1e-37).
 //
 // Layout.  q (B, S, H, hd) and k, v (B, Sk, KV, hd) are read in place:
 // query head h reads KV head h / (H / KV), the grouping of
 // q.reshape(b, s, kv, g, hd) in repro/models/attention.py, so no K/V head is
 // copied or broadcast.  The output is (B, S, H, hd), like q.
 //
-// Design.  The TPU kernel walks a (BH, S/bq, Sk/bk) grid in order and
-// carries m, l and acc in VMEM scratch across the kv axis.  Here one block
-// of 256 threads owns 64 query rows of one (batch, head) and loops over the
-// kv tiles itself, with m, l and acc in registers: thread (ty, tx) of a
-// 16 x 16 grid owns rows 4ty..4ty+3, score columns tx + 16j of each 64-key
-// tile and output columns tx + 16j of hd.  The Q tile and each K and V tile
-// are staged in shared memory as fp32 (K and Q rows padded by one float
+// The fp32 kernel.  The TPU kernel walks a (BH, S/bq, Sk/bk) grid in order
+// and carries m, l and acc in VMEM scratch across the kv axis.  Here one
+// block of 256 threads owns 64 query rows of one (batch, head) and loops
+// over the kv tiles itself, with m, l and acc in registers: thread (ty, tx)
+// of a 16 x 16 grid owns rows 4ty..4ty+3, score columns tx + 16j of each
+// 64-key tile and output columns tx + 16j of hd.  The Q tile and each K and
+// V tile are staged in shared memory (K and Q rows padded by one float
 // against bank conflicts); a row's max and sum are reduced over the 16
 // threads of its half-warp with shuffles; P goes through shared memory to
-// the P.V loop.  fp32 FMA on CUDA cores; tensor cores, wgmma and TMA are
-// later work.
+// the P.V loop.  fp32 FMA on CUDA cores: fp32 has no tensor-core path that
+// keeps fp32 accuracy.
 //
 // Masks.  Positions are q_pos = row, k_pos = key, both from 0.  A pair is
 // valid when k_pos < Sk, and k_pos <= q_pos (causal), and
@@ -40,13 +42,14 @@
 // What bounds it.  At Llama-3.2-1B's prefill (hd 64, S 4096, causal) the
 // work is 4 hd FLOPs per valid pair against q, k, v and o read or written
 // once: far above the card's bytes-per-FLOP line, so operations bound it.
-// This kernel runs them as fp32 FMAs fed from shared memory (one scalar
+// The fp32 kernel runs them as FMAs fed from shared memory (one scalar
 // load per FMA on average over the two products), so shared-memory loads,
-// not the tensor-core peak, limit it.
-#include <cuda_bf16.h>
+// not the fp32 peak, limit it.
 #include <cuda_runtime.h>
 
 #include <cmath>
+
+#include "flash_attention_bf16.cuh"
 
 namespace {
 
@@ -56,19 +59,6 @@ constexpr int THREADS = 256;   // 16 x 16
 constexpr int RT = 4;          // rows per thread
 constexpr int CT = BK / 16;    // score columns per thread
 constexpr float NEG_INF = -2.3819763e38f;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // Max and sum over the 16 threads of a half-warp (the threads of one row
 // group): xor offsets below 16 stay inside the half.
@@ -90,10 +80,10 @@ constexpr size_t smem_floats() {
          (size_t)BQ * (BK + 1);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, int S,
                        int Sk, int H, int KV, int causal, int window,
                        float cap, float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -114,14 +104,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t q_row = (size_t)H * HD;       // stride between positions
   const size_t k_row = (size_t)KV * HD;
-  const T* qb = q + ((size_t)b * S * H + h) * HD;
-  const T* kb = k + ((size_t)b * Sk * KV + kvh) * HD;
-  const T* vb = v + ((size_t)b * Sk * KV + kvh) * HD;
+  const float* qb = q + ((size_t)b * S * H + h) * HD;
+  const float* kb = k + ((size_t)b * Sk * KV + kvh) * HD;
+  const float* vb = v + ((size_t)b * Sk * KV + kvh) * HD;
 
   for (int e = tid; e < BQ * HD; e += THREADS) {
     const int r = e / HD, d = e % HD;
     const int qp = q0 + r;
-    Qs[r * (HD + 1) + d] = qp < S ? to_float(qb[(size_t)qp * q_row + d]) : 0.f;
+    Qs[r * (HD + 1) + d] = qp < S ? qb[(size_t)qp * q_row + d] : 0.f;
   }
 
   float m[RT], l[RT], acc[RT][OC];
@@ -144,8 +134,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / HD, d = e % HD;
       const int kp = k0 + r;
       const bool in = kp < Sk;
-      Ks[r * (HD + 1) + d] = in ? to_float(kb[(size_t)kp * k_row + d]) : 0.f;
-      Vs[r * HD + d] = in ? to_float(vb[(size_t)kp * k_row + d]) : 0.f;
+      Ks[r * (HD + 1) + d] = in ? kb[(size_t)kp * k_row + d] : 0.f;
+      Vs[r * HD + d] = in ? vb[(size_t)kp * k_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -168,7 +158,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < CT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
-    // Scale, cap, mask; the online softmax; p rounded to T into Ps.
+    // Scale, cap, mask; the online softmax; p into Ps.
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
       const int r = ty * RT + i;
@@ -192,7 +182,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CT; ++j) {
         const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
         sum += p;
-        Ps[r * (BK + 1) + tx + 16 * j] = to_float(from_float<T>(p));
+        Ps[r * (BK + 1) + tx + 16 * j] = p;
       }
       l[i] = l[i] * alpha + row_sum(sum);
       m[i] = m_new;
@@ -216,7 +206,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + ((size_t)b * S * H + h) * HD;
+  float* ob = o + ((size_t)b * S * H + h) * HD;
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
     const int qp = q0 + ty * RT + i;
@@ -224,11 +214,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l[i], 1e-37f);
 #pragma unroll
     for (int j = 0; j < OC; ++j)
-      ob[(size_t)qp * q_row + tx + 16 * j] = from_float<T>(acc[i][j] * inv);
+      ob[(size_t)qp * q_row + tx + 16 * j] = acc[i][j] * inv;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int Sk, int H, int KV, int causal, int window, float cap,
            cudaStream_t stream) {
@@ -236,50 +226,46 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, HD>,
+        flash_attention_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   const float scale = static_cast<float>(1.0 / sqrt((double)HD));
-  flash_attention_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Sk, H, KV, causal,
-      window, cap, scale);
+  flash_attention_kernel<HD><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, Sk, H, KV,
+      causal, window, cap, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int Sk, int H, int KV, int hd, int causal, int window,
-             float cap, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, Sk, H, KV, causal, window, cap, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, Sk, H, KV, causal, window, cap, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, Sk, H, KV, causal, window, cap, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, Sk, H, KV, causal, window, cap, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
 // o (B, S, H, hd) = attention(q (B, S, H, hd), k, v (B, Sk, KV, hd)).
-// dtype 0: float, 1: bfloat16.  hd in {16, 32, 64, 128}; H % KV == 0;
-// window <= 0: no window; cap <= 0: no softcap.  Returns cudaGetLastError().
+// dtype 0: float (the CUDA-core kernel), 1: bfloat16 (the tensor-core
+// kernel).  hd in {16, 32, 64, 128}; H % KV == 0; window <= 0: no window;
+// cap <= 0: no softcap.  Returns cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int S,
                                      int Sk, int H, int KV, int hd, int dtype,
                                      int causal, int window, float cap,
                                      cudaStream_t stream) {
-  if (B < 1 || S < 1 || Sk < 1 || KV < 1 || H % KV != 0)
+  if (B < 1 || S < 1 || Sk < 1 || KV < 1 || H % KV != 0 || dtype < 0 ||
+      dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, B, S, Sk, H, KV, hd, causal, window,
-                           cap, stream);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, S, Sk, H, KV, hd, causal,
-                                   window, cap, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_FLASH_CASE(HD)                                                  \
+  case HD:                                                                    \
+    return dtype == 0 ? launch<HD>(q, k, v, o, B, S, Sk, H, KV, causal,       \
+                                   window, cap, stream)                       \
+                      : flash_bf16::launch<HD>(q, k, v, o, B, S, Sk, H, KV,   \
+                                               causal, window, cap, stream);
+  switch (hd) {
+    REPRO_FLASH_CASE(16)
+    REPRO_FLASH_CASE(32)
+    REPRO_FLASH_CASE(64)
+    REPRO_FLASH_CASE(128)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_FLASH_CASE
 }

@@ -1,5 +1,5 @@
 // Implicit-GEMM (fused im2col + GEMM) fp32 convolution, NHWC / HWIO, for
-// sm_90a, with a fused bias + activation epilogue.
+// sm_90a, with a fused bias + activation epilogue and split-K.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/im2col_gemm/kernel.py::conv2d_im2col_gemm_pallas
@@ -11,23 +11,42 @@
 // "arbitrary" grid axis.  A Hopper block has at most 227 KB of shared
 // memory (a 608x608 slab of 8 channels alone is 11 MB), and blocks run in
 // parallel.  So one block owns one output tile of toh x tow pixels
-// (toh * tow <= 64) of one image and 64 out channels; the in-channel
-// reduction is a loop inside the block with the 64x64 accumulator in
-// registers (a 4 pixel x 4 channel micro-tile per thread).  Each step of
-// the loop stages, for BC = 8 channels, the input window the tile needs —
-// (toh-1)*sh + kh rows by (tow-1)*sw + kw columns, the halo included — and
-// the (kh, kw, BC, 64) weight slice in shared memory; every tap then reads
-// its shifted, strided view of the window.  The conv's zero padding is
-// applied while staging (out-of-image reads load 0), so the caller pads
-// nothing spatially; out channels and the ragged last row/column tile are
-// masked.  Bias and activation run once, after the last channel chunk.
+// (toh * tow <= 64) of one image and 64 out channels, with the 64x64
+// accumulator in registers (a 4 pixel x 4 channel micro-tile per thread).
+// Each step of its reduction stages, for BC = 8 channels, the input window
+// the tile needs — (toh-1)*sh + kh rows by (tow-1)*sw + kw columns, the
+// halo included — and the (kh, kw, BC, 64) weight slice in shared memory;
+// every tap then reads its shifted, strided view of the window.
+//
+// Asynchronous staging.  Both are copied by cp.async, 16 bytes a thread,
+// into the second of two buffers while the step before computes from the
+// first; one barrier per step orders both.  The conv's zero padding is
+// the copies' zero fill (out-of-image pixels read 0 bytes), so the caller
+// pads nothing spatially; weights past the last out channel are zero
+// filled the same way (when O is not a multiple of 4, the weight slice is
+// loaded with plain loads instead, still into the idle buffer).
+//
+// Split-K.  A 13x13 map gives only 4 row tiles, so at batch 1 a 512-
+// channel layer has 32 blocks of 256 threads for 132 SMs.  The reduction
+// over the C / 8 channel chunks (each with all kh * kw taps) is cut into
+// `splits` contiguous ranges, chunk [s * n / splits, (s + 1) * n / splits)
+// for split s of n chunks, on the grid's z axis beside the image; the
+// wrapper picks `splits` from the shape (ops.py::split_k).  With splits > 1
+// each block writes its fp32 partial tile to a workspace (splits, B*OH*OW,
+// O) and im2col_conv_splitk_reduce_kernel sums the partials in split
+// order — deterministic, no atomics — then adds the bias and applies the
+// activation; with splits == 1 the conv kernel does that epilogue itself.
+// Out channels and the ragged last row/column tile are masked.
 //
 // What bounds it.  The deep 13x13 layers of YOLOv3-tiny (K = 9 * 512) are
-// operation-bound in principle, but a 13x13 map gives only 4 row tiles, so
-// at batch 1 a 1024-channel layer launches 64 blocks for 132 SMs.  Inside
-// the loop, shared-memory loads (16 LDS.128 per 128 FMA) limit the rate.
-// fp32 FMA on CUDA cores only, no TF32.
+// operation-bound, at the 67 TFLOP/s fp32 CUDA-core peak: fp32 FMA only,
+// no TF32.  Inside a step, shared-memory loads (16 LDS.128 per 128 FMA per
+// thread) and the 52-of-64 pixels a 13-wide row tile uses hold the rate
+// below that peak; 256 threads and at most 128 registers a thread keep two
+// blocks on each SM.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -37,6 +56,7 @@ constexpr int PIX = 64;      // output pixels per block (toh * tow <= PIX)
 constexpr int TP = 4;        // pixels per thread
 constexpr int TO = 4;        // out channels per thread
 constexpr int THREADS = 256; // (PIX / TP) * (BO / TO)
+constexpr int MAX_SMEM = 232448;
 
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == 1) return fmaxf(v, 0.f);
@@ -44,29 +64,78 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 im2col_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, float* __restrict__ out,
-                   int H, int W, int C, int O, int OH, int OW, int kh, int kw,
-                   int sh, int sw, int ph, int pw, int toh, int tow,
-                   int col_tiles, int act) {
+                   float* __restrict__ ws, int B, int H, int W, int C, int O,
+                   int OH, int OW, int kh, int kw, int sh, int sw, int ph,
+                   int pw, int toh, int tow, int col_tiles, int act,
+                   int splits) {
   extern __shared__ __align__(16) float smem[];
   const int win_h = (toh - 1) * sh + kh;
   const int win_w = (tow - 1) * sw + kw;
   const int win_px = win_h * win_w;
   const int taps = kh * kw;
-  float* win = smem;                      // [win_px][BC]
-  float* wgt = smem + win_px * BC;        // [taps][BC][BO]
+  const int buf_floats = win_px * BC + taps * BC * BO;
 
   const int tid = threadIdx.x;
   const int tx = tid % (BO / TO);         // out-channel group
   const int ty = tid / (BO / TO);         // pixel group
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
   const int o0 = blockIdx.y * BO;
   const int oh0 = (blockIdx.x / col_tiles) * toh;
   const int ow0 = (blockIdx.x % col_tiles) * tow;
   const int ih0 = oh0 * sh - ph;
   const int iw0 = ow0 * sw - pw;
+  const bool o_vec = O % 4 == 0;
+  const int chunks = C / BC;
+  const int chunk_lo = split * chunks / splits;
+  const int chunk_hi = (split + 1) * chunks / splits;
+
+  // Copies of chunk c's window and weight slice into buffer buf.
+  auto stage = [&](int chunk, int buf) {
+    float* win = smem + buf * buf_floats;   // [win_px][BC]
+    float* wgt = win + win_px * BC;         // [taps][BC][BO]
+    const int c0 = chunk * BC;
+    for (int idx = tid; idx < win_px * (BC / 4); idx += THREADS) {
+      const int px = idx / (BC / 4), v = idx % (BC / 4);
+      const int ih = ih0 + px / win_w, iw = iw0 + px % win_w;
+      const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+      cp_async16(win + 4 * idx,
+                 in ? x + (((size_t)b * H + ih) * W + iw) * C + c0 + 4 * v : x,
+                 in);
+    }
+    if (o_vec) {
+      for (int idx = tid; idx < taps * BC * (BO / 4); idx += THREADS) {
+        const int o = o0 + 4 * (idx % (BO / 4));
+        const int rest = idx / (BO / 4);    // tap * BC + c
+        const int c = rest % BC, tap = rest / BC;
+        cp_async16(wgt + 4 * idx,
+                   o < O ? w + ((size_t)tap * C + c0 + c) * O + o : w, o < O);
+      }
+    } else {
+      for (int idx = tid; idx < taps * BC * BO; idx += THREADS) {
+        const int o = o0 + idx % BO, rest = idx / BO;
+        const int c = rest % BC, tap = rest / BC;
+        wgt[idx] = o < O ? __ldg(w + ((size_t)tap * C + c0 + c) * O + o) : 0.f;
+      }
+    }
+  };
 
   // This thread's pixels: m = ty + 16 * i within the toh x tow tile.
   int pix_off[TP];
@@ -85,26 +154,19 @@ im2col_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TO; ++j) acc[i][j] = 0.f;
 
-  for (int c0 = 0; c0 < C; c0 += BC) {
-    // Stage the input window (zero outside the image: the conv padding).
-    for (int idx = tid; idx < win_px * (BC / 4); idx += THREADS) {
-      const int px = idx / (BC / 4), v = idx % (BC / 4);
-      const int ih = ih0 + px / win_w, iw = iw0 + px % win_w;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (ih >= 0 && ih < H && iw >= 0 && iw < W)
-        val = __ldg(reinterpret_cast<const float4*>(
-            x + (((size_t)b * H + ih) * W + iw) * C + c0 + 4 * v));
-      reinterpret_cast<float4*>(win)[idx] = val;
-    }
-    // Stage the (taps, BC, BO) weight slice (zero past the last out channel).
-    for (int idx = tid; idx < taps * BC * BO; idx += THREADS) {
-      const int ol = idx % BO, rest = idx / BO;
-      const int c = rest % BC, tap = rest / BC;
-      const int o = o0 + ol;
-      wgt[idx] = o < O ? __ldg(w + ((size_t)tap * C + c0 + c) * O + o) : 0.f;
-    }
+  stage(chunk_lo, 0);
+  cp_async_commit();
+  for (int chunk = chunk_lo; chunk < chunk_hi; ++chunk) {
+    const int buf = (chunk - chunk_lo) & 1;
+    // This chunk has landed in buf, and every thread is done with the
+    // other buffer, which the next chunk now takes.
+    cp_async_wait_all();
     __syncthreads();
+    if (chunk + 1 < chunk_hi) stage(chunk + 1, buf ^ 1);
+    cp_async_commit();
 
+    const float* win = smem + buf * buf_floats;
+    const float* wgt = win + win_px * BC;
     for (int di = 0; di < kh; ++di) {
       for (int dj = 0; dj < kw; ++dj) {
         const int tap_off = (di * win_w + dj) * BC;
@@ -132,50 +194,112 @@ im2col_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
         }
       }
     }
-    __syncthreads();
   }
+  cp_async_wait_all();
 
+  // splits == 1: act(acc + bias) into out; else the partial sums into
+  // this split's slice of the workspace.
+  const size_t pixels = (size_t)B * OH * OW;
+  float* dst_base = splits == 1 ? out : ws + split * pixels * O;
 #pragma unroll
   for (int i = 0; i < TP; ++i) {
     if (!pix_ok[i]) continue;
     const int m = ty + (PIX / TP) * i;
     const int oh = oh0 + m / tow, ow = ow0 + m % tow;
-    float* dst = out + (((size_t)b * OH + oh) * OW + ow) * O;
+    float* dst = dst_base + (((size_t)b * OH + oh) * OW + ow) * O;
+    const int o = o0 + tx * TO;
+    float v[TO];
 #pragma unroll
     for (int j = 0; j < TO; ++j) {
-      const int o = o0 + tx * TO + j;
-      if (o >= O) continue;
-      const float v = acc[i][j] + (bias != nullptr ? __ldg(bias + o) : 0.f);
-      dst[o] = activate(v, act);
+      v[j] = acc[i][j];
+      if (splits == 1 && o + j < O)
+        v[j] = activate(v[j] + (bias != nullptr ? __ldg(bias + o + j) : 0.f),
+                        act);
+    }
+    if (o_vec && o < O) {
+      *reinterpret_cast<float4*>(dst + o) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < TO; ++j)
+        if (o + j < O) dst[o + j] = v[j];
     }
   }
+}
+
+// out = act(sum over the splits of ws + bias), V consecutive elements per
+// thread (V = 4 when O % 4 == 0), the splits summed in order.
+template <int V>
+__global__ void __launch_bounds__(256)
+im2col_conv_splitk_reduce_kernel(const float* __restrict__ ws,
+                                 const float* __restrict__ bias,
+                                 float* __restrict__ out, size_t n, int O,
+                                 int splits, int act) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (i >= n) return;
+  float s[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) s[e] = 0.f;
+  for (int p = 0; p < splits; ++p) {
+    const float* src = ws + p * n + i;
+    if (V == 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(src));
+      s[0] += t.x; s[1] += t.y; s[2] += t.z; s[3] += t.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) s[e] += __ldg(src + e);
+    }
+  }
+  const int o = static_cast<int>(i % O);
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    out[i + e] =
+        activate(s[e] + (bias != nullptr ? __ldg(bias + o + e) : 0.f), act);
 }
 
 }  // namespace
 
 // out (B, OH, OW, O) = act(conv(x (B, H, W, C), w (kh, kw, C, O)) + bias).
-// C % 8 == 0, toh * tow <= 64; bias may be null.  Returns cudaGetLastError().
+// C % 8 == 0, toh * tow <= 64, 1 <= splits <= C / 8; bias may be null; ws
+// holds splits * B * OH * OW * O floats when splits > 1 (else it may be
+// null); x and w 16-byte aligned.  Returns cudaGetLastError().
 extern "C" int repro_im2col_conv(const float* x, const float* w,
-                                 const float* bias, float* out, int B, int H,
-                                 int W, int C, int O, int OH, int OW, int kh,
-                                 int kw, int sh, int sw, int ph, int pw,
-                                 int toh, int tow, int act,
-                                 cudaStream_t stream) {
-  if (C % BC != 0 || toh * tow > PIX || toh < 1 || tow < 1)
+                                 const float* bias, float* out, float* ws,
+                                 int B, int H, int W, int C, int O, int OH,
+                                 int OW, int kh, int kw, int sh, int sw,
+                                 int ph, int pw, int toh, int tow, int act,
+                                 int splits, cudaStream_t stream) {
+  if (C % BC != 0 || toh * tow > PIX || toh < 1 || tow < 1 || splits < 1 ||
+      splits > C / BC || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int win_px = ((toh - 1) * sh + kh) * ((tow - 1) * sw + kw);
-  const size_t smem = (size_t)(win_px * BC + kh * kw * BC * BO) * sizeof(float);
-  if (smem > 48 * 1024) {
+  const size_t smem =
+      2 * (size_t)(win_px * BC + kh * kw * BC * BO) * sizeof(float);
+  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  static size_t smem_limit = 48 * 1024;
+  if (smem > smem_limit) {
     const cudaError_t err = cudaFuncSetAttribute(
         im2col_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
+    smem_limit = smem;
   }
   const int row_tiles = (OH + toh - 1) / toh;
   const int col_tiles = (OW + tow - 1) / tow;
-  const dim3 grid(row_tiles * col_tiles, (O + BO - 1) / BO, B);
+  const dim3 grid(row_tiles * col_tiles, (O + BO - 1) / BO, B * splits);
   im2col_conv_kernel<<<grid, THREADS, smem, stream>>>(
-      x, w, bias, out, H, W, C, O, OH, OW, kh, kw, sh, sw, ph, pw, toh, tow,
-      col_tiles, act);
+      x, w, bias, out, ws, B, H, W, C, O, OH, OW, kh, kw, sh, sw, ph, pw, toh,
+      tow, col_tiles, act, splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t n = (size_t)B * OH * OW * O;
+  if (O % 4 == 0) {
+    const unsigned blocks = static_cast<unsigned>((n / 4 + 255) / 256);
+    im2col_conv_splitk_reduce_kernel<4><<<blocks, 256, 0, stream>>>(
+        ws, bias, out, n, O, splits, act);
+  } else {
+    const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+    im2col_conv_splitk_reduce_kernel<1><<<blocks, 256, 0, stream>>>(
+        ws, bias, out, n, O, splits, act);
+  }
   return static_cast<int>(cudaGetLastError());
 }

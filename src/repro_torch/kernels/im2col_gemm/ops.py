@@ -7,18 +7,22 @@ act(float(conv(x_q, w_q)) * scale + bias) on int8 input whose channel
 count is a multiple of ``BC_Q8``, with an exact int32 sum.  The conv's
 spatial zero padding is applied inside the kernels, and out channels and
 ragged row/column tiles are masked there, so the only layout the caller
-owns is the channel multiple.
+owns is the channel multiple.  The fp32 kernel splits its reduction over
+the channel chunks across blocks where the grid alone would leave the
+card half empty (``split_k``); one wrapper call is one conv, whatever
+the number of CUDA kernels it launches.
 ``impl='cuda'`` launches the kernel on CUDA tensors and raises on anything
 else; ``impl='torch'`` runs the plain version (ref.py).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.conv_spec import ACTIVATION_CODES, ConvSpec
+from repro_torch.hw import H100
 from repro_torch.kernels import _build
 from repro_torch.kernels.im2col_gemm.ref import (
     im2col_conv_q8_ref,
@@ -29,8 +33,13 @@ BC = 8          # in channels per reduction step: C must be a multiple
 BC_Q8 = 16      # the int8 kernel's step (one 16-byte load per pixel)
 BO = 64         # out channels per block
 PIXELS = 64     # output pixels per block: toh * tow <= PIXELS
+#: Blocks of the fp32 kernel resident on one SM (its launch bounds).
+RESIDENT_BLOCKS = 2
+#: A block's fixed cost in reduction steps: its first chunk's copy, which
+#: nothing overlaps, and the write of its tile.
+BLOCK_OVERHEAD_STEPS = 2
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 _ARGTYPES_Q8 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
 
 
@@ -51,6 +60,49 @@ def pick_blocks(oh: int, ow: int, dtype: str = "float32") -> Tuple[int, int, int
 def tile_width(toh: int, ow: int) -> int:
     """Output columns per block for a row tile of ``toh`` rows."""
     return min(ow, PIXELS // toh)
+
+
+def grid_blocks(batch: int, oh: int, ow: int, o: int, toh: int) -> int:
+    """Blocks of one fp32 conv call before any split: output tiles times
+    64-channel blocks times images."""
+    tow = tile_width(toh, ow)
+    return batch * -(-oh // toh) * -(-ow // tow) * -(-o // BO)
+
+
+def split_k(blocks_in_grid: int, k_chunks: int) -> int:
+    """How many ranges the fp32 kernel cuts its reduction of ``k_chunks``
+    channel chunks into, from the shape alone.
+
+    1 where the grid already fills the card's ``RESIDENT_BLOCKS`` block
+    slots on each of its SMs (two waves of SMs).  Else the split count that takes the
+    fewest waves times steps per block (``BLOCK_OVERHEAD_STEPS`` added to
+    each block's steps), the smallest on a tie: it fills the slots without
+    starting a second wave of short blocks.
+    """
+    slots = RESIDENT_BLOCKS * H100.sm_count
+    if blocks_in_grid >= slots:
+        return 1
+
+    def cost(s: int) -> int:
+        waves = -(-blocks_in_grid * s // slots)
+        return waves * (-(-k_chunks // s) + BLOCK_OVERHEAD_STEPS)
+
+    return min(range(1, k_chunks + 1), key=lambda s: (cost(s), s))
+
+
+def call_splits(batch: int, oh: int, ow: int, c: int, o: int,
+                toh: int) -> int:
+    """``split_k`` for one fp32 conv call: its grid and C / BC chunks."""
+    return split_k(grid_blocks(batch, oh, ow, o, toh), c // BC)
+
+
+def split_ranges(k_chunks: int, splits: int) -> List[Tuple[int, int]]:
+    """The chunk range [lo, hi) of each split, as the kernel computes it:
+    split s takes [s * n // splits, (s + 1) * n // splits)."""
+    if not 1 <= splits <= k_chunks:
+        raise ValueError(f"splits must be in [1, {k_chunks}], got {splits}")
+    return [(s * k_chunks // splits, (s + 1) * k_chunks // splits)
+            for s in range(splits)]
 
 
 def _conv_geometry(what: str, x: torch.Tensor, w: torch.Tensor,
@@ -84,7 +136,9 @@ def im2col_conv(
     """x (B, H, W, C), w (kh, kw, C, O) -> (B, OH, OW, O); C % BC == 0.
 
     ``blocks`` is a (toh, bc, bo) plan tuple; only toh is free (bc and bo
-    are the kernel's compiled BC and BO).
+    are the kernel's compiled BC and BO).  With ``split_k(...) > 1`` the
+    partial sums go through a workspace of ``splits * B * OH * OW * O``
+    floats from PyTorch's caching allocator.
     """
     oh, ow, toh = _conv_geometry("im2col_conv", x, w, spec, blocks, BC)
     if impl == "torch":
@@ -92,16 +146,22 @@ def im2col_conv(
     if impl != "cuda":
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
     _build.require_cuda_operands("im2col_conv", x, w, bias)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("im2col_conv: x and w must be 16-byte aligned")
     b, h, ww, c = x.shape
     kh, kw, _, o = w.shape
     out = torch.empty((b, oh, ow, o), device=x.device, dtype=torch.float32)
     if out.numel():
         fn = _build.load("im2col_conv", "repro_im2col_conv", _ARGTYPES)
         (sh, sw), (ph, pw) = spec.stride, spec.padding
+        splits = call_splits(b, oh, ow, c, o, toh)
+        ws = (torch.empty((splits, b * oh * ow, o), device=x.device,
+                          dtype=torch.float32) if splits > 1 else None)
         err = fn(x.data_ptr(), w.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), b, h, ww, c, o, oh, ow, kh, kw, sh, sw,
-                 ph, pw, toh, tile_width(toh, ow), ACTIVATION_CODES[activation],
+                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                 b, h, ww, c, o, oh, ow, kh, kw, sh, sw, ph, pw, toh,
+                 tile_width(toh, ow), ACTIVATION_CODES[activation], splits,
                  _build.stream_handle(x))
         _build.check(err, "im2col_conv")
         im2col_conv.launches += 1

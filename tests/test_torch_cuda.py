@@ -32,7 +32,12 @@ from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec
 from repro_torch.kernels.conv_ops import kernel_wrappers
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
-from repro_torch.kernels.im2col_gemm.ops import im2col_conv, im2col_conv_q8
+from repro_torch.kernels.im2col_gemm.ops import (
+    call_splits,
+    im2col_conv,
+    im2col_conv_q8,
+    pick_blocks,
+)
 from repro_torch.kernels.winograd.ops import (
     fused_winograd,
     input_transform,
@@ -90,6 +95,28 @@ def test_im2col_kernel_on_card(cuda_device, h, w, c, o, s):
     got = im2col_conv(x, wt, spec, bias=bias, activation="leaky")
     ref = im2col_conv(x, wt, spec, bias=bias, activation="leaky", impl="torch")
     _close(got, ref, 1e-4)
+
+
+@pytest.mark.parametrize("b,h,w,c,o,s,splits", [
+    (1, 13, 13, 512, 1024, 1, 4),   # YOLOv3-tiny 416 L12: split 4 ways
+    (2, 13, 13, 512, 1024, 1, 2),
+    (2, 19, 70, 16, 20, 2, 2),      # stride 2, ragged out channels
+    (2, 13, 13, 64, 18, 1, 8),      # O % 4 != 0: scalar weight loads
+    (1, 152, 152, 128, 256, 2, 1),  # MODEL_20 L12: 400 blocks, no split
+])
+def test_im2col_split_k_on_card(cuda_device, b, h, w, c, o, s, splits):
+    """The split-K path (workspace and reduce kernel) and the single-pass
+    path against the plain version; two calls agree bit for bit, since the
+    partial sums are added in split order, without atomics."""
+    x, wt, bias = _randn(cuda_device, 15, (b, h, w, c), (3, 3, c, o), (o,))
+    spec = ConvSpec(c, o, (3, 3), (s, s), (1, 1))
+    oh, ow = spec.out_hw(h, w)
+    assert call_splits(b, oh, ow, c, o, pick_blocks(oh, ow)[0]) == splits
+    got = im2col_conv(x, wt, spec, bias=bias, activation="leaky")
+    again = im2col_conv(x, wt, spec, bias=bias, activation="leaky")
+    ref = im2col_conv(x, wt, spec, bias=bias, activation="leaky", impl="torch")
+    _close(got, ref, 1e-4)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("t,c,o", [(81, 64, 128), (103, 8, 20), (4900, 8, 16)])
@@ -267,6 +294,29 @@ def test_flash_attention_kernel_on_card(cuda_device, dtype, b, s, sk, h, kv,
     tol = 2e-4 if dtype == torch.float32 else 3e-2
     _close(got.float(), ref.float(), tol)
     assert _row_err(got, ref) <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("b,s,sk,h,kv,hd,causal,window", [
+    (1, 1, 1, 4, 4, 64, True, 0),          # S = 1
+    (1, 3, 1, 8, 8, 32, False, 0),         # Sk = 1, non-causal, G = 1
+    (1, 1, 77, 8, 1, 64, False, 0),        # one query, G = 8
+    (2, 131, 197, 8, 4, 16, False, 0),     # G = 2; S, Sk off 64 and 128
+    (1, 333, 333, 16, 4, 32, True, 0),     # G = 4, causal, ragged S
+    (1, 300, 300, 8, 1, 128, True, 128),   # window of two tiles: rows
+    (1, 257, 257, 8, 2, 64, True, 64),     # 64m + w - 1 start on a tile
+])
+def test_flash_attention_bf16_edges_on_card(cuda_device, b, s, sk, h, kv, hd,
+                                            causal, window):
+    """The bf16 tensor-core kernel against attention_ref at the edges of
+    its tiling: single rows and keys, every grouping, ragged S and Sk,
+    window edges on tile boundaries, all four head dims."""
+    q, k, v = (t.bfloat16() for t in _randn(
+        cuda_device, 23, (b, s, h, hd), (b, sk, kv, hd), (b, sk, kv, hd)))
+    got = flash_attention(q, k, v, causal, window)
+    ref = flash_attention(q, k, v, causal, window, impl="torch")
+    assert got.dtype == torch.bfloat16
+    _close(got.float(), ref.float(), 3e-2)
+    assert _row_err(got, ref) <= 1e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
