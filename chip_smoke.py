@@ -18,20 +18,24 @@ Phases, each on its own printed lines:
    kernel and with the 3-pass pipeline; the int8 plans of YOLOv3-tiny 416,
    VGG-16 224 and MODEL_20 608 at batch 1, on seeded int8 operands): the
    max-abs error of every call.
-   At the shapes of YOLOv3-tiny at batch 1 (GEMM, im2col, fused Winograd)
-   and of VGG-16's Winograd layers (fused, and the three 3-pass kernels),
-   also the kernel's, the plain version's and one library call's device
-   time per call (``cuda_ms``: runs of launches, each between one event
-   pair, each launch on its own cold operands), and the least time the card
-   could take (bytes over 3.35 TB/s or FLOPs over the 67 TFLOP/s fp32
-   peak, whichever is larger), counted for the logical operands, before
-   the channel padding the kernels take; the same at the int8 plan of
+   At the shapes of YOLOv3-tiny at batch 1 (GEMM, im2col, fused Winograd),
+   of MODEL_20 at 608 (GEMM) and of VGG-16's Winograd layers (fused, and
+   the three 3-pass kernels), also the kernel's, the plain version's and
+   one library call's device time per call (``cuda_ms``: runs of launches,
+   each between one event pair, each launch on its own cold operands), and
+   the least time the card could take (bytes over 3.35 TB/s or FLOPs over
+   the 67 TFLOP/s fp32 peak, whichever is larger; for the GEMM and the
+   tuple multiply, which run three TF32 products per fp32 product on the
+   tensor cores, 3 x FLOPs over the 495 TFLOP/s TF32 peak, with the fp32
+   CUDA-core bound printed beside it), counted for the logical operands,
+   before the channel padding the kernels take; the same at the int8 plan of
    YOLOv3-tiny b1 for the two int8 kernels, with int8 operations over the
    1979 TOP/s int8 peak, bytes of int8 operands and fp32 output, scale and
    bias, and ``torch._int_mm`` plus the epilogue as the GEMM's library call
    (no PyTorch call computes an int8 convolution); each timed line also
    gives the kernel's time over the library call's, and each fp32 im2col
-   line the number of split-K ranges the wrapper chose (``splits``); then,
+   and GEMM line the number of split-K ranges the wrapper chose
+   (``splits``); each timed cell's sums per kernel follow; then,
    per VGG-16 Winograd layer, the fused kernel's time beside the 3-pass
    pipeline's;
 4. YOLOv3-tiny at 416x416, batch 1 and 4, through ``repro_torch.compile``
@@ -41,8 +45,9 @@ Phases, each on its own printed lines:
    profiler breakdown of the batch-1 forward by CUDA kernel, with the
    device's idle share of the forward; in every profiled forward each port
    kernel the plan launches must appear in the trace, at most as often as
-   the plan says (the fp32 im2col conv's split-K reduce kernel once for
-   each call with ``splits > 1``), and no other port kernel (the trace
+   the plan says (the fp32 im2col conv's and the fp32 GEMM's split-K
+   reduce kernels once for each call with ``splits > 1``), and no other
+   port kernel (the trace
    may lose records, so the exact counts are the wrappers');
 5. the first 20 layers of Darknet-53 (MODEL_20) at 608x608, batch 1: the
    same comparison (stride-2 im2col, shortcut);
@@ -195,8 +200,10 @@ CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
               "tuple_multiply": "winograd_tuple_multiply_kernel",
               "output_transform": "winograd_output_transform_kernel",
               "flash_attention": "flash_attention"}
-# The fp32 im2col conv's second kernel, launched by the calls that split K.
+# The second kernels of the fp32 im2col conv and the fp32 GEMM, launched by
+# the calls that split K.
 SPLITK_REDUCE = "im2col_conv_splitk_reduce_kernel"
+GEMM_SPLITK_REDUCE = "gemm_splitk_reduce_kernel"
 
 
 def log(*parts) -> None:
@@ -268,6 +275,7 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
     from repro_torch.core.conv_spec import ConvAlgorithm, apply_activation
     from repro_torch.core.winograd import AT, BT, _const, _tile_input, \
         transform_weights
+    from repro_torch.kernels.gemm.ops import call_splits as gemm_splits
     from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
     from repro_torch.kernels.im2col_gemm.ops import (
         call_splits,
@@ -329,6 +337,11 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
         bias = t(o)
         head = f"{cell} L{s.index}"
         base = dict(step=s.index, peak=hw.peak_flops_fp32)
+        # The GEMM and the tuple multiply run three TF32 products per fp32
+        # product on the tensor cores: their bound divides 3 x FLOPs by the
+        # TF32 peak, with the fp32 CUDA-core bound printed beside it.
+        tensor_core = dict(step=s.index, peak=hw.peak_flops_tf32 / 3,
+                           cuda_core_peak=hw.peak_flops_fp32)
         if s.plan.dtype == "int8":
             # int8 operands, fp32 dequant row, bias and output; the bound
             # divides by the int8 tensor-core peak.
@@ -372,8 +385,9 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
             m = b * oh * ow
             a, wm = t(m, c), t(c, o)
             cases.append(dict(
-                base, kernel="gemm",
-                label=f"{head} gemm M={m} K={phys_c} N={o}",
+                tensor_core, kernel="gemm",
+                label=(f"{head} gemm M={m} K={phys_c} N={o} "
+                       f"splits={gemm_splits(m, o, phys_c)}"),
                 args=(pad_c(a, 1), pad_c(wm, 0), bias),
                 run=lambda a, wm, bias, act=act, impl="cuda":
                     matmul_bias_act(a, wm, bias, act, impl=impl),
@@ -446,7 +460,7 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
             bytes=4 * 2 * 64 * n_t * c,
         ))
         cases.append(dict(
-            base, kernel="tuple_multiply",
+            tensor_core, kernel="tuple_multiply",
             label=f"{head} tuple_multiply {shape} blocks={blocks}",
             args=(v, u64),
             run=lambda v, u, impl="cuda": tuple_multiply(v, u, impl=impl),
@@ -505,16 +519,20 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
         t_ops = case["flops"] / case["peak"] * 1e3
         t_bytes = case["bytes"] / hw.hbm_bandwidth * 1e3
         bound_ms = max(t_ops, t_bytes)
+        cc_bound_ms = (max(case["flops"] / case["cuda_core_peak"] * 1e3, t_bytes)
+                       if "cuda_core_peak" in case else None)
         log(f"kernel {case['label']}: max_abs_err={err:.3g} (tol {tol:.3g})"
             f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
             + ("-" if library_ms is None else f"{library_ms:.4f}")
             + f" bound_ms={bound_ms:.5f} "
             f"({'operations' if t_ops >= t_bytes else 'bytes'})"
+            + ("" if cc_bound_ms is None
+               else f" fp32_cuda_core_bound_ms={cc_bound_ms:.5f}")
             + ("" if library_ms is None
                else f" ms/library_ms={ms / library_ms:.3f}"))
         agg = summary.setdefault(name, dict(
             calls=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-            bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0))
+            bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0, cuda_core_bound_ms=0.0))
         agg["calls"] += 1
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
         agg["ms"] += ms
@@ -523,9 +541,17 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
                              is None else agg["library_ms"] + library_ms)
         agg["bound_ms"] += bound_ms
         agg["ops_ms" if t_ops >= t_bytes else "bytes_ms"] += bound_ms
+        agg["cuda_core_bound_ms"] += cc_bound_ms or 0.0
         per_step.setdefault(case["step"], {})[name] = ms
     log(f"kernels {cell}: {n} calls checked in "
         f"{time.perf_counter() - t0:.1f} s")
+    for name, agg in summary.items():
+        log(f"kernels {cell} {name} over {agg['calls']} calls: "
+            f"ms={agg['ms']:.4f} plain_ms={agg['plain_ms']:.4f} library_ms="
+            + ("-" if agg["library_ms"] is None else f"{agg['library_ms']:.4f}")
+            + f" bound_ms={agg['bound_ms']:.5f}"
+            + (f" fp32_cuda_core_bound_ms={agg['cuda_core_bound_ms']:.5f}"
+               if agg["cuda_core_bound_ms"] else ""))
     return summary, per_step
 
 
@@ -715,20 +741,30 @@ def deployment_sqnr(model, rng, name) -> None:
 
 def planned_cuda_launches(netplan):
     """CUDA launches of each port kernel in one forward of ``netplan``, by
-    the profiler's name: the plan's count of each kernel, and the split-K
-    reduce kernel once for each fp32 im2col call that splits."""
+    the profiler's name: the plan's count of each kernel, and each split-K
+    reduce kernel once for each fp32 im2col or fp32 GEMM call that
+    splits."""
     from repro_torch.core.conv_spec import ConvAlgorithm
+    from repro_torch.kernels.gemm.ops import call_splits as gemm_splits
     from repro_torch.kernels.im2col_gemm.ops import call_splits
 
     want = {CUDA_NAMES[k]: n for k, n in netplan.kernel_launches().items()}
+    fp32 = [s for s in netplan.steps
+            if s.layer.kind == "conv" and s.plan.dtype == "float32"]
     splits = sum(
         call_splits(netplan.batch, *s.out_hw, s.in_layout.phys_c,
                     s.out_layout.phys_c, s.plan.kernel_blocks[0]) > 1
-        for s in netplan.steps
-        if s.layer.kind == "conv" and s.plan.dtype == "float32"
-        and s.plan.algorithm is ConvAlgorithm.IM2COL_GEMM)
+        for s in fp32 if s.plan.algorithm is ConvAlgorithm.IM2COL_GEMM)
     if splits:
         want[SPLITK_REDUCE] = splits
+    # A 1x1 conv's GEMM: M = B * OH * OW (the output map; a strided 1x1
+    # subsamples its input first), K and N the physical channels.
+    gemm = sum(
+        gemm_splits(netplan.batch * s.out_hw[0] * s.out_hw[1],
+                    s.out_layout.phys_c, s.in_layout.phys_c) > 1
+        for s in fp32 if s.plan.algorithm is ConvAlgorithm.DIRECT)
+    if gemm:
+        want[GEMM_SPLITK_REDUCE] = gemm
     return want
 
 
@@ -776,7 +812,8 @@ def profile_forward(forward, ms_per_forward: float, name: str,
         # forward's profile), never add them: every planned port kernel
         # appears, at most as often as planned, and no other one.
         seen = {c: sum(c in ev.name for ev in kernels)
-                for c in (*CUDA_NAMES.values(), SPLITK_REDUCE)}
+                for c in (*CUDA_NAMES.values(), SPLITK_REDUCE,
+                          GEMM_SPLITK_REDUCE)}
         bad = {c: n for c, n in seen.items()
                if not (0 < n <= want[c] * reps if c in want else n == 0)}
         if bad:
@@ -786,7 +823,7 @@ def profile_forward(forward, ms_per_forward: float, name: str,
         log(f"  profile {name}: port kernel launches in {reps} forwards "
             f"{ {c: n for c, n in seen.items() if n} }, the plan's per forward "
             f"{want}")
-    for cname in (*CUDA_NAMES.values(), SPLITK_REDUCE):
+    for cname in (*CUDA_NAMES.values(), SPLITK_REDUCE, GEMM_SPLITK_REDUCE):
         us = [ev.time_range.elapsed_us() for ev in kernels if cname in ev.name]
         n = len(us) // reps
         if not n:
@@ -1168,7 +1205,9 @@ def main() -> int:
         timed=("gemm", "im2col_conv", "winograd_fused"))
     check_kernels(netplan_of(yolov3.TINY_MODEL, 4), rng, H100,
                   "yolov3-tiny 416 b4")
-    check_kernels(netplan_of(yolov3.MODEL_20, 1), rng, H100, "yolov3-20 608 b1")
+    # MODEL_20's GEMM calls sit in a device-bound forward: timed too.
+    check_kernels(netplan_of(yolov3.MODEL_20, 1), rng, H100, "yolov3-20 608 b1",
+                  timed=("gemm",))
     _, fused_steps = check_kernels(
         netplan_of(vgg16.MODEL, 1), rng, H100, "vgg16 224 b1",
         timed=("winograd_fused",))

@@ -2,13 +2,21 @@
 
 From NVIDIA's H100 data sheet and the Hopper architecture white paper.
 ``check_device`` holds the card's reported properties against these.
-The fp32 peak is the non-tensor-core rate: every fp32 kernel of the port
-runs fp32 FMA on CUDA cores (no TF32), so that is the rate an fp32 bound
-divides by.  An int8 bound divides by the dense int8 tensor-core peak, the
-least time the card could take for the work, though the int8 kernels run
-dp4a on the CUDA cores.  A bf16 bound divides by the dense bf16
-tensor-core peak: the units the bf16 flash-attention kernel runs on
-(through mma.sync).
+Each bound divides by the peak of the units the kernel's work needs:
+
+- ``peak_flops_fp32``, fp32 FMA on the CUDA cores (no TF32): the fp32
+  im2col conv, the Winograd kernels other than the tuple multiply, and
+  fp32 flash attention.
+- ``peak_flops_tf32``, dense TF32 on the tensor cores: the fp32 GEMM and
+  the 3-pass tuple multiply run three TF32 products per fp32 product
+  (3xTF32, fp32 accuracy), so their bound is 3 x FLOPs over this peak:
+  165 TFLOP/s of fp32-accurate products on those units, against 67 on the
+  CUDA cores.
+- ``peak_ops_int8``, dense int8 on the tensor cores: the least time the
+  card could take for the int8 kernels' work, though they run dp4a on the
+  CUDA cores.
+- ``peak_flops_bf16``, dense bf16 on the tensor cores: the units the bf16
+  flash-attention kernel runs on (through mma.sync).
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ class ChipSpec:
     hbm_bytes: int = 80 * 1000**3            # 80 GB
     hbm_bandwidth: float = 3.35e12           # B/s
     peak_flops_fp32: float = 67e12           # FLOP/s, CUDA cores, no TF32
+    peak_flops_tf32: float = 495e12          # FLOP/s, dense TF32 tensor cores
     peak_ops_int8: float = 1979e12           # OP/s, dense int8 tensor cores
     # FLOP/s, dense bf16 tensor cores (NVIDIA H100 SXM data sheet, without
     # sparsity).

@@ -1,10 +1,12 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/*.cu`` file has a plain C interface (it may include the
-``.cuh`` headers beside it) and is compiled on first use, for ``sm_90a``,
-into its own shared library under ``build/repro_torch/`` at the repository
-root (the file name carries a digest of the source, its headers and the
-flags, so an edited source is rebuilt and never confused with an old
+``.cuh`` headers beside it, and those of the shared directory ``csrc/``
+here, such as the fp32 tensor-core GEMM core ``sgemm_3xtf32.cuh``) and is
+compiled on first use, for ``sm_90a``, into its own shared library under
+``build/repro_torch/`` at the repository root (the file name carries a
+digest of the source, every header it includes and the flags, so an
+edited source or header is rebuilt and never confused with an old
 library).  ``build`` starts one nvcc per source, all at once.  A failed
 build raises with nvcc's output: nothing falls back to a plain version.
 
@@ -16,11 +18,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -39,11 +42,17 @@ SOURCES: Dict[str, str] = {
 
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch"
 
+#: Headers any source may include, relative to this directory (nvcc runs
+#: here, so ``-I`` names it as is).
+SHARED_INCLUDE = "csrc"
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "-I", SHARED_INCLUDE,
 )
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _libraries: Dict[str, ctypes.CDLL] = {}
 #: name -> nvcc's output of the build this process made (ptxas register and
@@ -65,12 +74,31 @@ def _nvcc() -> str:
     )
 
 
+def included_headers(src: Path) -> List[Path]:
+    """Every header ``src`` includes with quotes, transitively, each found
+    as nvcc finds it: beside the including file, else in the shared
+    directory."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        cur = todo.pop()
+        for name in _INCLUDE.findall(cur.read_bytes()):
+            name = name.decode()
+            for cand in (cur.parent / name, _KERNELS_DIR / SHARED_INCLUDE / name):
+                if cand.is_file():
+                    if cand not in found:
+                        found.append(cand)
+                        todo.append(cand)
+                    break
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
-    """The library of source ``name``; its digest covers the source, the
-    ``.cuh`` headers beside it (which it may include) and the flags."""
+    """The library of source ``name``; its digest covers the source, every
+    header it includes (``included_headers``) and the flags."""
     src = _KERNELS_DIR / SOURCES[name]
     text = src.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+        h.name.encode() + h.read_bytes() for h in included_headers(src))
     digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -95,6 +123,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_KERNELS_DIR / SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=_KERNELS_DIR,
         ))
     failed = []
     for n, (tmp, proc) in procs.items():

@@ -6,7 +6,11 @@ int8 operands with an exact int32 sum.  ``impl='cuda'`` launches the
 kernel on CUDA tensors and raises on anything else; ``impl='torch'`` runs
 the plain version (ref.py), on any device.  The kernels mask the ragged
 M, N and K edges themselves (the int8 one takes K in multiples of 16), so
-no operand is padded here.
+no operand is padded here.  The fp32 kernel (3xTF32 on the tensor cores)
+splits its reduction over the 16-deep K chunks across blocks where its
+grid alone would leave the card's block slots empty (``call_splits``);
+one wrapper call is one product, whatever the number of CUDA kernels it
+launches.
 """
 from __future__ import annotations
 
@@ -17,15 +21,19 @@ import torch
 
 from repro_torch.core.conv_spec import ACTIVATION_CODES
 from repro_torch.kernels import _build
+from repro_torch.kernels._splitk import split_k
 from repro_torch.kernels.gemm.ref import matmul_q8_ref, matmul_ref
 
 #: The kernel's compiled tile: 64x64 outputs per block, K steps of 16.
 TILE: Tuple[int, int, int] = (64, 64, 16)
+#: Blocks of the fp32 kernel resident on one SM: its launch bounds'
+#: minimum, ``MIN_BLOCKS`` in csrc/sgemm_3xtf32.cuh.
+RESIDENT_BLOCKS = 4
 
 #: The int8 kernel's K multiple (one 16-byte load of A per thread).
 K_MULTIPLE_Q8 = 16
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ARGTYPES_Q8 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
@@ -38,6 +46,13 @@ def default_block(m: int, n: int, k: int) -> Tuple[int, int, int]:
     return TILE
 
 
+def call_splits(m: int, n: int, k: int) -> int:
+    """``split_k`` for one fp32 GEMM call: its grid of 64x64 tiles and its
+    ceil(K / 16) chunks, over the kernel's ``RESIDENT_BLOCKS`` a SM."""
+    bm, bn, bk = TILE
+    return split_k(-(-m // bm) * -(-n // bn), -(-k // bk), RESIDENT_BLOCKS)
+
+
 def matmul_bias_act(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -45,7 +60,12 @@ def matmul_bias_act(
     activation: str = "linear",
     impl: str = "cuda",
 ) -> torch.Tensor:
-    """(M, K) x (K, N) -> act(a @ b + bias), fp32; ``bias`` is (N,) or None."""
+    """(M, K) x (K, N) -> act(a @ b + bias), fp32; ``bias`` is (N,) or None.
+
+    With ``call_splits(M, N, K) > 1`` the partial sums go through a
+    workspace of ``splits * M * N`` floats from PyTorch's caching
+    allocator.
+    """
     m, k = a.shape
     k2, n = b.shape
     if k != k2 or (bias is not None and bias.shape != (n,)):
@@ -59,9 +79,13 @@ def matmul_bias_act(
     out = torch.empty((m, n), device=a.device, dtype=torch.float32)
     if m and n:
         fn = _build.load("gemm", "repro_gemm_bias_act", _ARGTYPES)
+        splits = call_splits(m, n, k)
+        ws = (torch.empty((splits, m, n), device=a.device, dtype=torch.float32)
+              if splits > 1 else None)
         err = fn(a.data_ptr(), b.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), m, n, k, ACTIVATION_CODES[activation],
+                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                 m, n, k, ACTIVATION_CODES[activation], splits,
                  _build.stream_handle(a))
         _build.check(err, "gemm")
         matmul_bias_act.launches += 1

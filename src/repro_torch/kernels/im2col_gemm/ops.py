@@ -17,13 +17,13 @@ else; ``impl='torch'`` runs the plain version (ref.py).
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.conv_spec import ACTIVATION_CODES, ConvSpec
-from repro_torch.hw import H100
 from repro_torch.kernels import _build
+from repro_torch.kernels._splitk import split_k, split_ranges  # noqa: F401
 from repro_torch.kernels.im2col_gemm.ref import (
     im2col_conv_q8_ref,
     im2col_conv_ref,
@@ -35,9 +35,6 @@ BO = 64         # out channels per block
 PIXELS = 64     # output pixels per block: toh * tow <= PIXELS
 #: Blocks of the fp32 kernel resident on one SM (its launch bounds).
 RESIDENT_BLOCKS = 2
-#: A block's fixed cost in reduction steps: its first chunk's copy, which
-#: nothing overlaps, and the write of its tile.
-BLOCK_OVERHEAD_STEPS = 2
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 _ARGTYPES_Q8 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
@@ -69,40 +66,10 @@ def grid_blocks(batch: int, oh: int, ow: int, o: int, toh: int) -> int:
     return batch * -(-oh // toh) * -(-ow // tow) * -(-o // BO)
 
 
-def split_k(blocks_in_grid: int, k_chunks: int) -> int:
-    """How many ranges the fp32 kernel cuts its reduction of ``k_chunks``
-    channel chunks into, from the shape alone.
-
-    1 where the grid already fills the card's ``RESIDENT_BLOCKS`` block
-    slots on each of its SMs (two waves of SMs).  Else the split count that takes the
-    fewest waves times steps per block (``BLOCK_OVERHEAD_STEPS`` added to
-    each block's steps), the smallest on a tie: it fills the slots without
-    starting a second wave of short blocks.
-    """
-    slots = RESIDENT_BLOCKS * H100.sm_count
-    if blocks_in_grid >= slots:
-        return 1
-
-    def cost(s: int) -> int:
-        waves = -(-blocks_in_grid * s // slots)
-        return waves * (-(-k_chunks // s) + BLOCK_OVERHEAD_STEPS)
-
-    return min(range(1, k_chunks + 1), key=lambda s: (cost(s), s))
-
-
 def call_splits(batch: int, oh: int, ow: int, c: int, o: int,
                 toh: int) -> int:
     """``split_k`` for one fp32 conv call: its grid and C / BC chunks."""
-    return split_k(grid_blocks(batch, oh, ow, o, toh), c // BC)
-
-
-def split_ranges(k_chunks: int, splits: int) -> List[Tuple[int, int]]:
-    """The chunk range [lo, hi) of each split, as the kernel computes it:
-    split s takes [s * n // splits, (s + 1) * n // splits)."""
-    if not 1 <= splits <= k_chunks:
-        raise ValueError(f"splits must be in [1, {k_chunks}], got {splits}")
-    return [(s * k_chunks // splits, (s + 1) * k_chunks // splits)
-            for s in range(splits)]
+    return split_k(grid_blocks(batch, oh, ow, o, toh), c // BC, RESIDENT_BLOCKS)
 
 
 def _conv_geometry(what: str, x: torch.Tensor, w: torch.Tensor,

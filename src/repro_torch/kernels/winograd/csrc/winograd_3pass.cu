@@ -19,18 +19,23 @@
 //
 // 2. winograd_tuple_multiply_kernel replaces
 //    src/repro/kernels/winograd/kernel.py::tuple_multiply_pallas.
-//    A batched SGEMM, blockIdx.z = position: the TPU kernel carries its
-//    (bt, bo) accumulator in VMEM across a sequential C grid axis; here the
-//    C axis is a loop inside the block and each of 256 threads keeps a 4x4
-//    micro-tile of the block's 64x64 (tiles x out channels) tile in
-//    registers, with depth-16 slices of V (transposed) and U staged in
-//    shared memory, as gemm.cu does.  Ragged T, C and O are masked in the
-//    loads and the store, so nothing is padded to a block multiple.  At
-//    VGG-16's 56x56 layers (T = 100, O = 256) that is 2 x 4 x 64 = 512
-//    blocks for 132 SMs, where one GEMM of the 64 products folded into
-//    one could not fill the card.  Bound by operations at VGG's widths;
-//    the loop is limited by shared-memory loads (2 LDS.128 per 16 FMA).
-//    fp32 FMA on CUDA cores only.
+//    A batched fp32 GEMM, blockIdx.z = position: the TPU kernel carries
+//    its (bt, bo) accumulator in VMEM across a sequential C grid axis;
+//    here each block computes one 64x64 (tiles x out channels) tile of
+//    one position over all of C with the shared tensor-core core,
+//    csrc/sgemm_3xtf32.cuh (3xTF32 mma.sync m16n8k8, fp32 accuracy;
+//    depth-16 slices of V and U staged by cp.async in a 3-stage ring, one
+//    barrier per slice).  Ragged T, C and O are zero-filled by the copies
+//    and masked in the store, so nothing is padded to a block multiple
+//    (VGG-16's first layer has C = 8: one k8 step, half of each 16-deep
+//    slice zero-filled).  At VGG-16's widths the grid is 512 to 1472
+//    blocks of 128 threads for 132 SMs, so no K split is needed.  Bound by
+//    the bytes of V, U and M (each read or written once) at every VGG-16
+//    layer once the products run at 165 TFLOP/s of fp32-accurate work
+//    (three TF32 products each); the two correction products take 5 % of
+//    the time at C = 8 and 64 and 37 % at C = 256 (a variant without them
+//    in scripts/sgemm_tc_variants.py), where mma.sync's rate is what
+//    holds the deep layers back.
 //
 // 3. winograd_output_transform_kernel replaces
 //    src/repro/kernels/winograd/kernel.py::output_transform_pallas (both
@@ -41,18 +46,12 @@
 //    coalesced).  Bound by bytes: 1344 FLOPs against 400 bytes per pair.
 #include <cuda_runtime.h>
 
+#include "sgemm_3xtf32.cuh"
 #include "winograd_transforms.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-
-// Tuple multiply tile: 64 tiles x 64 out channels per block, C steps of 16.
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int TM = 4;
-constexpr int TN = 4;
+constexpr int THREADS = 256;   // the two transforms
 
 __global__ void __launch_bounds__(THREADS)
 winograd_input_transform_kernel(const float* __restrict__ tiles,
@@ -86,76 +85,24 @@ winograd_input_transform_kernel(const float* __restrict__ tiles,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Tuple multiply: 64 tiles x 64 out channels of one position per block.
+__global__ void __launch_bounds__(sgemm_tc::THREADS, sgemm_tc::MIN_BLOCKS)
 winograd_tuple_multiply_kernel(const float* __restrict__ V,
                                const float* __restrict__ U,
                                float* __restrict__ M, int T, int C, int O) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-
+  using namespace sgemm_tc;
+  __shared__ __align__(16) Smem sm;
   const size_t p = blockIdx.z;
-  const float* A = V + p * T * C;         // (T, C) of position p
-  const float* B = U + p * C * O;         // (C, O)
-  float* Mp = M + p * T * O;              // (T, O)
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);         // out-channel group
-  const int ty = tid / (BN / TN);         // tile group
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  // Load mappings: each thread moves 4 elements of V and 4 of U per step.
-  const int a_row = tid / (BK / 4);
-  const int a_k = (tid % (BK / 4)) * 4;
-  const int b_k = tid / (BN / 4);
-  const int b_n = (tid % (BN / 4)) * 4;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < C; k0 += BK) {
-    const int gm = m0 + a_row;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gk = k0 + a_k + i;
-      As[a_k + i][a_row] =
-          (gm < T && gk < C) ? __ldg(A + (size_t)gm * C + gk) : 0.f;
-    }
-    const int gkb = k0 + b_k;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + b_n + j;
-      Bs[b_k][b_n + j] =
-          (gkb < C && gn < O) ? __ldg(B + (size_t)gkb * O + gn) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= T) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx * TN + j;
-      if (gn < O) Mp[(size_t)gm * O + gn] = acc[i][j];
-    }
-  }
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  Acc acc;
+  // V[p] (T, C) . U[p] (C, O) over all of C.
+  tile(operands(V + p * T * C, U + p * C * O, T, O, C), m0, n0, 0,
+       (C + BK - 1) / BK, sm, acc);
+  float* Mp = M + p * T * O;
+  for_each_pair(acc, m0, n0, [&](int row, int col, float v0, float v1) {
+    if (row < T) store_pair(Mp, O, row, col, O, v0, v1);
+  });
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -197,11 +144,13 @@ extern "C" int repro_winograd_input_transform(const float* tiles, float* V,
 extern "C" int repro_winograd_tuple_multiply(const float* V, const float* U,
                                              float* M, int T, int C, int O,
                                              cudaStream_t stream) {
-  if (T < 1 || C < 1 || O < 1 || (T + BM - 1) / BM > 65535)
+  using sgemm_tc::BM;
+  using sgemm_tc::BN;
+  if (T < 1 || C < 1 || O < 1 || (O + BN - 1) / BN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((O + BN - 1) / BN, (T + BM - 1) / BM, 64);
-  winograd_tuple_multiply_kernel<<<grid, THREADS, 0, stream>>>(V, U, M, T, C,
-                                                               O);
+  const dim3 grid((T + BM - 1) / BM, (O + BN - 1) / BN, 64);
+  winograd_tuple_multiply_kernel<<<grid, sgemm_tc::THREADS, 0, stream>>>(
+      V, U, M, T, C, O);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,9 @@ it also runs on a machine without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: the GEMM, the implicit-GEMM conv and the 3-pass tuple
-multiply sum the same products as their plain versions in another order,
+multiply sum the same products as their plain versions in another order
+(the GEMM and the tuple multiply as three TF32 products per fp32 product,
+about 1e-6 of max|ref| in scripts/tf32x3_replay.py),
 rtol = 1e-4 with atol = 1e-4 * max|ref|; the int8 kernels sum exactly in
 int32, as their plain versions do, and differ at most in the fp32
 epilogue, 1e-5; the fused Winograd kernel and the
@@ -31,6 +33,7 @@ import repro_torch
 from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec
 from repro_torch.kernels.conv_ops import kernel_wrappers
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.gemm.ops import call_splits as gemm_splits
 from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
 from repro_torch.kernels.im2col_gemm.ops import (
     call_splits,
@@ -82,6 +85,54 @@ def test_gemm_kernel_on_card(cuda_device, m, n, k):
     a, b, bias = _randn(cuda_device, 5, (m, k), (k, n), (n,))
     got = matmul_bias_act(a, b, bias, "leaky")
     _close(got, matmul_bias_act(a, b, bias, "leaky", impl="torch"), 1e-4)
+
+
+@pytest.mark.parametrize("m,n,k,splits", [
+    (169, 256, 1024, 32),      # YOLOv3-tiny 416 b1 L13: split 32 ways
+    (169, 255, 512, 32),       # L15: N = 255, 4-byte copies of B
+    (676, 255, 256, 8),        # L21
+    (5776, 128, 256, 2),       # MODEL_20 608 L13
+    (92416, 32, 64, 1),        # MODEL_20 608 L2: N = 32, no split
+    (70, 100, 37, 3),          # ragged K: 4-byte copies of A, 3 chunks
+])
+def test_gemm_split_k_on_card(cuda_device, m, n, k, splits):
+    """The tensor-core GEMM with the split the rule gives (workspace and
+    reduce kernel where it splits) against the plain version; two calls
+    agree bit for bit, since the partials are added in split order."""
+    a, b, bias = _randn(cuda_device, 16, (m, k), (k, n), (n,))
+    assert gemm_splits(m, n, k) == splits
+    got = matmul_bias_act(a, b, bias, "leaky")
+    again = matmul_bias_act(a, b, bias, "leaky")
+    _close(got, matmul_bias_act(a, b, bias, "leaky", impl="torch"), 1e-4)
+    assert torch.equal(got, again)
+    _close(matmul_bias_act(a, b), matmul_bias_act(a, b, impl="torch"), 1e-4)
+
+
+@pytest.mark.parametrize("t,c,o", [
+    (100, 256, 256),           # VGG-16 224 L7
+    (1444, 8, 64),             # VGG-16 224 L0: C = 8, one k8 step
+    (103, 8, 20),              # ragged T, O % 4 != 0
+])
+def test_tuple_multiply_on_card(cuda_device, t, c, o):
+    v, u = _randn(cuda_device, 17, (64, t, c), (64, c, o))
+    got = tuple_multiply(v, u)
+    _close(got, tuple_multiply(v, u, impl="torch"), 1e-4)
+    assert torch.equal(got, tuple_multiply(v, u))
+
+
+def test_tensor_core_gemms_refuse_cpu_and_dtype(cuda_device):
+    """A CPU operand and a non-fp32 one raise; neither is computed by the
+    plain version instead."""
+    a, b = _randn(cuda_device, 18, (64, 32), (32, 16))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        matmul_bias_act(a, b.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        matmul_bias_act(a.half(), b.half())
+    v, u = _randn(cuda_device, 19, (64, 10, 8), (64, 8, 4))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tuple_multiply(v.cpu(), u)
+    with pytest.raises(ValueError, match="float32"):
+        tuple_multiply(v.double(), u.double())
 
 
 @pytest.mark.parametrize("h,w,c,o,s", [
