@@ -19,22 +19,25 @@ Phases, each on its own printed lines:
    VGG-16 224 and MODEL_20 608 at batch 1, on seeded int8 operands): the
    max-abs error of every call.
    At the shapes of YOLOv3-tiny at batch 1 (GEMM, im2col, fused Winograd),
-   of MODEL_20 at 608 (GEMM) and of VGG-16's Winograd layers (fused, and
-   the three 3-pass kernels), also the kernel's, the plain version's and
+   of MODEL_20 at 608 (GEMM, fused Winograd) and of VGG-16's Winograd
+   layers (fused, and the three 3-pass kernels), also the kernel's, the
+   plain version's and
    one library call's device time per call (``cuda_ms``: runs of launches,
    each between one event pair, each launch on its own cold operands), and
    the least time the card could take (bytes over 3.35 TB/s or FLOPs over
-   the 67 TFLOP/s fp32 peak, whichever is larger; for the GEMM and the
-   tuple multiply, which run three TF32 products per fp32 product on the
-   tensor cores, 3 x FLOPs over the 495 TFLOP/s TF32 peak, with the fp32
-   CUDA-core bound printed beside it), counted for the logical operands,
+   the 67 TFLOP/s fp32 peak, whichever is larger; for the GEMM, the
+   tuple multiply and the fused Winograd kernel's 64 per-position
+   products, which run three TF32 products per fp32 product on the
+   tensor cores, 3 x FLOPs over the 495 TFLOP/s TF32 peak — the fused
+   kernel's transforms over the fp32 peak beside them — with the fp32
+   CUDA-core bound of all of it printed beside), counted for the logical operands,
    before the channel padding the kernels take; the same at the int8 plan of
    YOLOv3-tiny b1 for the two int8 kernels, with int8 operations over the
    1979 TOP/s int8 peak, bytes of int8 operands and fp32 output, scale and
    bias, and ``torch._int_mm`` plus the epilogue as the GEMM's library call
    (no PyTorch call computes an int8 convolution); each timed line also
-   gives the kernel's time over the library call's, and each fp32 im2col
-   and GEMM line the number of split-K ranges the wrapper chose
+   gives the kernel's time over the library call's, and each im2col (fp32
+   and int8) and GEMM line the number of split-K ranges the wrapper chose
    (``splits``); each timed cell's sums per kernel follow; then,
    per VGG-16 Winograd layer, the fused kernel's time beside the 3-pass
    pipeline's;
@@ -45,9 +48,9 @@ Phases, each on its own printed lines:
    profiler breakdown of the batch-1 forward by CUDA kernel, with the
    device's idle share of the forward; in every profiled forward each port
    kernel the plan launches must appear in the trace, at most as often as
-   the plan says (the fp32 im2col conv's and the fp32 GEMM's split-K
-   reduce kernels once for each call with ``splits > 1``), and no other
-   port kernel (the trace
+   the plan says (the split-K reduce kernels of the fp32 and int8 im2col
+   convs and of the fp32 GEMM once for each call with ``splits > 1``), and
+   no other port kernel (the trace
    may lose records, so the exact counts are the wrappers');
 5. the first 20 layers of Darknet-53 (MODEL_20) at 608x608, batch 1: the
    same comparison (stride-2 im2col, shortcut);
@@ -57,8 +60,8 @@ Phases, each on its own printed lines:
    on the card; its per-layer choice printed), each the same comparison
    and each profiled; then every kernel call of the measure-mode plan held
    against its plain version, as in phase 3;
-7. int8 (``dtype='int8'``): YOLOv3-tiny 416 b1 and MODEL_20 608 b1
-   (both profiled, beside their fp32 forwards) and VGG-16 224 b1, each
+7. int8 (``dtype='int8'``): YOLOv3-tiny 416 b1, VGG-16 224 b1 and
+   MODEL_20 608 b1 (each profiled, beside its fp32 forward), each
    with identity batchnorm and calibrated on its input: every step of the
    cuda forward against the plain step fed the same input
    (``check_steps``), the output against ``impl='torch', dtype='int8'``
@@ -200,10 +203,12 @@ CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
               "tuple_multiply": "winograd_tuple_multiply_kernel",
               "output_transform": "winograd_output_transform_kernel",
               "flash_attention": "flash_attention"}
-# The second kernels of the fp32 im2col conv and the fp32 GEMM, launched by
-# the calls that split K.
+# The second kernels of the fp32 im2col conv, the int8 im2col conv and the
+# fp32 GEMM, launched by the calls that split K.
 SPLITK_REDUCE = "im2col_conv_splitk_reduce_kernel"
+Q8_SPLITK_REDUCE = "im2col_conv_q8_splitk_reduce_kernel"
 GEMM_SPLITK_REDUCE = "gemm_splitk_reduce_kernel"
+REDUCE_NAMES = (SPLITK_REDUCE, Q8_SPLITK_REDUCE, GEMM_SPLITK_REDUCE)
 
 
 def log(*parts) -> None:
@@ -279,6 +284,7 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
     from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
     from repro_torch.kernels.im2col_gemm.ops import (
         call_splits,
+        call_splits_q8,
         im2col_conv,
         im2col_conv_q8,
     )
@@ -370,7 +376,8 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
             cases.append(dict(
                 base, kernel="im2col_conv_q8",
                 label=(f"{head} im2col_q8 {h}x{w}x{phys_c}->{oh}x{ow}x{o} "
-                       f"k{kh} s{spec.stride[0]} blocks={blocks}"),
+                       f"k{kh} s{spec.stride[0]} blocks={blocks} splits="
+                       f"{call_splits_q8(b, oh, ow, phys_c, o, blocks[0])}"),
                 args=(pad_c(x, 3), pad_c(wt, 2), scale, bias),
                 run=lambda x, wt, scale, bias, spec=spec, blocks=blocks,
                 act=act, impl="cuda": im2col_conv_q8(
@@ -429,17 +436,20 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
         n_t = tiles.shape[0]
         shape = f"T={n_t} C={phys_c} O={o}"
         if s.plan.winograd_fused:
+            # F(6,3) at the logical C: 64 per-position products, 3xTF32 on
+            # the tensor cores, + B^T d B (2048 per tile-channel) + A^T M A
+            # (1344 per tile-out) on the fp32 CUDA cores, the reference's
+            # count; the fp32 CUDA-core bound of all of it printed beside.
+            products = 2 * n_t * 64 * c * o
+            transforms = n_t * c * 2048 + n_t * o * 1344
             cases.append(dict(
-                base, **conv_lib, kernel="winograd_fused",
+                tensor_core, **conv_lib, kernel="winograd_fused",
                 label=f"{head} winograd {shape} blocks={blocks}",
                 args=(tiles, u, bias),
                 run=lambda tiles, u, bias, blocks=blocks, act=act,
                 impl="cuda": fused_winograd(tiles, u, blocks, bias, act,
                                             impl=impl),
-                # F(6,3) at the logical C: 64 per-position products +
-                # B^T d B (2048 per tile-channel) + A^T M A (1344 per
-                # tile-out), the reference's count.
-                flops=2 * n_t * 64 * c * o + n_t * c * 2048 + n_t * o * 1344,
+                flops=products, flops_fp32=transforms,
                 bytes=conv_bytes,
             ))
             continue
@@ -516,10 +526,16 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
                            args)
         library_ms = (cuda_ms(case["library"], case["lib_args"])
                       if case["library"] is not None else None)
-        t_ops = case["flops"] / case["peak"] * 1e3
+        # Work on the tensor cores over their peak, and what runs on the
+        # fp32 CUDA cores beside it (the fused Winograd kernel's
+        # transforms) over theirs: the two units run side by side.
+        fp32_work = case.get("flops_fp32", 0)
+        t_ops = max(case["flops"] / case["peak"],
+                    fp32_work / hw.peak_flops_fp32) * 1e3
         t_bytes = case["bytes"] / hw.hbm_bandwidth * 1e3
         bound_ms = max(t_ops, t_bytes)
-        cc_bound_ms = (max(case["flops"] / case["cuda_core_peak"] * 1e3, t_bytes)
+        cc_bound_ms = (max((case["flops"] + fp32_work)
+                           / case["cuda_core_peak"] * 1e3, t_bytes)
                        if "cuda_core_peak" in case else None)
         log(f"kernel {case['label']}: max_abs_err={err:.3g} (tol {tol:.3g})"
             f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
@@ -742,11 +758,11 @@ def deployment_sqnr(model, rng, name) -> None:
 def planned_cuda_launches(netplan):
     """CUDA launches of each port kernel in one forward of ``netplan``, by
     the profiler's name: the plan's count of each kernel, and each split-K
-    reduce kernel once for each fp32 im2col or fp32 GEMM call that
-    splits."""
+    reduce kernel once for each fp32 im2col, int8 im2col or fp32 GEMM call
+    that splits."""
     from repro_torch.core.conv_spec import ConvAlgorithm
     from repro_torch.kernels.gemm.ops import call_splits as gemm_splits
-    from repro_torch.kernels.im2col_gemm.ops import call_splits
+    from repro_torch.kernels.im2col_gemm.ops import call_splits, call_splits_q8
 
     want = {CUDA_NAMES[k]: n for k, n in netplan.kernel_launches().items()}
     fp32 = [s for s in netplan.steps
@@ -757,6 +773,14 @@ def planned_cuda_launches(netplan):
         for s in fp32 if s.plan.algorithm is ConvAlgorithm.IM2COL_GEMM)
     if splits:
         want[SPLITK_REDUCE] = splits
+    q8 = sum(
+        call_splits_q8(netplan.batch, *s.out_hw, s.in_layout.phys_c,
+                       s.out_layout.phys_c, s.plan.kernel_blocks[0]) > 1
+        for s in netplan.steps
+        if s.layer.kind == "conv" and s.plan.dtype == "int8"
+        and s.plan.algorithm is ConvAlgorithm.IM2COL_GEMM)
+    if q8:
+        want[Q8_SPLITK_REDUCE] = q8
     # A 1x1 conv's GEMM: M = B * OH * OW (the output map; a strided 1x1
     # subsamples its input first), K and N the physical channels.
     gemm = sum(
@@ -812,8 +836,7 @@ def profile_forward(forward, ms_per_forward: float, name: str,
         # forward's profile), never add them: every planned port kernel
         # appears, at most as often as planned, and no other one.
         seen = {c: sum(c in ev.name for ev in kernels)
-                for c in (*CUDA_NAMES.values(), SPLITK_REDUCE,
-                          GEMM_SPLITK_REDUCE)}
+                for c in (*CUDA_NAMES.values(), *REDUCE_NAMES)}
         bad = {c: n for c, n in seen.items()
                if not (0 < n <= want[c] * reps if c in want else n == 0)}
         if bad:
@@ -823,7 +846,7 @@ def profile_forward(forward, ms_per_forward: float, name: str,
         log(f"  profile {name}: port kernel launches in {reps} forwards "
             f"{ {c: n for c, n in seen.items() if n} }, the plan's per forward "
             f"{want}")
-    for cname in (*CUDA_NAMES.values(), SPLITK_REDUCE, GEMM_SPLITK_REDUCE):
+    for cname in (*CUDA_NAMES.values(), *REDUCE_NAMES):
         us = [ev.time_range.elapsed_us() for ev in kernels if cname in ev.name]
         n = len(us) // reps
         if not n:
@@ -1205,9 +1228,10 @@ def main() -> int:
         timed=("gemm", "im2col_conv", "winograd_fused"))
     check_kernels(netplan_of(yolov3.TINY_MODEL, 4), rng, H100,
                   "yolov3-tiny 416 b4")
-    # MODEL_20's GEMM calls sit in a device-bound forward: timed too.
+    # MODEL_20's GEMM and fused Winograd calls sit in a device-bound
+    # forward: timed too.
     check_kernels(netplan_of(yolov3.MODEL_20, 1), rng, H100, "yolov3-20 608 b1",
-                  timed=("gemm",))
+                  timed=("gemm", "winograd_fused"))
     _, fused_steps = check_kernels(
         netplan_of(vgg16.MODEL, 1), rng, H100, "vgg16 224 b1",
         timed=("winograd_fused",))
@@ -1280,7 +1304,7 @@ def main() -> int:
         yolov3.TINY_MODEL, 1, rng, init_cnn(rng, yolov3.TINY_LAYERS), int8,
         tiny8_cell, profile=True)
     vgg8, _ = run_cell(vgg16.MODEL, 1, rng, init_cnn(rng, vgg16.MODEL.layers),
-                       int8, "vgg16 224 b1 int8")
+                       int8, "vgg16 224 b1 int8", profile=True)
     # Its end-to-end SQNR against the plain forward is printed, not gated:
     # with every step exact on the same input (check_steps), flips at the
     # quantization steps after its two fp32 Winograd layers compound over

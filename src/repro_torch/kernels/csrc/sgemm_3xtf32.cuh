@@ -4,6 +4,8 @@
 // gemm/csrc/gemm.cu (the 1x1-conv GEMM, with split-K) and
 // winograd/csrc/winograd_3pass.cu (the tuple multiply, one position per
 // blockIdx.z); each owns its grid, its K range and its epilogue.
+// winograd/csrc/winograd_fused.cu uses only its device helpers
+// (split_tf32, mma_tf32, the cp.async wrappers), not the tile loop.
 //
 // Math.  mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32; 4 warps
 // (128 threads) in a 2x2 layout, each warp a 32x32 quarter of the tile:

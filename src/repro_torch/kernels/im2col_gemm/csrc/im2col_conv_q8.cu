@@ -1,5 +1,6 @@
 // Implicit-GEMM (fused im2col + GEMM) int8 convolution, NHWC / HWIO, for
-// sm_90a: int32 accumulation, fused fp32 dequant + bias + activation.
+// sm_90a, on the int8 tensor cores: exact int32 sums, split-K, and a fused
+// fp32 dequant + bias + activation epilogue.
 //
 // Replaces the int8 bodies of the TPU kernel
 // src/repro/kernels/im2col_gemm/kernel.py::conv2d_im2col_gemm_pallas
@@ -7,42 +8,74 @@
 // out = act(float(conv(x_q, w_q)) * scale + bias), x_q (B, H, W, C) and
 // w_q (kh, kw, C, O) int8, scale and bias (O,) fp32, out fp32.
 //
-// Design.  The fp32 kernel's tiling (im2col_conv.cu), in int8.  The TPU
-// kernel keeps a whole padded image slab per program and walks the
-// in-channel blocks as a sequential grid axis into an int32 VMEM
-// accumulator; here one block owns a toh x tow output tile (toh * tow <=
-// 64) of one image and 64 out channels, and the in-channel reduction is a
-// loop inside the block with the 64x64 int32 accumulator in registers (a
-// 4 pixel x 4 channel micro-tile per thread).  Each step of the loop
-// stages, for BC = 16 channels, the input window of the tile — (toh-1)*sh
-// + kh rows by (tow-1)*sw + kw columns, the halo included — one 16-byte
-// load per pixel, and the (kh, kw, 16, 64) weight slice, packed as words
-// of 4 channels.  The conv's zero padding is applied while staging, so the
-// caller pads nothing spatially; out channels and the ragged last row and
-// column tiles are masked.  The inner product is __dp4a (4 signed byte
-// products into an int32 per instruction), exact: the wrapper refuses K =
-// kh*kw*C with K * 127^2 >= 2^31.  The epilogue runs once, after the last
-// channel step: float(acc) * scale[o] + bias[o], each rounded on its own
-// (no FMA contraction), then the activation.
+// Design.  The TPU kernel keeps a whole padded image slab per program and
+// walks the in-channel blocks as a sequential grid axis into an int32 VMEM
+// accumulator.  Here one block owns a toh x tow output tile (toh * tow <=
+// 64) of one image and 64 out channels: a 64 x 64 int32 tile of the GEMM
+// whose rows are output pixels and whose K runs over (channel chunk, tap,
+// 32 channels).  Its 8 warps (4 x 2) each hold a 16 pixel x 32 channel
+// quarter-slab as mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
+// accumulators: one k32 step is one tap of 32 channels, so A's rows are
+// the tile's pixels read through that tap's offset into the staged input
+// window (ldmatrix takes any row address), and B is the tap's weights.
+// The sum is exact in int32 (the wrapper refuses K * 127^2 >= 2^31), as
+// the plain version's, so the output equals it bit for bit.
 //
-// What bounds it.  As the fp32 kernel: YOLOv3-tiny's 13x13 layers give 4
-// row tiles, so at batch 1 a 512-channel layer launches 32 blocks for 132
-// SMs; inside the loop shared-memory loads (8 LDS.128 per 64 dp4a) and
-// dp4a's issue rate limit it.  It reads a quarter of the fp32 kernel's
-// operand bytes and does 4 multiply-adds per instruction.  The int8 tensor
-// cores are later work.
+// Staging.  Per chunk of 32 channels the block needs the input window of
+// its tile — (toh-1)*sh + kh rows by (tow-1)*sw + kw columns, the halo
+// included, 32 bytes a pixel — and the (kh*kw, 32, 64) weight slice; both
+// go into the idle one of two buffers while the block computes from the
+// other, one barrier a chunk.  The window goes by cp.async, 16 bytes a
+// copy, zero-filled outside the image (the conv's padding: the caller pads
+// nothing spatially) and past C (C % 32 == 16 leaves the last chunk's
+// upper half zero).  B's fragment wants 4 consecutive K bytes of one out
+// channel, while HWIO keeps O contiguous, so the weights are transposed on
+// the way: each thread reads 4 channel rows x 4 out channels as 4 words
+// (bytes where O % 4 != 0), rearranges them with __byte_perm into 4 words
+// of 4 channels each and stores those as the [tap][o][32 channels] rows
+// ldmatrix reads.  The loads of the next chunk's weights are issued into
+// registers before the current chunk's products and stored after them,
+// so their latency hides behind the tensor cores (kernels with more than
+// 10 taps load them after the products instead).  Each 32-byte row keeps
+// its two 16-byte halves swapped where (row / 4) is odd, so the 8 rows of
+// an ldmatrix phase fall on distinct banks; the stores rotate their order
+// by out-channel group for the same reason.
+//
+// Split-K.  At batch 1 the 13x13 layers of YOLOv3-tiny give 32-64 blocks
+// for 132 SMs.  The chunks are cut into `splits` contiguous ranges, split s
+// taking [s * n / splits, (s + 1) * n / splits) of n chunks, on the grid's
+// z axis beside the image (ops.py::call_splits_q8 picks splits from the
+// shape and RESIDENT_BLOCKS_Q8, this kernel's __launch_bounds__ minimum).
+// With splits > 1 each block writes its int32 partial tile to a workspace
+// (splits, B*OH*OW, O), and im2col_conv_q8_splitk_reduce_kernel adds the
+// partials in split order (exact) and applies the epilogue; with splits ==
+// 1 the conv kernel applies it.  The epilogue is float(acc) * scale[o]
+// then + bias[o], each rounded on its own (__fmul_rn, __fadd_rn: no FMA
+// contraction), then the activation.
+//
+// What bounds it.  The int8 layers are small (0.1-1.4 GOP at batch 1): a
+// call is 1-4 chunks' latency — the weight slice from L2, the window from
+// device memory, the register-staged transpose — plus, where it splits, a
+// reduce launch, far below the 1979 TOP/s of the tensor cores.  Inside a
+// chunk, 3 ldmatrix.x4 feed 4 mma per warp and tap.  Split-K halves
+// YOLOv3-tiny's seven calls, and 3 blocks a SM (85 registers, spilling)
+// is slower than 2 (scripts/conv_tc_variants.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BC = 16;       // in channels per reduction step (C % BC == 0)
-constexpr int BC4 = BC / 4;  // packed words per pixel and step
-constexpr int BO = 64;       // out channels per block
-constexpr int PIX = 64;      // output pixels per block (toh * tow <= PIX)
-constexpr int TP = 4;        // pixels per thread
-constexpr int TO = 4;        // out channels per thread
-constexpr int THREADS = 256; // (PIX / TP) * (BO / TO)
+constexpr int CK = 32;         // channels per chunk: one k32 step per tap
+constexpr int BO = 64;         // out channels per block
+constexpr int PIX = 64;        // output pixels per block (toh * tow <= PIX)
+constexpr int THREADS = 256;   // 8 warps: 4 over pixels x 2 over channels
+constexpr int MIN_BLOCKS = 2;  // __launch_bounds__ minimum blocks a SM
+constexpr int ROW = CK;        // bytes of a window pixel or a weight row
+constexpr int W_ITEMS = 5;     // register-staged weight items a thread
+constexpr int MAX_SMEM = 232448;
+// Weight items of a chunk: taps x 8 groups of 4 channels x 16 groups of 4
+// out channels.
+constexpr int ITEMS_PER_TAP = (CK / 4) * (BO / 4);
 
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == 1) return fmaxf(v, 0.f);
@@ -50,118 +83,317 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !in.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 b16 matrices (here 8 rows of 16 bytes each) from shared memory;
+// lane l gives the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16x8 int32) += a (16x32 s8, row) . b (32x8 s8, col), exact.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte half h of 32-byte row `row`: halves swapped where
+// (row / 4) is odd, so rows r and r + 4 of an ldmatrix phase differ in bank.
+__device__ __forceinline__ int row_half(int row, int h) {
+  return row * ROW + 16 * (h ^ ((row >> 2) & 1));
+}
+
+// One weight item: 4 channel rows x 4 out channels, as loaded (word r holds
+// out channels o .. o + 3 of channel row r).
+struct WItem {
+  uint32_t w[4];
+};
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 im2col_conv_q8_kernel(const int8_t* __restrict__ x,
                       const int8_t* __restrict__ w,
                       const float* __restrict__ scale,
                       const float* __restrict__ bias, float* __restrict__ out,
-                      int H, int W, int C, int O, int OH, int OW, int kh,
-                      int kw, int sh, int sw, int ph, int pw, int toh, int tow,
-                      int col_tiles, int act) {
-  extern __shared__ __align__(16) int smem_q8[];
+                      int* __restrict__ ws, int B, int H, int W, int C, int O,
+                      int OH, int OW, int kh, int kw, int sh, int sw, int ph,
+                      int pw, int toh, int tow, int col_tiles, int act,
+                      int splits) {
+  extern __shared__ __align__(16) unsigned char smem_q8[];
   const int win_h = (toh - 1) * sh + kh;
   const int win_w = (tow - 1) * sw + kw;
   const int win_px = win_h * win_w;
   const int taps = kh * kw;
-  int* win = smem_q8;                     // [win_px][BC4]
-  int* wgt = smem_q8 + win_px * BC4;      // [taps][BC4][BO]
+  const int win_bytes = win_px * ROW;
+  const int buf_bytes = win_bytes + taps * BO * ROW;
 
   const int tid = threadIdx.x;
-  const int tx = tid % (BO / TO);         // out-channel group
-  const int ty = tid / (BO / TO);         // pixel group
-  const int b = blockIdx.z;
+  const int lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 4, wn = warp / 4;     // 16-pixel and 32-channel slab
+  const int b = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
   const int o0 = blockIdx.y * BO;
   const int oh0 = (blockIdx.x / col_tiles) * toh;
   const int ow0 = (blockIdx.x % col_tiles) * tow;
   const int ih0 = oh0 * sh - ph;
   const int iw0 = ow0 * sw - pw;
+  const int chunks = (C + CK - 1) / CK;
+  const int chunk_lo = split * chunks / splits;
+  const int chunk_hi = (split + 1) * chunks / splits;
+  const bool w_vec =
+      O % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 3) == 0;
+  const int n_items = taps * ITEMS_PER_TAP;
+  const bool w_prefetch = n_items <= W_ITEMS * THREADS;
 
-  // This thread's pixels: m = ty + 16 * i within the toh x tow tile.
-  int pix_off[TP];
-  bool pix_ok[TP];
-#pragma unroll
-  for (int i = 0; i < TP; ++i) {
-    const int m = ty + (PIX / TP) * i;
-    const int r = m / tow, q = m % tow;
-    pix_ok[i] = m < toh * tow && oh0 + r < OH && ow0 + q < OW;
-    pix_off[i] = pix_ok[i] ? (r * sh * win_w + q * sw) * BC4 : 0;
-  }
-
-  int acc[TP][TO];
-#pragma unroll
-  for (int i = 0; i < TP; ++i)
-#pragma unroll
-    for (int j = 0; j < TO; ++j) acc[i][j] = 0;
-
-  for (int c0 = 0; c0 < C; c0 += BC) {
-    // Stage the input window, 16 channels (one int4) per pixel; zero
-    // outside the image: the conv padding.
-    for (int px = tid; px < win_px; px += THREADS) {
+  // The input window of chunk `chunk` into buffer `buf`, by cp.async.
+  auto stage_window = [&](int chunk, int buf) {
+    unsigned char* win = smem_q8 + buf * buf_bytes;
+    const int c0 = chunk * CK;
+    for (int idx = tid; idx < win_px * 2; idx += THREADS) {
+      const int px = idx / 2, h = idx % 2;
       const int ih = ih0 + px / win_w, iw = iw0 + px % win_w;
-      int4 val = make_int4(0, 0, 0, 0);
-      if (ih >= 0 && ih < H && iw >= 0 && iw < W)
-        val = __ldg(reinterpret_cast<const int4*>(
-            x + (((size_t)b * H + ih) * W + iw) * C + c0));
-      reinterpret_cast<int4*>(win)[px] = val;
+      const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W && c0 + 16 * h < C;
+      cp_async16(win + row_half(px, h),
+                 in ? x + (((size_t)b * H + ih) * W + iw) * C + c0 + 16 * h : x,
+                 in);
     }
-    // Stage the (taps, BC4, BO) packed weight slice (zero past the last
-    // out channel): word (tap, c4, o) holds channels 4*c4 .. 4*c4+3.
-    for (int idx = tid; idx < taps * BC4 * BO; idx += THREADS) {
-      const int ol = idx % BO, rest = idx / BO;
-      const int c4 = rest % BC4, tap = rest / BC4;
-      const int o = o0 + ol;
-      int word = 0;
-      if (o < O) {
-        const int8_t* src = w + ((size_t)tap * C + c0 + 4 * c4) * O + o;
+  };
+  // Item `item` of chunk `chunk`: (tap, group of 4 out channels, group of
+  // 4 channels), the channel group fastest; zero past C and O.
+  auto load_item = [&](int chunk, int item, WItem& it) {
+    const int cg = item % (CK / 4), og = (item / (CK / 4)) % (BO / 4);
+    const int tap = item / ITEMS_PER_TAP;
+    const int c = chunk * CK + 4 * cg, o = o0 + 4 * og;
+    const int8_t* src = w + ((size_t)tap * C + c) * O + o;
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          word |= (int)(uint8_t)__ldg(src + (size_t)r * O) << (8 * r);
+    for (int r = 0; r < 4; ++r) {
+      uint32_t v = 0;
+      if (c + r < C) {
+        if (w_vec) {
+          if (o < O)
+            v = __ldg(reinterpret_cast<const uint32_t*>(src + (size_t)r * O));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (o + j < O)
+              v |= (uint32_t)(uint8_t)__ldg(src + (size_t)r * O + j) << (8 * j);
+        }
       }
-      wgt[idx] = word;
+      it.w[r] = v;
     }
-    __syncthreads();
+  };
+  // The item transposed into 4 words of 4 channels, one per out channel,
+  // stored as [tap][o][32 channels] rows of buffer `buf`.
+  auto store_item = [&](int item, const WItem& it, int buf) {
+    unsigned char* wgt = smem_q8 + buf * buf_bytes + win_bytes;
+    const int cg = item % (CK / 4), og = (item / (CK / 4)) % (BO / 4);
+    const int tap = item / ITEMS_PER_TAP;
+    const uint32_t lo01 = __byte_perm(it.w[0], it.w[1], 0x5140);
+    const uint32_t hi01 = __byte_perm(it.w[0], it.w[1], 0x7362);
+    const uint32_t lo23 = __byte_perm(it.w[2], it.w[3], 0x5140);
+    const uint32_t hi23 = __byte_perm(it.w[2], it.w[3], 0x7362);
+    // v[j]: channels 4cg .. 4cg + 3 of out channel 4og + j.
+    const uint32_t v0 = __byte_perm(lo01, lo23, 0x5410);
+    const uint32_t v1 = __byte_perm(lo01, lo23, 0x7632);
+    const uint32_t v2 = __byte_perm(hi01, hi23, 0x5410);
+    const uint32_t v3 = __byte_perm(hi01, hi23, 0x7632);
+    // Rotated by og % 4, so the 4 groups of a warp store to 4 banks.
+    const int r = og & 3;
+    const uint32_t t0 = (r & 1) ? v1 : v0, t1 = (r & 1) ? v2 : v1;
+    const uint32_t t2 = (r & 1) ? v3 : v2, t3 = (r & 1) ? v0 : v3;
+    const uint32_t u[4] = {(r & 2) ? t2 : t0, (r & 2) ? t3 : t1,
+                           (r & 2) ? t0 : t2, (r & 2) ? t1 : t3};
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int row = tap * BO + 4 * og + ((s + r) & 3);
+      *reinterpret_cast<uint32_t*>(wgt + row_half(row, cg / 4) +
+                                   4 * (cg % 4)) = u[s];
+    }
+  };
 
+  // This lane's ldmatrix rows of A: tile pixel m -> its window pixel at
+  // tap (0, 0), or pixel 0 for rows past the tile (computed, never stored).
+  const int a_m = 16 * wm + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int a_half = lane >> 4;
+  int a_px;
+  {
+    const int r = a_m / tow, q = a_m % tow;
+    a_px = a_m < toh * tow ? r * sh * win_w + q * sw : 0;
+  }
+  // ... and of B: out channel row and half, per pair of n8 tiles.
+  const int b_o = 32 * wn + 8 * (lane >> 4) + (lane & 7);
+  const int b_half = (lane >> 3) & 1;
+
+  int acc[4][4];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ni][e] = 0;
+
+  WItem pre[W_ITEMS];
+  stage_window(chunk_lo, 0);
+  cp_async_commit();
+  for (int item = tid; item < n_items; item += THREADS) {
+    WItem it;
+    load_item(chunk_lo, item, it);
+    store_item(item, it, 0);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int chunk = chunk_lo; chunk < chunk_hi; ++chunk) {
+    const int buf = (chunk - chunk_lo) & 1;
+    const bool more = chunk + 1 < chunk_hi;
+    if (more) {
+      stage_window(chunk + 1, buf ^ 1);
+      if (w_prefetch) {
+#pragma unroll
+        for (int k = 0; k < W_ITEMS; ++k) {
+          const int item = tid + k * THREADS;
+          if (item < n_items) load_item(chunk + 1, item, pre[k]);
+        }
+      }
+    }
+    cp_async_commit();
+
+    const uint32_t win = smem_addr(smem_q8 + buf * buf_bytes);
+    const uint32_t wgt = win + win_bytes;
     for (int di = 0; di < kh; ++di) {
       for (int dj = 0; dj < kw; ++dj) {
-        const int tap_off = (di * win_w + dj) * BC4;
-        const int* wt = wgt + (di * kw + dj) * BC4 * BO + tx * TO;
-        int a[TP][BC4];
+        const int tap = di * kw + dj;
+        uint32_t a[4], bw[2][4];
+        ldmatrix_x4(a, win + row_half(a_px + di * win_w + dj, a_half));
 #pragma unroll
-        for (int i = 0; i < TP; ++i) {
-          const int4 v =
-              *reinterpret_cast<const int4*>(win + pix_off[i] + tap_off);
-          a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
+        for (int pair = 0; pair < 2; ++pair)
+          ldmatrix_x4(bw[pair],
+                      wgt + row_half(tap * BO + b_o + 16 * pair, b_half));
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_s8(acc[ni], a, bw[ni / 2][2 * (ni % 2)],
+                 bw[ni / 2][2 * (ni % 2) + 1]);
+      }
+    }
+
+    if (more) {
+      if (w_prefetch) {
+#pragma unroll
+        for (int k = 0; k < W_ITEMS; ++k) {
+          const int item = tid + k * THREADS;
+          if (item < n_items) store_item(item, pre[k], buf ^ 1);
         }
-#pragma unroll
-        for (int c4 = 0; c4 < BC4; ++c4) {
-          const int4 wv = *reinterpret_cast<const int4*>(wt + c4 * BO);
-#pragma unroll
-          for (int i = 0; i < TP; ++i) {
-            acc[i][0] = __dp4a(a[i][c4], wv.x, acc[i][0]);
-            acc[i][1] = __dp4a(a[i][c4], wv.y, acc[i][1]);
-            acc[i][2] = __dp4a(a[i][c4], wv.z, acc[i][2]);
-            acc[i][3] = __dp4a(a[i][c4], wv.w, acc[i][3]);
-          }
+      } else {
+        for (int item = tid; item < n_items; item += THREADS) {
+          WItem it;
+          load_item(chunk + 1, item, it);
+          store_item(item, it, buf ^ 1);
         }
       }
     }
+    // The next chunk has landed in buf ^ 1, and every warp is done with buf.
+    cp_async_wait_all();
     __syncthreads();
   }
 
+  // splits == 1: the epilogue into out; else the int32 partial tile into
+  // this split's slice of the workspace.
+  const int g = lane / 4, t = lane % 4;
+  const size_t pixels = (size_t)B * OH * OW;
+  const bool pair_ok = O % 2 == 0;
 #pragma unroll
-  for (int i = 0; i < TP; ++i) {
-    if (!pix_ok[i]) continue;
-    const int m = ty + (PIX / TP) * i;
+  for (int hrow = 0; hrow < 2; ++hrow) {
+    const int m = 16 * wm + g + 8 * hrow;
+    if (m >= toh * tow) continue;
     const int oh = oh0 + m / tow, ow = ow0 + m % tow;
-    float* dst = out + (((size_t)b * OH + oh) * OW + ow) * O;
+    if (oh >= OH || ow >= OW) continue;
+    const size_t pix = ((size_t)b * OH + oh) * OW + ow;
 #pragma unroll
-    for (int j = 0; j < TO; ++j) {
-      const int o = o0 + tx * TO + j;
-      if (o >= O) continue;
-      float v = __fmul_rn(__int2float_rn(acc[i][j]), __ldg(scale + o));
-      if (bias != nullptr) v = __fadd_rn(v, __ldg(bias + o));
-      dst[o] = activate(v, act);
+    for (int ni = 0; ni < 4; ++ni) {
+      const int o = o0 + 32 * wn + 8 * ni + 2 * t;
+      const int v0 = acc[ni][2 * hrow], v1 = acc[ni][2 * hrow + 1];
+      if (splits == 1) {
+        float f[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (o + e >= O) continue;
+          float v =
+              __fmul_rn(__int2float_rn(e ? v1 : v0), __ldg(scale + o + e));
+          if (bias != nullptr) v = __fadd_rn(v, __ldg(bias + o + e));
+          f[e] = activate(v, act);
+        }
+        float* dst = out + pix * O + o;
+        if (pair_ok && o + 1 < O) {
+          *reinterpret_cast<float2*>(dst) = make_float2(f[0], f[1]);
+        } else {
+          if (o < O) dst[0] = f[0];
+          if (o + 1 < O) dst[1] = f[1];
+        }
+      } else {
+        int* dst = ws + (split * pixels + pix) * O + o;
+        if (pair_ok && o + 1 < O) {
+          *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
+        } else {
+          if (o < O) dst[0] = v0;
+          if (o + 1 < O) dst[1] = v1;
+        }
+      }
     }
+  }
+}
+
+// out = act(float(sum over the splits of ws) * scale + bias), V
+// consecutive elements per thread (V = 4 when O % 4 == 0); the int32 sum
+// is exact, the epilogue the conv kernel's.
+template <int V>
+__global__ void __launch_bounds__(256)
+im2col_conv_q8_splitk_reduce_kernel(const int* __restrict__ ws,
+                                    const float* __restrict__ scale,
+                                    const float* __restrict__ bias,
+                                    float* __restrict__ out, size_t n, int O,
+                                    int splits, int act) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (i >= n) return;
+  int s[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) s[e] = 0;
+  for (int p = 0; p < splits; ++p) {
+    const int* src = ws + p * n + i;
+    if (V == 4) {
+      const int4 t = __ldg(reinterpret_cast<const int4*>(src));
+      s[0] += t.x; s[1] += t.y; s[2] += t.z; s[3] += t.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) s[e] += __ldg(src + e);
+    }
+  }
+  const int o = static_cast<int>(i % O);
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    float v = __fmul_rn(__int2float_rn(s[e]), __ldg(scale + o + e));
+    if (bias != nullptr) v = __fadd_rn(v, __ldg(bias + o + e));
+    out[i + e] = activate(v, act);
   }
 }
 
@@ -169,29 +401,48 @@ im2col_conv_q8_kernel(const int8_t* __restrict__ x,
 
 // out (B, OH, OW, O) = act(float(conv(x_q, w_q)) * scale + bias), x_q
 // (B, H, W, C), w_q (kh, kw, C, O) int8.  C % 16 == 0, x 16-byte aligned,
-// toh * tow <= 64; bias may be null.  Returns cudaGetLastError().
+// toh * tow <= 64, 1 <= splits <= ceil(C / 32); bias may be null; ws holds
+// splits * B * OH * OW * O int32 when splits > 1 (else it may be null).
+// Returns cudaGetLastError().
 extern "C" int repro_im2col_conv_q8(const int8_t* x, const int8_t* w,
                                     const float* scale, const float* bias,
-                                    float* out, int B, int H, int W, int C,
-                                    int O, int OH, int OW, int kh, int kw,
-                                    int sh, int sw, int ph, int pw, int toh,
-                                    int tow, int act, cudaStream_t stream) {
-  if (C % BC != 0 || toh * tow > PIX || toh < 1 || tow < 1)
+                                    float* out, int* ws, int B, int H, int W,
+                                    int C, int O, int OH, int OW, int kh,
+                                    int kw, int sh, int sw, int ph, int pw,
+                                    int toh, int tow, int act, int splits,
+                                    cudaStream_t stream) {
+  const int chunks = (C + CK - 1) / CK;
+  if (C % 16 != 0 || toh * tow > PIX || toh < 1 || tow < 1 || splits < 1 ||
+      splits > chunks || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int win_px = ((toh - 1) * sh + kh) * ((tow - 1) * sw + kw);
-  const size_t smem =
-      (size_t)(win_px * BC4 + kh * kw * BC4 * BO) * sizeof(int);
-  if (smem > 48 * 1024) {
+  const size_t smem = 2 * (size_t)(win_px + kh * kw * BO) * ROW;
+  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  static size_t smem_limit = 48 * 1024;
+  if (smem > smem_limit) {
     const cudaError_t err = cudaFuncSetAttribute(
         im2col_conv_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
+    smem_limit = smem;
   }
   const int row_tiles = (OH + toh - 1) / toh;
   const int col_tiles = (OW + tow - 1) / tow;
-  const dim3 grid(row_tiles * col_tiles, (O + BO - 1) / BO, B);
+  const dim3 grid(row_tiles * col_tiles, (O + BO - 1) / BO, B * splits);
   im2col_conv_q8_kernel<<<grid, THREADS, smem, stream>>>(
-      x, w, scale, bias, out, H, W, C, O, OH, OW, kh, kw, sh, sw, ph, pw, toh,
-      tow, col_tiles, act);
+      x, w, scale, bias, out, ws, B, H, W, C, O, OH, OW, kh, kw, sh, sw, ph,
+      pw, toh, tow, col_tiles, act, splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t n = (size_t)B * OH * OW * O;
+  if (O % 4 == 0) {
+    const unsigned blocks = static_cast<unsigned>((n / 4 + 255) / 256);
+    im2col_conv_q8_splitk_reduce_kernel<4><<<blocks, 256, 0, stream>>>(
+        ws, scale, bias, out, n, O, splits, act);
+  } else {
+    const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+    im2col_conv_q8_splitk_reduce_kernel<1><<<blocks, 256, 0, stream>>>(
+        ws, scale, bias, out, n, O, splits, act);
+  }
   return static_cast<int>(cudaGetLastError());
 }

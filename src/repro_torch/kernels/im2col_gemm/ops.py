@@ -4,13 +4,15 @@
 ``im2col_conv`` computes act(conv(x, w) + bias) on NHWC input whose channel
 count is a multiple of ``BC``; ``im2col_conv_q8`` computes
 act(float(conv(x_q, w_q)) * scale + bias) on int8 input whose channel
-count is a multiple of ``BC_Q8``, with an exact int32 sum.  The conv's
-spatial zero padding is applied inside the kernels, and out channels and
-ragged row/column tiles are masked there, so the only layout the caller
-owns is the channel multiple.  The fp32 kernel splits its reduction over
-the channel chunks across blocks where the grid alone would leave the
-card half empty (``split_k``); one wrapper call is one conv, whatever
-the number of CUDA kernels it launches.
+count is a multiple of ``BC_Q8``, with an exact int32 sum (on the int8
+tensor cores, in chunks of ``CHUNK_Q8`` channels).  The conv's spatial
+zero padding is applied inside the kernels, and out channels and ragged
+row/column tiles are masked there, so the only layout the caller owns is
+the channel multiple.  Both kernels split their reduction over the
+channel chunks across blocks where the grid alone would leave the card
+half empty (``split_k``, each over its own kernel's resident blocks); one
+wrapper call is one conv, whatever the number of CUDA kernels it
+launches.
 ``impl='cuda'`` launches the kernel on CUDA tensors and raises on anything
 else; ``impl='torch'`` runs the plain version (ref.py).
 """
@@ -30,14 +32,18 @@ from repro_torch.kernels.im2col_gemm.ref import (
 )
 
 BC = 8          # in channels per reduction step: C must be a multiple
-BC_Q8 = 16      # the int8 kernel's step (one 16-byte load per pixel)
+BC_Q8 = 16      # the int8 kernel's channel multiple (16-byte copies)
+CHUNK_Q8 = 32   # the int8 kernel's chunk: one m16n8k32 step per tap
 BO = 64         # out channels per block
 PIXELS = 64     # output pixels per block: toh * tow <= PIXELS
 #: Blocks of the fp32 kernel resident on one SM (its launch bounds).
 RESIDENT_BLOCKS = 2
+#: Blocks of the int8 kernel resident on one SM (its launch bounds'
+#: MIN_BLOCKS).
+RESIDENT_BLOCKS_Q8 = 2
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
-_ARGTYPES_Q8 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+_ARGTYPES_Q8 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 
 
 def pick_blocks(oh: int, ow: int, dtype: str = "float32") -> Tuple[int, int, int]:
@@ -60,8 +66,8 @@ def tile_width(toh: int, ow: int) -> int:
 
 
 def grid_blocks(batch: int, oh: int, ow: int, o: int, toh: int) -> int:
-    """Blocks of one fp32 conv call before any split: output tiles times
-    64-channel blocks times images."""
+    """Blocks of one conv call (fp32 or int8) before any split: output
+    tiles times 64-channel blocks times images."""
     tow = tile_width(toh, ow)
     return batch * -(-oh // toh) * -(-ow // tow) * -(-o // BO)
 
@@ -70,6 +76,14 @@ def call_splits(batch: int, oh: int, ow: int, c: int, o: int,
                 toh: int) -> int:
     """``split_k`` for one fp32 conv call: its grid and C / BC chunks."""
     return split_k(grid_blocks(batch, oh, ow, o, toh), c // BC, RESIDENT_BLOCKS)
+
+
+def call_splits_q8(batch: int, oh: int, ow: int, c: int, o: int,
+                   toh: int) -> int:
+    """``split_k`` for one int8 conv call: its grid and ceil(C / CHUNK_Q8)
+    chunks, over ``RESIDENT_BLOCKS_Q8``."""
+    return split_k(grid_blocks(batch, oh, ow, o, toh), -(-c // CHUNK_Q8),
+                   RESIDENT_BLOCKS_Q8)
 
 
 def _conv_geometry(what: str, x: torch.Tensor, w: torch.Tensor,
@@ -153,7 +167,10 @@ def im2col_conv_q8(
     act(float(conv) * scale + bias); C % BC_Q8 == 0, ``scale`` (O,).
 
     ``blocks`` is a (toh, BC_Q8, BO) plan tuple.  Raises when
-    K = kh * kw * C could overflow the int32 sum (K * 127^2 >= 2^31).
+    K = kh * kw * C could overflow the int32 sum (K * 127^2 >= 2^31).  With
+    ``call_splits_q8(...) > 1`` the int32 partial sums go through a
+    workspace of ``splits * B * OH * OW * O`` int32 from PyTorch's caching
+    allocator.
     """
     oh, ow, toh = _conv_geometry("im2col_conv_q8", x_q, w_q, spec, blocks,
                                  BC_Q8)
@@ -177,10 +194,14 @@ def im2col_conv_q8(
         fn = _build.load("im2col_conv_q8", "repro_im2col_conv_q8",
                          _ARGTYPES_Q8)
         (sh, sw), (ph, pw) = spec.stride, spec.padding
+        splits = call_splits_q8(b, oh, ow, c, o, toh)
+        ws = (torch.empty((splits, b * oh * ow, o), device=x_q.device,
+                          dtype=torch.int32) if splits > 1 else None)
         err = fn(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), b, h, ww, c, o, oh, ow, kh, kw, sh, sw,
-                 ph, pw, toh, tile_width(toh, ow), ACTIVATION_CODES[activation],
+                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                 b, h, ww, c, o, oh, ow, kh, kw, sh, sw, ph, pw, toh,
+                 tile_width(toh, ow), ACTIVATION_CODES[activation], splits,
                  _build.stream_handle(x_q))
         _build.check(err, "im2col_conv_q8")
         im2col_conv_q8.launches += 1

@@ -1,4 +1,5 @@
 from repro_torch.kernels.winograd.ops import (
+    FUSED_BLOCKS,
     THREE_PASS_BLOCKS,
     conv2d_winograd_padded_call,
     fused_winograd,
@@ -15,6 +16,7 @@ from repro_torch.kernels.winograd.ref import (
 )
 
 __all__ = [
+    "FUSED_BLOCKS",
     "THREE_PASS_BLOCKS",
     "conv2d_winograd_padded_call",
     "fused_winograd",

@@ -30,7 +30,10 @@ from repro_torch.kernels.winograd.ref import (
 )
 
 BC = 8            # fused kernel: in channels per reduction step (C % BC == 0)
-THREADS = 256     # fused kernel: bt * bo, one (tile, out channel) pair per thread
+#: The fused kernel's compiled tile (bt, bc, bo): 16 tiles x 32 out
+#: channels per block (512 threads, one (tile, out channel) pair each in
+#: the output transform), in-channel steps of 8.
+FUSED_BLOCKS: Tuple[int, int, int] = (16, BC, 32)
 #: The 3-pass tuple multiply's compiled tile (bt, bc, bo): 64 tiles x 64
 #: out channels per block, in-channel steps of 16.
 THREE_PASS_BLOCKS: Tuple[int, int, int] = (64, 16, 64)
@@ -45,21 +48,15 @@ _OUTPUT_ARGTYPES = [_P, _P, _P, _I, _I, _I, _P]
 def pick_blocks(t: int, c: int, o: int,
                 fused: bool = True) -> Tuple[int, int, int]:
     """(bt, bc, bo) for T tiles and C -> O channels, for the realization
-    that runs.
+    that runs: each kernel's compiled tile, whatever the shape.
 
-    Fused: each thread keeps the 64 M accumulators of one (tile, out
-    channel) pair in registers, so bt * bo = 256; bo is the out-channel
-    count rounded up to a power of two within [16, 64] (fewer idle threads
-    on the 16- and 32-channel layers), bt the rest.  3-pass: the tuple
-    multiply's compiled tile, ``THREE_PASS_BLOCKS``; the two transforms
-    take one (tile, channel) pair per thread and no block.
+    Fused: ``FUSED_BLOCKS``; the block keeps the 64 positions' M of its
+    16 x 32 (tile, out channel) pairs as tensor-core accumulators and
+    stages each chunk of U once for its 16 tiles.  3-pass: the tuple
+    multiply's tile, ``THREE_PASS_BLOCKS``; the two transforms take one
+    (tile, channel) pair per thread and no block.
     """
-    if not fused:
-        return THREE_PASS_BLOCKS
-    bo = 16
-    while bo < min(o, 64):
-        bo *= 2
-    return THREADS // bo, BC, bo
+    return FUSED_BLOCKS if fused else THREE_PASS_BLOCKS
 
 
 def _check_impl(impl: str) -> None:
@@ -75,20 +72,26 @@ def fused_winograd(
     activation: str = "linear",
     impl: str = "cuda",
 ) -> torch.Tensor:
-    """(T, 8, 8, C) x (8, 8, C, O) -> (T, 6, 6, O); C % BC == 0."""
+    """(T, 8, 8, C) x (8, 8, C, O) -> (T, 6, 6, O); C % BC == 0, C > 0.
+
+    ``blocks`` is ``FUSED_BLOCKS`` (or None); the products run as 3xTF32
+    on the tensor cores.
+    """
     t, _, _, c = tiles.shape
     o = u.shape[-1]
     if tiles.shape[1:3] != (TILE, TILE) or u.shape[:3] != (TILE, TILE, c) or c % BC:
         raise ValueError(f"fused_winograd: tiles {tuple(tiles.shape)}, "
                          f"u {tuple(u.shape)} (C must be a multiple of {BC})")
     bt, bc, bo = blocks if blocks is not None else pick_blocks(t, c, o)
-    if bc != BC or bt * bo != THREADS or bo < 16:
-        raise ValueError(f"fused_winograd: blocks {(bt, bc, bo)} (kernel takes "
-                         f"bt * bo = {THREADS}, bo >= 16, bc = {BC})")
+    if (bt, bc, bo) != FUSED_BLOCKS:
+        raise ValueError(f"fused_winograd: blocks {(bt, bc, bo)} (the kernel "
+                         f"takes its compiled tile {FUSED_BLOCKS})")
     _check_impl(impl)
     if impl == "torch":
         return fused_winograd_ref(tiles, u, bias, activation)
     _build.require_cuda_operands("fused_winograd", tiles, u, bias)
+    if tiles.data_ptr() % 16 or u.data_ptr() % 16:
+        raise ValueError("fused_winograd: tiles and u must be 16-byte aligned")
     out = torch.empty((t, OUT_TILE, OUT_TILE, o), device=tiles.device,
                       dtype=torch.float32)
     if out.numel():

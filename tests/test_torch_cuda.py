@@ -13,7 +13,9 @@ multiply sum the same products as their plain versions in another order
 about 1e-6 of max|ref| in scripts/tf32x3_replay.py),
 rtol = 1e-4 with atol = 1e-4 * max|ref|; the int8 kernels sum exactly in
 int32, as their plain versions do, and differ at most in the fp32
-epilogue, 1e-5; the fused Winograd kernel and the
+epilogue, 1e-5 (the int8 conv, whose epilogue rounds as the plain one
+does, is held bit for bit); the fused Winograd kernel (3xTF32 products
+too) and the
 3-pass transforms also round inside their transforms, 5e-4
 (tests/test_conv_conformance.py); a whole network compounds the per-layer
 differences over its depth, 1e-3 of max|ref|.  Flash attention: fp32
@@ -35,8 +37,10 @@ from repro_torch.kernels.conv_ops import kernel_wrappers
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm.ops import call_splits as gemm_splits
 from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
+from repro_torch.kernels.im2col_gemm import ops as im2col_ops
 from repro_torch.kernels.im2col_gemm.ops import (
     call_splits,
+    call_splits_q8,
     im2col_conv,
     im2col_conv_q8,
     pick_blocks,
@@ -178,6 +182,36 @@ def test_winograd_kernel_on_card(cuda_device, t, c, o):
     _close(got, ref, 5e-4)
 
 
+@pytest.mark.parametrize("t,c,o", [
+    (169, 128, 256),           # MODEL_20 608 L14 and L17
+    (100, 256, 256),           # VGG-16 224 L7
+    (1444, 8, 64),             # VGG-16 224 L0: one chunk of 8 channels
+    (37, 24, 42),              # ragged T and O, O % 4 != 0: 4-byte copies
+])
+def test_winograd_fused_tensor_cores_on_card(cuda_device, t, c, o):
+    """The fused kernel's 3xTF32 products at the main path's shapes, with
+    and without bias, against the plain version; two calls agree bit for
+    bit (nothing in it depends on the order blocks run in)."""
+    tiles, u, bias = _randn(cuda_device, 20, (t, 8, 8, c), (8, 8, c, o), (o,))
+    for b, act in ((bias, "leaky"), (None, "linear")):
+        got = fused_winograd(tiles, u, bias=b, activation=act)
+        _close(got, fused_winograd(tiles, u, bias=b, activation=act,
+                                   impl="torch"), 5e-4)
+        assert torch.equal(got, fused_winograd(tiles, u, bias=b,
+                                               activation=act))
+
+
+def test_winograd_fused_refuses_misaligned_operands(cuda_device):
+    """The kernel copies tiles and U 16 bytes at a time: a contiguous view
+    that starts off a 16-byte boundary is refused, not misread."""
+    t, c, o = 5, 8, 16
+    flat, u = _randn(cuda_device, 23, (t * 64 * c + 1,), (8, 8, c, o))
+    tiles = flat[1:].view(t, 8, 8, c)
+    assert tiles.is_contiguous() and tiles.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_winograd(tiles, u)
+
+
 @pytest.mark.parametrize("t,c,o", [(1444, 64, 64), (103, 8, 20)])
 def test_winograd_3pass_kernels_on_card(cuda_device, t, c, o):
     """Each 3-pass kernel against its plain version on the same inputs: a
@@ -228,6 +262,42 @@ def test_im2col_q8_kernel_on_card(cuda_device, h, w, c, o, s, k):
     ref = im2col_conv_q8(x, wt, spec, scale, bias=bias, activation="leaky",
                          impl="torch")
     _close(got, ref, 1e-5)
+
+
+@pytest.mark.parametrize("b,h,w,c,o,s,splits", [
+    (1, 13, 13, 512, 1024, 1, 4),   # YOLOv3-tiny 416 int8 L12: 4 splits
+    (1, 13, 13, 256, 512, 1, 8),    # L10 and L14: 8 splits of one chunk
+    (1, 26, 26, 384, 256, 1, 4),    # L20: 12 chunks in 4 ranges
+    (1, 14, 14, 512, 512, 1, 8),    # VGG-16 224 int8 L14-L16's shape
+    (2, 19, 70, 48, 20, 2, 2),      # stride 2, ragged O, C % 32 == 16
+    (1, 13, 13, 64, 100, 1, 2),     # ragged O (a partial 64-channel block)
+    (1, 10, 11, 16, 9, 2, 1),       # O % 4 != 0: byte loads, one chunk
+])
+def test_im2col_q8_split_k_on_card(cuda_device, monkeypatch, b, h, w, c, o,
+                                   s, splits):
+    """The int8 tensor-core conv with the split the rule gives (int32
+    partials in a workspace, then the reduce kernel's epilogue) equals the
+    same call unsplit and the plain version bit for bit, and a second call
+    the first."""
+    x, wt = _int8(cuda_device, 21, (b, h, w, c), (3, 3, c, o))
+    scale, bias = _randn(cuda_device, 22, (o,), (o,))
+    scale = scale.abs() * 1e-3
+    spec = ConvSpec(c, o, (3, 3), (s, s), (1, 1))
+    oh, ow = spec.out_hw(h, w)
+    assert call_splits_q8(b, oh, ow, c, o, pick_blocks(oh, ow, "int8")[0]) == splits
+    for bb, act in ((bias, "leaky"), (None, "linear")):
+        got = im2col_conv_q8(x, wt, spec, scale, bias=bb, activation=act)
+        again = im2col_conv_q8(x, wt, spec, scale, bias=bb, activation=act)
+        ref = im2col_conv_q8(x, wt, spec, scale, bias=bb, activation=act,
+                             impl="torch")
+        with monkeypatch.context() as m:
+            m.setattr(im2col_ops, "call_splits_q8", lambda *args: 1)
+            unsplit = im2col_conv_q8(x, wt, spec, scale, bias=bb,
+                                     activation=act)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+        assert torch.equal(got, unsplit)
+        assert torch.equal(got, again)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda_device):

@@ -205,7 +205,7 @@ def test_tf32x3_replay_matches_tuple_multiply_pallas():
 
 
 @pytest.mark.parametrize("header,users", [
-    ("csrc/sgemm_3xtf32.cuh", {"gemm", "winograd_3pass"}),
+    ("csrc/sgemm_3xtf32.cuh", {"gemm", "winograd_3pass", "winograd_fused"}),
     ("winograd/csrc/winograd_transforms.cuh", {"winograd_fused", "winograd_3pass"}),
     ("flash_attention/csrc/flash_attention_bf16.cuh", {"flash_attention"}),
 ])
@@ -229,6 +229,6 @@ def test_nvcc_sees_the_shared_include_directory():
     assert flags[flags.index("-I") + 1] == _build.SHARED_INCLUDE
     shared = _build._KERNELS_DIR / _build.SHARED_INCLUDE
     assert (shared / "sgemm_3xtf32.cuh").is_file()
-    for name in ("gemm", "winograd_3pass"):
+    for name in ("gemm", "winograd_3pass", "winograd_fused"):
         src = _build._KERNELS_DIR / _build.SOURCES[name]
         assert shared / "sgemm_3xtf32.cuh" in _build.included_headers(src)

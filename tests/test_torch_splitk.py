@@ -152,12 +152,14 @@ def test_wrapper_refuses_cpu_tensors_and_ragged_channels():
 # YOLOv3-tiny 416 b1's fp32 plan as it stood before the im2col kernel
 # split its reduction: (index, algorithm, kernel_blocks, in_layout
 # [logical C, pad]).  The split-K kernel keeps BC = 8 and the (toh, 8, 64)
-# blocks, so none of it moves.
+# blocks, so none of it moves.  The fused Winograd layers carry that
+# kernel's compiled tile (winograd/ops.py::FUSED_BLOCKS, 16 tiles x 32 out
+# channels, in-channel steps of 8), whatever their shape.
 TINY_416_B1_PLAN = [
-    (0, "winograd", [16, 8, 16], [3, 5]),
-    (2, "winograd", [8, 8, 32], [16, 0]),
-    (4, "winograd", [4, 8, 64], [32, 0]),
-    (6, "winograd", [4, 8, 64], [64, 0]),
+    (0, "winograd", [16, 8, 32], [3, 5]),
+    (2, "winograd", [16, 8, 32], [16, 0]),
+    (4, "winograd", [16, 8, 32], [32, 0]),
+    (6, "winograd", [16, 8, 32], [64, 0]),
     (8, "im2col_gemm", [2, 8, 64], [128, 0]),
     (10, "im2col_gemm", [4, 8, 64], [256, 0]),
     (12, "im2col_gemm", [4, 8, 64], [512, 0]),
