@@ -37,8 +37,10 @@ Phases, each on its own printed lines:
    bias, and ``torch._int_mm`` plus the epilogue as the GEMM's library call
    (no PyTorch call computes an int8 convolution); each timed line also
    gives the kernel's time over the library call's, and each im2col (fp32
-   and int8) and GEMM line the number of split-K ranges the wrapper chose
-   (``splits``); each timed cell's sums per kernel follow; then,
+   and int8) and GEMM (fp32 and int8) line the number of split-K ranges
+   the wrapper chose (``splits``); MODEL_20 608 b1 int8's int8 GEMM calls
+   (large M, bytes-bound) are timed too; each timed cell's sums per
+   kernel follow; then,
    per VGG-16 Winograd layer, the fused kernel's time beside the 3-pass
    pipeline's;
 4. YOLOv3-tiny at 416x416, batch 1 and 4, through ``repro_torch.compile``
@@ -49,8 +51,8 @@ Phases, each on its own printed lines:
    device's idle share of the forward; in every profiled forward each port
    kernel the plan launches must appear in the trace, at most as often as
    the plan says (the split-K reduce kernels of the fp32 and int8 im2col
-   convs and of the fp32 GEMM once for each call with ``splits > 1``), and
-   no other port kernel (the trace
+   convs and of the fp32 and int8 GEMMs once for each call with ``splits >
+   1``), and no other port kernel (the trace
    may lose records, so the exact counts are the wrappers');
 5. the first 20 layers of Darknet-53 (MODEL_20) at 608x608, batch 1: the
    same comparison (stride-2 im2col, shortcut);
@@ -128,12 +130,13 @@ SEED = 0
 ROUNDS = 5                # timed runs of launches per kernel measurement
 FORWARD_REPS = 20         # timed forwards of the main cells
 SHORT_FORWARD_REPS = 10   # YOLOv3-tiny b4 and MODEL_20, to keep to the time
-# The int8 kernels sum exactly in int32, as their plain versions do; only
-# the fp32 epilogue could differ (FMA contraction, which the kernels avoid).
+# The int8 kernels sum exactly in int32, as their plain versions do, and
+# round the fp32 epilogue as they do (no FMA contraction): held bit for
+# bit, split or not.
 KERNEL_TOL = {"gemm": 1e-4, "im2col_conv": 1e-4, "winograd_fused": 5e-4,
               "input_transform": 5e-4, "tuple_multiply": 1e-4,
-              "output_transform": 5e-4, "gemm_q8": 1e-5,
-              "im2col_conv_q8": 1e-5}
+              "output_transform": 5e-4, "gemm_q8": 0.0,
+              "im2col_conv_q8": 0.0}
 # Whole-network tolerance, relative to max|ref|: both impls run fp32 on the
 # same card with the same layouts; they differ only in the order of the sums
 # inside each kernel (and, in measure mode, in the algorithm a layer takes),
@@ -203,12 +206,15 @@ CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
               "tuple_multiply": "winograd_tuple_multiply_kernel",
               "output_transform": "winograd_output_transform_kernel",
               "flash_attention": "flash_attention"}
-# The second kernels of the fp32 im2col conv, the int8 im2col conv and the
-# fp32 GEMM, launched by the calls that split K.
+# The second kernels of the fp32 im2col conv, the int8 im2col conv, the
+# fp32 GEMM and the int8 GEMM, launched by the calls that split K.  No name
+# here or in CUDA_NAMES holds another as a substring.
 SPLITK_REDUCE = "im2col_conv_splitk_reduce_kernel"
 Q8_SPLITK_REDUCE = "im2col_conv_q8_splitk_reduce_kernel"
 GEMM_SPLITK_REDUCE = "gemm_splitk_reduce_kernel"
-REDUCE_NAMES = (SPLITK_REDUCE, Q8_SPLITK_REDUCE, GEMM_SPLITK_REDUCE)
+GEMM_Q8_SPLITK_REDUCE = "gemm_q8_splitk_reduce_kernel"
+REDUCE_NAMES = (SPLITK_REDUCE, Q8_SPLITK_REDUCE, GEMM_SPLITK_REDUCE,
+                GEMM_Q8_SPLITK_REDUCE)
 
 
 def log(*parts) -> None:
@@ -281,7 +287,11 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
     from repro_torch.core.winograd import AT, BT, _const, _tile_input, \
         transform_weights
     from repro_torch.kernels.gemm.ops import call_splits as gemm_splits
-    from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
+    from repro_torch.kernels.gemm.ops import (
+        call_splits_q8 as gemm_splits_q8,
+        matmul_bias_act,
+        matmul_q8_bias_act,
+    )
     from repro_torch.kernels.im2col_gemm.ops import (
         call_splits,
         call_splits_q8,
@@ -359,7 +369,8 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
                 k8, n8 = -(-c // 8) * 8, -(-o // 8) * 8
                 cases.append(dict(
                     base, kernel="gemm_q8",
-                    label=f"{head} gemm_q8 M={m} K={phys_c} N={o}",
+                    label=(f"{head} gemm_q8 M={m} K={phys_c} N={o} "
+                           f"splits={gemm_splits_q8(m, o, phys_c)}"),
                     args=(pad_c(a, 1), pad_c(wm, 0), scale, bias),
                     run=lambda a, wm, scale, bias, act=act, impl="cuda":
                         matmul_q8_bias_act(a, wm, scale, bias, act, impl=impl),
@@ -758,10 +769,11 @@ def deployment_sqnr(model, rng, name) -> None:
 def planned_cuda_launches(netplan):
     """CUDA launches of each port kernel in one forward of ``netplan``, by
     the profiler's name: the plan's count of each kernel, and each split-K
-    reduce kernel once for each fp32 im2col, int8 im2col or fp32 GEMM call
-    that splits."""
+    reduce kernel once for each fp32 im2col, int8 im2col, fp32 GEMM or
+    int8 GEMM call that splits."""
     from repro_torch.core.conv_spec import ConvAlgorithm
     from repro_torch.kernels.gemm.ops import call_splits as gemm_splits
+    from repro_torch.kernels.gemm.ops import call_splits_q8 as gemm_splits_q8
     from repro_torch.kernels.im2col_gemm.ops import call_splits, call_splits_q8
 
     want = {CUDA_NAMES[k]: n for k, n in netplan.kernel_launches().items()}
@@ -789,6 +801,14 @@ def planned_cuda_launches(netplan):
         for s in fp32 if s.plan.algorithm is ConvAlgorithm.DIRECT)
     if gemm:
         want[GEMM_SPLITK_REDUCE] = gemm
+    gemm_q8 = sum(
+        gemm_splits_q8(netplan.batch * s.out_hw[0] * s.out_hw[1],
+                       s.out_layout.phys_c, s.in_layout.phys_c) > 1
+        for s in netplan.steps
+        if s.layer.kind == "conv" and s.plan.dtype == "int8"
+        and s.plan.algorithm is ConvAlgorithm.DIRECT)
+    if gemm_q8:
+        want[GEMM_Q8_SPLITK_REDUCE] = gemm_q8
     return want
 
 
@@ -1248,14 +1268,14 @@ def main() -> int:
             + f"), 3-pass / fused {total / fused['winograd_fused']:.2f}")
     # The int8 kernels: every call of the int8 plans, timed at YOLOv3-tiny
     # b1's shapes; MODEL_20's stride-2 int8 im2col with 8x8 tiles is on no
-    # other cell.
+    # other cell, and its int8 GEMM calls (large M, bytes-bound) are timed.
     summaries[tiny8_cell], _ = check_kernels(
         netplan_of(yolov3.TINY_MODEL, 1, "int8"), rng, H100, tiny8_cell,
         timed=("gemm_q8", "im2col_conv_q8"))
     check_kernels(netplan_of(vgg16.MODEL, 1, "int8"), rng, H100,
                   "vgg16 224 b1 int8")
     check_kernels(netplan_of(yolov3.MODEL_20, 1, "int8"), rng, H100,
-                  "yolov3-20 608 b1 int8")
+                  "yolov3-20 608 b1 int8", timed=("gemm_q8",))
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # Phase 4: YOLOv3-tiny end to end; batch 1 is the main path of the

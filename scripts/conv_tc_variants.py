@@ -29,8 +29,10 @@ with the port's flags into its own directory under
   directory):
     parent          that commit's im2col_conv_q8.cu and winograd_fused.cu,
                     called through their own C entries (the int8 conv
-                    unsplit, the fused kernel with that commit's (bt, bo)
-                    rule: bo a power of two in [16, 64], bt = 256 / bo).
+                    unsplit where its entry takes no workspace or split
+                    count, else split as built; the fused kernel with the
+                    earlier (bt, bo) rule: bo a power of two in [16, 64],
+                    bt = 256 / bo).
 
 Every call of the int8 plans of YOLOv3-tiny 416 b1 and VGG-16 224 b1 and
 every fused Winograd call of the fp32 plans of YOLOv3-tiny 416 b1,
@@ -81,7 +83,7 @@ from repro_torch.util import device_ms
 KERNELS = Path(_build.__file__).parent
 REL = {"q8": Path("im2col_gemm/csrc/im2col_conv_q8.cu"),
        "fused": Path("winograd/csrc/winograd_fused.cu")}
-HEADERS = (Path("csrc/sgemm_3xtf32.cuh"),
+HEADERS = (Path("csrc/sgemm_3xtf32.cuh"), Path("csrc/s8_mma.cuh"),
            Path("winograd/csrc/winograd_transforms.cuh"))
 SYMBOL = {"q8": "repro_im2col_conv_q8", "fused": "repro_winograd_fused"}
 OUT = _build.BUILD_DIR.parent / "conv_tc_variants"
@@ -121,8 +123,10 @@ DIAGNOSTIC = {"hi.hi only", "no products", "no U copies", "no tile copies",
 GATE = 5e-4
 
 
-def build(parent: Path | None) -> dict:
-    """(kernel, variant) -> C entry, all nvcc processes at once."""
+def build(parent: Path | None):
+    """((kernel, variant) -> C entry, the (kernel, variant) pairs whose int8
+    entry takes no workspace or split count: the earlier, unsplit one),
+    all nvcc processes at once."""
     jobs = {}
     for kernel, variants in VARIANTS.items():
         for name, edits in variants.items():
@@ -135,6 +139,8 @@ def build(parent: Path | None) -> dict:
         if parent is not None:
             base = parent / "src" / "repro_torch" / "kernels"
             jobs[kernel, "parent"] = ((base / REL[kernel]).read_text(), base)
+    unsplit = {(k, n) for (k, n), (text, _) in jobs.items()
+               if k == "q8" and "int* ws" not in text[text.index('extern "C"'):]}
     procs = {}
     for i, ((kernel, name), (text, base)) in enumerate(jobs.items()):
         d = OUT / f"v{i}"
@@ -159,23 +165,24 @@ def build(parent: Path | None) -> dict:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {kernel} {name}: {line.strip()}")
         fn = getattr(ctypes.CDLL(str(path)), SYMBOL[kernel])
-        fn.argtypes = (PARENT_Q8_ARGTYPES if (kernel, name) == ("q8", "parent")
+        fn.argtypes = (PARENT_Q8_ARGTYPES if (kernel, name) in unsplit
                        else _ARGTYPES_Q8 if kernel == "q8" else FUSED_ARGTYPES)
         fn.restype = ctypes.c_int
         fns[kernel, name] = fn
-    return fns
+    return fns, unsplit
 
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def q8_run(fn, name, geo):
+def q8_run(fn, name, geo, unsplit):
     """A closure calling int8 entry ``fn`` as variant ``name`` on
-    (x, w, scale, bias)."""
+    (x, w, scale, bias); ``unsplit``: through the earlier entry, which
+    takes no workspace or split count."""
     b, h, w, c, o, oh, ow, kh, kw, sh, sw, ph, pw, toh = geo
     tow = tile_width(toh, ow)
-    if name == "parent":
+    if unsplit:
         def run(x, wt, scale, bias):
             out = torch.empty((b, oh, ow, o), device="cuda")
             _build.check(fn(x.data_ptr(), wt.data_ptr(), scale.data_ptr(),
@@ -184,7 +191,7 @@ def q8_run(fn, name, geo):
                             ACTIVATION_CODES["leaky"], stream()), name)
             return out
         return run
-    resident = RESIDENT[name]
+    resident = RESIDENT.get(name, 2)
     splits = (1 if resident is None else
               split_k(grid_blocks(b, oh, ow, o, toh), -(-c // CHUNK_Q8), resident))
 
@@ -297,7 +304,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    fns = build(args.parent)
+    fns, unsplit = build(args.parent)
     totals = collections.defaultdict(lambda: [0.0, 0.0])
     for cell, label, kernel, operands, ref, geo in cases(np.random.default_rng(0)):
         if kernel not in VARIANTS:
@@ -308,7 +315,8 @@ def main() -> int:
         runs = {}
         for n in names:
             fn = fns[kernel, "as built" if n == "no split" else n]
-            runs[n] = q8_run(fn, n, geo) if kernel == "q8" else fused_run(fn, n)
+            runs[n] = (q8_run(fn, n, geo, ("q8", n) in unsplit)
+                       if kernel == "q8" else fused_run(fn, n))
         times, rel = {n: [] for n in names}, {}
         scale = max(1.0, float(ref.abs().max()))
         for n in [*names, *reversed(names)]:

@@ -1,11 +1,14 @@
 """Split-K: how many contiguous ranges of its K chunks a kernel's
 reduction is cut into, from the shape alone.
 
-Shared by the fp32 implicit-GEMM conv (chunks of 8 channels) and the fp32
-GEMM (chunks of 16 of K).  Both kernels run split s over chunks
-``split_ranges(n, splits)[s]``, write partial tiles to a workspace when
-they split, and sum the partials in split order in a second kernel, so
-the result does not depend on the order the blocks run in.
+Shared by four kernels, each over its own chunks and its own resident
+blocks a SM: the fp32 implicit-GEMM conv (chunks of 8 channels), the int8
+implicit-GEMM conv (chunks of 32 channels, all taps), the fp32 GEMM
+(chunks of 16 of K) and the int8 GEMM (chunks of 32 of K).  Each kernel
+runs split s over chunks ``split_ranges(n, splits)[s]``, writes partial
+tiles to a workspace when it splits, and sums the partials in split order
+in a second kernel, so the result does not depend on the order the blocks
+run in.
 """
 from __future__ import annotations
 

@@ -6,11 +6,12 @@ int8 operands with an exact int32 sum.  ``impl='cuda'`` launches the
 kernel on CUDA tensors and raises on anything else; ``impl='torch'`` runs
 the plain version (ref.py), on any device.  The kernels mask the ragged
 M, N and K edges themselves (the int8 one takes K in multiples of 16), so
-no operand is padded here.  The fp32 kernel (3xTF32 on the tensor cores)
-splits its reduction over the 16-deep K chunks across blocks where its
-grid alone would leave the card's block slots empty (``call_splits``);
-one wrapper call is one product, whatever the number of CUDA kernels it
-launches.
+no operand is padded here.  Both kernels run on the tensor cores (the
+fp32 one as 3xTF32, the int8 one as s8 ``mma.sync``) and split their
+reduction over their K chunks (16 deep, 32 deep) across blocks where
+their grid alone would leave the card's block slots empty
+(``call_splits``, ``call_splits_q8``); one wrapper call is one product,
+whatever the number of CUDA kernels it launches.
 """
 from __future__ import annotations
 
@@ -30,11 +31,19 @@ TILE: Tuple[int, int, int] = (64, 64, 16)
 #: minimum, ``MIN_BLOCKS`` in csrc/sgemm_3xtf32.cuh.
 RESIDENT_BLOCKS = 4
 
-#: The int8 kernel's K multiple (one 16-byte load of A per thread).
+#: The int8 kernel's K multiple (A's rows go as 16-byte copies).
 K_MULTIPLE_Q8 = 16
+#: The int8 kernel's K chunk: one m16n8k32 step.
+CHUNK_Q8 = 32
+#: The int8 kernel's compiled tiles (bm, bn): 64 x 64, and 128 x 32 for
+#: N <= 32, where a 64-wide tile would mask half its columns.
+TILES_Q8: Tuple[Tuple[int, int], ...] = ((64, 64), (128, 32))
+#: Blocks of the int8 kernel resident on one SM: its launch bounds'
+#: minimum, ``MIN_BLOCKS`` in csrc/gemm_q8.cu.
+RESIDENT_BLOCKS_Q8 = 2
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_ARGTYPES_Q8 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES_Q8 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def default_block(m: int, n: int, k: int) -> Tuple[int, int, int]:
@@ -51,6 +60,19 @@ def call_splits(m: int, n: int, k: int) -> int:
     ceil(K / 16) chunks, over the kernel's ``RESIDENT_BLOCKS`` a SM."""
     bm, bn, bk = TILE
     return split_k(-(-m // bm) * -(-n // bn), -(-k // bk), RESIDENT_BLOCKS)
+
+
+def tile_q8(n: int) -> Tuple[int, int]:
+    """(bm, bn): the int8 kernel's tile for an N-wide product."""
+    return TILES_Q8[1] if n <= TILES_Q8[1][1] else TILES_Q8[0]
+
+
+def call_splits_q8(m: int, n: int, k: int) -> int:
+    """``split_k`` for one int8 GEMM call: its grid of ``tile_q8(n)``
+    tiles and its ceil(K / 32) chunks, over ``RESIDENT_BLOCKS_Q8`` a SM."""
+    bm, bn = tile_q8(n)
+    return split_k(-(-m // bm) * -(-n // bn), -(-k // CHUNK_Q8),
+                   RESIDENT_BLOCKS_Q8)
 
 
 def matmul_bias_act(
@@ -107,6 +129,9 @@ def matmul_q8_bias_act(
     """(M, K) x (K, N) int8 -> act(float(a_q @ b_q) * scale + bias), fp32;
     ``scale`` is (N,), ``bias`` (N,) or None.  Raises when K * 127^2 could
     overflow the int32 sum, and under ``impl='cuda'`` unless K % 16 == 0.
+    With ``call_splits_q8(M, N, K) > 1`` the int32 partial sums go through
+    a workspace of ``splits * M * N`` int32 from PyTorch's caching
+    allocator.
     """
     m, k = a_q.shape
     k2, n = b_q.shape
@@ -129,10 +154,14 @@ def matmul_q8_bias_act(
     out = torch.empty((m, n), device=a_q.device, dtype=torch.float32)
     if m and n:
         fn = _build.load("gemm_q8", "repro_gemm_q8_bias_act", _ARGTYPES_Q8)
+        splits = call_splits_q8(m, n, k)
+        ws = (torch.empty((splits, m, n), device=a_q.device,
+                          dtype=torch.int32) if splits > 1 else None)
         err = fn(a_q.data_ptr(), b_q.data_ptr(), scale.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), m, n, k, ACTIVATION_CODES[activation],
-                 _build.stream_handle(a_q))
+                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                 m, n, k, ACTIVATION_CODES[activation], tile_q8(n)[1],
+                 splits, _build.stream_handle(a_q))
         _build.check(err, "gemm_q8")
         matmul_q8_bias_act.launches += 1
     return out

@@ -53,6 +53,10 @@
 // then + bias[o], each rounded on its own (__fmul_rn, __fadd_rn: no FMA
 // contraction), then the activation.
 //
+// The s8 helpers (ldmatrix, mma, cp.async, the __byte_perm turn of the
+// weights, the epilogue and the split-K reduce) live in
+// kernels/csrc/s8_mma.cuh, shared with the int8 GEMM (gemm/csrc/gemm_q8.cu).
+//
 // What bounds it.  The int8 layers are small (0.1-1.4 GOP at batch 1): a
 // call is 1-4 chunks' latency — the weight slice from L2, the window from
 // device memory, the register-staged transpose — plus, where it splits, a
@@ -63,7 +67,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "s8_mma.cuh"
+
 namespace {
+
+using s8mma::cp_async16;
+using s8mma::cp_async_commit;
+using s8mma::dequant;
+using s8mma::ldmatrix_x4;
+using s8mma::mma_s8;
+using s8mma::smem_addr;
 
 constexpr int CK = 32;         // channels per chunk: one k32 step per tap
 constexpr int BO = 64;         // out channels per block
@@ -77,48 +90,8 @@ constexpr int MAX_SMEM = 232448;
 // out channels.
 constexpr int ITEMS_PER_TAP = (CK / 4) * (BO / 4);
 
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == 1) return fmaxf(v, 0.f);
-  if (act == 2) return v > 0.f ? v : 0.1f * v;
-  return v;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !in.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 b16 matrices (here 8 rows of 16 bytes each) from shared memory;
-// lane l gives the address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c (16x8 int32) += a (16x32 s8, row) . b (32x8 s8, col), exact.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  s8mma::cp_async_wait<0>();
 }
 
 // Byte offset of 16-byte half h of 32-byte row `row`: halves swapped where
@@ -129,9 +102,7 @@ __device__ __forceinline__ int row_half(int row, int h) {
 
 // One weight item: 4 channel rows x 4 out channels, as loaded (word r holds
 // out channels o .. o + 3 of channel row r).
-struct WItem {
-  uint32_t w[4];
-};
+using WItem = s8mma::Quad;
 
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 im2col_conv_q8_kernel(const int8_t* __restrict__ x,
@@ -205,25 +176,19 @@ im2col_conv_q8_kernel(const int8_t* __restrict__ x,
       it.w[r] = v;
     }
   };
-  // The item transposed into 4 words of 4 channels, one per out channel,
-  // stored as [tap][o][32 channels] rows of buffer `buf`.
+  // The item turned into 4 words of 4 channels, one per out channel
+  // (s8mma::turn_quad), stored as [tap][o][32 channels] rows of buffer
+  // `buf`.
   auto store_item = [&](int item, const WItem& it, int buf) {
     unsigned char* wgt = smem_q8 + buf * buf_bytes + win_bytes;
     const int cg = item % (CK / 4), og = (item / (CK / 4)) % (BO / 4);
     const int tap = item / ITEMS_PER_TAP;
-    const uint32_t lo01 = __byte_perm(it.w[0], it.w[1], 0x5140);
-    const uint32_t hi01 = __byte_perm(it.w[0], it.w[1], 0x7362);
-    const uint32_t lo23 = __byte_perm(it.w[2], it.w[3], 0x5140);
-    const uint32_t hi23 = __byte_perm(it.w[2], it.w[3], 0x7362);
-    // v[j]: channels 4cg .. 4cg + 3 of out channel 4og + j.
-    const uint32_t v0 = __byte_perm(lo01, lo23, 0x5410);
-    const uint32_t v1 = __byte_perm(lo01, lo23, 0x7632);
-    const uint32_t v2 = __byte_perm(hi01, hi23, 0x5410);
-    const uint32_t v3 = __byte_perm(hi01, hi23, 0x7632);
+    uint32_t v[4];
+    s8mma::turn_quad(it, v);
     // Rotated by og % 4, so the 4 groups of a warp store to 4 banks.
     const int r = og & 3;
-    const uint32_t t0 = (r & 1) ? v1 : v0, t1 = (r & 1) ? v2 : v1;
-    const uint32_t t2 = (r & 1) ? v3 : v2, t3 = (r & 1) ? v0 : v3;
+    const uint32_t t0 = (r & 1) ? v[1] : v[0], t1 = (r & 1) ? v[2] : v[1];
+    const uint32_t t2 = (r & 1) ? v[3] : v[2], t3 = (r & 1) ? v[0] : v[3];
     const uint32_t u[4] = {(r & 2) ? t2 : t0, (r & 2) ? t3 : t1,
                            (r & 2) ? t0 : t2, (r & 2) ? t1 : t3};
 #pragma unroll
@@ -338,10 +303,9 @@ im2col_conv_q8_kernel(const int8_t* __restrict__ x,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           if (o + e >= O) continue;
-          float v =
-              __fmul_rn(__int2float_rn(e ? v1 : v0), __ldg(scale + o + e));
-          if (bias != nullptr) v = __fadd_rn(v, __ldg(bias + o + e));
-          f[e] = activate(v, act);
+          f[e] = dequant(e ? v1 : v0, __ldg(scale + o + e),
+                         bias != nullptr ? __ldg(bias + o + e) : 0.f,
+                         bias != nullptr, act);
         }
         float* dst = out + pix * O + o;
         if (pair_ok && o + 1 < O) {
@@ -364,8 +328,8 @@ im2col_conv_q8_kernel(const int8_t* __restrict__ x,
 }
 
 // out = act(float(sum over the splits of ws) * scale + bias), V
-// consecutive elements per thread (V = 4 when O % 4 == 0); the int32 sum
-// is exact, the epilogue the conv kernel's.
+// consecutive elements per thread (V = 4 when O % 4 == 0): the shared
+// split-K reduce, under this kernel's own name.
 template <int V>
 __global__ void __launch_bounds__(256)
 im2col_conv_q8_splitk_reduce_kernel(const int* __restrict__ ws,
@@ -373,28 +337,7 @@ im2col_conv_q8_splitk_reduce_kernel(const int* __restrict__ ws,
                                     const float* __restrict__ bias,
                                     float* __restrict__ out, size_t n, int O,
                                     int splits, int act) {
-  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * V;
-  if (i >= n) return;
-  int s[V];
-#pragma unroll
-  for (int e = 0; e < V; ++e) s[e] = 0;
-  for (int p = 0; p < splits; ++p) {
-    const int* src = ws + p * n + i;
-    if (V == 4) {
-      const int4 t = __ldg(reinterpret_cast<const int4*>(src));
-      s[0] += t.x; s[1] += t.y; s[2] += t.z; s[3] += t.w;
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) s[e] += __ldg(src + e);
-    }
-  }
-  const int o = static_cast<int>(i % O);
-#pragma unroll
-  for (int e = 0; e < V; ++e) {
-    float v = __fmul_rn(__int2float_rn(s[e]), __ldg(scale + o + e));
-    if (bias != nullptr) v = __fadd_rn(v, __ldg(bias + o + e));
-    out[i + e] = activate(v, act);
-  }
+  s8mma::splitk_reduce<V>(ws, scale, bias, out, n, O, splits, act);
 }
 
 }  // namespace

@@ -13,9 +13,9 @@ multiply sum the same products as their plain versions in another order
 about 1e-6 of max|ref| in scripts/tf32x3_replay.py),
 rtol = 1e-4 with atol = 1e-4 * max|ref|; the int8 kernels sum exactly in
 int32, as their plain versions do, and differ at most in the fp32
-epilogue, 1e-5 (the int8 conv, whose epilogue rounds as the plain one
-does, is held bit for bit); the fused Winograd kernel (3xTF32 products
-too) and the
+epilogue, 1e-5 (the int8 conv and the int8 GEMM, whose epilogues round
+as the plain ones do, are held bit for bit, split and unsplit); the fused
+Winograd kernel (3xTF32 products too) and the
 3-pass transforms also round inside their transforms, 5e-4
 (tests/test_conv_conformance.py); a whole network compounds the per-layer
 differences over its depth, 1e-3 of max|ref|.  Flash attention: fp32
@@ -35,6 +35,7 @@ import repro_torch
 from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec
 from repro_torch.kernels.conv_ops import kernel_wrappers
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.gemm.ops import call_splits as gemm_splits
 from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
 from repro_torch.kernels.im2col_gemm import ops as im2col_ops
@@ -234,17 +235,34 @@ def _int8(device, seed, *shapes):
             for s in shapes]
 
 
-@pytest.mark.parametrize("m,n,k", [(169, 255, 512), (70, 100, 48),
-                                   (676, 128, 256), (169, 256, 1024)])
-def test_gemm_q8_kernel_on_card(cuda_device, m, n, k):
-    """Ragged M and N (the 255-wide detection head), K a multiple of 16
-    but not of the kernel's 32-deep step (48)."""
+@pytest.mark.parametrize("m,n,k,splits", [
+    (169, 256, 1024, 16),   # YOLOv3-tiny 416 int8 L13
+    (169, 255, 512, 16),    # L15: the 255-wide head, byte loads of B
+    (169, 128, 256, 8),     # L17
+    (92416, 32, 64, 1),     # MODEL_20 608 int8 L2: the 128 x 32 tile
+    (5776, 128, 256, 1),    # MODEL_20 L13, L16, L19
+    (70, 100, 48, 2),       # ragged M and N, K % 32 == 16
+    (676, 128, 256, 8),
+    (100, 20, 160, 5),      # N <= 32 and split: the narrow tile, ragged N
+    (300, 48, 96, 3),       # N % 16 == 0 in a partial 64-wide tile
+])
+def test_gemm_q8_kernel_on_card(cuda_device, monkeypatch, m, n, k, splits):
+    """The int8 tensor-core GEMM with the split the rule gives (int32
+    partials, then the reduce kernel's epilogue) equals the same call
+    unsplit and the plain version bit for bit."""
     a, b = _int8(cuda_device, 10, (m, k), (k, n))
     scale, bias = _randn(cuda_device, 11, (n,), (n,))
     scale = scale.abs() * 1e-3
+    assert gemm_ops.call_splits_q8(m, n, k) == splits
     for bb, act in ((bias, "leaky"), (None, "linear")):
         got = matmul_q8_bias_act(a, b, scale, bb, act)
-        _close(got, matmul_q8_bias_act(a, b, scale, bb, act, impl="torch"), 1e-5)
+        ref = matmul_q8_bias_act(a, b, scale, bb, act, impl="torch")
+        with monkeypatch.context() as mp:
+            mp.setattr(gemm_ops, "call_splits_q8", lambda *args: 1)
+            unsplit = matmul_q8_bias_act(a, b, scale, bb, act)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+        assert torch.equal(unsplit, ref)
 
 
 @pytest.mark.parametrize("h,w,c,o,s,k", [

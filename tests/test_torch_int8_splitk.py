@@ -30,7 +30,7 @@ from repro_torch.core.im2col import im2col
 from repro_torch.core.netplan import plan_network
 from repro_torch.core.planner import Planner
 from repro_torch.hw import H100
-from repro_torch.kernels import _splitk
+from repro_torch.kernels import _build, _splitk
 from repro_torch.kernels.im2col_gemm import ops as im2col_ops
 from repro_torch.kernels.im2col_gemm.ops import (
     BC_Q8,
@@ -115,9 +115,12 @@ def test_resident_blocks_q8_is_the_kernels_launch_bounds():
     chunk = int(re.search(r"constexpr int CK = (\d+);", text).group(1))
     assert RESIDENT_BLOCKS_Q8 == min_blocks
     assert CHUNK_Q8 == chunk and CHUNK_Q8 % BC_Q8 == 0
-    # The source's tensor-core inner product, and no dp4a left.
-    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in text
-    assert "__dp4a" not in text
+    # The tensor-core inner product, in the source or the shared s8 header
+    # it includes, and no dp4a left.
+    code = text + "".join(h.read_text()
+                          for h in _build.included_headers(SOURCE))
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in code
+    assert "__dp4a" not in code
 
 
 @pytest.mark.parametrize("b,oh,ow,c,o,toh,want", [
