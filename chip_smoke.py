@@ -44,16 +44,24 @@ Phases, each on its own printed lines:
    per VGG-16 Winograd layer, the fused kernel's time beside the 3-pass
    pipeline's;
 4. YOLOv3-tiny at 416x416, batch 1 and 4, through ``repro_torch.compile``
-   with ``impl='cuda'``, held against ``impl='torch'`` on the card; each
-   kernel's launch count in one forward must equal the plan's count
-   (``NetworkPlan.kernel_launches``); ms per forward and images/s; a
-   profiler breakdown of the batch-1 forward by CUDA kernel, with the
-   device's idle share of the forward; in every profiled forward each port
-   kernel the plan launches must appear in the trace, at most as often as
-   the plan says (the split-K reduce kernels of the fp32 and int8 im2col
-   convs and of the fp32 and int8 GEMMs once for each call with ``splits >
-   1``), and no other port kernel (the trace
-   may lose records, so the exact counts are the wrappers');
+   with ``impl='cuda'``, held against ``impl='torch'`` on the card; ``run``
+   replays the forward's CUDA graph (``repro_torch.graphs``), captured at
+   its first call: that call's launch count of each kernel (counted by
+   the wrappers while the graph is captured) must equal the plan's count
+   (``NetworkPlan.kernel_launches``), and the replayed forward must equal
+   the eager forward (``executor(b).eager``) bit for bit; the count after
+   ``GRAPH_REPLAYS`` calls is that many times the plan's by construction
+   (the capture's counts multiplied out, ``graphs.add_launches``); then
+   the replayed and the eager forward timed in turns (eager, graph,
+   graph, eager: ms per forward and images/s) and each profiled (device
+   busy time and idle share; by CUDA kernel for the profiled cells); in
+   every profiled forward, replayed or eager, each port kernel the plan
+   launches must appear in the trace, at most as often as the plan says
+   (the split-K reduce kernels of the fp32 and int8 im2col convs and of
+   the fp32 and int8 GEMMs once for each call with ``splits > 1``), and
+   no other port kernel: the replay's trace is what shows on the card
+   that the graph launches the port's kernels (the trace may lose
+   records, so the exact counts are the wrappers');
 5. the first 20 layers of Darknet-53 (MODEL_20) at 608x608, batch 1: the
    same comparison (stride-2 im2col, shortcut);
 6. VGG-16 at 224x224, batch 1, three forwards: the default (fused
@@ -93,13 +101,23 @@ Phases, each on its own printed lines:
    ``impl='cuda'`` against ``impl='torch'`` in fp32 (within 1e-3 of
    max(1, max|ref|)) and in bf16 on the same weights (the bf16 logits'
    relative distance from the fp32 forward at most 1.25 times the plain
-   bf16 forward's), exactly 16 flash launches per forward, ms per
-   forward, tokens/s and a profile with the kernel's share; Gemma2-27B at
-   full width cut to 2 layers (local, attn), B 1, S 8192: the same checks
-   with 2 launches; Llama-3.2-1B serving (``.serve(batch_size=4,
-   capacity=128)``, 6 requests of 8 prompt tokens and 12 new ones,
-   greedy): the engine's tokens against a greedy ``decode_step`` loop,
-   ``prefill_with_cache`` (the kernel) then one decode step against
+   bf16 forward's), exactly 16 flash launches per forward, the bf16
+   forward's replay equal to its eager forward bit for bit, ms per
+   forward and tokens/s of both, timed in turns, and a profile of each
+   with the kernel's share (the plain reference forwards run eagerly);
+   then a second shape (S 2048) captured into the same graph pool, both
+   shapes' replays equal to their eager forwards, with the reserved
+   memory the second capture added beside what the same graph adds in a
+   pool of its own (printed);
+   Gemma2-27B at full width cut to 2 layers (local, attn), B 1, S 8192:
+   the same checks with 2 launches; Llama-3.2-1B serving
+   (``.serve(batch_size=4, capacity=128)``, 6 requests of 8 prompt
+   tokens and 12 new ones, greedy; the decode step a CUDA graph captured
+   with the engine): the engine's tokens against a greedy ``decode_step``
+   loop and against the same engine with its step run eagerly
+   (``EagerServingEngine``), tokens/s of both; one decode step's replay
+   beside the eager step, timed in turns and profiled (no port kernel in
+   either trace); ``prefill_with_cache`` (the kernel) then one decode step against
    token-by-token decode (fp32 within 1e-3 of max(1, max|ref|); bf16
    printed), tokens/s; each LM cell prints its peak device memory;
 9. one JSON line with every kernel's numbers — its launches in the forward
@@ -176,6 +194,9 @@ FLASH_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # bf16 against bf16 gives no tighter bound.
 LM_BF16_SPREAD = 1.25
 LM_REPS = 5               # timed forwards of the LM prefill cells
+# Replays after which a captured forward's launch counts must be this
+# many times the plan's (the first is the call that captures).
+GRAPH_REPLAYS = 3
 
 REPLACES = {
     "gemm": "src/repro/kernels/gemm/kernel.py:140",
@@ -245,23 +266,20 @@ def cuda_ms(fn, args, rounds: int = ROUNDS) -> float:
     return statistics.median(device_ms(calls) for _ in range(rounds))
 
 
-def wrappers():
-    """Every kernel's wrapper by kernel name; each counts its launches."""
-    from repro_torch.kernels.conv_ops import kernel_wrappers
-    from repro_torch.kernels.flash_attention import flash_attention
-
-    return {**kernel_wrappers(), "flash_attention": flash_attention}
-
-
 def reset_counts() -> None:
-    for fn in wrappers().values():
+    from repro_torch.graphs import launch_counters
+
+    for fn in launch_counters().values():
         fn.launches = 0
 
 
 def read_counts():
     """Launches per kernel since the last reset, kernels never launched
     left out."""
-    return {k: fn.launches for k, fn in wrappers().items() if fn.launches}
+    from repro_torch.graphs import launch_counters
+
+    return {k: fn.launches for k, fn in launch_counters().items()
+            if fn.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -687,13 +705,20 @@ def run_cell(model, batch, rng, params=None, options=None, name=None,
         dtype=options.get("dtype", "float32")), calibration=calibration)
 
     reset_counts()
-    y = cu.run(x)
+    y = cu.run(x)             # captures the forward's graph, then replays it
     torch.cuda.synchronize()
     counts = read_counts()
 
     want = cu.network_plan(batch).kernel_launches()
     if counts != want:
         raise AssertionError(f"{name}: launches {counts} != planned {want}")
+    check_replays(lambda: cu.run(x), counts, name)
+    ex = cu.executor(batch)
+    y_eager = ex.eager(x)
+    if not torch.equal(y, y_eager):
+        raise AssertionError(
+            f"{name}: the replayed forward differs from the eager forward: "
+            f"max_abs_err {float((y - y_eager).abs().max())}")
     y_ref = plain.run(x)
     torch.cuda.synchronize()
     scale = float(y_ref.abs().max())
@@ -727,20 +752,74 @@ def run_cell(model, batch, rng, params=None, options=None, name=None,
                                  f"(max|ref| {scale})")
         detail = ""
 
-    ms = forward_ms(lambda: cu.run(x), reps)
     plain_ms = forward_ms(lambda: plain.run(x), 5)
     log(f"model {name}: out {tuple(y.shape)} max_abs_err={err:.3g} "
         f"max|ref|={scale:.3g} launches={counts} compile_s={compile_s:.2f} "
-        f"ms_per_forward={ms:.3f} images_per_s={batch * 1e3 / ms:.1f} "
         f"plain_ms_per_forward={plain_ms:.3f} {detail}".rstrip())
+    graph_vs_eager(name, lambda: cu.run(x), lambda: ex.eager(x), reps,
+                   per_call=batch, unit="images",
+                   want=planned_cuda_launches(cu.network_plan(batch)),
+                   detail=profile)
     if profile:
-        profile_forward(lambda: cu.run(x), ms, name,
-                        want=planned_cuda_launches(cu.network_plan(batch)))
         if fp32 is not None:
             profile_forward(lambda: fp32.run(x), fp32_ms,
                             f"{name} (its fp32 forward)",
                             want=planned_cuda_launches(fp32.network_plan(batch)))
     return counts, cu
+
+
+def check_replays(call, counts, name) -> None:
+    """After the first call of a captured path counted ``counts``,
+    ``GRAPH_REPLAYS - 1`` more calls leave the counts at ``GRAPH_REPLAYS``
+    times ``counts``.  These are the capture's counts multiplied out
+    (``graphs.add_launches``), not launches counted on the card: a replay
+    launches nothing through a wrapper.  What a replay launches on the
+    card is gated by its profile (``graph_vs_eager``)."""
+    import torch
+
+    for _ in range(GRAPH_REPLAYS - 1):
+        call()
+    torch.cuda.synchronize()
+    got = read_counts()
+    want = {k: GRAPH_REPLAYS * n for k, n in counts.items()}
+    if got != want:
+        raise AssertionError(f"{name}: launches after {GRAPH_REPLAYS} replays "
+                             f"{got} != {want}")
+
+
+def graph_vs_eager(name, graph, eager, reps, per_call, unit, want=None,
+                   detail=False, profile_reps=5, warmup=3, host_rows=0):
+    """Host ms per call of the replayed path (``graph``) and of the eager
+    one, timed in turns (eager, graph, graph, eager) in one process, each
+    then profiled (device busy time and idle share of its calls; with
+    ``want``, each planned port kernel in both traces, at most as
+    planned); prints one ``graph vs eager`` line."""
+    e1 = forward_ms(eager, reps, warmup)
+    g1 = forward_ms(graph, reps, warmup)
+    g2 = forward_ms(graph, reps, warmup)
+    e2 = forward_ms(eager, reps, warmup)
+    g_ms, e_ms = (g1 + g2) / 2, (e1 + e2) / 2
+    busy_g, kept_g = profile_forward(graph, g_ms, f"{name} graph",
+                                     reps=profile_reps, want=want,
+                                     detail=detail)
+    busy_e, kept_e = profile_forward(eager, e_ms, f"{name} eager",
+                                     reps=profile_reps, want=want,
+                                     detail=detail, host_rows=host_rows)
+
+    def lost(kept):
+        return ("" if kept is None or kept == 1 else
+                f" (a lower bound: the trace kept {kept:.2f} of the port "
+                f"kernels' launches)")
+
+    log(f"graph vs eager {name}: ms_per_call graph={g_ms:.4f} ({g1:.4f} "
+        f"{g2:.4f}) eager={e_ms:.4f} ({e1:.4f} {e2:.4f}) eager/graph="
+        f"{e_ms / g_ms:.2f}; {unit}_per_s graph={per_call * 1e3 / g_ms:.1f} "
+        f"eager={per_call * 1e3 / e_ms:.1f}; device busy ms graph={busy_g:.4f}"
+        f"{lost(kept_g)} eager={busy_e:.4f}{lost(kept_e)}; idle share graph="
+        f"{max(0.0, 1.0 - busy_g / g_ms):.3f} eager="
+        f"{max(0.0, 1.0 - busy_e / e_ms):.3f}")
+    return dict(graph_ms=g_ms, eager_ms=e_ms, busy_graph=busy_g,
+                busy_eager=busy_e)
 
 
 def deployment_sqnr(model, rng, name) -> None:
@@ -813,13 +892,20 @@ def planned_cuda_launches(netplan):
 
 
 def profile_forward(forward, ms_per_forward: float, name: str,
-                    reps: int = 5, host_rows: int = 0, want=None) -> None:
+                    reps: int = 5, host_rows: int = 0, want=None,
+                    detail: bool = True):
     """Device time of one call of ``forward`` by CUDA kernel
     (torch.profiler), the share of the measured time per call in which the
     device was idle and, with ``host_rows``, the operators that take the
-    most host time.  With ``want`` (profiler name -> launches per
-    forward), every port kernel in it must appear in the trace, at most as
-    often, and no other port kernel."""
+    most host time; returns the device busy ms per call and, with
+    ``want``, the share of the planned port kernel launches that the trace
+    kept (else None): below 1, the trace lost records and the busy time
+    is a lower bound.  With ``want``
+    (profiler name -> launches per forward), every port kernel in it must
+    appear in the trace, at most as often, and no other port kernel: for
+    a CUDA graph's replay, the only evidence on the card of what it
+    launches.  ``detail``: the rows by kernel, else the summary line
+    alone."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -840,7 +926,7 @@ def profile_forward(forward, ms_per_forward: float, name: str,
         f"{busy_ms:.4f} ms per forward in {sum(r[1] for r in rows)} kernel "
         f"launches; idle share {max(0.0, 1.0 - busy_ms / ms_per_forward):.3f}"
         f" of {ms_per_forward:.3f} ms")
-    for us, n, key in rows[:14]:
+    for us, n, key in rows[:14 if detail else 0]:
         log(f"  profile {us / 1e3:.4f} ms x{n} {key[:90]}")
     host = sorted(((ev.self_cpu_time_total / reps, ev.count // reps, ev.key)
                    for ev in prof.key_averages()
@@ -851,6 +937,7 @@ def profile_forward(forward, ms_per_forward: float, name: str,
     kernels = sorted((ev for ev in prof.events()
                       if ev.device_type == DeviceType.CUDA),
                      key=lambda ev: ev.time_range.start)
+    kept = None
     if want is not None:
         # The trace may lose kernel records here (86 of 95 launches in one
         # forward's profile), never add them: every planned port kernel
@@ -859,14 +946,17 @@ def profile_forward(forward, ms_per_forward: float, name: str,
                 for c in (*CUDA_NAMES.values(), *REDUCE_NAMES)}
         bad = {c: n for c, n in seen.items()
                if not (0 < n <= want[c] * reps if c in want else n == 0)}
+        planned = reps * sum(want.values())
+        kept = sum(seen[c] for c in want) / planned if planned else 1.0
         if bad:
             raise AssertionError(f"profile {name}: port kernel launches in "
                                  f"{reps} forwards {bad}, the plan's per "
                                  f"forward {want}")
-        log(f"  profile {name}: port kernel launches in {reps} forwards "
-            f"{ {c: n for c, n in seen.items() if n} }, the plan's per forward "
-            f"{want}")
-    for cname in (*CUDA_NAMES.values(), *REDUCE_NAMES):
+        if detail:
+            log(f"  profile {name}: port kernel launches in {reps} forwards "
+                f"{ {c: n for c, n in seen.items() if n} }, the plan's per "
+                f"forward {want}")
+    for cname in (*CUDA_NAMES.values(), *REDUCE_NAMES) if detail else ():
         us = [ev.time_range.elapsed_us() for ev in kernels if cname in ev.name]
         n = len(us) // reps
         if not n:
@@ -875,6 +965,7 @@ def profile_forward(forward, ms_per_forward: float, name: str,
         log(f"  in forward order, {cname} ms: "
             + " ".join(f"{t:.4f}" for t in per_call)
             + f" (share of device busy {sum(us) / reps / 1e3 / busy_ms:.3f})")
+    return busy_ms, kept
 
 
 # ---------------------------------------------------------------------------
@@ -1031,7 +1122,19 @@ def lm_prefill_cell(cfg, seq, name, profile=False, keep=False):
         counts = read_counts()
         if counts != want:
             raise AssertionError(f"{name} {dname}: launches {counts} != {want}")
-        y_ref = plain.run(toks)
+        is_main = dname == cfg.dtype
+        if profile and is_main:
+            check_replays(lambda: cu.run(toks), counts, f"{name} {dname}")
+            y_eager = cu.eager(toks)
+            if not torch.equal(y, y_eager):
+                rel_e, err_e, _ = compare_logits(y, y_eager)
+                raise AssertionError(
+                    f"{name} {dname}: the replayed forward differs from the "
+                    f"eager forward: rel {rel_e:.3g} max_abs_err {err_e:.3g}")
+            del y_eager
+        # The plain forward runs eagerly (asked for): a graph of it would
+        # hold a second forward's activations and logits in its pool.
+        y_ref = plain.eager(toks)
         rel, err, scale = compare_logits(y, y_ref)
         ok = (bool(torch.isfinite(y).all()) and y.shape == y_ref.shape
               == (1, seq, cfg.vocab_size) and y.dtype == tf.torch_dtype(dname))
@@ -1057,19 +1160,26 @@ def lm_prefill_cell(cfg, seq, name, profile=False, keep=False):
                                  f"gate {gate})")
         del y, y_ref
         # Each compilation has run once; the cell's dtype is timed in full
-        # and beside its plain forward.
-        is_main = dname == cfg.dtype
-        ms = forward_ms(lambda: cu.run(toks), LM_REPS if is_main else 2, warmup=1)
+        # and beside its plain forward, and, profiled, the replayed forward
+        # beside the eager one.
+        if profile and is_main:
+            ms = graph_vs_eager(
+                f"{name} {dname}", lambda: cu.run(toks), lambda: cu.eager(toks),
+                LM_REPS, per_call=seq, unit="tokens",
+                want={CUDA_NAMES["flash_attention"]: cfg.num_layers},
+                detail=True, profile_reps=3, warmup=1)["graph_ms"]
+        else:
+            ms = forward_ms(lambda: cu.run(toks), LM_REPS if is_main else 2,
+                            warmup=1)
         plain_part = (f"plain_ms_per_forward="
-                      f"{forward_ms(lambda: plain.run(toks), 2, warmup=0):.3f}"
+                      f"{forward_ms(lambda: plain.eager(toks), 2, warmup=0):.3f}"
                       if is_main else "")
         log(f"model {name} {dname}: logits (1, {seq}, {cfg.vocab_size}) "
             f"rel={rel:.3g} max_abs_err={err:.3g} max|ref|={scale:.3g} ({gate}) "
             f"launches={counts} init_s={init_s:.2f} ms_per_forward={ms:.3f} "
             f"tokens_per_s={seq * 1e3 / ms:.1f} {plain_part}".rstrip())
         if profile and is_main:
-            profile_forward(lambda: cu.run(toks), ms, f"{name} {dname}", reps=3,
-                            want={CUDA_NAMES["flash_attention"]: cfg.num_layers})
+            check_shared_pool(cu, toks, f"{name} {dname}")
         if keep:
             result[dname] = p
         result["launches"] = counts
@@ -1078,6 +1188,49 @@ def lm_prefill_cell(cfg, seq, name, profile=False, keep=False):
     log(f"model {name}: peak device memory allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return result
+
+
+def check_shared_pool(cu, toks, name) -> None:
+    """A second token shape (the first half of ``toks``) captured into the
+    graph pool that the first shape's graph lives in (a ``CompiledLM``'s
+    graphs share one): both shapes' replays must equal their eager
+    forwards bit for bit, the first one's after the second capture.
+    Prints, not gated, the reserved memory the second capture added
+    beyond the logits it returned, beside what the same shape's graph
+    adds in a pool of its own.  A capture empties the allocator's cache
+    first, so every reading follows an ``empty_cache``: what stays
+    reserved is live tensors and the graphs' pools."""
+    import torch
+
+    from repro_torch.graphs import CapturedCall
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    half = toks[:, :toks.shape[1] // 2].contiguous()
+    before = reserved()
+    y_half = cu.run(half)
+    nbytes = y_half.numel() * y_half.element_size()
+    shared = (reserved() - before - nbytes) / 2**30
+    for t, y in ((half, y_half), (toks, cu.run(toks))):
+        if not torch.equal(y, cu.eager(t)):
+            raise AssertionError(f"{name}: with two graphs in one pool, the "
+                                 f"replay at {tuple(t.shape)} differs from "
+                                 f"its eager forward")
+        del y
+    before = reserved()
+    own = CapturedCall(cu.eager, (half,), f"{name} at {tuple(half.shape)}, "
+                       f"a pool of its own")
+    private = (reserved() - before) / 2**30
+    del own
+    log(f"shared pool {name}: a second shape {tuple(half.shape)} captured "
+        f"into the first one's pool; both replays equal their eager forwards;"
+        f" reserved memory grew {shared:.2f} GiB beyond the returned logits "
+        f"(its static logits {nbytes / 2**30:.2f} GiB), against "
+        f"{private:.2f} GiB for the same graph in a pool of its own (printed,"
+        f" not gated)")
 
 
 def lm_serving_cell(cfg, params, params32, name):
@@ -1092,25 +1245,35 @@ def lm_serving_cell(cfg, params, params32, name):
     import repro_torch
     from repro_torch.models import transformer as tf
 
+    from repro_torch.serving import EagerServingEngine
+
     batch, capacity, n_req, prompt_len, new = 4, 128, 6, 8, 12
     torch.cuda.reset_peak_memory_stats()
     compiled = repro_torch.compile(cfg, params)
-    # A throwaway engine first: the decode path's first launches load its
-    # kernels, which the timed run should not pay.
-    warm = compiled.serve(batch_size=batch, capacity=capacity)
-    warm.submit([1, 2], max_new_tokens=2)
-    warm.run()
-    engine = compiled.serve(batch_size=batch, capacity=capacity)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab_size, size=prompt_len)
                for _ in range(n_req)]
-    uids = [engine.submit(p, max_new_tokens=new) for p in prompts]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = engine.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    total = sum(len(v) for v in results.values())
+    # The graph engine captures its decode step when it is made: the
+    # capture's warm-up loads the decode path's kernels before either run
+    # is timed.
+    engines = {"eager": EagerServingEngine.from_compiled(
+                   compiled, batch_size=batch, capacity=capacity),
+               "graph": compiled.serve(batch_size=batch, capacity=capacity)}
+    answers, seconds = {}, {}
+    for kind, eng in engines.items():
+        uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        seconds[kind] = time.perf_counter() - t0
+        answers[kind] = [res[u] for u in uids]
+    engine, results = engines["graph"], answers["graph"]
+    if results != answers["eager"]:
+        raise AssertionError(f"{name}: the graph engine's tokens {results} "
+                             f"differ from the eager engine's {answers['eager']}")
+    dt = seconds["graph"]
+    total = sum(len(v) for v in results)
 
     def greedy(prompt):
         cache = tf.init_cache(cfg, batch, capacity, "cuda")
@@ -1129,28 +1292,27 @@ def lm_serving_cell(cfg, params, params32, name):
                     toks.append(out[-1])
         return out
 
-    for uid, p in zip(uids, prompts):
-        if results[uid] != greedy(p):
-            raise AssertionError(f"{name}: request {uid} got {results[uid]}, "
-                                 f"a greedy decode_step loop gives {greedy(p)}")
+    for i, p in enumerate(prompts):
+        want = greedy(p)
+        if results[i] != want:
+            raise AssertionError(f"{name}: request {i + 1} got {results[i]}, "
+                                 f"a greedy decode_step loop gives {want}")
     log(f"serve {name}: {n_req} requests, {total} tokens in {dt:.3f} s "
-        f"({total / dt:.1f} tokens/s) batch={batch} capacity={capacity}; "
-        f"tokens equal a greedy decode_step loop; first request "
-        f"{results[uids[0]]}")
-    # Where a decode step's time goes: one batched step of the engine.
-    cache = tf.init_cache(cfg, batch, capacity, "cuda")
+        f"({total / dt:.1f} tokens/s; the eager engine {seconds['eager']:.3f}"
+        f" s, {total / seconds['eager']:.1f} tokens/s) batch={batch} "
+        f"capacity={capacity}; tokens equal a greedy decode_step loop and "
+        f"the eager engine's; first request {results[0]}")
+    # Where a decode step's time goes: one batched step of the engine, its
+    # graph's replay beside the same step run eagerly.
+    engine.pos[:] = np.arange(batch)
+    tokens, live = np.zeros((batch, 1), np.int64), np.ones(batch, bool)
     step_args = (torch.zeros((batch, 1), dtype=torch.int64, device="cuda"),
-                 torch.arange(batch, device="cuda"))
-
-    def step():
-        with torch.no_grad():
-            return tf.decode_step(cfg, params, cache, *step_args,
-                                  live=torch.ones(batch, dtype=torch.bool,
-                                                  device="cuda"))
-
-    step_ms = forward_ms(step, 10)
-    log(f"decode step {name}: batch={batch} ms_per_step={step_ms:.3f}")
-    profile_forward(step, step_ms, f"decode step {name}", host_rows=8)
+                 torch.arange(batch, device="cuda"),
+                 torch.ones(batch, dtype=torch.bool, device="cuda"))
+    graph_vs_eager(f"decode step {name} batch={batch}",
+                   lambda: engine._decode(tokens, live),
+                   lambda: engine.step(*step_args), 10, per_call=batch,
+                   unit="tokens", want={}, detail=True, host_rows=8)
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,

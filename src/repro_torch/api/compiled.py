@@ -10,7 +10,7 @@ serving, save and load come in a later slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,6 +40,10 @@ class CompiledCNN:
                                device=self.device)
         self._netplans: Dict[int, Any] = {}
         self._executors: Dict[int, Any] = {}
+        # One memory pool for the executors' CUDA graphs, as for
+        # CompiledLM's: they replay one at a time and clone their outputs.
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
         self.executor(options.batch)
 
     def network_plan(self, batch: Optional[int] = None):
@@ -64,13 +68,15 @@ class CompiledCNN:
             self._executors[b] = NetworkExecutor(
                 self.network_plan(b), self.params,
                 pretransform=self.options.pretransform,
-                calibration=self.calibration,
+                calibration=self.calibration, pool=self._pool,
             )
         return self._executors[b]
 
     def run(self, x) -> torch.Tensor:
         """Whole-network inference on a (B, H, W, C) batch (tensor or
-        array), on ``options.device``."""
+        array), on ``options.device``: on the card a replay of the batch's
+        CUDA graph (``NetworkExecutor``); ``executor(b).eager(x)`` runs
+        the same forward eagerly."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         if x.ndim != 4:
             raise ValueError(
@@ -123,7 +129,16 @@ class CompiledLM:
     forward for ``run`` (every attention through the flash-attention
     kernel under ``impl='cuda'``, its plain version under
     ``impl='torch'``), the continuous-batching engine for ``serve``.  The
-    model computes in ``cfg.dtype``."""
+    model computes in ``cfg.dtype``.
+
+    On the card ``run`` replays a CUDA graph of the forward
+    (``graphs.CapturedCall``), one per (B, S) token shape, captured at the
+    shape's first call, as ``jax.jit`` keeps one trace per shape.  The
+    graphs share one memory pool: they replay one at a time and each call
+    clones its logits, so a later capture reuses the activations of the
+    earlier ones, and the pool holds about the largest shape's forward
+    plus each graph's static logits, where the eager forward frees its
+    activations after each call.  ``eager`` runs the forward eagerly."""
 
     def __init__(self, cfg, params, options: ExecutionOptions):
         from repro_torch.models import transformer as tf
@@ -137,17 +152,40 @@ class CompiledLM:
         self.device = torch.device(options.device)
         self._tf = tf
         self.params = tf.tree_map(lambda t: t.to(self.device), params)
+        self._graphs: Dict[Tuple[int, ...], Any] = {}
+        self._pool = None
 
-    def run(self, tokens) -> torch.Tensor:
-        """Full-sequence logits: (B, S) int tokens (tensor or array) ->
-        (B, S, V) in ``cfg.dtype``, on ``options.device``."""
+    def _tokens(self, tokens) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, device=self.device).long()
         if tokens.ndim != 2:
             raise ValueError(f"run() expects (B, S) tokens, got shape "
                              f"{tuple(tokens.shape)}")
+        return tokens
+
+    def eager(self, tokens) -> torch.Tensor:
+        """The full-sequence forward, run eagerly."""
+        tokens = self._tokens(tokens)
         with torch.inference_mode():
             return self._tf.forward(self.model, self.params, tokens,
                                     impl=self.options.impl)
+
+    def run(self, tokens) -> torch.Tensor:
+        """Full-sequence logits: (B, S) int tokens (tensor or array) ->
+        (B, S, V) in ``cfg.dtype``, on ``options.device``."""
+        tokens = self._tokens(tokens)
+        if self.device.type != "cuda":
+            return self.eager(tokens)
+        shape = tuple(tokens.shape)
+        if shape not in self._graphs:
+            from repro_torch.graphs import CapturedCall
+
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            self._graphs[shape] = CapturedCall(
+                self.eager, (tokens,),
+                f"the {self.model.name} forward at (B, S) = {shape}",
+                pool=self._pool)
+        return self._graphs[shape](tokens)
 
     def __call__(self, tokens) -> torch.Tensor:
         return self.run(tokens)

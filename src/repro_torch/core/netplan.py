@@ -458,8 +458,12 @@ def layer_op(l: Any, p: Dict, cur: torch.Tensor,
     if l.kind == "avgpool":
         return cur.mean(dim=(1, 2))
     if l.kind == "upsample":
-        return cur.repeat_interleave(l.size, dim=1).repeat_interleave(
-            l.size, dim=2)
+        # Each pixel repeated size x size times by a broadcast and one
+        # copy: no output size to read back from the card, which a CUDA
+        # graph capture would refuse.
+        b, h, w, c = cur.shape
+        return cur[:, :, None, :, None, :].expand(
+            b, h, l.size, w, l.size, c).reshape(b, h * l.size, w * l.size, c)
     if l.kind == "shortcut":
         return cur + outputs[l.from_layers[0]]
     if l.kind == "route":
@@ -501,7 +505,14 @@ class NetworkExecutor:
 
     Prepares parameters offline (fold + pad + optional Winograd
     pre-transform; calibration and quantization of the int8 steps, from
-    ``calibration``) once, then runs ``run_network`` eagerly per call.
+    ``calibration``) once.  On the card, a call replays one CUDA graph of
+    the forward (``graphs.CapturedCall``, the counterpart of the
+    reference's ``jax.jit``), captured at the first call: the executor is
+    fixed to one batch and input size, so one graph serves every call.  On
+    the CPU a call runs ``run_network`` eagerly.  ``eager`` runs the
+    forward eagerly on either device, for comparison.  ``pool``: the
+    graph's memory pool (``torch.cuda.graph_pool_handle()``, shared by a
+    ``CompiledCNN``'s executors); None, a pool of its own.
     """
 
     def __init__(
@@ -510,20 +521,42 @@ class NetworkExecutor:
         params: Sequence[Dict],
         pretransform: bool = True,
         calibration=None,
+        pool=None,
     ):
         self.netplan = netplan
         self.params = prepare_net_params(netplan, params,
                                          pretransform=pretransform,
                                          calibration=calibration)
         self.pretransformed = pretransform_flags(netplan, pretransform)
+        self.graph = None
+        self._pool = pool
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def _check(self, x: torch.Tensor) -> None:
         b, h, w = x.shape[0], x.shape[1], x.shape[2]
         if (h, w) != self.netplan.input_hw or b != self.netplan.batch:
             raise ValueError(
                 f"executor planned for batch {self.netplan.batch} at "
                 f"{self.netplan.input_hw}, got {tuple(x.shape)}"
             )
+
+    def eager(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward, run eagerly: ``run_network`` on the prepared
+        params."""
+        self._check(x)
         with torch.inference_mode():
             return run_network(self.netplan, self.params, x,
                                pretransformed=self.pretransformed)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "cuda":
+            return self.eager(x)
+        self._check(x)
+        if self.graph is None:
+            from repro_torch.graphs import CapturedCall
+
+            p = self.netplan
+            self.graph = CapturedCall(
+                self.eager, (x,),
+                f"the planned forward ({p.dtype}, batch {p.batch} at "
+                f"{p.input_hw[0]}x{p.input_hw[1]})", pool=self._pool)
+        return self.graph(x)

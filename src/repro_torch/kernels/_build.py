@@ -196,5 +196,11 @@ def require_int32_exact(what: str, k: int) -> None:
 
 
 def stream_handle(t) -> int:
-    """PyTorch's current stream on ``t``'s device, as a pointer-sized int."""
+    """PyTorch's current stream on ``t``'s device, as a pointer-sized int.
+
+    Under ``torch.cuda.graph`` that is the capture stream, and a launch of
+    these libraries, each with its own static CUDA runtime, is recorded
+    into the graph like any other launch on it (no shared runtime needed:
+    ``tests/test_torch_cuda.py::test_kernel_launch_is_captured_by_a_cuda_graph``).
+    """
     return torch.cuda.current_stream(t.device).cuda_stream

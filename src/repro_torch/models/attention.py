@@ -109,6 +109,7 @@ def attention_block(
     cache: Optional[Params] = None,
     cache_pos: Optional[torch.Tensor] = None,
     fill_capacity: Optional[int] = None,
+    live: Optional[torch.Tensor] = None,
     impl: str = "cuda",
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Full attention sub-block: qkv -> rope -> attention -> out-proj.
@@ -117,10 +118,14 @@ def attention_block(
     ``flash_attention(..., impl=impl)``.  Decode: x is (B, 1, d), ``cache``
     holds the {'k', 'v', 'slot_pos'} ring buffers and ``cache_pos`` the
     absolute position of the new token, a scalar or a (B,) vector (each row
-    at its own position, writing its own ring slot); returns the updated
-    cache (new tensors; the given cache is not written).  ``fill_capacity``:
-    prefill that also returns a cache of that capacity filled with this
-    call's K/V.
+    at its own position, writing its own ring slot); ``live`` (B,) bool:
+    the rows whose state may advance (None: every row).  The cache is
+    updated in place and returned: each row's slot is written, every row
+    attends to it, and a row that is not live gets its old slot back.
+    The reference returns a new cache; writing one slot a row in place
+    keeps the cache at fixed addresses, which a CUDA graph of the decode
+    step needs, and copies nothing else.  ``fill_capacity``: prefill that
+    also returns a cache of that capacity filled with this call's K/V.
     """
     b, s, _ = x.shape
     g = num_heads // num_kv_heads
@@ -134,17 +139,26 @@ def attention_block(
         cap = cache["k"].shape[1]
         slot = pos % cap
         rows = torch.arange(b, device=x.device)
-        new_cache = {name: t.clone() for name, t in cache.items()}
-        new_cache["k"][rows, slot] = k[:, 0]
-        new_cache["v"][rows, slot] = v[:, 0]
-        new_cache["slot_pos"][rows, slot] = pos.to(cache["slot_pos"].dtype)
-        k_pos = new_cache["slot_pos"]                         # (B, Sk)
+        new = {"k": k[:, 0], "v": v[:, 0],
+               "slot_pos": pos.to(cache["slot_pos"].dtype)}
+        old = ({name: cache[name][rows, slot] for name in new}
+               if live is not None else None)
+        for name, t in new.items():
+            cache[name][rows, slot] = t
+        k_pos = cache["slot_pos"]                             # (B, Sk)
         # Written slots at or before each row's position (and in its window).
         mask = (k_pos >= 0)[:, None, :] & _mask(pos[:, None], k_pos, True,
                                                 window)       # (B, 1, Sk)
         qh = q.reshape(b, 1, num_kv_heads, g, head_dim)
-        out = _sdpa(qh, new_cache["k"], new_cache["v"], mask, logit_cap)
-        return out.reshape(b, 1, num_heads * head_dim) @ params["wo"], new_cache
+        out = _sdpa(qh, cache["k"], cache["v"], mask, logit_cap)
+        if old is not None:
+            # Rows that are not live keep their old state (continuous
+            # batching); their output above saw the new token, as the
+            # reference's does.
+            for name, t in new.items():
+                keep = live.reshape((-1,) + (1,) * (t.ndim - 1))
+                cache[name][rows, slot] = torch.where(keep, t, old[name])
+        return out.reshape(b, 1, num_heads * head_dim) @ params["wo"], cache
 
     positions = torch.arange(s, device=x.device)
     q = apply_rope(q, positions, rope_theta)

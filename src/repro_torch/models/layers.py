@@ -123,9 +123,11 @@ def embed(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
           scale_by_dim: bool = False) -> torch.Tensor:
     x = params["table"][tokens]
     if scale_by_dim:
-        # sqrt(d) rounded to the table's dtype first, as the reference.
+        # sqrt(d) rounded to the table's dtype first, as the reference,
+        # on the host: a scalar copied to the card would synchronize, which
+        # a CUDA graph capture refuses.
         x = x * torch.tensor(math.sqrt(params["table"].shape[-1]),
-                             dtype=x.dtype, device=x.device)
+                             dtype=x.dtype).item()
     return x
 
 

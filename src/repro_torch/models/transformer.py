@@ -109,14 +109,9 @@ def _apply_layer(
         cache=cache,
         cache_pos=cache_pos,
         fill_capacity=fill_capacity,
+        live=live,
         impl=impl,
     )
-    if live is not None and cache is not None:
-        # Rows that are not live keep their old state (continuous batching).
-        new_cache = {
-            k: torch.where(live.reshape((-1,) + (1,) * (v.ndim - 1)), v, cache[k])
-            for k, v in new_cache.items()
-        }
     if cfg.use_post_norm:
         out = rms_norm(out, p["post_norm1"], cfg.norm_eps)
     x = x + out
@@ -287,11 +282,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     """One-token decode with cache update.  ``tokens`` (B, 1); ``pos`` the
     absolute position of the new token, a scalar or (B,) (per row, for
     continuous batching); ``live`` (B,) bool: the rows whose state may
-    advance (None: every row).  Returns (logits (B, V), the new cache)."""
+    advance (None: every row).  Returns (logits (B, V), ``cache``), the
+    cache updated in place (``attention_block``; the reference returns a
+    new one): one ring slot a live row changes, at the same addresses, so
+    a CUDA graph of the step replays against it."""
     x = _embed_tokens(cfg, params, tokens)
-    new_cache: Cache = []
     for p, bt, c in zip(params["layers"], cfg.pattern_layers, cache):
-        x, nc = _apply_layer(cfg, p, x, bt, cache=c, cache_pos=pos, live=live)
-        new_cache.append(nc)
+        x, _ = _apply_layer(cfg, p, x, bt, cache=c, cache_pos=pos, live=live)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return apply_head(cfg, params, x)[:, 0, :], new_cache
+    return apply_head(cfg, params, x)[:, 0, :], cache

@@ -1,5 +1,5 @@
 """LM serving: the continuous-batching engine and its typed errors."""
-from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.engine import EagerServingEngine, Request, ServingEngine
 from repro_torch.serving.resilience import (
     InvalidRequest,
     QueueNotDrained,
@@ -7,5 +7,5 @@ from repro_torch.serving.resilience import (
     validate_prompt,
 )
 
-__all__ = ["InvalidRequest", "QueueNotDrained", "Request", "ServingEngine",
+__all__ = ["EagerServingEngine", "InvalidRequest", "QueueNotDrained", "Request", "ServingEngine",
            "ServingError", "validate_prompt"]

@@ -10,6 +10,17 @@ plain PyTorch against the ring caches, and the flash-attention kernel,
 which runs in prefill, is not reached.  Greedy sampling at
 ``temperature=0``; otherwise a ``torch.Generator`` seeded from ``seed``.
 
+On the card the decode step is one CUDA graph per engine
+(``graphs.CapturedCall``, the counterpart of the reference's jitted step),
+captured when the engine is made: the batch is fixed, the cache is updated
+in place at fixed addresses, and each step copies its tokens, positions
+and live mask into the graph's static inputs and replays it.  Admission uses
+the same graph with another live mask; resetting a slot's cache rows and
+sampling (``_sample``, which reads the graph's logits before the next
+replay) stay outside it.  On the CPU the step runs eagerly.
+``EagerServingEngine`` is the same engine with the step run eagerly on
+either device, for comparison.
+
 The reference's jit -> eager fallback ladder, deadlines and backpressure
 are not ported (ROADMAP.md, queue 1, item 4): a failure on the card
 raises.
@@ -75,6 +86,7 @@ class ServingEngine:
         self.slot_req: List[Optional[Request]] = [None] * batch_size
         self.queue: List[Request] = []
         self._uid = 0
+        self._graph = self._capture() if self.device.type == "cuda" else None
 
     # -- public api -----------------------------------------------------------
 
@@ -109,6 +121,19 @@ class ServingEngine:
 
     # -- internals --------------------------------------------------------
 
+    def _capture(self):
+        """The decode step's CUDA graph, warmed up and captured with no
+        live row: the cache is left as it was."""
+        from repro_torch.graphs import CapturedCall
+
+        b, dev = self.batch, self.device
+        return CapturedCall(
+            self.step,
+            (torch.zeros((b, 1), dtype=torch.int64, device=dev),
+             torch.zeros(b, dtype=torch.int64, device=dev),
+             torch.zeros(b, dtype=torch.bool, device=dev)),
+            f"the {self.cfg.name} decode step (batch {b})")
+
     def _admit(self) -> None:
         """Prefill queued requests into free slots, one token at a time
         through the decode path (slot-local)."""
@@ -125,16 +150,27 @@ class ServingEngine:
                 req.last_token = int(req.prompt[-1])
 
     def _decode(self, tokens: np.ndarray, live: np.ndarray) -> torch.Tensor:
-        """One batched decode step; updates the cache, returns (B, V)
-        logits."""
+        """One batched decode step; updates the cache in place, returns
+        (B, V) logits (on the card the graph's static logits, valid until
+        the next step)."""
+        args = (torch.as_tensor(tokens, dtype=torch.int64),
+                torch.as_tensor(self.pos, dtype=torch.int64),
+                torch.as_tensor(live, dtype=torch.bool))
+        if self._graph is None:         # the CPU, or EagerServingEngine
+            return self.step(*args)
+        return self._graph.replay(*args)
+
+    def step(self, tokens: torch.Tensor, pos: torch.Tensor,
+             live: torch.Tensor) -> torch.Tensor:
+        """The batched decode step run eagerly: (B, 1) tokens, (B,)
+        positions and live mask -> (B, V) logits; the cache is updated in
+        place."""
         dev = self.device
         # no_grad, not inference_mode: admission resets cache rows in place.
         with torch.no_grad():
-            logits, self.cache = tf.decode_step(
-                self.cfg, self.params, self.cache,
-                torch.as_tensor(tokens, dtype=torch.int64, device=dev),
-                torch.as_tensor(self.pos, dtype=torch.int64, device=dev),
-                live=torch.as_tensor(live, device=dev))
+            logits, _ = tf.decode_step(
+                self.cfg, self.params, self.cache, tokens.to(dev),
+                pos.to(dev), live=live.to(dev))
         return logits
 
     def _step_slot(self, slot: int, token: int) -> None:
@@ -172,3 +208,13 @@ class ServingEngine:
             self.pos[i] += 1
             if len(r.out_tokens) >= r.max_new_tokens:
                 r.done = True
+
+
+class EagerServingEngine(ServingEngine):
+    """The serving engine with its decode step run eagerly (``step``) on
+    the card too, and no graph captured: the comparison for the captured
+    step, as ``NetworkExecutor.eager`` and ``CompiledLM.eager`` are for
+    the captured forwards."""
+
+    def _capture(self):
+        return None

@@ -508,3 +508,143 @@ def test_small_lm_on_card(cuda_device, arch):
     for t in range(8):
         logits_dec, cache = tf.decode_step(cfg, params, cache, toks[:, t:t + 1], t)
     _close(logits_pf, logits_dec, 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs (repro_torch.graphs): the captured forwards and decode step.
+
+
+@pytest.mark.parametrize("m,n,k,splits", [
+    (169, 256, 1024, 32),      # split: workspace and reduce kernel
+    (92416, 32, 64, 1),        # unsplit
+])
+def test_kernel_launch_is_captured_by_a_cuda_graph(cuda_device, m, n, k,
+                                                   splits):
+    """A launch through ctypes (a library that links the CUDA runtime
+    statically) on torch's current stream is recorded by a torch capture:
+    the replay computes what the eager launch does, bit for bit, and on
+    new operands copied into the captured ones the new product."""
+    a, b, bias = _randn(cuda_device, 30, (m, k), (k, n), (n,))
+    assert gemm_splits(m, n, k) == splits
+    want = matmul_bias_act(a, b, bias, "leaky")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        matmul_bias_act(a, b, bias, "leaky")        # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = matmul_bias_act(a, b, bias, "leaky")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    a.copy_(_randn(cuda_device, 31, (m, k))[0])
+    graph.replay()
+    assert torch.equal(out, matmul_bias_act(a, b, bias, "leaky"))
+
+
+def _tiny64(device, batch, dtype):
+    """YOLOv3-tiny's layers at 64x64: a compiled model, its input and a
+    second input."""
+    from repro_torch.configs import yolov3
+
+    model = repro_torch.CNNModel(yolov3.TINY_LAYERS, (64, 64),
+                                 name="yolov3-tiny 64")
+    rng = np.random.default_rng(1)
+    params = random_batchnorm(init_cnn(rng, model.layers), rng)
+    x, x2 = (torch.tensor(rng.standard_normal((batch, 64, 64, 3)).astype(
+        np.float32), device=device) for _ in range(2))
+    cu = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
+        batch=batch, dtype=dtype), calibration=x)
+    return cu, x, x2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_captured_forward_equals_eager(cuda_device, batch, dtype):
+    """``run`` replays the executor's graph: equal to the eager forward
+    bit for bit on two inputs (the input is copied into the graph's), a
+    result the caller holds is not overwritten by the next call, and k
+    calls count k times the plan's launches."""
+    cu, x, x2 = _tiny64(cuda_device, batch, dtype)
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    y = cu.run(x)
+    ex = cu.executor(batch)
+    assert ex.graph is not None
+    y2 = cu.run(x2)
+    cu.run(x)
+    launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    assert launches == {k: 3 * n for k, n in
+                        cu.network_plan(batch).kernel_launches().items()}
+    assert torch.equal(y, ex.eager(x))
+    assert torch.equal(y2, ex.eager(x2))
+    assert not torch.equal(y, y2)
+
+
+def test_captured_decode_step_equals_eager(cuda_device):
+    """The engine's captured decode step against the same engine run
+    eagerly (``step``): the same tokens for 5 requests at batch 2 with
+    slot reuse, the same cache bit for bit, and one step's logits equal."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import EagerServingEngine, ServingEngine
+
+    cfg = configs.smoke_config("gemma2-27b")
+    params = tf.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    params = tf.tree_map(lambda t: t * 8 if t.ndim >= 2 else t, params)
+    engines = [cls(cfg, params, batch_size=2, capacity=24)
+               for cls in (ServingEngine, EagerServingEngine)]
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 128, size=int(m)) for m in rng.integers(2, 9, 5)]
+    results = []
+    for engine in engines:
+        for p in prompts:
+            engine.submit(p, max_new_tokens=20)
+        results.append(engine.run())
+    graph, eager = engines
+    assert graph._graph is not None and eager._graph is None
+    assert results[0] == results[1]
+    for a, b in zip(graph.cache, eager.cache):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    tokens, live = np.array([[5], [7]]), np.array([True, False])
+    assert torch.equal(graph._decode(tokens, live), eager._decode(tokens, live))
+
+
+def test_captured_lm_shapes_share_one_pool(cuda_device):
+    """A CompiledLM's graphs share one memory pool: after a second token
+    shape is captured into it, each shape's replay still equals its eager
+    forward bit for bit."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.smoke_config("llama3.2-1b")
+    params = tf.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    lm = repro_torch.compile(cfg, params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(1))
+    first = lm.run(toks)
+    second = lm.run(toks[:, :12])
+    assert len({g.graph.pool() for g in lm._graphs.values()}) == 1
+    assert torch.equal(first, lm.eager(toks))
+    assert torch.equal(lm.run(toks), lm.eager(toks))
+    assert torch.equal(second, lm.eager(toks[:, :12]))
+
+
+def test_capture_refuses_a_body_that_synchronizes(cuda_device):
+    """A host sync inside a captured body raises with the path named; the
+    body is not run eagerly instead, and the card stays usable."""
+    from repro_torch.graphs import CapturedCall
+
+    calls = []
+
+    def body(x):
+        calls.append(1)
+        return x * float(x.sum())
+
+    x = torch.ones(8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="capture of a synchronizing body"):
+        CapturedCall(body, (x,), "a synchronizing body")
+    assert len(calls) == 2          # the warm-up and the refused capture
+    assert float((x * 2).sum()) == 16.0
