@@ -90,9 +90,12 @@ Phases, each on its own printed lines:
    each element within 2e-4 (fp32) or 3e-2 (bf16) of max(1, max|ref|) and
    each query row's difference within 1e-4 (fp32) or 1e-2 (bf16) of that
    row's norm, each timed beside its plain version, ``F.scaled_dot_product_attention``
-   where one PyTorch call computes the case, and its bound (FLOPs of the
-   unmasked pairs over the 67 TFLOP/s fp32 or the 989 TFLOP/s bf16
-   tensor-core peak, or bytes of q, k, v and o over 3.35 TB/s), the
+   where one PyTorch call computes the case (in fp32 with TF32 off, the
+   kernels of the backend that served it printed), and its bound (FLOPs
+   of the unmasked pairs over the 989 TFLOP/s bf16 tensor-core peak; in
+   fp32, which runs three TF32 products per fp32 product, 3 x FLOPs over
+   the 495 TFLOP/s TF32 peak, with the 67 TFLOP/s CUDA-core bound printed
+   beside; or bytes of q, k, v and o over 3.35 TB/s), the
    achieved TFLOP/s of those FLOPs and the time over SDPA's; the
    global Gemma2 case again with q scaled by 8, so the scores reach the
    softcap's bend (untimed; the plain version without the cap must fail
@@ -990,11 +993,35 @@ def flash_errors(got, ref, dname):
     return err, tol, row
 
 
+def library_kernels(fn, args) -> str:
+    """The CUDA kernels one call of ``fn(*args)`` launches (torch.profiler),
+    the six most frequent with their counts: which backend served a
+    PyTorch call."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    names = collections.Counter(ev.name for ev in prof.events()
+                                if ev.device_type == DeviceType.CUDA)
+    return ", ".join(f"{n[:70]} x{c}" for n, c in names.most_common(6))
+
+
 def check_flash(hw, cells, saturated=()):
     """Phase 8a: the flash-attention kernel against its plain version at
     each cell's shapes, in bf16 and fp32, timed beside its plain version,
-    one library call where PyTorch has one, and its bound.  The cells named
-    in ``saturated`` take q scaled by 8, so that the scaled scores (std 8)
+    one library call where PyTorch has one (SDPA; in fp32 with TF32 off,
+    its backend's kernels printed), and its bound: bf16 FLOPs over the
+    bf16 tensor-core peak; fp32 three TF32 products per fp32 product
+    (3xTF32), 3 x FLOPs over the TF32 peak, with the CUDA-core bound
+    (FLOPs over the fp32 peak) printed beside.  The cells named in
+    ``saturated`` take q scaled by 8, so that the scaled scores (std 8)
     reach the softcap's bend; they are not timed, and the plain version
     without the cap must fail the row gate there.  Returns each timed
     case's numbers by (cell, dtype)."""
@@ -1047,16 +1074,23 @@ def check_flash(hw, cells, saturated=()):
                 library_ms, why = None, "no PyTorch call computes the tanh softcap"
             else:
                 # No window on these cases: the causal flag or nothing.
-                library_ms = cuda_ms(
-                    lambda q, k, v: F.scaled_dot_product_attention(
+                def sdpa(q, k, v):
+                    return F.scaled_dot_product_attention(
                         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        is_causal=causal, enable_gqa=True),
-                    (q, k, v), rounds=3)
+                        is_causal=causal, enable_gqa=True)
+
+                library_ms = cuda_ms(sdpa, (q, k, v), rounds=3)
                 why = "F.scaled_dot_product_attention"
+                if dtype == torch.float32:
+                    if torch.backends.cuda.matmul.allow_tf32:
+                        raise AssertionError("SDPA in fp32 must run with TF32 off")
+                    why += (", TF32 off; its kernels: "
+                            + library_kernels(sdpa, (q, k, v)))
             pairs = unmasked_pairs(s, sk, causal, window)
             flops = 4 * b * h * hd * pairs
-            peak = hw.peak_flops_bf16 if dtype == torch.bfloat16 else hw.peak_flops_fp32
-            t_ops = flops / peak * 1e3
+            core_ms = flops / hw.peak_flops_fp32 * 1e3
+            t_ops = (flops / hw.peak_flops_bf16 * 1e3 if dtype == torch.bfloat16
+                     else 3 * flops / hw.peak_flops_tf32 * 1e3)
             t_bytes = nbytes((q, k, v, got)) / hw.hbm_bandwidth * 1e3
             bound_ms = max(t_ops, t_bytes)
             out[cell, dname] = dict(
@@ -1067,7 +1101,10 @@ def check_flash(hw, cells, saturated=()):
                 f"row_err={row:.3g} (tol {row_tol:.3g}) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
                 + ("-" if library_ms is None else f"{library_ms:.4f}")
                 + f" ({why}) bound_ms={bound_ms:.5f} "
-                f"({out[cell, dname]['bound_by']}) pairs={pairs} "
+                f"({out[cell, dname]['bound_by']}"
+                + ("" if dtype == torch.bfloat16 else
+                   f"; 3xTF32; fp32 CUDA-core bound {core_ms:.5f}")
+                + f") pairs={pairs} "
                 f"share_of_bound={bound_ms / ms:.4f} "
                 f"tflops={flops / ms * 1e-9:.1f}"
                 + ("" if library_ms is None

@@ -5,16 +5,14 @@ From NVIDIA's H100 data sheet and the Hopper architecture white paper.
 Each bound divides by the peak of the units the kernel's work needs:
 
 - ``peak_flops_fp32``, fp32 FMA on the CUDA cores (no TF32): the fp32
-  im2col conv, the Winograd kernels other than the tuple multiply, and
-  fp32 flash attention.
-- ``peak_flops_tf32``, dense TF32 on the tensor cores: the fp32 GEMM and
-  the 3-pass tuple multiply run three TF32 products per fp32 product
-  (3xTF32, fp32 accuracy), so their bound is 3 x FLOPs over this peak:
-  165 TFLOP/s of fp32-accurate products on those units, against 67 on the
-  CUDA cores.
-- ``peak_ops_int8``, dense int8 on the tensor cores: the least time the
-  card could take for the int8 kernels' work, though they run dp4a on the
-  CUDA cores.
+  im2col conv and the Winograd transforms.
+- ``peak_flops_tf32``, dense TF32 on the tensor cores: the fp32 GEMM, the
+  3-pass tuple multiply, the fused Winograd kernel's products and fp32
+  flash attention run three TF32 products per fp32 product (3xTF32, fp32
+  accuracy), so their bound is 3 x FLOPs over this peak: 165 TFLOP/s of
+  fp32-accurate products on those units, against 67 on the CUDA cores.
+- ``peak_ops_int8``, dense int8 on the tensor cores: the units the int8
+  GEMM and the int8 conv run on (through mma.sync).
 - ``peak_flops_bf16``, dense bf16 on the tensor cores: the units the bf16
   flash-attention kernel runs on (through mma.sync).
 """

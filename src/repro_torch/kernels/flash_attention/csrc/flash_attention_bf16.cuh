@@ -1,8 +1,9 @@
 // Flash attention (forward), bf16, on the tensor cores of sm_90a: the
 // FlashAttention-2 forward shape from mma.sync m16n8k16 (bf16 in, fp32
 // sums), ldmatrix and cp.async.  Included by flash_attention.cu, whose C
-// entry sends bf16 inputs here; fp32 inputs keep the CUDA-core kernel
-// there.
+// entry sends bf16 inputs here and fp32 inputs to flash_attention_fp32.cuh.
+// The block layout, the tile ranges, the mask and the softmax are
+// flash_common.cuh's, shared with the fp32 kernel.
 //
 // Replaces the bf16 path of the TPU kernel
 // src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas and
@@ -46,14 +47,9 @@
 // the m16n8 accumulator layout of two adjacent score tiles is the m16n8k16
 // A layout, so P never goes through shared memory.
 //
-// Masks.  Positions start at 0: a pair is valid when k_pos < Sk, and
-// k_pos <= q_pos (causal), and k_pos > q_pos - window (window > 0).  The
-// block visits only the kv tiles that hold a valid pair for one of its
-// rows; inside that range a warp skips a tile that holds none for its 16
-// rows and evaluates the mask only on a tile that crosses the causal
-// diagonal, the window edge or Sk.  A masked score is -inf, so it adds
-// p = 0; a row that has seen no valid key yet takes 0 as its max, so
-// exp2(-inf - 0) = 0 and no NaN arises.  Ragged S and Sk are masked here,
+// Masks (flash_common.cuh).  A warp skips a kv tile with no valid pair
+// for its 16 rows and evaluates the mask only on a tile that crosses the
+// causal diagonal, the window edge or Sk; ragged S and Sk are masked,
 // never padded.  Causal q-blocks are launched heaviest first: blockIdx.y
 // walks the q-blocks from the last, with (batch, head) on blockIdx.x.
 //
@@ -73,14 +69,17 @@
 #include <cmath>
 #include <cstdint>
 
+#include "flash_common.cuh"
+
 // Internal linkage, as every kernel source here: a template's function-local
 // static (launch's `configured`) would otherwise be one object shared by
 // every loaded library that defines the same template.
 namespace {
 namespace flash_bf16 {
 
+namespace fc = flash_common;
+
 constexpr int BK = 64;                        // keys per kv tile
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Cfg {
@@ -135,28 +134,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float fast_tanh(float x) {
-  return 1.f - __fdividef(2.f, fast_exp2(2.f * LOG2E * x) + 1.f);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Max and sum over the 4 threads of a quad (the threads of one row).
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 template <int HD>
@@ -180,17 +160,14 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane / 4, t4 = lane % 4;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q0 = fc::block_q0(BQ);
   const size_t q_row = (size_t)H * HD, k_row = (size_t)KV * HD;
   const __nv_bfloat16* qb = q + ((size_t)b * S * H + h) * HD;
   const __nv_bfloat16* kb = k + ((size_t)b * Sk * KV + kvh) * HD;
   const __nv_bfloat16* vb = v + ((size_t)b * Sk * KV + kvh) * HD;
 
-  // The kv tiles that hold a valid pair for some row of this block.
-  const int q_last = min(q0 + BQ - 1, S - 1);
-  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
+  const fc::Tiles tiles = fc::kv_tiles<BQ, BK>(q0, S, Sk, causal, window);
+  const int t_begin = tiles.begin, t_end = tiles.end;
 
   auto load_tile = [&](int t, int stage) {
     __nv_bfloat16* Ks = KVs + stage * 2 * BK * LD;
@@ -217,7 +194,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   // This warp's Q fragments: a0..a3 of each 16-wide k-step.
-  const int w_first = q0 + warp * 16, w_last = w_first + 15;
+  const int w_first = q0 + warp * 16;
   uint32_t qf[KS][4];
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
@@ -243,11 +220,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
 
     const int k0 = t * BK;
-    if (w_first >= S || (causal && k0 > w_last) ||
-        (window > 0 && k0 + BK - 1 <= w_first - window))
+    if (fc::warp_skips<BK>(k0, w_first, S, causal, window))
       continue;   // no valid pair for this warp's rows
-    const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > w_first) ||
-                        (window > 0 && k0 <= w_last - window);
+    const bool masked = fc::tile_masked<BK>(k0, w_first, Sk, causal, window);
     const __nv_bfloat16* Ks = KVs + stage * 2 * BK * LD;
     const __nv_bfloat16* Vs = Ks + BK * LD;
 
@@ -269,52 +244,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // Scale (and softcap) into base-2 units; the mask; the row max.
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * x_scale;
-        if (cap_out > 0.f) x = fast_tanh(x) * cap_out;
-        if (masked) {
-          const int kp = k0 + j * 8 + 2 * t4 + (e & 1);
-          const int qp = e < 2 ? row0 : row1;
-          const bool valid = kp < Sk && (!causal || kp <= qp) &&
-                             (window <= 0 || kp > qp - window);
-          x = valid ? x : -INFINITY;
-        }
-        s[j][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
-    const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float alpha0 = fast_exp2(m0 - mu0), alpha1 = fast_exp2(m1 - mu1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = fast_exp2(s[j][0] - mu0);
-      s[j][1] = fast_exp2(s[j][1] - mu0);
-      s[j][2] = fast_exp2(s[j][2] - mu1);
-      s[j][3] = fast_exp2(s[j][3] - mu1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * alpha0 + sum0;
-    l1 = l1 * alpha1 + sum1;
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      acc[d][0] *= alpha0;
-      acc[d][1] *= alpha0;
-      acc[d][2] *= alpha1;
-      acc[d][3] *= alpha1;
-    }
+    // Scale (and softcap) into base-2 units, the mask, the online softmax.
+    fc::softmax_tile(s, acc, m0, m1, l0, l1, x_scale, cap_out, masked, k0,
+                     row0, Sk, causal, window);
 
     // O += P.V: P from registers (bf16), V through ldmatrix.trans.
 #pragma unroll
@@ -335,8 +267,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_wait_all();
 
-  const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-37f);
-  const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-37f);
+  const float inv0 = fc::row_inv(l0), inv1 = fc::row_inv(l1);
   __nv_bfloat16* ob = o + ((size_t)b * S * H + h) * HD + 2 * t4;
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
@@ -362,18 +293,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int q_blocks = (S + C::BQ - 1) / C::BQ;
-  if (q_blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const float scale = static_cast<float>(1.0 / sqrt((double)HD));
-  // Without a cap: x = s * (scale * log2 e).  With one:
-  // x = tanh(s * (scale / cap)) * (cap * log2 e).
-  const float x_scale = cap > 0.f ? scale / cap : scale * LOG2E;
-  const float cap_out = cap > 0.f ? cap * LOG2E : 0.f;
-  flash_attention_bf16_kernel<HD><<<dim3(B * H, q_blocks), C::THREADS, C::SMEM,
-                                    stream>>>(
+  fc::Launch lp;
+  if (!fc::make_launch(B, H, S, C::BQ, HD, cap, lp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_attention_bf16_kernel<HD><<<lp.grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      Sk, H, KV, causal, window, x_scale, cap_out);
+      Sk, H, KV, causal, window, lp.x_scale, lp.cap_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
-"""Wrapper of the hand-written flash-attention kernels
-(csrc/flash_attention.cu: fp32 on the CUDA cores; bf16 on the tensor
-cores, csrc/flash_attention_bf16.cuh), one C entry for both.
+"""Wrapper of the hand-written flash-attention kernels, both on the
+tensor cores (csrc/flash_attention.cu, one C entry: fp32 as 3xTF32 in
+csrc/flash_attention_fp32.cuh, bf16 in csrc/flash_attention_bf16.cuh).
 
 ``flash_attention(q, k, v, causal, window, logit_cap)`` computes
 softmax-attention with q (B, S, H, hd) and k, v (B, Sk, KV, hd) read in
@@ -65,9 +65,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk, kv = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 q, k and v must be 16-byte "
-                         "aligned (the kernel copies 16 bytes at a time)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte "
+                         "aligned (the kernels copy 16 bytes at a time)")
     out = torch.empty_like(q)
     fn = _build.load("flash_attention", "repro_flash_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

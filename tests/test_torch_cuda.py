@@ -458,6 +458,44 @@ def test_flash_attention_bf16_edges_on_card(cuda_device, b, s, sk, h, kv, hd,
     assert _row_err(got, ref) <= 1e-2
 
 
+@pytest.mark.parametrize("b,s,sk,h,kv,hd,causal,window,cap", [
+    (1, 1, 1, 4, 4, 64, True, 0, 0.0),          # S = 1
+    (1, 3, 1, 8, 8, 32, False, 0, 0.0),         # Sk = 1, non-causal, G = 1
+    (1, 1, 77, 8, 1, 64, False, 0, 0.0),        # one query, G = 8
+    (2, 131, 197, 8, 4, 16, False, 0, 0.0),     # G = 2; S, Sk off 32 and 64
+    (1, 333, 333, 16, 4, 32, True, 0, 0.0),     # G = 4, causal, ragged S
+    (1, 300, 300, 8, 1, 128, True, 128, 0.0),   # window of eight 16-key tiles
+    (1, 257, 257, 8, 2, 64, True, 64, 0.0),     # rows 64m + w - 1 start a tile
+    (2, 100, 100, 4, 2, 16, True, 0, 0.0),      # hd 16, two batches
+    (1, 290, 290, 4, 2, 128, True, 100, 50.0),  # hd 128, window + softcap
+])
+def test_flash_attention_fp32_edges_on_card(cuda_device, b, s, sk, h, kv, hd,
+                                            causal, window, cap):
+    """The fp32 3xTF32 kernel against attention_ref at the edges of its
+    tiling (128 rows a block, two m16 tiles a warp; 32-key tiles at hd <=
+    64, 16-key tiles at hd 128): single rows and keys, every grouping,
+    ragged S and Sk, window edges on tile boundaries, all four head dims;
+    two calls give the same bits (no atomics)."""
+    q, k, v = _randn(cuda_device, 24, (b, s, h, hd), (b, sk, kv, hd),
+                     (b, sk, kv, hd))
+    got = flash_attention(q, k, v, causal, window, cap)
+    ref = flash_attention(q, k, v, causal, window, cap, impl="torch")
+    assert got.dtype == torch.float32
+    _close(got, ref, 2e-4)
+    assert _row_err(got, ref) <= 1e-4
+    assert torch.equal(got, flash_attention(q, k, v, causal, window, cap))
+
+
+def test_flash_attention_fp32_refuses_misaligned_operands(cuda_device):
+    """The fp32 kernel copies q, k and v 16 bytes at a time, as the bf16
+    one does: a contiguous view off a 16-byte boundary is refused."""
+    flat, k = _randn(cuda_device, 25, (8 * 4 * 32 + 1,), (1, 8, 2, 32))
+    q = flat[1:].view(1, 8, 4, 32)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, k, k)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_softcap_saturated_on_card(cuda_device, dtype):
     """q scaled by 8: scaled scores of std 8 reach the cap's bend, so the
