@@ -70,6 +70,22 @@ Phases, each on its own printed lines:
    on the card; its per-layer choice printed), each the same comparison
    and each profiled; then every kernel call of the measure-mode plan held
    against its plain version, as in phase 3;
+6b. the co-design cost model (``mode='model'``): YOLOv3-tiny 416 (batch 1
+   and 4), MODEL_20 608 b1 and VGG-16 224 b1 planned by it, each the same
+   comparison as in phases 4 to 6 (profiled) with every layer planned by
+   the model (``source == 'cost_model'``, a modeled time) and every kernel
+   call of its plan held against its plain version; measure mode on the
+   three cells phase 6 did not measure, the same way; per layer, the
+   model's pick and modeled ms beside measure mode's pick and, for every
+   candidate measure mode timed, the model's price of that call over its
+   measured ms (``model vs measure`` lines), and the fit per candidate
+   kernel over all of them (median and worst predicted / measured); the
+   three modes' replayed forwards timed in turns (``modes`` lines: cost,
+   measure, model, then in reverse); then the plan cache (``plan cache``
+   line): VGG-16 224 b1 in measure mode compiled cold into a cache file in
+   a fresh temporary directory and again warm from it (0 tunes, 1 network
+   hit; ``compile_s`` of both), then ``save`` and ``repro_torch.load``
+   (0 tunes), whose replay equals the warm compilation's bit for bit;
 7. int8 (``dtype='int8'``): YOLOv3-tiny 416 b1, VGG-16 224 b1 and
    MODEL_20 608 b1 (each profiled, beside its fp32 forward), each
    with identity batchnorm and calibrated on its input: every step of the
@@ -80,7 +96,9 @@ Phases, each on its own printed lines:
    kernels' launches equal to the plan's, ms per forward and images/s
    beside the fp32 forward's; then, printed and not gated, the same two
    SQNRs of YOLOv3-tiny and VGG-16 with random batchnorm and the default
-   calibration batch (``deployment_sqnr``);
+   calibration batch (``deployment_sqnr``); then YOLOv3-tiny 416 b1 int8
+   planned by the cost model's int8 gate (``mode='model'``), under the same
+   gates as the first int8 cell;
 8. the LM stack (``repro_torch.compile(cfg, params)`` on an LM config,
    random weights from a seeded ``torch.Generator`` on the card):
    the flash-attention kernel against its plain version at the shapes of
@@ -703,9 +721,13 @@ def run_cell(model, batch, rng, params=None, options=None, name=None,
     cu = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
         batch=batch, **options), calibration=calibration)
     compile_s = time.perf_counter() - t0
+    # The model's plan is the card's whatever the impl: the plain forward
+    # of a model-mode cell runs the same steps (check_steps pairs them).
     plain = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
         impl="torch", device="cuda", batch=batch,
-        dtype=options.get("dtype", "float32")), calibration=calibration)
+        dtype=options.get("dtype", "float32"),
+        mode="model" if options.get("mode") == "model" else "cost"),
+        calibration=calibration)
 
     reset_counts()
     y = cu.run(x)             # captures the forward's graph, then replays it
@@ -969,6 +991,112 @@ def profile_forward(forward, ms_per_forward: float, name: str,
             + " ".join(f"{t:.4f}" for t in per_call)
             + f" (share of device busy {sum(us) / reps / 1e3 / busy_ms:.3f})")
     return busy_ms, kept
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: the cost model (mode="model") and the plan cache
+
+
+def model_vs_measure(model_cu, measure_cu, batch, name):
+    """Per conv layer, the model's pick and its modeled ms beside measure
+    mode's pick and, for every candidate measure mode timed, the model's
+    price of that call (as measure mode runs it: ``measured_call``) over
+    the measured ms.  Returns [(candidate, predicted ms, measured ms)]."""
+    from repro_torch.core.codesign import candidate_estimate
+
+    pairs = []
+    model_steps = model_cu.network_plan(batch).steps
+    for s in measure_cu.network_plan(batch).steps:
+        if s.plan is None:
+            continue
+        m = model_steps[s.index].plan
+        cands = []
+        for label, ms in s.plan.measured_ms:
+            pred = candidate_estimate(s.spec, *s.in_hw, batch, label,
+                                      measured_call=True).total_s * 1e3
+            pairs.append((label, pred, ms))
+            cands.append(f"{label} {pred:.4f}/{ms:.4f}")
+        log(f"model vs measure {name} L{s.index} {s.in_hw[0]}x{s.in_hw[1]} "
+            f"{s.spec.in_channels}->{s.spec.out_channels}: model chose "
+            f"{m.label} ({m.predicted_s * 1e3:.4f} ms modeled in the "
+            f"forward), measure chose {s.plan.label}; predicted/measured ms "
+            + ", ".join(cands))
+    return pairs
+
+
+def model_fit(pairs) -> None:
+    """The model's fit per candidate kernel over every call measure mode
+    timed: the median and the worst predicted / measured."""
+    by = {}
+    for label, pred, ms in pairs:
+        by.setdefault(label, []).append(pred / ms)
+    for label, ratios in sorted(by.items()):
+        worst = max(ratios, key=lambda q: abs(np.log(q)))
+        log(f"model fit {label}: predicted/measured over {len(ratios)} calls "
+            f"median {statistics.median(ratios):.3f} worst {worst:.3f}")
+
+
+def modes_in_turns(name, compiled, x, reps):
+    """Replayed ms per forward of each mode's compilation, timed in turns
+    in one process (each mode, then each again in reverse order)."""
+    modes = list(compiled)
+    times = {m: [] for m in modes}
+    for m in modes + modes[::-1]:
+        times[m].append(forward_ms(lambda m=m: compiled[m].run(x), reps))
+    ms = {m: statistics.mean(t) for m, t in times.items()}
+    faster = min(ms["cost"], ms["measure"])
+    log(f"modes {name}: replayed ms per forward "
+        + " ".join(f"{m}={ms[m]:.4f} ({' '.join(f'{t:.4f}' for t in times[m])})"
+                   for m in modes)
+        + f"; model/cost={ms['model'] / ms['cost']:.3f} model/measure="
+        f"{ms['model'] / ms['measure']:.3f} model/faster={ms['model'] / faster:.3f}")
+    return ms
+
+
+def plan_cache_check(model, params, x, name) -> None:
+    """Measure mode's plans persisted: a cold compile into a fresh cache
+    file, a warm one from it (0 tunes, 1 network hit), then ``save`` and
+    ``repro_torch.load`` (0 tunes) replaying bit for bit what the warm
+    compilation replays."""
+    import tempfile
+
+    import torch
+
+    import repro_torch
+
+    with tempfile.TemporaryDirectory() as d:
+        opts = repro_torch.ExecutionOptions(
+            mode="measure", cache_path=os.path.join(d, "plans.json"))
+        t0 = time.perf_counter()
+        cold = repro_torch.compile(model, params, opts)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = repro_torch.compile(model, params, opts)
+        warm_s = time.perf_counter() - t0
+        c, w = cold.plan_report(), warm.plan_report()
+        if not (c["tunes"] > 0 and w["tunes"] == 0 and w["network_hits"] == 1
+                and [r["algorithm"] for r in c["layers"]]
+                == [r["algorithm"] for r in w["layers"]]):
+            raise AssertionError(f"{name}: cold tunes {c['tunes']}, warm tunes "
+                                 f"{w['tunes']} network_hits {w['network_hits']}")
+        y_cold, y_warm = cold.run(x), warm.run(x)
+        path = warm.save(os.path.join(d, f"{model.name}.compiled.json"))
+        t0 = time.perf_counter()
+        loaded = repro_torch.load(path, model, params)
+        load_s = time.perf_counter() - t0
+        y = loaded.run(x)
+        torch.cuda.synchronize()
+        l = loaded.plan_report()
+        if not (l["tunes"] == 0 and l["network_hits"] == 1
+                and torch.equal(y, y_warm) and torch.equal(y_cold, y_warm)):
+            raise AssertionError(f"{name}: load tunes {l['tunes']} network_hits"
+                                 f" {l['network_hits']}, replay equal "
+                                 f"{torch.equal(y, y_warm)}")
+    log(f"plan cache {name} mode=measure: cold compile_s={cold_s:.2f} "
+        f"tunes={c['tunes']}; warm compile_s={warm_s:.2f} tunes={w['tunes']} "
+        f"network_hits={w['network_hits']}; save -> load compile_s="
+        f"{load_s:.2f} tunes={l['tunes']} network_hits={l['network_hits']}, "
+        f"replay equal to the warm compilation's and the cold one's bit for bit")
 
 
 # ---------------------------------------------------------------------------
@@ -1479,17 +1607,21 @@ def main() -> int:
 
     # Phase 4: YOLOv3-tiny end to end; batch 1 is the main path of the
     # GEMM, im2col and fused Winograd kernels.
-    launches = {}
-    launches[tiny_cell], _ = run_cell(yolov3.TINY_MODEL, 1, rng, profile=True)
-    run_cell(yolov3.TINY_MODEL, 4, rng, reps=SHORT_FORWARD_REPS)
+    launches, cost = {}, {}
+    launches[tiny_cell], cost["yolov3-tiny 416 b1"] = run_cell(
+        yolov3.TINY_MODEL, 1, rng, profile=True)
+    _, cost["yolov3-tiny 416 b4"] = run_cell(yolov3.TINY_MODEL, 4, rng,
+                                             reps=SHORT_FORWARD_REPS)
 
     # Phase 5: MODEL_20 at 608 (stride-2 im2col, shortcut).
-    run_cell(yolov3.MODEL_20, 1, rng, reps=SHORT_FORWARD_REPS)
+    _, cost["yolov3-20 608 b1"] = run_cell(yolov3.MODEL_20, 1, rng,
+                                           reps=SHORT_FORWARD_REPS)
 
     # Phase 6: VGG-16 at 224, batch 1: fused, 3-pass (the main path of the
     # three 3-pass kernels), measure mode; one set of weights.
     params = random_batchnorm(init_cnn(rng, vgg16.MODEL.layers), rng)
-    run_cell(vgg16.MODEL, 1, rng, params, profile=True)
+    _, cost["vgg16 224 b1"] = run_cell(vgg16.MODEL, 1, rng, params,
+                                       profile=True)
     launches[vgg3_cell], _ = run_cell(
         vgg16.MODEL, 1, rng, params, {"winograd_fused": False}, vgg3_cell,
         profile=True)
@@ -1514,6 +1646,51 @@ def main() -> int:
     # the kernel tolerances (phase 3 saw only the cost-mode plans).
     check_kernels(measured.network_plan(1), rng, H100,
                   "vgg16 224 b1 mode=measure")
+    log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+
+    # Phase 6b: the co-design cost model (mode="model") on the four cells,
+    # beside cost mode (phases 4 to 6) and measure mode (VGG-16 from phase
+    # 6, the others measured here), with its own generator so that the
+    # later phases draw what they drew before; then the plan cache.
+    rng_b = np.random.default_rng(SEED)
+    cells = {"yolov3-tiny 416 b1": (yolov3.TINY_MODEL, 1, FORWARD_REPS),
+             "yolov3-tiny 416 b4": (yolov3.TINY_MODEL, 4, SHORT_FORWARD_REPS),
+             "yolov3-20 608 b1": (yolov3.MODEL_20, 1, SHORT_FORWARD_REPS),
+             "vgg16 224 b1": (vgg16.MODEL, 1, FORWARD_REPS)}
+    pairs = []
+    for cell, (model, batch, reps) in cells.items():
+        cell_params = (params if model is vgg16.MODEL
+                       else random_batchnorm(init_cnn(rng_b, model.layers),
+                                             rng_b))
+        _, modeled = run_cell(model, batch, rng_b, cell_params,
+                              {"mode": "model"}, f"{cell} mode=model",
+                              profile=model is vgg16.MODEL, reps=reps)
+        for row in modeled.plan_report()["layers"]:
+            if row["source"] != "cost_model" or not row["predicted_s"] > 0:
+                raise AssertionError(f"model mode: {cell} layer {row['index']}"
+                                     f" planned by {row['source']}")
+        check_kernels(modeled.network_plan(batch), rng_b, H100,
+                      f"{cell} mode=model")
+        if model is vgg16.MODEL:
+            measure = measured
+        else:
+            _, measure = run_cell(model, batch, rng_b, cell_params,
+                                  {"mode": "measure"}, f"{cell} mode=measure",
+                                  reps=reps)
+            check_kernels(measure.network_plan(batch), rng_b, H100,
+                          f"{cell} mode=measure")
+        pairs += model_vs_measure(modeled, measure, batch, cell)
+        h, w = model.input_hw
+        x = torch.tensor(rng_b.standard_normal(
+            (batch, h, w, model.in_channels)).astype(np.float32), device="cuda")
+        modes_in_turns(cell, {"cost": cost[cell], "measure": measure,
+                              "model": modeled}, x, reps)
+    model_fit(pairs)
+    h, w = vgg16.MODEL.input_hw
+    plan_cache_check(vgg16.MODEL, params, torch.tensor(rng_b.standard_normal(
+        (1, h, w, 3)).astype(np.float32), device="cuda"), "vgg16 224 b1")
+    del cost, measured
+    log(f"phase 6b done at {time.perf_counter() - t_start:.1f} s")
 
     # Phase 7: int8 (YOLOv3-tiny 416 b1 is the main path of both int8
     # kernels), with the reference acceptance test's weights: seeded, with
@@ -1538,6 +1715,11 @@ def main() -> int:
                                 ("vgg16 224 b1 int8", vgg8, ("im2col_conv_q8",))):
         if any(counts.get(k, 0) <= 0 for k in names):
             raise AssertionError(f"{cell}: launches {counts}, want {names}")
+    # The cost model's int8 gate, on its own generator's draws.
+    rng_q = np.random.default_rng(SEED)
+    run_cell(yolov3.TINY_MODEL, 1, rng_q, init_cnn(rng_q, yolov3.TINY_LAYERS),
+             {"dtype": "int8", "mode": "model"}, f"{tiny8_cell} mode=model",
+             profile=True)
 
     # Phase 8: the LM stack.  Llama-3.2-1B's prefill is the main path of
     # the flash-attention kernel; Gemma2-27B (full width, 2 of its 46

@@ -21,7 +21,11 @@ neither it nor JAX.  The public surface mirrors it::
 
 ``ExecutionOptions(impl='cuda')`` (the default) runs the hand-written CUDA
 kernels under ``kernels/*/csrc``, built with nvcc at first use;
-``impl='torch'`` runs their plain PyTorch versions.
+``impl='torch'`` runs their plain PyTorch versions.  ``mode='model'``
+plans each conv by the card's cost model (core/codesign.py); with a
+``cache_path`` the plans persist, and ``compiled.save()`` /
+``repro_torch.load(path, model, params)`` rebuild a compiled CNN without
+re-tuning.
 """
 __version__ = "0.1.0"
 
@@ -31,6 +35,7 @@ from repro_torch.api import (
     CompiledLM,
     ExecutionOptions,
     compile,
+    load,
 )
 from repro_torch.core import (
     ConvAlgorithm,
@@ -51,6 +56,7 @@ __all__ = [
     "CompiledLM",
     "ExecutionOptions",
     "compile",
+    "load",
     "ConvAlgorithm",
     "ConvPlan",
     "ConvSpec",

@@ -5,17 +5,43 @@ The port of ``repro/api/compiled.py``.  A CNN compiles to a
 prepare (batchnorm fold, channel padding, offline Winograd weight
 transform; under int8, calibration and weight quantization) -> run.  An LM
 ``ModelConfig`` compiles to a ``CompiledLM``: the full-sequence forward
-(prefill) for ``run``, the continuous-batching engine for ``serve``.  CNN
-serving, save and load come in a later slice.
+(prefill) for ``run``, the continuous-batching engine for ``serve``.
+``save`` writes a small JSON artifact (the model's identity and the
+option surface) beside the plan cache, which holds the tuning; ``load``
+rebuilds the compiled model from both and re-tunes nothing.  CNN serving
+comes in a later slice.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.api.model import CNNModel, is_lm_config
 from repro_torch.api.options import ExecutionOptions
+
+#: The ``format`` of a ``save`` artifact.
+SAVE_FORMAT = "repro_torch.api/1"
+
+
+def _save_payload(kind: str, model_desc: Dict[str, Any],
+                  options: ExecutionOptions, path: Optional[str]) -> str:
+    """Write a ``save`` artifact; None puts it beside the plan cache (or in
+    the working directory) as ``<name>.compiled.json``."""
+    payload = {"format": SAVE_FORMAT, "kind": kind, "model": model_desc,
+               "options": options.to_json()}
+    if path is None:
+        base = os.path.dirname(options.cache_path or "") or "."
+        path = os.path.join(base, f"{model_desc.get('name', 'model')}"
+                                  f".compiled.json")
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=1, sort_keys=True)
+    return path
 
 
 class CompiledCNN:
@@ -24,8 +50,8 @@ class CompiledCNN:
     batch sizes on first use."""
 
     def __init__(self, model: CNNModel, params: Sequence[Dict],
-                 options: ExecutionOptions, calibration: Optional[Any] = None):
-        from repro_torch.core.planner import Planner
+                 options: ExecutionOptions, calibration: Optional[Any] = None,
+                 planner=None):
         from repro_torch.models.cnn import params_from_numpy
 
         self.model = model
@@ -35,9 +61,11 @@ class CompiledCNN:
         # int8 activation-scale calibration batch (B, H, W, C); None: the
         # seeded default batch, made only if some layer resolves to int8.
         self.calibration = calibration
-        self.planner = Planner(impl=options.impl, mode=options.mode,
-                               winograd_fused=options.winograd_fused,
-                               device=self.device)
+        # A planner made here is this model's to save; a caller's (maybe
+        # shared) planner keeps its own persistence: compiling never
+        # rewrites its cache file.
+        self._own_planner = planner is None
+        self.planner = planner if planner is not None else options.make_planner()
         self._netplans: Dict[int, Any] = {}
         self._executors: Dict[int, Any] = {}
         # One memory pool for the executors' CUDA graphs, as for
@@ -45,6 +73,27 @@ class CompiledCNN:
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
         self.executor(options.batch)
+
+    def save_plans(self, force: bool = False) -> None:
+        """Write the planner's cache file when this model owns the planner
+        and new plans or network entries came since the last save."""
+        if not self._own_planner or not self.planner.cache_path:
+            return
+        if force or self.planner._dirty:
+            self.planner.save()
+
+    def save(self, path: Optional[str] = None) -> str:
+        """Persist this compilation: the plan cache (the tuning) and a
+        small JSON artifact (the model's identity and the option
+        surface), whose path is returned.  ``load`` rebuilds it and
+        re-tunes nothing."""
+        self.save_plans()
+        return _save_payload("cnn", {
+            "name": self.model.name,
+            "digest": self.model.digest,
+            "input_hw": list(self.model.input_hw),
+            "in_channels": self.model.in_channels,
+        }, self.options, path)
 
     def network_plan(self, batch: Optional[int] = None):
         """The (cached) whole-network plan for one batch size."""
@@ -70,6 +119,7 @@ class CompiledCNN:
                 pretransform=self.options.pretransform,
                 calibration=self.calibration, pool=self._pool,
             )
+            self.save_plans()
         return self._executors[b]
 
     def run(self, x) -> torch.Tensor:
@@ -102,12 +152,14 @@ class CompiledCNN:
                 "kernel_blocks": list(s.plan.kernel_blocks),
                 "winograd_fused": s.plan.winograd_fused,
                 "source": s.plan.source,
+                "predicted_s": s.plan.predicted_s,
                 "measured_ms": dict(s.plan.measured_ms),
                 "in_layout": [s.in_layout.c, s.in_layout.pad_c],
                 "elided": not s.out_layout.trivial,
             }
             for s in netplan.steps if s.layer.kind == "conv"
         ]
+        predicted = [r["predicted_s"] for r in rows]
         return {
             "model": self.model.name,
             "kind": "cnn",
@@ -119,8 +171,11 @@ class CompiledCNN:
             "device": str(self.device),
             "elided_boundaries": netplan.elided_boundaries,
             "layers": rows,
+            "predicted_total_s": (None if None in predicted
+                                  else sum(predicted)),
             "tunes": self.planner.stats["tunes"],
             "hits": self.planner.stats["hits"],
+            "network_hits": self.planner.network_hits,
         }
 
 
@@ -213,12 +268,19 @@ class CompiledLM:
                           else "attention_ref (plain)"),
         }
 
+    def save(self, path: Optional[str] = None) -> str:
+        """A JSON artifact of the config's name and the option surface
+        (an LM has no plans); ``load`` rebuilds it."""
+        return _save_payload("lm", {"name": self.model.name}, self.options,
+                             path)
+
 
 def compile(  # noqa: A001 - deliberate: mirrors repro.compile
     model: Any,
     params: Any,
     options: Optional[ExecutionOptions] = None,
     calibration: Optional[Any] = None,
+    planner=None,
 ):
     """Plan, prepare and return a runnable model.
 
@@ -232,9 +294,50 @@ def compile(  # noqa: A001 - deliberate: mirrors repro.compile
     (``transformer.init_params``, or ``transformer.params_from_numpy`` of
     the reference's tree).
     ``options`` defaults to ``ExecutionOptions()``: the CUDA kernels on the
-    card.
+    card.  ``planner`` is a runtime resource, not saved: a Planner shared
+    by several compilations pools their plans (and keeps its own cache
+    file's persistence); None, a planner of ``options``.
     """
     opts = options if options is not None else ExecutionOptions()
     if is_lm_config(model):
         return CompiledLM(model, params, opts)
-    return CompiledCNN(model, params, opts, calibration=calibration)
+    return CompiledCNN(model, params, opts, calibration=calibration,
+                       planner=planner)
+
+
+def load(path: str, model: Any, params: Any, planner=None,
+         calibration: Optional[Any] = None):
+    """Rebuild a compiled model from a ``save`` artifact and its plan
+    cache (``options.cache_path``): a CNN re-tunes nothing when the cache
+    holds its plans.  Raises ``ValueError`` when ``model`` is not the one
+    saved (the layer table's digest and the input geometry of a CNN, the
+    config's name of an LM)."""
+    with open(path) as f:
+        data = json.load(f)
+    if data.get("format") != SAVE_FORMAT:
+        raise ValueError(f"{path}: not a {SAVE_FORMAT} artifact "
+                         f"(format={data.get('format')!r})")
+    opts = ExecutionOptions.from_json(data.get("options", {}))
+    saved = data.get("model", {})
+    if data.get("kind") == "cnn":
+        if not isinstance(model, CNNModel):
+            raise ValueError(f"{path} was saved from a CNN; got {type(model)}")
+        if saved.get("digest") != model.digest:
+            raise ValueError(
+                f"{path}: saved layer-table digest {saved.get('digest')} does "
+                f"not match the given model's ({model.digest})")
+        if (tuple(saved.get("input_hw", ())) != tuple(model.input_hw)
+                or int(saved.get("in_channels", -1)) != model.in_channels):
+            raise ValueError(
+                f"{path}: saved for input {saved.get('input_hw')} x "
+                f"{saved.get('in_channels')}, the given model takes "
+                f"{model.input_hw} x {model.in_channels}")
+    elif data.get("kind") == "lm":
+        if getattr(model, "name", None) != saved.get("name"):
+            raise ValueError(f"{path}: saved LM config {saved.get('name')!r}"
+                             f" does not match the given "
+                             f"{getattr(model, 'name', None)!r}")
+    else:
+        raise ValueError(f"{path}: unknown kind {data.get('kind')!r}")
+    return compile(model, params, opts, calibration=calibration,
+                   planner=planner)

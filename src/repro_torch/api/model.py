@@ -4,6 +4,7 @@ input geometry (the port of ``repro/api/model.py``'s ``CNNModel``), and
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Tuple
 
 
@@ -21,6 +22,13 @@ class CNNModel:
         object.__setattr__(self, "input_hw", tuple(self.input_hw))
         if len(self.input_hw) != 2:
             raise ValueError(f"input_hw must be (H, W), got {self.input_hw!r}")
+
+    @property
+    def digest(self) -> str:
+        """The layer table's digest: the identity the network cache keys
+        on (core/netplan.network_key); ``load`` refuses a model whose
+        digest is not the saved one."""
+        return hashlib.sha1(repr(tuple(self.layers)).encode()).hexdigest()[:16]
 
 
 def is_lm_config(model: Any) -> bool:

@@ -1,16 +1,16 @@
 """ExecutionOptions: the option surface of the ``repro_torch`` facade.
 
-The port of ``repro/api/options.py``, cut to what this slice runs.
+The port of ``repro/api/options.py``, cut to what the port runs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 _IMPLS = ("cuda", "torch")
-_MODES = ("cost", "measure")
+_MODES = ("cost", "measure", "model")
 _DTYPES = ("float32", "int8")
 #: The reference's other execution dtypes, not ported yet (ROADMAP.md).
 _UNPORTED_DTYPES = ("bfloat16", "float16")
@@ -27,6 +27,9 @@ class ExecutionOptions:
                     default.  The CPU is used only when asked for
                     (``device='cpu', impl='torch'``).
       mode          'cost' (default): the planner's tile rule;
+                    'model': the card's co-design cost model
+                    (core/codesign.py) prices each candidate's launches
+                    and keeps the cheapest, and gates int8 by it;
                     'measure': time every eligible algorithm (and, under
                     impl='cuda', both Winograd realizations) per layer on
                     ``device`` and keep the fastest (paper §VII.A).
@@ -40,6 +43,10 @@ class ExecutionOptions:
       pretransform  apply the offline Winograd weight transform during
                     parameter preparation (paper §VII.A excludes it from
                     timing); the flag is carried explicitly.
+      cache_path    the plan cache file (core/planner.py): plans and
+                    whole-network entries persist there, so a later
+                    compile of the same model re-tunes nothing; None
+                    (default): plans live in memory only.
       dtype         'float32' (default) or 'int8': quantized inference,
                     resolved per layer by the planner's int8 gate (a layer
                     where int8 does not pay stays fp32); int8 layers run
@@ -55,6 +62,7 @@ class ExecutionOptions:
     batch: int = 1
     pretransform: bool = True
     dtype: str = "float32"
+    cache_path: Optional[str] = None
 
     def __post_init__(self) -> None:
         if self.impl not in _IMPLS:
@@ -84,3 +92,23 @@ class ExecutionOptions:
                 f"impl='cuda' runs the CUDA kernels and needs a CUDA "
                 f"device, got device={self.device!r}"
             )
+
+    # -- persistence (CompiledCNN.save and load ride this) -------------------
+
+    def to_json(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "ExecutionOptions":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    def make_planner(self):
+        """A Planner with this option set's policy fields and cache file;
+        ``autosave=False``: the facade saves once per planning burst."""
+        from repro_torch.core.planner import Planner
+
+        return Planner(impl=self.impl, mode=self.mode,
+                       winograd_fused=self.winograd_fused,
+                       device=self.device, cache_path=self.cache_path,
+                       autosave=False)

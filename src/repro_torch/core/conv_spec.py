@@ -54,6 +54,12 @@ class ConvSpec:
         ow = (w + 2 * pw - eff_kw) // sw + 1
         return oh, ow
 
+    def gemm_dims(self, h: int, w: int) -> Tuple[int, int, int]:
+        """(M, N, K) of the im2col GEMM for an (h, w) input, as the paper's
+        Table IV writes it: M = out channels, N = OH * OW, K = kh*kw*C."""
+        oh, ow = self.out_hw(h, w)
+        return self.out_channels, oh * ow, self.kh * self.kw * self.in_channels
+
 
 @dataclasses.dataclass(frozen=True)
 class Epilogue:
@@ -119,3 +125,9 @@ def select_algorithm(spec: ConvSpec) -> ConvAlgorithm:
     ):
         return ConvAlgorithm.WINOGRAD
     return ConvAlgorithm.IM2COL_GEMM
+
+
+def arithmetic_intensity(m: int, n: int, k: int, bytes_per_elem: int = 4) -> float:
+    """AI of a GEMM as the paper defines it (§VI.C):
+    2*M*N*K / (bytes * (M*N + K*N + M*K))."""
+    return (2.0 * m * n * k) / (bytes_per_elem * (m * n + k * n + m * k))

@@ -66,6 +66,14 @@ class Layout:
     def trivial(self) -> bool:
         return self.pad_c == 0
 
+    def to_json(self) -> List[int]:
+        return [self.c, self.pad_c]
+
+    @classmethod
+    def from_json(cls, d: Sequence[int]) -> "Layout":
+        c, pad_c = (int(v) for v in d)
+        return cls(c, pad_c)
+
 
 @dataclasses.dataclass(frozen=True)
 class NetStep:
@@ -136,20 +144,15 @@ def _in_channel_multiple(plan: ConvPlan) -> int:
 
 
 def _snap_row_tile(plan: ConvPlan, algo: ConvAlgorithm, oh: int) -> ConvPlan:
-    """Network-level adjustment: make the im2col row tile divide OH.
+    """Network-level adjustment: make the im2col row tile divide OH
+    (``im2col_gemm.ops.snap_row_tile``)."""
+    from repro_torch.kernels.im2col_gemm.ops import snap_row_tile
 
-    The snap takes the largest divisor of OH no bigger than the tile, and
-    only when it keeps at least half the tile: a prime OH (best divisor 1)
-    must not explode the grid into one block per output row.  The CUDA
-    kernel masks a ragged last row tile, so an unsnapped tile stays exact.
-    """
     if algo is not ConvAlgorithm.IM2COL_GEMM:
         return plan
     toh, bc, bo = plan.kernel_blocks
-    snapped = min(toh, oh)
-    while oh % snapped:
-        snapped -= 1
-    if snapped < min(toh, oh) / 2 or (snapped, bc, bo) == plan.kernel_blocks:
+    snapped = snap_row_tile(toh, oh)
+    if snapped == toh:
         return plan
     return dataclasses.replace(plan, kernel_blocks=(snapped, bc, bo))
 
@@ -272,6 +275,24 @@ def build_network_plan(
                        dtype=dtype)
 
 
+def network_key(layers: Sequence[Any], h: int, w: int, in_channels: int,
+                batch: int, planner: Planner, dtype: str = "float32") -> str:
+    """The cache key of a whole-network entry: a digest of the layer table
+    (as ``CNNModel.digest``), the input, the batch, the requested dtype and
+    every planner setting that changes a layer's decision (the plan keys'
+    fields, the measuring device's name among them)."""
+    import hashlib
+
+    digest = hashlib.sha1(repr(tuple(layers)).encode()).hexdigest()[:16]
+    wf = planner.winograd_fused
+    parts = ["net", digest, f"h{h}w{w}", f"ci{in_channels}", f"b{batch}",
+             planner.hw.name, dtype, planner.impl, planner.mode,
+             "wf" + ("a" if wf is None else str(int(wf)))]
+    if planner.mode == "measure":
+        parts.append(f"dev={planner.device_name()}")
+    return "|".join(parts)
+
+
 def plan_network(
     layers: Sequence[Any],
     h: int,
@@ -282,16 +303,87 @@ def plan_network(
     dtype: str = "float32",
 ) -> NetworkPlan:
     """Resolve every conv's ConvPlan through ``planner`` under the
-    requested ``dtype`` (int8 resolves per layer), then the layouts."""
+    requested ``dtype`` (int8 resolves per layer), then the layouts.
+
+    Warm (the planner holds this network's entry, ``network_key``): the
+    NetworkPlan is rebuilt from the entry, with no per-layer lookup and
+    no tune, and ``planner.network_hits`` counts it.  An entry that does
+    not rebuild replans.  Cold: the plan is built and its entry stored.
+    """
     layers = tuple(layers)
+    key = network_key(layers, h, w, in_channels, batch, planner, dtype)
+    entry = planner.network_entry(key)
+    if entry is not None:
+        try:
+            netplan = _netplan_from_entry(layers, entry)
+        except (KeyError, ValueError, TypeError, IndexError, AssertionError):
+            pass                            # a corrupt entry replans
+        else:
+            planner.network_hits += 1
+            return netplan
     plans: List[Optional[ConvPlan]] = [
         (planner.plan(info["spec"], info["in"][0], info["in"][1], batch=batch,
                       dtype=dtype)
          if l.kind == "conv" else None)
         for l, info in zip(layers, _propagate_shapes(layers, h, w, in_channels))
     ]
-    return build_network_plan(layers, h, w, plans, in_channels=in_channels,
-                              batch=batch, impl=planner.impl, dtype=dtype)
+    netplan = build_network_plan(layers, h, w, plans, in_channels=in_channels,
+                                 batch=batch, impl=planner.impl, dtype=dtype)
+    planner.put_network_entry(key, _entry_from_netplan(netplan))
+    return netplan
+
+
+def _entry_from_netplan(netplan: NetworkPlan) -> Dict[str, Any]:
+    return {
+        "input_hw": list(netplan.input_hw),
+        "in_channels": netplan.in_channels,
+        "batch": netplan.batch,
+        "impl": netplan.impl,
+        "dtype": netplan.dtype,
+        "steps": [
+            {
+                "plan": s.plan.to_json() if s.plan is not None else None,
+                "in_hw": list(s.in_hw),
+                "out_hw": list(s.out_hw),
+                "in_layout": s.in_layout.to_json(),
+                "out_layout": s.out_layout.to_json(),
+            }
+            for s in netplan.steps
+        ],
+    }
+
+
+def _netplan_from_entry(layers: Tuple[Any, ...],
+                        entry: Dict[str, Any]) -> NetworkPlan:
+    """The NetworkPlan an entry records; raises where the entry does not
+    fit the layer table (a conv without a plan, a plan on another layer,
+    a shape the layer table does not give)."""
+    recs = entry["steps"]
+    if len(recs) != len(layers):
+        raise ValueError("network entry does not match the layer table")
+    infos = _propagate_shapes(layers, *entry["input_hw"], entry["in_channels"])
+    steps = []
+    for i, (l, r, info) in enumerate(zip(layers, recs, infos)):
+        plan = ConvPlan.from_json(r["plan"]) if r["plan"] is not None else None
+        if (plan is not None) != (l.kind == "conv"):
+            raise ValueError(f"network entry step {i}: plan {plan} for a "
+                             f"{l.kind!r} layer")
+        in_hw, out_hw = tuple(r["in_hw"]), tuple(r["out_hw"])
+        if in_hw != info["in"][:2] or out_hw != info["out"][:2]:
+            raise ValueError(f"network entry step {i}: shapes {in_hw} -> "
+                             f"{out_hw}, the layer table's {info['in']} -> "
+                             f"{info['out']}")
+        steps.append(NetStep(
+            index=i, layer=l, spec=info["spec"], plan=plan,
+            in_hw=in_hw, out_hw=out_hw,
+            in_layout=Layout.from_json(r["in_layout"]),
+            out_layout=Layout.from_json(r["out_layout"]),
+        ))
+    return NetworkPlan(steps=tuple(steps),
+                       input_hw=tuple(entry["input_hw"]),
+                       in_channels=int(entry["in_channels"]),
+                       batch=int(entry["batch"]), impl=str(entry["impl"]),
+                       dtype=str(entry["dtype"]))
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,8 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.smem_model import im2col_gemm_traffic_bytes
+
 QMAX = 127.0
 SCALE_FLOOR = 1e-12        # all-zero channels quantize to zeros, not NaNs
 INT8_TRAFFIC_THRESHOLD = 0.5
@@ -146,20 +148,6 @@ def calibrate_activation_scales(netplan, folded_params: Sequence[Dict],
 
 # ---------------------------------------------------------------------------
 # Planner policies
-
-
-def im2col_gemm_traffic_bytes(oh: int, ow: int, cin: int, cout: int,
-                              kh: int = 3, kw: int = 3, batch: int = 1,
-                              dtype_bytes: int = 4) -> int:
-    """Ideal-reuse device-memory bytes of one im2col+GEMM conv: the
-    logical patch matrix and the weights read at ``dtype_bytes``, the
-    output written in fp32 (the int8 kernels' dequant epilogue writes
-    fp32 too).  The reference's ``vmem_model.im2col_gemm_traffic_bytes``
-    at the output width both of its callers here use."""
-    rows = batch * oh * ow
-    taps = kh * kw
-    return (dtype_bytes * (rows * taps * cin + taps * cin * cout)
-            + 4 * rows * cout)
 
 
 def int8_traffic_ratio(spec, h: int, w: int, batch: int = 1) -> float:

@@ -158,3 +158,27 @@ def conv2d_winograd(
     y = output_transform(m, bsz, nth, ntw)
     # bias + activation are elementwise, so applying before the crop is exact
     return apply_epilogue(y, epilogue)[:, :oh, :ow, :]
+
+
+def winograd_flops(oh: int, ow: int, cin: int, cout: int) -> dict:
+    """FLOP counts of F(6,3) against a direct 3x3 conv, per image: the
+    paper's 2.4x source.
+
+    Per 6x6 output tile: direct 36*9*Cin*Cout MACs; the tuple multiply
+    64*Cin*Cout MACs (5.06x fewer), plus the transforms, counted as dense
+    8x8 products (B^T d B: two 8x8 @ 8x8 per tile and channel; A^T M A:
+    6x8 @ 8x8 + 6x8 @ 8x6 per tile and out channel).
+    """
+    nth, ntw = -(-oh // OUT_TILE), -(-ow // OUT_TILE)
+    tiles = nth * ntw
+    direct = 2 * oh * ow * 9 * cin * cout
+    tuple_mult = 2 * tiles * 64 * cin * cout
+    in_tf = tiles * cin * 2 * (8 * 8 * 8) * 2
+    out_tf = tiles * cout * 2 * (6 * 8 * 8 + 6 * 8 * 6)
+    return {
+        "direct_flops": direct,
+        "winograd_flops": tuple_mult + in_tf + out_tf,
+        "tuple_flops": tuple_mult,
+        "transform_flops": in_tf + out_tf,
+        "mult_reduction": direct / tuple_mult,
+    }

@@ -15,11 +15,18 @@ Each bound divides by the peak of the units the kernel's work needs:
   GEMM and the int8 conv run on (through mma.sync).
 - ``peak_flops_bf16``, dense bf16 on the tensor cores: the units the bf16
   flash-attention kernel runs on (through mma.sync).
+
+``peak_rate(unit)`` names those units for the cost model
+(core/smem_model.py): 'tf32x3' (fp32 products as three TF32 products,
+``peak_flops_tf32 / 3``), 'fp32' (the CUDA cores), 'int8' (s8 tensor
+cores).  The model's own constants -- the fixed cost of a launch in a
+replayed CUDA graph and each kernel's share of its roofline -- are
+measured on the card, not taken from a data sheet: each names its source.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +43,56 @@ class ChipSpec:
     # FLOP/s, dense bf16 tensor cores (NVIDIA H100 SXM data sheet, without
     # sparsity).
     peak_flops_bf16: float = 989e12
+    # Shared memory of one SM (228 KB), of which one block may take
+    # ``smem_per_block_bytes``: bounds the resident blocks of a tile.
+    smem_per_sm_bytes: int = 233_472
+    # The cost model's cost of one node of a replayed CUDA graph beyond its
+    # kernel's duration: nodes start 0.5 us apart in chip_smoke.py's
+    # profiles of replayed forwards (PERF.md section 6).
+    launch_s: float = 0.5e-6
+    # Each kernel's (fixed seconds a launch, share of its roofline):
+    # duration = fixed + max(compute, memory) / share, as
+    # scripts/cost_model_fit.py fits them to the card's per-call times
+    # ('glue': PyTorch's launches around a conv).
+    # The fit of 149 candidate calls of YOLOv3-tiny 416 b1/b4, MODEL_20 608
+    # b1 and VGG-16 224 b1 on "NVIDIA H100 80GB HBM3, 700.00 W" by
+    # scripts/cost_model_fit.py, whose records are
+    # scripts/cost_model_records_h100.json (PERF.md section 6).  A share
+    # above 1: the operands stayed in the 50 MB L2.
+    kernel_fit: Tuple[Tuple[str, float, float], ...] = (
+        ("gemm", 1.7e-6, 0.3657),
+        ("gemm_q8", 3.0e-6, 0.7479),
+        ("im2col_conv", 5.5e-6, 0.3911),
+        ("im2col_conv_q8", 3.7e-6, 0.1094),
+        ("winograd_fused", 0.7e-6, 0.3420),
+        ("input_transform", 2.7e-6, 1.5641),
+        ("tuple_multiply", 1.1e-6, 0.4891),
+        ("output_transform", 3.1e-6, 1.3375),
+        ("gemm_reduce", 1.8e-6, 1.2508),
+        ("gemm_q8_reduce", 2.0e-6, 1.8704),
+        ("im2col_conv_reduce", 1.6e-6, 0.8944),
+        ("im2col_conv_q8_reduce", 1.1e-6, 0.5593),
+        ("glue", 1.4e-6, 0.8746),
+    )
+
+    def peak_rate(self, unit: str) -> float:
+        """Peak operations a second of the units ``unit`` names."""
+        rates = {"tf32x3": self.peak_flops_tf32 / 3,
+                 "fp32": self.peak_flops_fp32,
+                 "int8": self.peak_ops_int8}
+        if unit not in rates:
+            raise ValueError(f"unknown units {unit!r}; one of {sorted(rates)}")
+        return rates[unit]
+
+    def kernel_cost(self, kernel: str) -> Tuple[float, float]:
+        """(fixed seconds a launch, share of its roofline) of ``kernel``;
+        raises for a kernel the model was never fit to (nothing is priced
+        by a guess)."""
+        for name, fixed_s, share in self.kernel_fit:
+            if name == kernel:
+                return fixed_s, share
+        raise KeyError(f"{self.name}: no fit for kernel {kernel!r} "
+                       f"(scripts/cost_model_fit.py)")
 
 
 H100 = ChipSpec()
@@ -55,6 +112,10 @@ def check_device(device=0, spec: ChipSpec = H100) -> Dict[str, object]:
         "smem_per_block_bytes": (
             getattr(p, "shared_memory_per_block_optin", None),
             spec.smem_per_block_bytes,
+        ),
+        "smem_per_sm_bytes": (
+            getattr(p, "shared_memory_per_multiprocessor", None),
+            spec.smem_per_sm_bytes,
         ),
         "l2_bytes": (getattr(p, "L2_cache_size", None), spec.l2_bytes),
         "hbm_bytes": (p.total_memory, spec.hbm_bytes),

@@ -60,6 +60,17 @@ def pick_blocks(oh: int, ow: int, dtype: str = "float32") -> Tuple[int, int, int
     return max(toh, 1), BC_Q8 if dtype == "int8" else BC, BO
 
 
+def snap_row_tile(toh: int, oh: int) -> int:
+    """The row tile a network plan runs (core/netplan.py): the largest
+    divisor of OH no bigger than ``toh``, where it keeps at least half the
+    tile (a prime OH must not explode the grid into one block per output
+    row); else ``toh`` as it is, whose ragged last tile the kernel masks."""
+    snapped = min(toh, oh)
+    while oh % snapped:
+        snapped -= 1
+    return toh if snapped < min(toh, oh) / 2 else snapped
+
+
 def tile_width(toh: int, ow: int) -> int:
     """Output columns per block for a row tile of ``toh`` rows."""
     return min(ow, PIXELS // toh)
