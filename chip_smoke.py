@@ -1057,7 +1057,8 @@ def plan_cache_check(model, params, x, name) -> None:
     """Measure mode's plans persisted: a cold compile into a fresh cache
     file, a warm one from it (0 tunes, 1 network hit), then ``save`` and
     ``repro_torch.load`` (0 tunes) replaying bit for bit what the warm
-    compilation replays."""
+    compilation replays, once beside the cache file and once with the
+    file gone (the artifact alone carries the plans)."""
     import tempfile
 
     import torch
@@ -1085,18 +1086,28 @@ def plan_cache_check(model, params, x, name) -> None:
         loaded = repro_torch.load(path, model, params)
         load_s = time.perf_counter() - t0
         y = loaded.run(x)
+        os.remove(opts.cache_path)
+        bare = repro_torch.load(path, model, params)
+        y_bare = bare.run(x)
         torch.cuda.synchronize()
-        l = loaded.plan_report()
+        l, b = loaded.plan_report(), bare.plan_report()
         if not (l["tunes"] == 0 and l["network_hits"] == 1
-                and torch.equal(y, y_warm) and torch.equal(y_cold, y_warm)):
+                and b["tunes"] == 0 and b["network_hits"] == 1
+                and torch.equal(y, y_warm) and torch.equal(y_bare, y_warm)
+                and torch.equal(y_cold, y_warm)):
             raise AssertionError(f"{name}: load tunes {l['tunes']} network_hits"
-                                 f" {l['network_hits']}, replay equal "
-                                 f"{torch.equal(y, y_warm)}")
+                                 f" {l['network_hits']}, without the cache "
+                                 f"tunes {b['tunes']} network_hits "
+                                 f"{b['network_hits']}, replays equal "
+                                 f"{torch.equal(y, y_warm)} "
+                                 f"{torch.equal(y_bare, y_warm)}")
     log(f"plan cache {name} mode=measure: cold compile_s={cold_s:.2f} "
         f"tunes={c['tunes']}; warm compile_s={warm_s:.2f} tunes={w['tunes']} "
         f"network_hits={w['network_hits']}; save -> load compile_s="
-        f"{load_s:.2f} tunes={l['tunes']} network_hits={l['network_hits']}, "
-        f"replay equal to the warm compilation's and the cold one's bit for bit")
+        f"{load_s:.2f} tunes={l['tunes']} network_hits={l['network_hits']}; "
+        f"load without the cache file tunes={b['tunes']} network_hits="
+        f"{b['network_hits']}; replays equal to the warm compilation's and "
+        f"the cold one's bit for bit")
 
 
 # ---------------------------------------------------------------------------

@@ -25,11 +25,21 @@ constants (``core/smem_model.py``) from them and prints each with the
 median and the worst predicted / measured ratio of its kernel; ``hw.py``
 holds the constants of such a run.  ``--records FILE`` refits saved
 records on any machine, without a card.
+
+Last, ``holdout`` refits with each cell's records left out in turn and
+holds the refit against the cell it did not see: per kernel, the median
+and the worst predicted / measured ratio on the held-out calls (beside
+the full fit's on the same calls), and per layer, the fp32 and the int8
+pick of ``mode="model"`` under the refit beside the full fit's and the
+measured fastest candidate, with the measured ms each set of picks adds
+up to.  A conv that two cells share belongs to the first
+(``distinct_convs``).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import sys
@@ -168,6 +178,78 @@ def measure():
     return records
 
 
+def _ratios(rows, hw, kernel):
+    fixed, share = hw.kernel_cost(kernel)
+    return [(n * fixed + r / share) / t for r, n, t, _ in rows]
+
+
+def _spread(ratios):
+    worst = max(ratios, key=lambda q: abs(math.log(q)))
+    return f"median {statistics.median(ratios):.3f} worst {worst:.3f}"
+
+
+def holdout(records, log=print):
+    """Leave each cell out of the fit in turn (module docstring); returns
+    {cell: {"kernels": {kernel: (median, worst) held-out ratio},
+    "picks": {dtype: {layer: (held-out fit's, full fit's, fastest)}},
+    "ms": {dtype: (measured ms of those three sets of picks)}}}."""
+    import dataclasses
+
+    from repro_torch.core.codesign import spec_of
+    from repro_torch.core.planner import Planner
+    from repro_torch.core.smem_model import fit, kernel_samples
+    from repro_torch.hw import H100
+
+    quiet = lambda _: None  # noqa: E731
+    out = {}
+    for cell in dict.fromkeys(r["cell"] for r in records):
+        seen = [r for r in records if r["cell"] == cell]
+        got = fit([r for r in records if r["cell"] != cell], log=quiet)
+        hw = dataclasses.replace(H100, kernel_fit=tuple(
+            (k, *got.get(k, (f, s))) for k, f, s in H100.kernel_fit))
+        kept = [k for k, _, _ in H100.kernel_fit if k not in got]
+        log(f"holdout {cell}: refit without its {len(seen)} calls"
+            + (f"; {', '.join(kept)} keep the full fit (no other cell "
+               f"launches them)" if kept else ""))
+        res = {"kernels": {}, "picks": {}, "ms": {}}
+        for k, rows in kernel_samples(seen, log=quiet).items():
+            if not rows or k in kept:
+                continue
+            held = _ratios(rows, hw, k)
+            res["kernels"][k] = (statistics.median(held),
+                                 max(held, key=lambda q: abs(math.log(q))))
+            log(f"holdout {cell}: {k} over {len(rows)} calls: predicted / "
+                f"measured {_spread(held)} (full fit "
+                f"{_spread(_ratios(rows, H100, k))})")
+        layers = {}
+        for r in seen:
+            layers.setdefault(r["layer"], {})[r["candidate"]] = r
+        planners = [Planner(impl="torch", device="cpu", mode="model", hw=chip)
+                    for chip in (hw, H100)]
+        for dtype in ("float32", "int8"):
+            picks, totals = {}, [0.0, 0.0, 0.0]
+            for i, cands in sorted(layers.items()):
+                r = next(iter(cands.values()))
+                ms = {c: rec["ms"] for c, rec in cands.items()
+                      if dtype == "int8" or not c.endswith("_int8")}
+                picks[i] = tuple(
+                    p.plan(spec_of(r), r["h"], r["w"], r["batch"],
+                           dtype).label for p in planners
+                ) + (min(ms, key=ms.get),)
+                for j, pick in enumerate(picks[i]):
+                    totals[j] += ms[pick]
+            res["picks"][dtype], res["ms"][dtype] = picks, tuple(totals)
+            changed = [f"L{i} {a} -> {b}" for i, (a, b, _) in picks.items()
+                       if a != b]
+            log(f"holdout {cell}: {dtype}: {len(changed)} of {len(picks)} "
+                f"picks change" + (f" ({'; '.join(changed)})" if changed
+                                   else "")
+                + f"; measured ms of the picks: held-out fit {totals[0]:.4f},"
+                f" full fit {totals[1]:.4f}, fastest {totals[2]:.4f}")
+        out[cell] = res
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
@@ -200,6 +282,7 @@ def main() -> int:
     from repro_torch.core.smem_model import fit
 
     fit(records, log=print)
+    holdout(records, log=print)
     return 0
 
 

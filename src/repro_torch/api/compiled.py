@@ -6,10 +6,10 @@ prepare (batchnorm fold, channel padding, offline Winograd weight
 transform; under int8, calibration and weight quantization) -> run.  An LM
 ``ModelConfig`` compiles to a ``CompiledLM``: the full-sequence forward
 (prefill) for ``run``, the continuous-batching engine for ``serve``.
-``save`` writes a small JSON artifact (the model's identity and the
-option surface) beside the plan cache, which holds the tuning; ``load``
-rebuilds the compiled model from both and re-tunes nothing.  CNN serving
-comes in a later slice.
+``save`` writes a small JSON artifact: the model's identity, the option
+surface and, of a CNN, the whole-network plans of its planned batch
+sizes; ``load`` rebuilds the compiled model from it and re-tunes nothing,
+with or without a plan cache.  CNN serving comes in a later slice.
 """
 from __future__ import annotations
 
@@ -27,13 +27,19 @@ SAVE_FORMAT = "repro_torch.api/1"
 
 
 def _save_payload(kind: str, model_desc: Dict[str, Any],
-                  options: ExecutionOptions, path: Optional[str]) -> str:
-    """Write a ``save`` artifact; None puts it beside the plan cache (or in
-    the working directory) as ``<name>.compiled.json``."""
+                  options: ExecutionOptions, path: Optional[str],
+                  networks: Optional[Dict[str, Any]] = None) -> str:
+    """Write a ``save`` artifact; a ``path`` of None puts it beside the plan
+    cache as ``<name>.compiled.json``, and raises without a cache."""
     payload = {"format": SAVE_FORMAT, "kind": kind, "model": model_desc,
                "options": options.to_json()}
+    if networks is not None:
+        payload["networks"] = networks
     if path is None:
-        base = os.path.dirname(options.cache_path or "") or "."
+        if not options.cache_path:
+            raise ValueError("save() needs a path when options.cache_path "
+                             "is None")
+        base = os.path.dirname(options.cache_path) or "."
         path = os.path.join(base, f"{model_desc.get('name', 'model')}"
                                   f".compiled.json")
     d = os.path.dirname(path)
@@ -47,11 +53,13 @@ def _save_payload(kind: str, model_desc: Dict[str, Any],
 class CompiledCNN:
     """A CNN compiled end to end: a NetworkPlan and a NetworkExecutor per
     batch size.  ``options.batch`` is planned and prepared eagerly; other
-    batch sizes on first use."""
+    batch sizes on first use.  ``networks`` (a ``save`` artifact's
+    whole-network entries) go into the planner before anything is
+    planned, where it holds no entry of its own under their keys."""
 
     def __init__(self, model: CNNModel, params: Sequence[Dict],
                  options: ExecutionOptions, calibration: Optional[Any] = None,
-                 planner=None):
+                 planner=None, networks: Optional[Dict[str, Any]] = None):
         from repro_torch.models.cnn import params_from_numpy
 
         self.model = model
@@ -66,6 +74,9 @@ class CompiledCNN:
         # rewrites its cache file.
         self._own_planner = planner is None
         self.planner = planner if planner is not None else options.make_planner()
+        for key, entry in (networks or {}).items():
+            if self.planner.network_entry(key) is None:
+                self.planner.put_network_entry(key, entry)
         self._netplans: Dict[int, Any] = {}
         self._executors: Dict[int, Any] = {}
         # One memory pool for the executors' CUDA graphs, as for
@@ -74,26 +85,32 @@ class CompiledCNN:
                       if self.device.type == "cuda" else None)
         self.executor(options.batch)
 
-    def save_plans(self, force: bool = False) -> None:
-        """Write the planner's cache file when this model owns the planner
-        and new plans or network entries came since the last save."""
-        if not self._own_planner or not self.planner.cache_path:
-            return
-        if force or self.planner._dirty:
+    def save_plans(self) -> None:
+        """Write the planner's cache file (``Planner.save``: only what came
+        since the last save) when this model owns the planner."""
+        if self._own_planner:
             self.planner.save()
 
     def save(self, path: Optional[str] = None) -> str:
-        """Persist this compilation: the plan cache (the tuning) and a
-        small JSON artifact (the model's identity and the option
-        surface), whose path is returned.  ``load`` rebuilds it and
-        re-tunes nothing."""
+        """Persist this compilation: the plan cache, where there is one,
+        and a JSON artifact of the model's identity, the option surface
+        and the whole-network entry of each planned batch size, whose
+        path is returned.  ``load`` rebuilds it and re-tunes nothing."""
+        from repro_torch.core.netplan import network_key
+
         self.save_plans()
+        networks = {}
+        for b in self._netplans:
+            key = network_key(self.model.layers, *self.model.input_hw,
+                              self.model.in_channels, b, self.planner,
+                              self.options.dtype)
+            networks[key] = self.planner.network_entry(key)
         return _save_payload("cnn", {
             "name": self.model.name,
             "digest": self.model.digest,
             "input_hw": list(self.model.input_hw),
             "in_channels": self.model.in_channels,
-        }, self.options, path)
+        }, self.options, path, networks)
 
     def network_plan(self, batch: Optional[int] = None):
         """The (cached) whole-network plan for one batch size."""
@@ -307,11 +324,12 @@ def compile(  # noqa: A001 - deliberate: mirrors repro.compile
 
 def load(path: str, model: Any, params: Any, planner=None,
          calibration: Optional[Any] = None):
-    """Rebuild a compiled model from a ``save`` artifact and its plan
-    cache (``options.cache_path``): a CNN re-tunes nothing when the cache
-    holds its plans.  Raises ``ValueError`` when ``model`` is not the one
-    saved (the layer table's digest and the input geometry of a CNN, the
-    config's name of an LM)."""
+    """Rebuild a compiled model from a ``save`` artifact: a CNN's saved
+    whole-network plans go into its planner (``planner``, or one of the
+    saved options), so it re-tunes nothing, with or without a plan cache.
+    Raises ``ValueError`` when ``model`` is not the one saved (the layer
+    table's digest and the input geometry of a CNN, the config's name of
+    an LM)."""
     with open(path) as f:
         data = json.load(f)
     if data.get("format") != SAVE_FORMAT:
@@ -337,7 +355,8 @@ def load(path: str, model: Any, params: Any, planner=None,
             raise ValueError(f"{path}: saved LM config {saved.get('name')!r}"
                              f" does not match the given "
                              f"{getattr(model, 'name', None)!r}")
+        return CompiledLM(model, params, opts)
     else:
         raise ValueError(f"{path}: unknown kind {data.get('kind')!r}")
-    return compile(model, params, opts, calibration=calibration,
-                   planner=planner)
+    return CompiledCNN(model, params, opts, calibration=calibration,
+                       planner=planner, networks=data.get("networks"))

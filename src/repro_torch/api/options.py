@@ -104,11 +104,9 @@ class ExecutionOptions:
         return cls(**{k: v for k, v in d.items() if k in known})
 
     def make_planner(self):
-        """A Planner with this option set's policy fields and cache file;
-        ``autosave=False``: the facade saves once per planning burst."""
+        """A Planner with this option set's policy fields and cache file."""
         from repro_torch.core.planner import Planner
 
         return Planner(impl=self.impl, mode=self.mode,
                        winograd_fused=self.winograd_fused,
-                       device=self.device, cache_path=self.cache_path,
-                       autosave=False)
+                       device=self.device, cache_path=self.cache_path)

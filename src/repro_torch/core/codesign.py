@@ -19,7 +19,7 @@ the card), on the card's analogues of its knobs:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.conv_spec import (
     ConvAlgorithm,
@@ -119,26 +119,41 @@ def predict_conv_time(spec: ConvSpec, h: int, w: int, algorithm,
                          winograd_fused).total_s
 
 
+def cheapest_conv(spec: ConvSpec, h: int, w: int, hw: ChipSpec = H100,
+                  dtype_bytes: int = 4, batch: int = 1,
+                  winograd_fused: Optional[bool] = None
+                  ) -> Tuple[float, ConvAlgorithm, bool]:
+    """The model's cheapest way to run one conv: (seconds, algorithm,
+    Winograd realization; False off Winograd).  The candidates are the
+    spec's forced algorithm, or the paper's rule's and, where the rule
+    says Winograd, im2col too; a Winograd candidate in each realization
+    ``winograd_fused`` allows (None: both).  The first cheapest wins a
+    tie.  The planner's ``mode="model"`` decides an fp32 layer by this."""
+    algos = [select_algorithm(spec)]
+    if (spec.algorithm is ConvAlgorithm.AUTO
+            and algos[0] is ConvAlgorithm.WINOGRAD):
+        algos.append(ConvAlgorithm.IM2COL_GEMM)
+    realizations = ((True, False) if winograd_fused is None
+                    else (winograd_fused,))
+    priced = [(predict_conv_time(spec, h, w, algo, hw, dtype_bytes, batch, wf),
+               algo, wf)
+              for algo in algos
+              for wf in (realizations if algo is ConvAlgorithm.WINOGRAD
+                         else (False,))]
+    return min(priced, key=lambda c: c[0])
+
+
 def select_algorithm_by_cost(spec: ConvSpec, h: int, w: int,
                              hw: ChipSpec = H100, dtype_bytes: int = 4,
                              winograd_fused: Optional[bool] = True,
-                             batch: int = 1):
-    """The model's per-layer algorithm (beyond the paper): where the
-    paper's rule says Winograd, the faster of im2col and the Winograd
-    realization the planner would run (``winograd_fused``; None: the
-    faster of the two); elsewhere the paper's rule."""
-    base = select_algorithm(dataclasses.replace(spec,
-                                                algorithm=ConvAlgorithm.AUTO))
-    if base is not ConvAlgorithm.WINOGRAD:
-        return base
-    realizations = (True, False) if winograd_fused is None else (winograd_fused,)
-    t_wino = min(predict_conv_time(spec, h, w, ConvAlgorithm.WINOGRAD, hw,
-                                   dtype_bytes, batch, wf)
-                 for wf in realizations)
-    t_im2col = predict_conv_time(spec, h, w, ConvAlgorithm.IM2COL_GEMM, hw,
-                                 dtype_bytes, batch)
-    return (ConvAlgorithm.WINOGRAD if t_wino < t_im2col
-            else ConvAlgorithm.IM2COL_GEMM)
+                             batch: int = 1) -> ConvAlgorithm:
+    """The model's per-layer algorithm (beyond the paper), as
+    ``cheapest_conv`` picks it: where the paper's rule says Winograd, the
+    faster of im2col and the Winograd realization the planner would run
+    (``winograd_fused``; None: the faster of the two); elsewhere the
+    paper's rule."""
+    return cheapest_conv(spec, h, w, hw, dtype_bytes, batch,
+                         winograd_fused)[1]
 
 
 def layer_roofline(spec: ConvSpec, h: int, w: int, hw: ChipSpec = H100,

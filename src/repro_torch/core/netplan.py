@@ -280,7 +280,8 @@ def network_key(layers: Sequence[Any], h: int, w: int, in_channels: int,
     """The cache key of a whole-network entry: a digest of the layer table
     (as ``CNNModel.digest``), the input, the batch, the requested dtype and
     every planner setting that changes a layer's decision (the plan keys'
-    fields, the measuring device's name among them)."""
+    fields, the measuring device's name and the model's fit digest among
+    them)."""
     import hashlib
 
     digest = hashlib.sha1(repr(tuple(layers)).encode()).hexdigest()[:16]
@@ -290,6 +291,8 @@ def network_key(layers: Sequence[Any], h: int, w: int, in_channels: int,
              "wf" + ("a" if wf is None else str(int(wf)))]
     if planner.mode == "measure":
         parts.append(f"dev={planner.device_name()}")
+    if planner.mode == "model":
+        parts.append(f"fit={planner.hw.fit_digest}")
     return "|".join(parts)
 
 

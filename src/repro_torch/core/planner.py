@@ -26,13 +26,14 @@ TPU model never picks the 3-pass pipeline.
 
 **Model mode** (``mode='model'``, the port of the reference's cost mode,
 ``_tune_cost_model``): the co-design cost model of this card
-(core/codesign.py on core/smem_model.py, with ``hw``'s constants) prices
-every launch each candidate makes -- the kernel, its split-K reduce, the
-3-pass pipeline's three kernels, the copies around a Winograd conv -- and
-the cheapest is kept with ``source='cost_model'`` and its modeled seconds
-in ``predicted_s``.  A 3x3 stride-1 layer's candidates are im2col and the
-Winograd realizations the policy allows (both under None), whatever the
-``impl``: the plan is the card's.  A layer the model cannot price raises.
+(``codesign.cheapest_conv`` on core/smem_model.py, with ``hw``'s
+constants) prices every launch each candidate makes -- the kernel, its
+split-K reduce, the 3-pass pipeline's three kernels, the copies around a
+Winograd conv -- and the cheapest is kept with ``source='cost_model'``
+and its modeled seconds in ``predicted_s``.  A 3x3 stride-1 layer's
+candidates are im2col and the Winograd realizations the policy allows
+(both under None), whatever the ``impl``: the plan is the card's.  A
+layer the model cannot price raises.
 
 **Measure mode** (the paper's §VII.A method, the port of
 ``_tune_measured``): every eligible algorithm runs on seeded inputs, and
@@ -69,8 +70,9 @@ memory only).  The cache is one versioned JSON file: "plans" (per layer),
 (read and written back untouched).  ``save`` merges with the file on disk
 under a lock and replaces it atomically, so planners that save different
 keys converge to the union; a corrupt file is moved aside and what still
-parses is salvaged.  ``DEFAULT_CACHE_PATH`` is there for callers who want
-a file.
+parses is salvaged.  A modeled plan's key holds the digest of the
+model's fitted constants, so a refit replans.  ``DEFAULT_CACHE_PATH`` is
+there for callers who want a file.
 
 Kernel blocks come from each CUDA kernel's own ``pick_blocks``.
 """
@@ -88,7 +90,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec, select_algorithm
+from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec
 from repro_torch.hw import H100, ChipSpec
 
 WINOGRAD_MIN_TILES = 64
@@ -308,12 +310,14 @@ class ConvPlan:
 def plan_key(spec: ConvSpec, h: int, w: int, batch: int, impl: str,
              mode: str, winograd_fused: Optional[bool],
              dtype: str = "float32", chip: str = H100.name,
-             device_name: Optional[str] = None) -> str:
+             device_name: Optional[str] = None,
+             fit: Optional[str] = None) -> str:
     """The plan cache key: layer and shape, and every planner setting that
     changes the decision (the Winograd policy, the mode, the requested
     dtype and the chip model the plan is for among them); a measured
     plan's key also names the device it was timed on, so a time taken on
-    one card is never reused on another."""
+    one card is never reused on another, and a modeled plan's the digest
+    of the constants that priced it (``ChipSpec.fit_digest``)."""
     parts = [
         chip, dtype, impl, mode,
         f"wf{'a' if winograd_fused is None else int(winograd_fused)}",
@@ -327,6 +331,8 @@ def plan_key(spec: ConvSpec, h: int, w: int, batch: int, impl: str,
     ]
     if device_name is not None:
         parts.append(f"dev={device_name}")
+    if fit is not None:
+        parts.append(f"fit={fit}")
     return "|".join(parts)
 
 
@@ -378,8 +384,9 @@ class Planner:
     faster in measure mode under ``impl='cuda'``), True/False force one.
 
     Lookup order: in memory, then the cache file at ``cache_path`` (read
-    once, when the planner is made), then decide.  Each decision is
-    written back at once (``autosave``) or at the next ``save()``.
+    once, when the planner is made), then decide.  New decisions and
+    network entries reach the file at the next ``save()``: one locked
+    read-merge-write per planning burst, not one per miss.
     ``stats`` counts ``hits`` and ``tunes`` (misses that decided);
     ``network_hits`` counts whole-network entries reused (core/netplan.py).
     """
@@ -387,7 +394,7 @@ class Planner:
     def __init__(self, impl: str = "cuda", mode: str = "cost",
                  winograd_fused: Optional[bool] = None,
                  device: Any = "cuda", hw: ChipSpec = H100,
-                 cache_path: Optional[str] = None, autosave: bool = True):
+                 cache_path: Optional[str] = None):
         if impl not in ("cuda", "torch"):
             raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
         if mode not in MODES:
@@ -401,10 +408,7 @@ class Planner:
         self.device = torch.device(device)
         self.hw = hw
         self.cache_path = cache_path
-        # autosave=False defers persistence to an explicit save(): one
-        # locked read-merge-write per planning burst, not per miss.
-        self.autosave = autosave
-        self._dirty = False
+        self._dirty = False         # entries the file does not hold yet
         self._plans: Dict[str, ConvPlan] = {}
         self._sections: Dict[str, Dict[str, Any]] = {"networks": {},
                                                      "pipelines": {}}
@@ -430,10 +434,11 @@ class Planner:
                 entries.update(data[name])
 
     def save(self) -> None:
-        """Write the cache file: merged with what is on disk (this planner's
-        entries win on a shared key), under a lock on a sidecar file, then
-        put in place by an atomic rename."""
-        if not self.cache_path:
+        """Write the cache file when entries came since the last save:
+        merged with what is on disk (this planner's entries win on a
+        shared key), under a lock on a sidecar file, then put in place by
+        an atomic rename."""
+        if not self.cache_path or not self._dirty:
             return
         d = os.path.dirname(self.cache_path) or "."
         os.makedirs(d, exist_ok=True)
@@ -466,12 +471,6 @@ class Planner:
                 raise
         self._dirty = False
 
-    def _stored(self) -> None:
-        if self.autosave:
-            self.save()
-        else:
-            self._dirty = True
-
     def __len__(self) -> int:
         return len(self._plans)
 
@@ -486,7 +485,7 @@ class Planner:
     def put_network_entry(self, key: str, entry: Dict[str, Any]) -> None:
         """Store a whole-network record (plain JSON data)."""
         self._sections["networks"][key] = entry
-        self._stored()
+        self._dirty = True
 
     def device_name(self) -> str:
         """The name the device reports, which keys measured plans."""
@@ -500,7 +499,8 @@ class Planner:
             dtype: str) -> str:
         return plan_key(spec, h, w, batch, self.impl, self.mode,
                         self.winograd_fused, dtype, self.hw.name,
-                        self.device_name() if self.mode == "measure" else None)
+                        self.device_name() if self.mode == "measure" else None,
+                        self.hw.fit_digest if self.mode == "model" else None)
 
     def plan(self, spec: ConvSpec, h: int, w: int, batch: int = 1,
              dtype: str = "float32") -> ConvPlan:
@@ -526,7 +526,7 @@ class Planner:
         else:
             plan = self._tune_cost(spec, h, w, batch)
         self._plans[key] = plan
-        self._stored()
+        self._dirty = True
         return plan
 
     def _candidate(self, spec: ConvSpec, algo: ConvAlgorithm, wf: bool,
@@ -548,24 +548,12 @@ class Planner:
 
     def _tune_cost_model(self, spec: ConvSpec, h: int, w: int,
                          batch: int) -> ConvPlan:
-        """The cheapest candidate under the card's cost model: for a layer
-        the paper's rule sends to Winograd (or a spec that forces it),
-        im2col (unless forced) and each realization the policy allows;
-        otherwise the rule's (or the forced) algorithm, priced."""
-        from repro_torch.core.codesign import predict_conv_time
+        """The cheapest candidate under the card's cost model
+        (``codesign.cheapest_conv``)."""
+        from repro_torch.core.codesign import cheapest_conv
 
-        algos = eligible_algorithms(spec)
-        if ConvAlgorithm.WINOGRAD not in algos:
-            algos = [select_algorithm(spec)]
-        realizations = ((True, False) if self.winograd_fused is None
-                        else (self.winograd_fused,))
-        priced = []
-        for algo in algos:
-            for wf in (realizations if algo is ConvAlgorithm.WINOGRAD
-                       else (False,)):
-                priced.append((predict_conv_time(spec, h, w, algo, self.hw,
-                                                 4, batch, wf), algo, wf))
-        t, algo, wf = min(priced, key=lambda c: c[0])
+        t, algo, wf = cheapest_conv(spec, h, w, self.hw, 4, batch,
+                                    self.winograd_fused)
         return self._candidate(spec, algo, wf, h, w, batch, "cost_model",
                                predicted_s=t)
 

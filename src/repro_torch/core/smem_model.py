@@ -404,21 +404,16 @@ def raw_parts(parts: Iterable[KernelCost]) -> Dict[str, Tuple[float, int]]:
     return out
 
 
-def fit(records: Sequence[Dict], log: Callable[[str], None] = print,
-        hw: ChipSpec = H100) -> Dict[str, Tuple[float, float]]:
-    """Each kernel's fixed seconds a launch and share of its roofline that
-    best fit ``records`` (``scripts/cost_model_fit.py``: one per
-    candidate, each kernel's profiled microseconds and launches a call):
-    the pair that minimizes the squared log of predicted over measured
-    duration.  Prints each pair with the median and the worst predicted /
-    measured ratio of its kernel, and returns {kernel: (fixed s, share)}.
-
-    A kernel's measured time is its mean duration a launch times the
+def kernel_samples(records: Sequence[Dict],
+                   log: Callable[[str], None] = print,
+                   hw: ChipSpec = H100
+                   ) -> Dict[str, List[Tuple[float, int, float, str]]]:
+    """{kernel: [(sum of max(compute, memory), launches, measured seconds,
+    the record's name)]} of ``records``, as ``fit`` weighs them: a
+    kernel's measured time is its mean duration a launch times the
     launches the model counts (the profiler may lose records; a record
-    whose profile lost a kernel altogether is left out).  A record is
-    priced as measure mode's call runs it (``measured_call``)."""
-    import numpy as np
-
+    whose profile lost a kernel altogether is left out, and logged).  A
+    record is priced as measure mode's call runs it (``measured_call``)."""
     from repro_torch.core.codesign import candidate_estimate, spec_of
 
     probe = dataclasses.replace(
@@ -444,6 +439,22 @@ def fit(records: Sequence[Dict], log: Callable[[str], None] = print,
             samples[k].append((r, n, us / launches * n * 1e-6,
                                f"{rec['cell']} L{rec['layer']} "
                                f"{rec['candidate']}"))
+    return samples
+
+
+def fit(records: Sequence[Dict], log: Callable[[str], None] = print,
+        hw: ChipSpec = H100) -> Dict[str, Tuple[float, float]]:
+    """Each kernel's fixed seconds a launch and share of its roofline that
+    best fit ``records`` (``scripts/cost_model_fit.py``: one per
+    candidate, each kernel's profiled microseconds and launches a call):
+    the pair that minimizes the squared log of predicted over measured
+    duration.  Prints each pair with the median and the worst predicted /
+    measured ratio of its kernel, and returns {kernel: (fixed s, share)}
+    for each kernel ``records`` launch (``kernel_samples`` says how a
+    record is weighed)."""
+    import numpy as np
+
+    samples = kernel_samples(records, log, hw)
     shares = np.exp(np.linspace(np.log(0.005), np.log(4.0), 300))
     fixed = np.arange(0.0, 20.01e-6, 0.1e-6)
     out = {}

@@ -94,6 +94,16 @@ class ChipSpec:
         raise KeyError(f"{self.name}: no fit for kernel {kernel!r} "
                        f"(scripts/cost_model_fit.py)")
 
+    @property
+    def fit_digest(self) -> str:
+        """A short digest of the cost model's measured constants
+        (``launch_s``, ``kernel_fit``): it keys the cache's model-mode
+        entries, so a refit never reuses a plan priced by the old ones."""
+        import hashlib
+
+        return hashlib.sha1(
+            repr((self.launch_s, self.kernel_fit)).encode()).hexdigest()[:8]
+
 
 H100 = ChipSpec()
 

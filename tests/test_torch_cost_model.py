@@ -202,6 +202,18 @@ def test_cost_selector_refines_paper_rule():
     assert select_algorithm_by_cost(down, 64, 64) is ConvAlgorithm.IM2COL_GEMM
 
 
+@pytest.mark.parametrize("cell", list(CELLS))
+def test_planner_decides_as_the_cost_selector(cell):
+    """Model mode's fp32 algorithm is the cost selector's: one selection
+    (``codesign.cheapest_conv``) serves both."""
+    planner = Planner(impl="torch", device="cpu", mode="model")
+    for cid, spec, h, w, batch in CONVS:
+        if cid.startswith(cell + " L"):
+            assert planner.plan(spec, h, w, batch).algorithm is \
+                select_algorithm_by_cost(spec, h, w, winograd_fused=None,
+                                         batch=batch)
+
+
 # ---------------------------------------------------------------------------
 # 3. The model prices what runs, and raises where it cannot price
 
@@ -382,6 +394,32 @@ NARROW = {
                  _conv(10, 1), _conv(20),
                  dict(kind="shortcut", from_layers=(5,))],
 }
+
+
+def test_holdout_refit_covers_every_cell():
+    """scripts/cost_model_fit.py's leave-one-cell-out refit on the
+    committed records: each cell is held out once, and the full fit's
+    picks it reports are model mode's pinned plans."""
+    import importlib.util
+    import json
+    import os
+
+    scripts = os.path.join(os.path.dirname(__file__), "..", "scripts")
+    spec = importlib.util.spec_from_file_location(
+        "cost_model_fit", os.path.join(scripts, "cost_model_fit.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    with open(os.path.join(scripts, "cost_model_records_h100.json")) as f:
+        records = json.load(f)["records"]
+    out = script.holdout(records, log=lambda _: None)
+    assert list(out) == list(CELLS)
+    for cell, res in out.items():
+        assert res["kernels"]
+        for dtype in ("float32", "int8"):
+            assert res["picks"][dtype]
+            for i, (_, full, _) in res["picks"][dtype].items():
+                assert full == MODEL_PLANS[cell, dtype][i]
+            assert res["ms"][dtype][2] <= min(res["ms"][dtype][:2])
 
 
 @pytest.mark.parametrize("name,hw,batch", [("tiny", (256, 256), 1),

@@ -3,6 +3,7 @@
 tests/test_api.py and tests/test_netplan.py).  Every file lies under
 ``tmp_path``: no test reads a cache another run wrote.
 """
+import dataclasses
 import json
 import os
 import warnings
@@ -24,6 +25,7 @@ from repro_torch.core.planner import (
     plan_key,
     salvage_cache_text,
 )
+from repro_torch.hw import H100
 from repro_torch.models.cnn import init_cnn, random_batchnorm
 
 LAYER_CASES = [
@@ -51,6 +53,7 @@ def test_plan_cache_round_trip(tmp_path, mode):
     p1 = _planner(tmp_path, mode)
     plans = [p1.plan(s, h, w, batch=2) for s, h, w in LAYER_CASES]
     assert p1.stats == {"hits": 0, "tunes": len(LAYER_CASES)}
+    p1.save()
     p2 = _planner(tmp_path, mode)
     assert [p2.plan(s, h, w, batch=2) for s, h, w in LAYER_CASES] == plans
     assert p2.stats == {"hits": len(LAYER_CASES), "tunes": 0}
@@ -77,6 +80,17 @@ def test_cache_key_distinguishes_what_decides_a_plan():
                   plan_key(spec, 20, 20, 1, "cuda", "model", None,
                            chip="other_card")):
         assert other != base
+    # A modeled plan names the constants that priced it: a refit replans.
+    refit = dataclasses.replace(H100, launch_s=2 * H100.launch_s)
+    assert refit.fit_digest != H100.fit_digest
+    model = Planner(impl="torch", device="cpu", mode="model")
+    assert model.key(spec, 20, 20, 1, "float32").endswith(
+        f"|fit={H100.fit_digest}")
+    assert Planner(impl="torch", device="cpu", mode="model",
+                   hw=refit).key(spec, 20, 20, 1, "float32") != model.key(
+        spec, 20, 20, 1, "float32")
+    assert "fit=" not in Planner(impl="torch", device="cpu",
+                                 mode="cost").key(spec, 20, 20, 1, "float32")
     # A measured plan names the device it was timed on.
     measured = Planner(impl="torch", device="cpu", mode="measure")
     assert measured.key(spec, 20, 20, 1, "float32").endswith("|dev=cpu")
@@ -95,6 +109,7 @@ def test_version_mismatch_is_a_cold_start(tmp_path):
     p1 = _planner(tmp_path)
     spec, h, w = LAYER_CASES[0]
     p1.plan(spec, h, w)
+    p1.save()
     data = json.load(open(p1.cache_path))
     data["version"] = PLAN_CACHE_VERSION + 1
     json.dump(data, open(p1.cache_path, "w"))
@@ -102,6 +117,7 @@ def test_version_mismatch_is_a_cold_start(tmp_path):
     assert len(p2) == 0
     p2.plan(spec, h, w)
     assert p2.stats["tunes"] == 1
+    p2.save()
     assert json.load(open(p1.cache_path))["version"] == PLAN_CACHE_VERSION
 
 
@@ -109,6 +125,7 @@ def test_corrupt_cache_is_quarantined_and_salvaged(tmp_path):
     p1 = _planner(tmp_path)
     for s, h, w in LAYER_CASES:
         p1.plan(s, h, w)
+    p1.save()
     text = open(p1.cache_path).read()
     cut = text.index("ci64co128")              # inside the last plan's key
     with open(p1.cache_path, "w") as f:
@@ -124,6 +141,7 @@ def test_corrupt_cache_is_quarantined_and_salvaged(tmp_path):
     for s, h, w in LAYER_CASES:
         p2.plan(s, h, w)
     assert p2.stats == {"hits": len(LAYER_CASES) - 1, "tunes": 1}
+    p2.save()
     json.load(open(p1.cache_path))                  # rewritten whole
 
 
@@ -134,6 +152,7 @@ def test_salvage_matches_the_reference(tmp_path, cut):
     p = _planner(tmp_path)
     netplan = plan_network(yolov3.TINY_MODEL.layers, 64, 64, p)
     assert netplan.steps
+    p.save()
     text = open(p.cache_path).read()
     truncated = text[:int(len(text) * cut)]
     ours, ref = salvage_cache_text(truncated), j_salvage_cache_text(truncated)
@@ -145,31 +164,41 @@ def test_concurrent_planners_converge_to_the_union(tmp_path):
     a, b = _planner(tmp_path), _planner(tmp_path)
     (s0, h0, w0), (s1, h1, w1) = LAYER_CASES[:2]
     a.plan(s0, h0, w0)
-    b.plan(s1, h1, w1)                 # b read the file before a wrote it
+    b.plan(s1, h1, w1)
+    a.save()
+    b.save()                           # b read the file before a wrote it
     c = _planner(tmp_path)
     c.plan(s0, h0, w0)
     c.plan(s1, h1, w1)
     assert c.stats == {"hits": 2, "tunes": 0}
 
 
-def test_autosave_off_defers_to_save(tmp_path):
-    p = _planner(tmp_path, autosave=False)
+def test_plans_reach_the_file_at_save(tmp_path):
+    """A miss writes nothing; ``save`` writes what came since the last
+    save, and a save with nothing new leaves the file as it is."""
+    p = _planner(tmp_path)
     spec, h, w = LAYER_CASES[0]
     p.plan(spec, h, w)
-    assert not os.path.exists(p.cache_path) and p._dirty
+    assert not os.path.exists(p.cache_path)
     p.save()
     assert _planner(tmp_path).plan(spec, h, w) == p.plan(spec, h, w)
+    os.remove(p.cache_path)
+    p.plan(spec, h, w)                 # a hit: nothing new
+    p.save()
+    assert not os.path.exists(p.cache_path)
 
 
 def test_pipelines_section_is_kept(tmp_path):
     """Pipeline entries are not planned yet: read and written back."""
     p = _planner(tmp_path)
     p.plan(*LAYER_CASES[0])
+    p.save()
     data = json.load(open(p.cache_path))
     data["pipelines"] = {"pipe|x": {"stage_bounds": [[0, 3]]}}
     json.dump(data, open(p.cache_path, "w"))
     q = _planner(tmp_path)
     q.plan(*LAYER_CASES[1])
+    q.save()
     assert json.load(open(p.cache_path))["pipelines"] == data["pipelines"]
 
 
@@ -184,6 +213,7 @@ def test_warm_plan_network_tunes_nothing(tmp_path, mode, dtype):
     p1 = _planner(tmp_path, mode)
     cold = plan_network(layers, *hw, p1, batch=2, dtype=dtype)
     assert p1.stats["tunes"] > 0 and p1.network_hits == 0
+    p1.save()
     p2 = _planner(tmp_path, mode)
     warm = plan_network(layers, *hw, p2, batch=2, dtype=dtype)
     assert warm == cold
@@ -197,6 +227,7 @@ def test_corrupt_network_entry_replans(tmp_path):
     layers = yolov3.TINY_MODEL.layers
     p1 = _planner(tmp_path)
     cold = plan_network(layers, 64, 64, p1)
+    p1.save()
     key = network_key(layers, 64, 64, 3, 1, p1)
     data = json.load(open(p1.cache_path))
     data["networks"][key]["steps"][0]["plan"] = None     # a conv without a plan
@@ -254,6 +285,32 @@ def test_warm_compile_and_save_load(tmp_path, mode, dtype):
     assert torch.equal(loaded.run(x), y)
 
 
+@pytest.mark.parametrize("mode", ["model", "measure"])
+def test_save_load_without_a_cache(tmp_path, monkeypatch, mode):
+    """Under the default ``cache_path`` None the artifact carries the
+    plans of every planned batch size: ``load`` re-tunes nothing, and
+    ``save()`` without a path raises rather than write into the working
+    directory."""
+    monkeypatch.chdir(tmp_path)
+    model, params, x = _tiny()
+    opts = repro_torch.ExecutionOptions(impl="torch", device="cpu",
+                                        mode=mode, batch=2)
+    compiled = repro_torch.compile(model, params, opts)
+    y1 = compiled.run(x[:1])
+    with pytest.raises(ValueError, match="path"):
+        compiled.save()
+    assert os.listdir(tmp_path) == []
+    path = compiled.save(os.path.join(tmp_path, "tiny.json"))
+    assert os.listdir(tmp_path) == ["tiny.json"]
+    loaded = repro_torch.load(path, model, params)
+    assert loaded.network_plan() == compiled.network_plan()
+    assert torch.equal(loaded.run(x), compiled.run(x))
+    assert torch.equal(loaded.run(x[:1]), y1)
+    assert loaded.planner.stats["tunes"] == 0
+    assert loaded.planner.network_hits == 2
+    assert os.listdir(tmp_path) == ["tiny.json"]
+
+
 def test_load_refuses_another_model(tmp_path):
     model, params, x = _tiny()
     opts = repro_torch.ExecutionOptions(
@@ -275,7 +332,7 @@ def test_load_refuses_another_model(tmp_path):
 def test_shared_planner_pools_plans(tmp_path):
     """A caller's planner is shared, not saved by compile."""
     model, params, x = _tiny()
-    shared = _planner(tmp_path, autosave=False)
+    shared = _planner(tmp_path)
     opts = repro_torch.ExecutionOptions(impl="torch", device="cpu",
                                         mode="model", batch=2)
     a = repro_torch.compile(model, params, opts, planner=shared)
