@@ -99,6 +99,32 @@ Phases, each on its own printed lines:
    calibration batch (``deployment_sqnr``); then YOLOv3-tiny 416 b1 int8
    planned by the cost model's int8 gate (``mode='model'``), under the same
    gates as the first int8 cell;
+7b. bf16 and fp16 (``dtype='bfloat16' | 'float16'``), on their own
+   generator's draws: YOLOv3-tiny 416 b1, MODEL_20 608 b1 and VGG-16 224 b1
+   (fused, and ``winograd_fused=False``), in each type: every call of the
+   16-bit kernels (GEMM, im2col conv, fused Winograd, the three 3-pass
+   kernels) held against its plain version within two units of the last
+   place at the largest output (2^-6 of max(1, max|ref|) in bf16, 2^-9 in
+   fp16), each Winograd call's distance from the fp32 kernel on the same
+   values printed, timed at YOLOv3-tiny's and VGG-16's shapes (ms, plain
+   ms, the library call in the 16-bit type -- ``torch.addmm``,
+   ``F.conv2d``, ``torch.bmm``, einsum -- and the bound: 16-bit tensor-core
+   FLOPs over 989 TFLOP/s, the Winograd products counted three times
+   (fused) or twice (3-pass) for their split operands, the transforms over
+   the fp32 peak, or 2 bytes an operand over 3.35 TB/s); then each cell
+   end to end: ``impl='cuda'`` against ``impl='torch'`` (the same Winograd
+   realization) within 2e-2 (bf16) or 5e-3 (fp16) of max(1, max|ref|), every
+   step against its plain step on the cuda forward's own input
+   (``check_steps``), the 16-bit kernels' launches equal to the plan's, the
+   replay equal to eager, a finite output of the reference's dtype (fp32
+   for VGG-16's fc head), its distance from the fp32 forward of the same
+   weights printed, the 16-bit and the fp32 replayed forwards timed in
+   turns (ms and images/s), and the replayed and eager forwards profiled:
+   each 16-bit kernel (and its split-K reduce where a call splits) at most
+   as planned, and no other port kernel; then YOLOv3-tiny 416 b1 and
+   VGG-16 224 b1 in bf16 planned by the cost model (``mode='model'``, the
+   16-bit kernels' own fitted constants), each checked the same way beside
+   the fp32 model-mode forward, its plan and modeled conv ms printed;
 8. the LM stack (``repro_torch.compile(cfg, params)`` on an LM config,
    random weights from a seeded ``torch.Generator`` on the card):
    the flash-attention kernel against its plain version at the shapes of
@@ -145,7 +171,10 @@ Phases, each on its own printed lines:
    its ``cell`` names (YOLOv3-tiny 416 b1 for the GEMM, im2col and fused
    Winograd kernels, VGG-16 224 b1 with ``winograd_fused=False`` for the
    three 3-pass kernels, YOLOv3-tiny 416 b1 int8 for the two int8
-   kernels, the Llama-3.2-1B prefill for flash attention), and its times,
+   kernels, the Llama-3.2-1B prefill for flash attention, YOLOv3-tiny 416
+   b1 bfloat16 for the 16-bit GEMM, im2col and fused Winograd kernels,
+   VGG-16 224 b1 with ``winograd_fused=False`` in bfloat16 for the three
+   16-bit 3-pass kernels), and its times,
    errors and bounds summed over the calls of that forward — then the
    last line ``{"ok": true, "device": ...}``.
 
@@ -176,6 +205,16 @@ KERNEL_TOL = {"gemm": 1e-4, "im2col_conv": 1e-4, "winograd_fused": 5e-4,
               "input_transform": 5e-4, "tuple_multiply": 1e-4,
               "output_transform": 5e-4, "gemm_q8": 0.0,
               "im2col_conv_q8": 0.0}
+# The 16-bit kernels against their plain versions: both sum exact products
+# of the same 16-bit operands in fp32 and round at the same points, so they
+# differ only where a rounding flips: two units of the last place at the
+# largest output, of max(1, max|ref|).
+HALF = ("bfloat16", "float16")
+KERNEL_TOL16 = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -9}
+# A 16-bit network, impl='cuda' against impl='torch' on the card, of
+# max(1, max|ref|): the reference suite's bf16 tolerance, and 4 times finer
+# in fp16 (8 times finer rounding, a factor of 2 kept).
+NET_TOL16 = {"bfloat16": 2e-2, "float16": 5e-3}
 # Whole-network tolerance, relative to max|ref|: both impls run fp32 on the
 # same card with the same layouts; they differ only in the order of the sums
 # inside each kernel (and, in measure mode, in the algorithm a layer takes),
@@ -229,6 +268,12 @@ REPLACES = {
     "tuple_multiply": "src/repro/kernels/winograd/kernel.py:216",
     "output_transform": "src/repro/kernels/winograd/kernel.py:244",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:69",
+    "gemm_16": "src/repro/kernels/gemm/kernel.py:140",
+    "im2col_conv_16": "src/repro/kernels/im2col_gemm/kernel.py:162",
+    "winograd_fused_16": "src/repro/kernels/winograd/kernel.py:143",
+    "input_transform_16": "src/repro/kernels/winograd/kernel.py:195",
+    "tuple_multiply_16": "src/repro/kernels/winograd/kernel.py:216",
+    "output_transform_16": "src/repro/kernels/winograd/kernel.py:244",
 }
 SOURCE = {"gemm": "gemm", "im2col_conv": "im2col_conv",
           "gemm_q8": "gemm_q8", "im2col_conv_q8": "im2col_conv_q8",
@@ -236,7 +281,12 @@ SOURCE = {"gemm": "gemm", "im2col_conv": "im2col_conv",
           "input_transform": "winograd_3pass",
           "tuple_multiply": "winograd_3pass",
           "output_transform": "winograd_3pass",
-          "flash_attention": "flash_attention"}
+          "flash_attention": "flash_attention",
+          "gemm_16": "gemm_16", "im2col_conv_16": "im2col_conv_16",
+          "winograd_fused_16": "winograd_fused_16",
+          "input_transform_16": "winograd_3pass_16",
+          "tuple_multiply_16": "winograd_3pass_16",
+          "output_transform_16": "winograd_3pass_16"}
 # The CUDA function of each kernel, as the profiler names it (a substring
 # of it: flash attention has an fp32 and a bf16 kernel).
 CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
@@ -247,16 +297,30 @@ CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
               "input_transform": "winograd_input_transform_kernel",
               "tuple_multiply": "winograd_tuple_multiply_kernel",
               "output_transform": "winograd_output_transform_kernel",
-              "flash_attention": "flash_attention"}
-# The second kernels of the fp32 im2col conv, the int8 im2col conv, the
-# fp32 GEMM and the int8 GEMM, launched by the calls that split K.  No name
-# here or in CUDA_NAMES holds another as a substring.
+              "flash_attention": "flash_attention",
+              "gemm_16": "hgemm16_bias_act_kernel",
+              "im2col_conv_16": "im2col16_conv_kernel",
+              "winograd_fused_16": "winograd16_fused_kernel",
+              "input_transform_16": "winograd16_input_transform_kernel",
+              "tuple_multiply_16": "winograd16_tuple_multiply_kernel",
+              "output_transform_16": "winograd16_output_transform_kernel"}
+# The second kernels of the fp32, 16-bit and int8 im2col convs and GEMMs,
+# launched by the calls that split K.  No name here or in CUDA_NAMES holds
+# another as a substring.
 SPLITK_REDUCE = "im2col_conv_splitk_reduce_kernel"
 Q8_SPLITK_REDUCE = "im2col_conv_q8_splitk_reduce_kernel"
 GEMM_SPLITK_REDUCE = "gemm_splitk_reduce_kernel"
 GEMM_Q8_SPLITK_REDUCE = "gemm_q8_splitk_reduce_kernel"
+SPLITK16_REDUCE = "im2col16_conv_splitk_reduce_kernel"
+GEMM16_SPLITK_REDUCE = "hgemm16_splitk_reduce_kernel"
 REDUCE_NAMES = (SPLITK_REDUCE, Q8_SPLITK_REDUCE, GEMM_SPLITK_REDUCE,
-                GEMM_Q8_SPLITK_REDUCE)
+                GEMM_Q8_SPLITK_REDUCE, SPLITK16_REDUCE, GEMM16_SPLITK_REDUCE)
+
+
+def kernel_tol(name, dtype):
+    """The tolerance of kernel ``name``'s calls in ``dtype``, of max(1,
+    max|ref|)."""
+    return KERNEL_TOL16[dtype] if dtype in HALF else KERNEL_TOL[name]
 
 
 def log(*parts) -> None:
@@ -397,6 +461,9 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
         # TF32 peak, with the fp32 CUDA-core bound printed beside it.
         tensor_core = dict(step=s.index, peak=hw.peak_flops_tf32 / 3,
                            cuda_core_peak=hw.peak_flops_fp32)
+        if s.plan.dtype in HALF:
+            cases += half_cases(s, t, pad_c, bias, head, hw, b, act)
+            continue
         if s.plan.dtype == "int8":
             # int8 operands, fp32 dequant row, bias and output; the bound
             # divides by the int8 tensor-core peak.
@@ -544,6 +611,149 @@ def kernel_cases(netplan, rng, hw, cell, winograd_only=False):
     return cases
 
 
+def half_cases(s, t, pad_c, bias, head, hw, b, act):
+    """``kernel_cases`` of one conv step of a bf16 or fp16 plan: 16-bit
+    operands (weights scaled by 1 / sqrt(fan-in), so outputs stay near 1),
+    the fp32 bias, the 16-bit kernels.  The bound divides the operations
+    on the tensor cores by the dense 16-bit peak (989 TFLOP/s) -- the
+    Winograd products count three 16-bit products (fused: V and U split)
+    or two (3-pass: U split) per product -- and the transforms by the fp32
+    CUDA-core peak; bytes are 2 an operand or output value, 4 a bias
+    value.  The library calls run in the 16-bit type: ``torch.addmm``,
+    ``F.conv2d`` (cuDNN), ``torch.bmm`` of V by U's hi part, einsum."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.conv_spec import ConvAlgorithm, apply_activation
+    from repro_torch.core.winograd import AT, BT, _const, _tile_input, \
+        split_transformed, transform_weights
+    from repro_torch.kernels.gemm.ops import call_splits_16 as gemm_splits16
+    from repro_torch.kernels.gemm.ops import matmul16_bias_act
+    from repro_torch.kernels.im2col_gemm.ops import call_splits_16, \
+        im2col_conv16
+    from repro_torch.kernels.winograd.ops import (
+        fused_winograd,
+        fused_winograd16,
+        input_transform,
+        input_transform16,
+        output_transform,
+        output_transform16,
+        tuple_multiply,
+        tuple_multiply16,
+    )
+    from repro_torch.kernels.winograd.ref import (
+        input_transform16_ref,
+        tuple_multiply16_ref,
+    )
+
+    dtype = s.plan.dtype
+    dt = getattr(torch, dtype)
+    spec, blocks, algo = s.spec, s.plan.kernel_blocks, s.plan.algorithm
+    (h, w), (oh, ow) = s.in_hw, s.out_hw
+    c, phys_c, o = spec.in_channels, s.in_layout.phys_c, spec.out_channels
+    kh, kw = spec.kh, spec.kw
+    base = dict(step=s.index, dtype=dtype, peak=hw.peak_flops_bf16)
+    if algo is ConvAlgorithm.DIRECT:
+        m = b * oh * ow
+        a, wm = t(m, c).to(dt), (t(c, o) * c ** -0.5).to(dt)
+        return [dict(
+            base, kernel="gemm_16",
+            label=(f"{head} gemm_16 {dtype} M={m} K={phys_c} N={o} "
+                   f"splits={gemm_splits16(m, o, phys_c)}"),
+            args=(pad_c(a, 1), pad_c(wm, 0), bias),
+            run=lambda a, wm, bias, act=act, impl="cuda":
+                matmul16_bias_act(a, wm, bias, act, impl=impl),
+            lib_args=(a, wm, bias.to(dt)),
+            library=lambda a, wm, bias, act=act:
+                apply_activation(torch.addmm(bias, a, wm), act),
+            flops=2 * m * c * o,
+            bytes=2 * (m * c + c * o + m * o) + 4 * o,
+        )]
+    x = t(b, h, w, c).to(dt)
+    wt32 = t(kh, kw, c, o) * (kh * kw * c) ** -0.5
+    wt = wt32.to(dt)
+    conv_bytes = 2 * (b * h * w * c + kh * kw * c * o + b * oh * ow * o) + 4 * o
+    conv_lib = dict(
+        lib_args=(x, wt.permute(3, 2, 0, 1).contiguous(), bias.to(dt)),
+        library=lambda x, w_oihw, bias, spec=spec, act=act:
+            apply_activation(F.conv2d(
+                x.permute(0, 3, 1, 2), w_oihw, bias, spec.stride,
+                spec.padding), act).permute(0, 2, 3, 1))
+    if algo is ConvAlgorithm.IM2COL_GEMM:
+        return [dict(
+            base, **conv_lib, kernel="im2col_conv_16",
+            label=(f"{head} im2col_16 {dtype} {h}x{w}x{phys_c}->{oh}x{ow}x{o}"
+                   f" k{kh} s{spec.stride[0]} blocks={blocks} splits="
+                   f"{call_splits_16(b, oh, ow, phys_c, o, blocks[0])}"),
+            args=(pad_c(x, 3), pad_c(wt, 2), bias),
+            run=lambda x, wt, bias, spec=spec, blocks=blocks, act=act,
+            impl="cuda": im2col_conv16(x, wt, spec, blocks, bias, act,
+                                       impl=impl),
+            flops=2 * b * oh * ow * o * kh * kw * c,
+            bytes=conv_bytes,
+        )]
+    xp = pad_c(x, 3)
+    tiles, _, _ = _tile_input(F.pad(xp, (0, 0, 1, 1, 1, 1)), oh, ow)
+    tiles = tiles.reshape(-1, 8, 8, phys_c).contiguous()
+    u32 = transform_weights(pad_c(wt32, 2)).contiguous()
+    u = split_transformed(u32, dt)
+    n_t = tiles.shape[0]
+    shape = f"T={n_t} C={phys_c} O={o}"
+    products = 2 * n_t * 64 * c * o
+    if s.plan.winograd_fused:
+        return [dict(
+            base, **conv_lib, kernel="winograd_fused_16",
+            label=f"{head} winograd_16 {dtype} {shape} blocks={blocks}",
+            args=(tiles, u.hl, u.inv_scale, bias),
+            run=lambda tiles, hl, inv, bias, blocks=blocks, act=act,
+            impl="cuda": fused_winograd16(tiles, hl, inv, blocks, bias, act,
+                                          impl=impl),
+            flops=3 * products, flops_fp32=n_t * c * 2048 + n_t * o * 1344,
+            bytes=conv_bytes,
+            fp32=lambda: fused_winograd(tiles.float(), u32, None, bias, act),
+        )]
+    bt_m, at_m = _const(BT, tiles).to(dt), _const(AT, tiles).to(dt)
+    v = input_transform16_ref(tiles).reshape(64, n_t, phys_c).contiguous()
+    u2 = u.hl.reshape(2, 64, phys_c, o)
+    mm = tuple_multiply16_ref(v, u2, u.inv_scale).reshape(8, 8, n_t, o)
+    return [
+        dict(base, kernel="input_transform_16",
+             label=f"{head} input_transform_16 {dtype} {shape}",
+             args=(tiles,),
+             run=lambda tiles, impl="cuda": input_transform16(tiles,
+                                                              impl=impl),
+             lib_args=(tiles[..., :c].contiguous(),),
+             library=lambda d, bt_m=bt_m:
+                 torch.einsum("ai,bj,tijc->abtc", bt_m, bt_m, d),
+             flops=0, flops_fp32=2048 * n_t * c,
+             bytes=2 * 2 * 64 * n_t * c,
+             fp32=lambda: input_transform(tiles.float())),
+        dict(base, kernel="tuple_multiply_16",
+             label=f"{head} tuple_multiply_16 {dtype} {shape} blocks={blocks}",
+             args=(v, u2, u.inv_scale),
+             run=lambda v, u2, inv, impl="cuda": tuple_multiply16(
+                 v, u2, inv, impl=impl),
+             lib_args=(v[..., :c].contiguous(), u2[0, :, :c].contiguous()),
+             library=torch.bmm,
+             flops=2 * products,
+             bytes=2 * 64 * (n_t * c + 2 * c * o + n_t * o),
+             fp32=lambda: tuple_multiply(v.float(),
+                                         u32.reshape(64, phys_c, o))),
+        dict(base, kernel="output_transform_16",
+             label=f"{head} output_transform_16 {dtype} {shape} act={act}",
+             args=(mm.contiguous(), bias),
+             run=lambda m, bias, act=act, impl="cuda":
+                 output_transform16(m, bias, act, impl=impl),
+             lib_args=(mm.contiguous(), bias.to(dt)),
+             library=lambda m, bias, at_m=at_m, act=act: apply_activation(
+                 torch.einsum("xa,yb,abto->txyo", at_m, at_m, m) + bias, act),
+             flops=0, flops_fp32=1344 * n_t * o,
+             bytes=2 * (64 * n_t * o + 36 * n_t * o) + 4 * o,
+             fp32=lambda: output_transform(mm.float().contiguous(), bias,
+                                           act)),
+    ]
+
+
 def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
     """Phase 3: every kernel call of one forward held against its plain
     version; the calls of the kernels named in ``timed`` also timed.
@@ -559,17 +769,23 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
         got = case["run"](*args)
         ref = case["run"](*args, impl="torch")
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        scale = max(1.0, float(ref.abs().max()))
-        tol = KERNEL_TOL[name] * scale
+        err = float((got.float() - ref.float()).abs().max())
+        scale = max(1.0, float(ref.float().abs().max()))
+        tol = kernel_tol(name, case.get("dtype", "float32")) * scale
         if not (bool(torch.isfinite(got).all()) and got.shape == ref.shape
-                and err <= tol):
+                and got.dtype == ref.dtype and err <= tol):
             raise AssertionError(
                 f"{case['label']}: kernel disagrees with its plain version:"
                 f" max_abs_err {err} > {tol}"
             )
+        vs32 = ""
+        if "fp32" in case:
+            y32 = case["fp32"]()
+            vs32 = (f" vs_fp32_err={float((got.float() - y32).abs().max()):.3g}"
+                    f" (max|fp32| {float(y32.abs().max()):.3g})")
         if name not in timed:
-            log(f"kernel {case['label']}: max_abs_err={err:.3g} (tol {tol:.3g})")
+            log(f"kernel {case['label']}: max_abs_err={err:.3g} (tol {tol:.3g})"
+                + vs32)
             continue
         ms = cuda_ms(case["run"], args)
         plain_ms = cuda_ms(lambda *a, run=case["run"]: run(*a, impl="torch"),
@@ -588,7 +804,7 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
                            / case["cuda_core_peak"] * 1e3, t_bytes)
                        if "cuda_core_peak" in case else None)
         log(f"kernel {case['label']}: max_abs_err={err:.3g} (tol {tol:.3g})"
-            f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+            + vs32 + f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
             + ("-" if library_ms is None else f"{library_ms:.4f}")
             + f" bound_ms={bound_ms:.5f} "
             f"({'operations' if t_ops >= t_bytes else 'bytes'})"
@@ -640,11 +856,56 @@ def forward_ms(fn, reps: int, warmup: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def three_pass16_stages(step, p, cur):
+    """A 16-bit 3-pass Winograd step's three kernel calls on the cuda
+    chain's own intermediates, each beside its plain version on the same
+    input: [(kernel, got, ref)].  The step's output is not held at the
+    kernels' gate: V and M are rounded to 16 bits between the kernels, and
+    where the two sums of an M value round apart, the output transform
+    carries that unit of M's last place (M runs about 14 times larger than
+    the output) into the output."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.netplan import _align_channels
+    from repro_torch.core.winograd import _tile_input, split_transformed, \
+        transform_weights
+    from repro_torch.kernels.winograd.ops import (
+        input_transform16,
+        output_transform16,
+        tuple_multiply16,
+    )
+
+    x = _align_channels(cur, step.in_layout.phys_c)
+    c = x.shape[-1]
+    oh, ow = step.out_hw
+    ph, pw = step.spec.padding
+    tiles, _, _ = _tile_input(F.pad(x, (0, 0, pw, pw, ph, ph)), oh, ow)
+    tiles = tiles.reshape(-1, 8, 8, c)
+    u = p["w"]
+    if u.shape[0] != 8:                         # not pre-transformed
+        u = split_transformed(transform_weights(u.float()), x.dtype)
+    t, o = tiles.shape[0], u.shape[-1]
+    u2 = u.hl.reshape(2, 64, c, o)
+    v = input_transform16(tiles)
+    m = tuple_multiply16(v.reshape(64, t, c), u2, u.inv_scale)
+    act = step.layer.activation
+    return [
+        ("input_transform_16", v, input_transform16(tiles, impl="torch")),
+        ("tuple_multiply_16", m, tuple_multiply16(
+            v.reshape(64, t, c), u2, u.inv_scale, impl="torch")),
+        ("output_transform_16", output_transform16(
+            m.reshape(8, 8, t, o), p["b"], act), output_transform16(
+            m.reshape(8, 8, t, o), p["b"], act, impl="torch")),
+    ]
+
+
 def check_steps(compiled, plain, x, name) -> None:
     """Every step of ``compiled``'s forward on ``x`` against ``plain``'s
     step on the same input (the cuda forward's own activation), the
     forward continuing with the cuda step's output: a conv step within its
-    kernels' tolerance of ``max(1, max|ref|)``, any other step equal.
+    kernels' tolerance of ``max(1, max|ref|)`` (a 16-bit 3-pass Winograd
+    step each of its three kernels, on the cuda chain's intermediates:
+    ``three_pass16_stages``), any other step equal.
     Also prints, after each conv step, the SQNR between the two forwards
     each run on its own outputs, which shows where they drift apart."""
     import torch
@@ -653,10 +914,13 @@ def check_steps(compiled, plain, x, name) -> None:
     from repro_torch.core.quant import sqnr_db
     from repro_torch.kernels.conv_ops import plan_kernels
 
+    from repro_torch.core.conv_spec import ConvAlgorithm
+
     ex, ex_plain = compiled.executor(int(x.shape[0])), plain.executor(
         int(x.shape[0]))
+    x = x.to(getattr(torch, compiled.options.input_dtype))   # as run() does
     outputs, outputs_plain, cur, cur_plain = [], [], x, x
-    worst, drift = {}, []
+    worst, drift, three_pass = {}, [], []
     with torch.inference_mode():
         for s, sp in zip(ex.netplan.steps, ex_plain.netplan.steps):
             y = run_step(s, ex.params[s.index], cur, outputs,
@@ -665,14 +929,31 @@ def check_steps(compiled, plain, x, name) -> None:
                            ex_plain.pretransformed[s.index])
             cur_plain = run_step(sp, ex_plain.params[s.index], cur_plain,
                                  outputs_plain, ex_plain.pretransformed[s.index])
-            err = float((y - ref).abs().max())
+            err = float((y.float() - ref.float()).abs().max())
             tol = 0.0
             if s.layer.kind == "conv":
-                tol = max(KERNEL_TOL[k] for k in plan_kernels(s.plan)) * max(
-                    1.0, float(ref.abs().max()))
+                tol = max(kernel_tol(k, s.plan.dtype)
+                          for k in plan_kernels(s.plan)) * max(
+                    1.0, float(ref.float().abs().max()))
                 worst[s.plan.dtype] = max(worst.get(s.plan.dtype, 0.0), err)
-                drift.append(f"{s.index}:{sqnr_db(cur_plain, y):.1f}")
-            if not (bool(torch.isfinite(y).all()) and err <= tol):
+                drift.append(f"{s.index}:"
+                             f"{sqnr_db(cur_plain.float(), y.float()):.1f}")
+                if (s.plan.dtype in HALF and not s.plan.winograd_fused
+                        and s.plan.algorithm is ConvAlgorithm.WINOGRAD):
+                    # Held kernel by kernel instead (three_pass16_stages).
+                    for k, got, want in three_pass16_stages(
+                            s, ex.params[s.index], cur):
+                        e = float((got.float() - want.float()).abs().max())
+                        t = kernel_tol(k, s.plan.dtype) * max(
+                            1.0, float(want.float().abs().max()))
+                        if not (bool(torch.isfinite(got).all()) and e <= t):
+                            raise AssertionError(
+                                f"{name} step {s.index} {k}: cuda vs torch "
+                                f"on the same input max_abs_err {e} > {t}")
+                    three_pass.append(f"{s.index}:{err:.3g}")
+                    tol = float("inf")
+            if not (bool(torch.isfinite(y).all()) and y.dtype == ref.dtype
+                    and err <= tol):
                 raise AssertionError(
                     f"{name} step {s.index} ({s.layer.kind}"
                     f"{'' if s.plan is None else ' ' + s.plan.label}): cuda vs"
@@ -682,7 +963,9 @@ def check_steps(compiled, plain, x, name) -> None:
             cur = y
     log(f"steps {name}: every step matches its plain version on the cuda "
         f"forward's own input; max_abs_err by conv dtype {worst}; "
-        f"free-running SQNR (dB) after each conv: {' '.join(drift)}")
+        f"free-running SQNR (dB) after each conv: {' '.join(drift)}"
+        + (f"; 16-bit 3-pass steps held kernel by kernel, the steps' "
+           f"max_abs_err {' '.join(three_pass)}" if three_pass else ""))
 
 
 def run_cell(model, batch, rng, params=None, options=None, name=None,
@@ -698,7 +981,14 @@ def run_cell(model, batch, rng, params=None, options=None, name=None,
     SQNR of at least ``min_sqnr_vs_plain`` against the plain forward (None:
     printed only) and at ``INT8_VS_FP32_DB`` against the fp32 CUDA forward
     of the same weights, whose time is printed beside the int8 one (and
-    which is profiled too when ``profile`` is set)."""
+    which is profiled too when ``profile`` is set).
+
+    Under ``dtype='bfloat16' | 'float16'`` the plain compilation runs the
+    same Winograd realization; every step is held against its plain
+    version on the same input; the output within ``NET_TOL16`` of
+    max(1, max|ref|); the fp32 CUDA forward of the same weights and options
+    is printed beside it (its distance, and the two replayed forwards timed
+    in turns)."""
     import torch
 
     import repro_torch
@@ -707,6 +997,7 @@ def run_cell(model, batch, rng, params=None, options=None, name=None,
 
     options = dict(options or {})
     int8 = options.get("dtype") == "int8"
+    half = options.get("dtype") in HALF
     name = name or f"{model.name} {model.input_hw[0]} b{batch}"
     # Seeded weights with random batchnorm statistics, so folding is
     # exercised.
@@ -723,10 +1014,14 @@ def run_cell(model, batch, rng, params=None, options=None, name=None,
     compile_s = time.perf_counter() - t0
     # The model's plan is the card's whatever the impl: the plain forward
     # of a model-mode cell runs the same steps (check_steps pairs them).
+    # A 16-bit plain forward runs the same Winograd realization: the 3-pass
+    # pipeline rounds V and M to the 16-bit type, the fused kernel neither.
     plain = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
         impl="torch", device="cuda", batch=batch,
         dtype=options.get("dtype", "float32"),
-        mode="model" if options.get("mode") == "model" else "cost"),
+        mode="model" if options.get("mode") == "model" else "cost",
+        **({"winograd_fused": options.get("winograd_fused")} if half
+           else {})),
         calibration=calibration)
 
     reset_counts()
@@ -746,11 +1041,39 @@ def run_cell(model, batch, rng, params=None, options=None, name=None,
             f"max_abs_err {float((y - y_eager).abs().max())}")
     y_ref = plain.run(x)
     torch.cuda.synchronize()
-    scale = float(y_ref.abs().max())
-    err = float((y - y_ref).abs().max())
-    ok = bool(torch.isfinite(y).all()) and y.shape == y_ref.shape
+    scale = float(y_ref.float().abs().max())
+    err = float((y.float() - y_ref.float()).abs().max())
+    ok = (bool(torch.isfinite(y).all()) and y.shape == y_ref.shape
+          and y.dtype == y_ref.dtype)
     fp32 = None
-    if int8:
+    if half:
+        check_steps(cu, plain, x, name)
+        tol = NET_TOL16[options["dtype"]] * max(1.0, scale)
+        if not (ok and err <= tol):
+            raise AssertionError(f"{name}: cuda vs torch max_abs_err {err} > "
+                                 f"{tol} (max|ref| {scale}, finite and "
+                                 f"shaped: {ok})")
+        fp32 = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
+            batch=batch, **{k: v for k, v in options.items()
+                            if k != "dtype"}))
+        y32 = fp32.run(x)
+        d32 = float((y.float() - y32).abs().max())
+        s32 = float(y32.abs().max())
+        # The 16-bit forward and the fp32 one, replayed, in turns.
+        h1 = forward_ms(lambda: cu.run(x), reps)
+        f1 = forward_ms(lambda: fp32.run(x), reps)
+        f2 = forward_ms(lambda: fp32.run(x), reps)
+        h2 = forward_ms(lambda: cu.run(x), reps)
+        h_ms, fp32_ms = (h1 + h2) / 2, (f1 + f2) / 2
+        detail = (f"tol={tol:.3g} vs_fp32 max_abs_err={d32:.4g} "
+                  f"(of max|fp32| {s32:.4g}: {d32 / max(s32, 1e-30):.4g}) "
+                  f"sqnr_vs_fp32_db={sqnr_db(y32, y.float()):.2f}; in turns "
+                  f"ms_per_forward {options['dtype']}={h_ms:.4f} ({h1:.4f} "
+                  f"{h2:.4f}) fp32={fp32_ms:.4f} ({f1:.4f} {f2:.4f}) "
+                  f"images_per_s {options['dtype']}="
+                  f"{batch * 1e3 / h_ms:.1f} fp32={batch * 1e3 / fp32_ms:.1f}"
+                  f" {options['dtype']}/fp32={h_ms / fp32_ms:.3f}")
+    elif int8:
         check_steps(cu, plain, x, name)
         quality = sqnr_db(y_ref, y)
         if not (ok and (min_sqnr_vs_plain is None
@@ -785,7 +1108,7 @@ def run_cell(model, batch, rng, params=None, options=None, name=None,
                    per_call=batch, unit="images",
                    want=planned_cuda_launches(cu.network_plan(batch)),
                    detail=profile)
-    if profile:
+    if profile and not half:
         if fp32 is not None:
             profile_forward(lambda: fp32.run(x), fp32_ms,
                             f"{name} (its fp32 forward)",
@@ -877,8 +1200,13 @@ def planned_cuda_launches(netplan):
     int8 GEMM call that splits."""
     from repro_torch.core.conv_spec import ConvAlgorithm
     from repro_torch.kernels.gemm.ops import call_splits as gemm_splits
+    from repro_torch.kernels.gemm.ops import call_splits_16 as gemm_splits16
     from repro_torch.kernels.gemm.ops import call_splits_q8 as gemm_splits_q8
-    from repro_torch.kernels.im2col_gemm.ops import call_splits, call_splits_q8
+    from repro_torch.kernels.im2col_gemm.ops import (
+        call_splits,
+        call_splits_16,
+        call_splits_q8,
+    )
 
     want = {CUDA_NAMES[k]: n for k, n in netplan.kernel_launches().items()}
     fp32 = [s for s in netplan.steps
@@ -913,6 +1241,20 @@ def planned_cuda_launches(netplan):
         and s.plan.algorithm is ConvAlgorithm.DIRECT)
     if gemm_q8:
         want[GEMM_Q8_SPLITK_REDUCE] = gemm_q8
+    half = [s for s in netplan.steps
+            if s.layer.kind == "conv" and s.plan.dtype in HALF]
+    im16 = sum(
+        call_splits_16(netplan.batch, *s.out_hw, s.in_layout.phys_c,
+                       s.out_layout.phys_c, s.plan.kernel_blocks[0]) > 1
+        for s in half if s.plan.algorithm is ConvAlgorithm.IM2COL_GEMM)
+    if im16:
+        want[SPLITK16_REDUCE] = im16
+    gemm16 = sum(
+        gemm_splits16(netplan.batch * s.out_hw[0] * s.out_hw[1],
+                      s.out_layout.phys_c, s.in_layout.phys_c) > 1
+        for s in half if s.plan.algorithm is ConvAlgorithm.DIRECT)
+    if gemm16:
+        want[GEMM16_SPLITK_REDUCE] = gemm16
     return want
 
 
@@ -1731,6 +2073,64 @@ def main() -> int:
     run_cell(yolov3.TINY_MODEL, 1, rng_q, init_cnn(rng_q, yolov3.TINY_LAYERS),
              {"dtype": "int8", "mode": "model"}, f"{tiny8_cell} mode=model",
              profile=True)
+
+    log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
+
+    # Phase 7b: bf16 and fp16 (YOLOv3-tiny 416 b1 is the main path of the
+    # 16-bit GEMM, im2col and fused Winograd kernels, VGG-16 224 b1 with
+    # winograd_fused=False that of the three 16-bit 3-pass kernels), on
+    # their own generator's draws: every 16-bit kernel call of the four
+    # cells against its plain version (timed at YOLOv3-tiny's and VGG-16's
+    # shapes), then each cell end to end beside its fp32 forward.
+    rng_h = np.random.default_rng(SEED)
+    half_cells = {
+        "yolov3-tiny 416 b1": (yolov3.TINY_MODEL, {}, FORWARD_REPS, (
+            "gemm_16", "im2col_conv_16", "winograd_fused_16")),
+        "yolov3-20 608 b1": (yolov3.MODEL_20, {}, SHORT_FORWARD_REPS, ()),
+        "vgg16 224 b1": (vgg16.MODEL, {}, FORWARD_REPS, (
+            "im2col_conv_16", "winograd_fused_16")),
+        vgg3_cell: (vgg16.MODEL, {"winograd_fused": False}, FORWARD_REPS, (
+            "input_transform_16", "tuple_multiply_16", "output_transform_16")),
+    }
+    half_params = {}                    # one set of weights a network
+    for model, _, _, _ in half_cells.values():
+        if model.name not in half_params:
+            half_params[model.name] = random_batchnorm(
+                init_cnn(rng_h, model.layers), rng_h)
+    for dtype in HALF:
+        for cell, (model, opts, reps, timed) in half_cells.items():
+            name = f"{cell} {dtype}"
+            three_pass = opts.get("winograd_fused") is False
+            summary, _ = check_kernels(
+                netplan_of(model, 1, dtype, **opts), rng_h, H100, name,
+                timed=timed, winograd_only=three_pass)
+            counts, _ = run_cell(model, 1, rng_h, half_params[model.name],
+                                 {"dtype": dtype, **opts}, name,
+                                 profile=True, reps=reps)
+            if dtype == "bfloat16" and cell in (tiny_cell, vgg3_cell):
+                summaries[name], launches[name] = summary, counts
+    # The cost model's 16-bit plans (mode="model", the '_16' constants of
+    # hw.H100.kernel_fit), each beside the fp32 model-mode forward.
+    for cell in (tiny_cell, "vgg16 224 b1"):
+        model, _, reps, _ = half_cells[cell]
+        name = f"{cell} bfloat16 mode=model"
+        check_kernels(netplan_of(model, 1, "bfloat16", mode="model"), rng_h,
+                      H100, name)
+        _, modeled = run_cell(model, 1, rng_h, half_params[model.name],
+                              {"dtype": "bfloat16", "mode": "model"}, name,
+                              profile=True, reps=reps)
+        rows = modeled.plan_report()["layers"]
+        if any(r["source"] != "cost_model" or not r["predicted_s"] > 0
+               for r in rows):
+            raise AssertionError(f"{name}: a layer not planned by the model")
+        log(f"model plan {name}: "
+            + " ".join(f"L{r['index']}:{r['algorithm']}"
+                       + (("_fused" if r["winograd_fused"] else "_3pass")
+                          if r["algorithm"] == "winograd" else "")
+                       for r in rows)
+            + f"; modeled conv ms "
+            f"{sum(r['predicted_s'] for r in rows) * 1e3:.4f}")
+    log(f"phase 7b done at {time.perf_counter() - t_start:.1f} s")
 
     # Phase 8: the LM stack.  Llama-3.2-1B's prefill is the main path of
     # the flash-attention kernel; Gemma2-27B (full width, 2 of its 46

@@ -10,17 +10,23 @@ takes every distinct conv (spec, input size, batch) of YOLOv3-tiny 416
 candidate the dispatcher can run for it -- fp32: the direct GEMM, im2col,
 the fused Winograd kernel and the 3-pass pipeline, as measure mode's
 candidates; int8, on the layers that pass the traffic gate: the int8 GEMM
-or the int8 im2col conv, with the entry quantization -- and, for each,
+or the int8 im2col conv, with the entry quantization; bf16: the 16-bit
+kernels of the fp32 candidates (fp16 runs the same kernels) -- and, for
+each,
 
 - times the call as measure mode does (``planner.candidate_call``: the
   forward's layouts and epilogue, ``util.device_ms`` over
   ``planner.MEASURE_REPS`` calls, the median of three such runs);
 - profiles it (``torch.profiler``): the device time per call of each CUDA
   kernel it launches, the port's kernels by name and PyTorch's (padding,
-  tiling, quantization) as ``glue``.
+  tiling, quantization) as ``glue`` (``glue_16`` around a 16-bit call, fit
+  apart).
 
 The records go to ``--out`` (JSON, ``build/cost_model_fit.json`` by
-default).  Then ``fit`` sets the cost model's
+default).  ``--dtypes`` measures only the candidates of those dtypes, and
+``--append FILE`` adds the new records to a saved records file of the
+same card (the 16-bit ones were so added to
+``scripts/cost_model_records_h100.json``) and fits them all.  Then ``fit`` sets the cost model's
 constants (``core/smem_model.py``) from them and prints each with the
 median and the worst predicted / measured ratio of its kernel; ``hw.py``
 holds the constants of such a run.  ``--records FILE`` refits saved
@@ -82,21 +88,28 @@ def distinct_convs():
     return out
 
 
-def candidates(spec, h, w, batch):
+DTYPES = ("float32", "int8", "bfloat16")
+
+
+def candidates(spec, h, w, batch, dtypes=DTYPES):
     """[(algorithm, winograd_fused, dtype)]: measure mode's fp32
-    candidates, and the int8 kernel the int8 gate would run where the
-    layer passes the traffic gate."""
+    candidates, the int8 kernel the int8 gate would run where the layer
+    passes the traffic gate, and the bf16 kernels of the fp32 candidates;
+    those of ``dtypes``."""
     from repro_torch.core.conv_spec import ConvAlgorithm
     from repro_torch.core.planner import eligible_algorithms
     from repro_torch.core.quant import int8_worthwhile
 
     out = []
-    for algo in eligible_algorithms(spec):
-        if algo is ConvAlgorithm.WINOGRAD:
-            out += [(algo, True, "float32"), (algo, False, "float32")]
-        else:
-            out.append((algo, False, "float32"))
-    if int8_worthwhile(spec, h, w, batch):
+    for dtype in ("float32", "bfloat16"):
+        if dtype not in dtypes:
+            continue
+        for algo in eligible_algorithms(spec):
+            if algo is ConvAlgorithm.WINOGRAD:
+                out += [(algo, True, dtype), (algo, False, dtype)]
+            else:
+                out.append((algo, False, dtype))
+    if "int8" in dtypes and int8_worthwhile(spec, h, w, batch):
         direct = spec.kernel_size == (1, 1) and spec.stride == (1, 1)
         out.append((ConvAlgorithm.DIRECT if direct
                     else ConvAlgorithm.IM2COL_GEMM, False, "int8"))
@@ -136,7 +149,7 @@ def profile_call(fn):
     return {k: [round(us, 4), round(n, 2)] for k, (us, n) in out.items()}
 
 
-def measure():
+def measure(dtypes=DTYPES):
     import torch
 
     from repro_torch.core.planner import (
@@ -152,7 +165,7 @@ def measure():
     records = []
     for cell, index, spec, h, w, batch in distinct_convs():
         operands = candidate_operands(spec, h, w, batch, "cuda")
-        for algo, wf, dtype in candidates(spec, h, w, batch):
+        for algo, wf, dtype in candidates(spec, h, w, batch, dtypes):
             plan = ConvPlan(algorithm=algo, impl="cuda",
                             kernel_blocks=kernel_blocks(spec, algo, h, w,
                                                         batch, wf, dtype),
@@ -161,13 +174,16 @@ def measure():
             fn()
             ms = statistics.median(device_ms([fn] * MEASURE_REPS)
                                    for _ in range(3))
+            kernels = profile_call(fn)
+            if dtype == "bfloat16" and "glue" in kernels:
+                kernels["glue_16"] = kernels.pop("glue")
             rec = {"cell": cell, "layer": index, "h": h, "w": w,
                    "batch": batch, "in_channels": spec.in_channels,
                    "out_channels": spec.out_channels,
                    "kernel_size": list(spec.kernel_size),
                    "stride": list(spec.stride), "padding": list(spec.padding),
                    "candidate": plan.label, "ms": ms,
-                   "kernels": profile_call(fn)}
+                   "kernels": kernels}
             records.append(rec)
             print(f"{cell} L{index} {h}x{w} {spec.in_channels}->"
                   f"{spec.out_channels} k{spec.kh} s{spec.stride[0]} "
@@ -226,12 +242,17 @@ def holdout(records, log=print):
             layers.setdefault(r["layer"], {})[r["candidate"]] = r
         planners = [Planner(impl="torch", device="cpu", mode="model", hw=chip)
                     for chip in (hw, H100)]
-        for dtype in ("float32", "int8"):
+        for dtype in ("float32", "int8", "bfloat16"):
             picks, totals = {}, [0.0, 0.0, 0.0]
             for i, cands in sorted(layers.items()):
                 r = next(iter(cands.values()))
+                # A layer's candidates in this dtype: the 16-bit ones in
+                # bf16; fp32 ones in fp32; fp32 and int8 ones in int8.
                 ms = {c: rec["ms"] for c, rec in cands.items()
-                      if dtype == "int8" or not c.endswith("_int8")}
+                      if c.endswith("_16") == (dtype == "bfloat16")
+                      and (dtype == "int8" or not c.endswith("_int8"))}
+                if not ms:
+                    continue
                 picks[i] = tuple(
                     p.plan(spec_of(r), r["h"], r["w"], r["batch"],
                            dtype).label for p in planners
@@ -255,6 +276,10 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "cost_model_fit.json"))
     ap.add_argument("--records", help="refit these saved records")
+    ap.add_argument("--dtypes", default=",".join(DTYPES),
+                    help="measure the candidates of these dtypes only")
+    ap.add_argument("--append", help="add the measured records to this "
+                    "saved records file (of the same card) and fit them all")
     args = ap.parse_args()
     if args.records:
         with open(args.records) as f:
@@ -273,9 +298,18 @@ def main() -> int:
             timeout=60).stdout.strip()
         print(smi, flush=True)
         t0 = time.perf_counter()
-        records = measure()
+        records = measure(tuple(args.dtypes.split(",")))
         print(f"measured {len(records)} candidates in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if args.append:
+            with open(args.append) as f:
+                saved = json.load(f)
+            if saved["device"] != smi:
+                print(f"cost_model_fit: {args.append} is of "
+                      f"{saved['device']!r}, this card is {smi!r}",
+                      file=sys.stderr)
+                return 1
+            records = saved["records"] + records
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": smi, "records": records}, f, indent=1)

@@ -141,10 +141,11 @@ class CompiledCNN:
 
     def run(self, x) -> torch.Tensor:
         """Whole-network inference on a (B, H, W, C) batch (tensor or
-        array), on ``options.device``: on the card a replay of the batch's
-        CUDA graph (``NetworkExecutor``); ``executor(b).eager(x)`` runs
-        the same forward eagerly."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        array), cast to ``options.input_dtype``, on ``options.device``: on
+        the card a replay of the batch's CUDA graph (``NetworkExecutor``);
+        ``executor(b).eager(x)`` runs the same forward eagerly."""
+        x = torch.as_tensor(x, device=self.device).to(
+            getattr(torch, self.options.input_dtype))
         if x.ndim != 4:
             raise ValueError(
                 f"run() expects (B, H, W, C), got shape {tuple(x.shape)}"

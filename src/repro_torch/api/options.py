@@ -11,9 +11,7 @@ import torch
 
 _IMPLS = ("cuda", "torch")
 _MODES = ("cost", "measure", "model")
-_DTYPES = ("float32", "int8")
-#: The reference's other execution dtypes, not ported yet (ROADMAP.md).
-_UNPORTED_DTYPES = ("bfloat16", "float16")
+_DTYPES = ("float32", "bfloat16", "float16", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,12 +45,19 @@ class ExecutionOptions:
                     whole-network entries persist there, so a later
                     compile of the same model re-tunes nothing; None
                     (default): plans live in memory only.
-      dtype         'float32' (default) or 'int8': quantized inference,
-                    resolved per layer by the planner's int8 gate (a layer
-                    where int8 does not pay stays fp32); int8 layers run
-                    the int8 kernels on inputs quantized at their entry
-                    with scales calibrated in ``compile``.  Inputs stay
-                    fp32.
+      dtype         'float32' (default); 'bfloat16' or 'float16': the
+                    batch is cast to it (``input_dtype``), activations
+                    between layers are stored in it, every conv runs the
+                    16-bit kernels (products summed in fp32, rounded once
+                    at the store) on weights rounded to it once, offline
+                    (the reference keeps fp32 weights; the tensor cores
+                    need both operands in 16 bits), and an fc head
+                    promotes to fp32, as the reference's does; or 'int8':
+                    quantized inference, resolved per layer by the
+                    planner's int8 gate (a layer where int8 does not pay
+                    stays fp32); int8 layers run the int8 kernels on
+                    inputs quantized at their entry with scales
+                    calibrated in ``compile``.  Inputs stay fp32.
     """
 
     impl: str = "cuda"
@@ -72,10 +77,6 @@ class ExecutionOptions:
         if self.winograd_fused not in (None, True, False):
             raise ValueError(f"winograd_fused must be None, True or False, "
                              f"got {self.winograd_fused!r}")
-        if self.dtype in _UNPORTED_DTYPES:
-            raise ValueError(
-                f"dtype={self.dtype!r} is not ported yet (ROADMAP.md, queue "
-                f"1); the port runs {_DTYPES}")
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {_DTYPES}, got {self.dtype!r}")
         if self.batch < 1:
@@ -92,6 +93,13 @@ class ExecutionOptions:
                 f"impl='cuda' runs the CUDA kernels and needs a CUDA "
                 f"device, got device={self.device!r}"
             )
+
+    @property
+    def input_dtype(self) -> str:
+        """The dtype ``run()`` casts incoming batches to: ``dtype``, except
+        under int8, an internal precision whose layers quantize their own
+        fp32 inputs (the reference's property)."""
+        return "float32" if self.dtype == "int8" else self.dtype
 
     # -- persistence (CompiledCNN.save and load ride this) -------------------
 

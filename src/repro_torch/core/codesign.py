@@ -68,7 +68,8 @@ def conv_estimate(spec: ConvSpec, h: int, w: int, algorithm: ConvAlgorithm,
     """Every launch the dispatcher (kernels/conv_ops.py) makes for this
     conv, as the model prices it: the input channels padded to the
     kernel's multiple, the out channels as the layer has them."""
-    dtype = "int8" if dtype_bytes == 1 else "float32"
+    dtype = {1: "int8", 2: "bfloat16"}.get(dtype_bytes, "float32")
+    gk = "glue_16" if dtype_bytes == 2 else "glue"
     if spec.dilation != (1, 1):
         raise ValueError(f"the model prices no dilated conv ({spec}): no "
                          f"kernel of the port takes one")
@@ -87,17 +88,21 @@ def conv_estimate(spec: ConvSpec, h: int, w: int, algorithm: ConvAlgorithm,
         (ph, pw), (sh, sw) = spec.padding, spec.stride
         hp, wp = h + 2 * ph, w + 2 * pw
         if ph or pw:
-            est = est + glue(hw, dtype_bytes * batch * (h * w + hp * wp) * cin)
+            est = est + glue(hw, dtype_bytes * batch * (h * w + hp * wp) * cin,
+                             kernel=gk)
         if (sh, sw) != (1, 1):
-            est = est + glue(hw, dtype_bytes * batch * 2 * oh * ow * cin)
+            est = est + glue(hw, dtype_bytes * batch * 2 * oh * ow * cin,
+                             kernel=gk)
         return est + predict_gemm(GemmShape(batch * oh * ow, cout, cin),
                                   hw=hw, dtype_bytes=dtype_bytes)
     if algorithm is ConvAlgorithm.WINOGRAD:
         if spec.kernel_size != (3, 3) or spec.stride != (1, 1):
             raise ValueError(f"Winograd F(6,3) for {spec}")
         tiles = batch * -(-oh // 6) * -(-ow // 6)
-        return (est + winograd_glue(batch, h, w, cin, cout, spec, hw)
+        return (est + winograd_glue(batch, h, w, cin, cout, spec, hw,
+                                    dtype_bytes)
                 + predict_winograd(tiles, cin, cout, hw=hw,
+                                   dtype_bytes=dtype_bytes,
                                    fused=winograd_fused))
     if algorithm is ConvAlgorithm.IM2COL_GEMM:
         return est + predict_im2col(spec, h, w, batch, cin, cout, hw,
@@ -113,7 +118,8 @@ def predict_conv_time(spec: ConvSpec, h: int, w: int, algorithm,
     forward: the sum over every launch the dispatcher makes of
     ``launch_s`` + the kernel's fixed time + max(compute, memory) / its
     share of the roofline (``hw.kernel_fit``).
-    ``dtype_bytes`` 1 prices the int8 kernels and the entry quantization.
+    ``dtype_bytes`` 1 prices the int8 kernels and the entry quantization,
+    2 the 16-bit kernels (bf16 and fp16 run the same ones).
     Raises for an algorithm the dispatcher cannot run here."""
     return conv_estimate(spec, h, w, algorithm, hw, dtype_bytes, batch,
                          winograd_fused).total_s
@@ -255,6 +261,10 @@ CANDIDATES: Dict[str, Any] = {
     "winograd_3pass": (ConvAlgorithm.WINOGRAD, False, 4),
     "direct_int8": (ConvAlgorithm.DIRECT, False, 1),
     "im2col_gemm_int8": (ConvAlgorithm.IM2COL_GEMM, False, 1),
+    "direct_16": (ConvAlgorithm.DIRECT, False, 2),
+    "im2col_gemm_16": (ConvAlgorithm.IM2COL_GEMM, False, 2),
+    "winograd_fused_16": (ConvAlgorithm.WINOGRAD, True, 2),
+    "winograd_3pass_16": (ConvAlgorithm.WINOGRAD, False, 2),
 }
 
 
@@ -263,12 +273,12 @@ def candidate_estimate(spec: ConvSpec, h: int, w: int, batch: int,
                        measured_call: bool = False) -> GemmEstimate:
     """``conv_estimate`` of the candidate a plan label names.
     ``measured_call``: as measure mode's call (``planner.candidate_call``)
-    runs it, which also copies the pre-transformed Winograd weights
+    runs it, which also copies the pre-transformed fp32 Winograd weights
     (``u.contiguous()`` in kernels/conv_ops.py; the forward's weights are
-    contiguous already)."""
+    contiguous already, as the 16-bit split weights are in both)."""
     algo, wf, dtype_bytes = CANDIDATES[label]
     est = conv_estimate(spec, h, w, algo, hw, dtype_bytes, batch, wf)
-    if measured_call and algo is ConvAlgorithm.WINOGRAD:
+    if measured_call and algo is ConvAlgorithm.WINOGRAD and dtype_bytes == 4:
         cin = _channels(spec.in_channels, algo, "float32")
         est = est + glue(hw, 2 * 4 * 64 * cin * spec.out_channels)
     return est

@@ -5,8 +5,10 @@ The port of ``repro/core/conv2d.py``.  Routing comes from an explicit
 or, without one, the per-call selector in core/conv_spec.py.  A planned
 conv, an int8 conv, or any conv under ``impl='cuda'``, runs through the
 kernel dispatch (kernels/conv_ops.py), where ``impl`` picks the
-hand-written CUDA kernels or their plain versions; an unplanned fp32 conv
-under ``impl='torch'`` runs the plain algorithms of core/ directly.
+hand-written CUDA kernels or their plain versions, as does a bf16 or fp16
+conv (the plain versions round where the 16-bit kernels round); an
+unplanned fp32 conv under ``impl='torch'`` runs the plain algorithms of
+core/ directly.
 """
 from __future__ import annotations
 
@@ -59,7 +61,8 @@ def conv2d(
     if impl not in ("cuda", "torch"):
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
     if impl == "cuda" or plan is not None or in_layout is not None \
-            or out_layout is not None or x.dtype == torch.int8:
+            or out_layout is not None or x.dtype in (
+                torch.int8, torch.bfloat16, torch.float16):
         from repro_torch.kernels import conv_ops
 
         return conv_ops.conv2d_cuda(

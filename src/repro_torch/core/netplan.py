@@ -44,7 +44,7 @@ from repro_torch.core.conv_spec import (
 )
 from repro_torch.core.planner import ConvPlan, Planner
 from repro_torch.models.cnn import _conv_spec
-from repro_torch.util import ceil_to, pad_bias_row
+from repro_torch.util import HALF_DTYPES, ceil_to, pad_bias_row
 
 # ---------------------------------------------------------------------------
 # Layout and plan records
@@ -101,6 +101,12 @@ class NetworkPlan:
     batch: int
     impl: str
     dtype: str = "float32"
+
+    @property
+    def input_dtype(self) -> str:
+        """The type the forward takes its input in: ``dtype``, except
+        under int8, whose layers quantize their own fp32 inputs."""
+        return "float32" if self.dtype == "int8" else self.dtype
 
     @property
     def elided_boundaries(self) -> int:
@@ -420,6 +426,14 @@ def prepare_net_params(
     ``pretransform`` — applies the offline Winograd weight transform to
     exactly the layers ``pretransform_flags(netplan, pretransform)`` names.
 
+    A bf16 or fp16 step's prepared weights are rounded to its type, once,
+    after the fold, the pad and the transform (all in fp32); transformed
+    Winograd weights are split into hi and lo parts of its type
+    (``winograd.split_transformed``: rounded once, U loses F(6,3) several
+    percent of the output); its bias stays fp32.  The reference keeps the
+    caller's fp32 weights and upcasts them in its products; the tensor
+    cores take both operands in 16 bits.
+
     The steps whose plan resolved to int8 are quantized (core/quant.py): a
     plain fp32 walk over ``calibration`` (a sample input batch; the seeded
     ``default_calibration_batch`` when None) gives each one's
@@ -430,7 +444,7 @@ def prepare_net_params(
     to 0 and act(0 * scale + 0) = 0 still holds); it never carries the
     Winograd transform.
     """
-    from repro_torch.core.winograd import transform_weights
+    from repro_torch.core.winograd import split_transformed, transform_weights
     from repro_torch.models.cnn import fold_batchnorm
 
     flags = pretransform_flags(netplan, pretransform)
@@ -475,6 +489,13 @@ def prepare_net_params(
             b = pad_bias_row(b, s.out_layout.phys_c)
         if pre:
             w = transform_weights(w)                    # (8, 8, Cp, Op)
+        if s.plan.dtype in HALF_DTYPES:
+            # Rounded once, after the fold, the pad and the transform in
+            # fp32: the 16-bit kernels take both operands in their type;
+            # transformed Winograd weights go split into hi and lo parts.
+            # The bias stays fp32.
+            w = (split_transformed(w, HALF_DTYPES[s.plan.dtype]) if pre
+                 else w.to(HALF_DTYPES[s.plan.dtype]))
         out.append({"w": w.contiguous(), "b": b.contiguous()})
     return out
 
@@ -547,7 +568,9 @@ def layer_op(l: Any, p: Dict, cur: torch.Tensor,
              outputs: Sequence[torch.Tensor]) -> torch.Tensor:
     """Layer ``l`` that is not a conv: Darknet's maxpool (SAME, -inf pad),
     avgpool, nearest upsample, shortcut, route, and fc on the spatial
-    mean.  Shared by the forward and the int8 calibration walk."""
+    mean.  Shared by the forward and the int8 calibration walk.  Each
+    runs in its input's type; the fc head promotes a 16-bit input to its
+    fp32 weights' type."""
     if l.kind == "maxpool":
         return _maxpool_same(cur, l.size, l.stride)
     if l.kind == "avgpool":
@@ -566,6 +589,9 @@ def layer_op(l: Any, p: Dict, cur: torch.Tensor,
     if l.kind == "fc":
         if cur.ndim == 4:
             cur = cur.mean(dim=(1, 2))
+        # A 16-bit activation times fp32 weights promotes to fp32, as the
+        # reference's product does.
+        cur = cur.to(torch.promote_types(cur.dtype, p["w"].dtype))
         return apply_activation(cur @ p["w"] + p["b"], l.activation)
     raise ValueError(f"unknown layer kind {l.kind!r}")
 
@@ -636,8 +662,10 @@ class NetworkExecutor:
 
     def eager(self, x: torch.Tensor) -> torch.Tensor:
         """The forward, run eagerly: ``run_network`` on the prepared
-        params."""
+        params, the input cast to ``netplan.input_dtype`` as ``run()``
+        casts it."""
         self._check(x)
+        x = x.to(getattr(torch, self.netplan.input_dtype))
         with torch.inference_mode():
             return run_network(self.netplan, self.params, x,
                                pretransformed=self.pretransformed)

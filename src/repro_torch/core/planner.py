@@ -64,6 +64,14 @@ least ``INT8_WINOGRAD_MIN_TILES`` 6x6 output tiles (any value in
 and 4, VGG-16 224 and MODEL_20 608 at batch 1, and nothing more is claimed
 for it).  int8 candidates are not timed in measure mode.
 
+**bf16 and fp16** (``plan(..., dtype='bfloat16' | 'float16')``): every
+layer runs in the requested type, through the 16-bit kernel of the
+algorithm the mode picks.  Cost mode's split is its fp32 split (the
+reference's cost-mode plans of YOLOv3-tiny 416, MODEL_20 608 and VGG-16
+224 at batch 1 are the same in all three types); measure mode times the
+16-bit candidates; model mode prices the 16-bit kernels with their own
+fitted constants (``hw.H100.kernel_fit``: ``gemm_16`` ... ``glue_16``).
+
 **Persistence** (``cache_path``; None, the default, keeps plans in
 memory only).  The cache is one versioned JSON file: "plans" (per layer),
 "networks" (whole-network entries, core/netplan.py) and "pipelines"
@@ -92,10 +100,11 @@ import torch
 
 from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec
 from repro_torch.hw import H100, ChipSpec
+from repro_torch.util import HALF_DTYPES
 
 WINOGRAD_MIN_TILES = 64
 INT8_WINOGRAD_MIN_TILES = 1024
-DTYPES = ("float32", "int8")
+DTYPES = ("float32", "bfloat16", "float16", "int8")
 MODES = ("cost", "measure", "model")
 MEASURE_REPS = 10         # timed calls per measure-mode candidate
 
@@ -254,7 +263,8 @@ class ConvPlan:
     ``measured_ms`` holds, in measure mode, each candidate's label and its
     measured milliseconds per call.  ``dtype`` is the resolved precision:
     'int8' runs the int8 kernels on an input quantized at the layer's
-    entry, 'float32' the fp32 ones.  ``predicted_s`` is the modeled
+    entry, 'bfloat16' and 'float16' the 16-bit kernels, 'float32' the fp32
+    ones.  ``predicted_s`` is the modeled
     seconds in model mode, the measured seconds in measure mode, and None
     from the tile rule (``source`` says which).
     """
@@ -271,10 +281,14 @@ class ConvPlan:
     @property
     def label(self) -> str:
         """The algorithm, for Winograd its realization, and '_int8' on an
-        int8 plan."""
+        int8 plan, '_16' on a bf16 or fp16 one."""
         if self.algorithm is ConvAlgorithm.WINOGRAD:
-            return "winograd_fused" if self.winograd_fused else "winograd_3pass"
-        return self.algorithm.value + ("_int8" if self.dtype == "int8" else "")
+            base = "winograd_fused" if self.winograd_fused else "winograd_3pass"
+        else:
+            base = self.algorithm.value
+        if self.dtype == "int8":
+            return base + "_int8"
+        return base + ("_16" if self.dtype in HALF_DTYPES else "")
 
     def to_json(self) -> Dict[str, Any]:
         return {
@@ -505,8 +519,9 @@ class Planner:
     def plan(self, spec: ConvSpec, h: int, w: int, batch: int = 1,
              dtype: str = "float32") -> ConvPlan:
         """The plan for one layer at one input shape under the requested
-        ``dtype`` ('float32', or 'int8': resolved per layer, so the plan's
-        own ``dtype`` may be 'float32'); decides on the first miss."""
+        ``dtype`` ('float32', 'bfloat16', 'float16', or 'int8': resolved
+        per layer, so the plan's own ``dtype`` may be 'float32'); decides
+        on the first miss."""
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}, got {dtype!r}")
         key = self.key(spec, h, w, batch, dtype)
@@ -520,9 +535,14 @@ class Planner:
                     if self.mode == "model"
                     else self._tune_int8(spec, h, w, batch))
         elif self.mode == "measure":
-            plan = self._tune_measured(spec, h, w, batch)
+            plan = self._tune_measured(spec, h, w, batch, dtype)
         elif self.mode == "model":
-            plan = self._tune_cost_model(spec, h, w, batch)
+            plan = self._tune_cost_model(spec, h, w, batch, dtype)
+        elif dtype in HALF_DTYPES:
+            fp32_plan = self._tune_cost(spec, h, w, batch)
+            plan = self._candidate(spec, fp32_plan.algorithm,
+                                   fp32_plan.winograd_fused, h, w, batch,
+                                   fp32_plan.source, dtype=dtype)
         else:
             plan = self._tune_cost(spec, h, w, batch)
         self._plans[key] = plan
@@ -546,16 +566,18 @@ class Planner:
         wf = self.winograd_fused if self.winograd_fused is not None else True
         return self._candidate(spec, algo, wf, h, w, batch, "tile_rule")
 
-    def _tune_cost_model(self, spec: ConvSpec, h: int, w: int,
-                         batch: int) -> ConvPlan:
+    def _tune_cost_model(self, spec: ConvSpec, h: int, w: int, batch: int,
+                         dtype: str = "float32") -> ConvPlan:
         """The cheapest candidate under the card's cost model
-        (``codesign.cheapest_conv``)."""
+        (``codesign.cheapest_conv``), in ``dtype`` (the fp32 or the 16-bit
+        kernels)."""
         from repro_torch.core.codesign import cheapest_conv
 
-        t, algo, wf = cheapest_conv(spec, h, w, self.hw, 4, batch,
+        t, algo, wf = cheapest_conv(spec, h, w, self.hw,
+                                    2 if dtype in HALF_DTYPES else 4, batch,
                                     self.winograd_fused)
         return self._candidate(spec, algo, wf, h, w, batch, "cost_model",
-                               predicted_s=t)
+                               dtype=dtype, predicted_s=t)
 
     def _tune_int8(self, spec: ConvSpec, h: int, w: int,
                    batch: int) -> ConvPlan:
@@ -609,9 +631,10 @@ class Planner:
             return ConvAlgorithm.WINOGRAD
         return ConvAlgorithm.IM2COL_GEMM
 
-    def _tune_measured(self, spec: ConvSpec, h: int, w: int,
-                       batch: int) -> ConvPlan:
-        """Time every eligible candidate on seeded inputs; keep the fastest."""
+    def _tune_measured(self, spec: ConvSpec, h: int, w: int, batch: int,
+                       dtype: str = "float32") -> ConvPlan:
+        """Time every eligible candidate in ``dtype`` on seeded inputs; keep
+        the fastest."""
         candidates = []
         for algo in eligible_algorithms(spec):
             if algo is not ConvAlgorithm.WINOGRAD:
@@ -626,7 +649,8 @@ class Planner:
         operands = candidate_operands(spec, h, w, batch, self.device)
         timed = []
         for algo, wf in candidates:
-            plan = self._candidate(spec, algo, wf, h, w, batch, "measured")
+            plan = self._candidate(spec, algo, wf, h, w, batch, "measured",
+                                   dtype=dtype)
             ms = self._time_ms(candidate_call(spec, plan, operands))
             timed.append((plan, ms))
         best, best_ms = min(timed, key=lambda pm: pm[1])
@@ -663,13 +687,13 @@ def kernel_blocks(spec: ConvSpec, algo: ConvAlgorithm, h: int, w: int,
         from repro_torch.kernels.gemm.ops import default_block
 
         return default_block(batch * oh * ow, spec.out_channels,
-                             spec.in_channels)
+                             spec.in_channels, dtype)
     if algo is ConvAlgorithm.WINOGRAD:
         from repro_torch.kernels.winograd.ops import pick_blocks
 
         return pick_blocks(winograd_tiles(spec, h, w, batch),
                            spec.in_channels, spec.out_channels,
-                           fused=winograd_fused)
+                           fused=winograd_fused, dtype=dtype)
     from repro_torch.kernels.im2col_gemm.ops import pick_blocks
 
     return pick_blocks(oh, ow, dtype)
@@ -699,8 +723,9 @@ def candidate_call(spec: ConvSpec, plan: ConvPlan,
     multiple offline, Winograd weights pre-transformed, the bias +
     activation epilogue every planned conv replays; an int8 plan
     quantizes its fp32 input at entry (the four launches of
-    ``quant.quantize_activation``) and dequantizes in the kernel.
-    Measure mode times these calls."""
+    ``quant.quantize_activation``) and dequantizes in the kernel; a 16-bit
+    plan runs on its type's input and weights (Winograd's split after the
+    transform, ``winograd.split_transformed``) with the fp32 bias.  Measure mode times these calls."""
     import torch.nn.functional as F
 
     from repro_torch.core.conv2d import conv2d
@@ -731,6 +756,12 @@ def candidate_call(spec: ConvSpec, plan: ConvPlan,
     pre = plan.algorithm is ConvAlgorithm.WINOGRAD
     if pre:
         wts = transform_weights(wts)
+    if plan.dtype in HALF_DTYPES:
+        from repro_torch.core.winograd import split_transformed
+
+        dt = getattr(torch, plan.dtype)
+        x = x.to(dt)
+        wts = split_transformed(wts, dt) if pre else wts.to(dt).contiguous()
     epi = Epilogue(bias=bias, activation="relu")
 
     def call():

@@ -57,19 +57,37 @@ CUDA_FUNCTIONS: Dict[str, str] = {
     "gemm_q8_reduce": "gemm_q8_splitk_reduce_kernel",
     "im2col_conv_reduce": "im2col_conv_splitk_reduce_kernel",
     "im2col_conv_q8_reduce": "im2col_conv_q8_splitk_reduce_kernel",
+    "gemm_16": "hgemm16_bias_act_kernel",
+    "im2col_conv_16": "im2col16_conv_kernel",
+    "winograd_fused_16": "winograd16_fused_kernel",
+    "input_transform_16": "winograd16_input_transform_kernel",
+    "tuple_multiply_16": "winograd16_tuple_multiply_kernel",
+    "output_transform_16": "winograd16_output_transform_kernel",
+    "gemm_16_reduce": "hgemm16_splitk_reduce_kernel",
+    "im2col_conv_16_reduce": "im2col16_conv_splitk_reduce_kernel",
 }
-#: Every kind of launch the model prices: the kernels and PyTorch's own.
-KERNELS: Tuple[str, ...] = (*CUDA_FUNCTIONS, "glue")
+#: Every kind of launch the model prices: the kernels and PyTorch's own,
+#: fit apart around fp32 and int8 convs ('glue') and around 16-bit ones
+#: ('glue_16'), so that neither moves the other's constants.
+KERNELS: Tuple[str, ...] = (*CUDA_FUNCTIONS, "glue", "glue_16")
 
 F32 = 4            # bytes of an fp32 (and an int32) element
+HALF = 2           # bytes of a bf16 or fp16 element
 #: The fp32 GEMM core's ring (csrc/sgemm_3xtf32.cuh): STAGES chunks of A
 #: (BM x (BK + 4)) and B (BK x (BN + 8)).
 SGEMM_STAGES = 3
+#: The 16-bit GEMM core's ring (csrc/hmma16.cuh): STAGES chunks of A
+#: (BM x (BK + 8)) and B (BK x (BN + 8)).
+HMMA16_STAGES = 3
 #: The int8 GEMM's ring (csrc/gemm_q8.cu): STAGES stages of 128 K bytes.
 Q8_STAGES, Q8_KS = 3, 128
 #: The fused Winograd kernel's shared memory (csrc/winograd_fused.cu,
 #: SMEM_FLOATS = 2 U stages + raw tiles + V).
 FUSED_SMEM_BYTES = (2 * 64 * 8 * 32 + 16 * 8 * 72 + 64 * 200) * F32
+#: The 16-bit fused Winograd kernel's shared memory
+#: (csrc/winograd_fused_16.cu, SMEM_BYTES: U and V, hi and lo, and the
+#: raw tiles).
+FUSED16_SMEM_BYTES = 2 * 64 * 16 * 32 * 2 + 16 * 8 * 272 + 2 * 64 * 16 * 32
 #: Resident blocks of the fused Winograd kernel on one SM: its shared
 #: memory leaves room for one.
 RESIDENT_BLOCKS_FUSED = 1
@@ -98,9 +116,13 @@ class BlockConfig:
     def smem_bytes(self, dtype_bytes: int = F32) -> int:
         """Shared memory of the fp32 GEMM core's ring at this tile, with its
         padded rows (for int8, the s8 kernel's ring of 128-byte K lines and
-        its staging of B)."""
+        its staging of B; for 2-byte types, the 16-bit core's ring,
+        csrc/hmma16.cuh, whose rows are padded by 8 values)."""
         if dtype_bytes == 1:
             return Q8_STAGES * (self.bm + self.bn) * Q8_KS + self.bn * Q8_KS
+        if dtype_bytes == 2:
+            return HMMA16_STAGES * (self.bm * (self.bk + 8)
+                                    + self.bk * (self.bn + 8)) * dtype_bytes
         return SGEMM_STAGES * (self.bm * (self.bk + 4)
                                + self.bk * (self.bn + 8)) * dtype_bytes
 
@@ -142,8 +164,9 @@ class GemmEstimate:
 
 def peak_flops(hw: ChipSpec, dtype_bytes: int) -> float:
     """The peak a GEMM of this element size runs at on the port's kernels:
-    fp32 as 3xTF32 on the tensor cores, int8 on the s8 tensor cores."""
-    return hw.peak_rate("int8" if dtype_bytes == 1 else "tf32x3")
+    fp32 as 3xTF32 on the tensor cores, bf16 and fp16 (2 bytes) at the
+    dense 16-bit tensor-core rate, int8 on the s8 tensor cores."""
+    return hw.peak_rate({1: "int8", 2: "bf16"}.get(dtype_bytes, "tf32x3"))
 
 
 def _cost(kernel: str, hw: ChipSpec, compute_s: float, hbm_bytes: float,
@@ -183,7 +206,8 @@ def predict_gemm(shape: GemmShape, block: Optional[BlockConfig] = None,
                  splits: Optional[int] = None) -> GemmEstimate:
     """One GEMM wrapper call, act(A @ B + bias): the kernel and, where it
     splits K, its reduce.  ``dtype_bytes`` 4 is the fp32 kernel (3xTF32),
-    1 the int8 one (s8, fp32 out).
+    1 the int8 one (s8, fp32 out), 2 the 16-bit one (bf16 or fp16 in and
+    out).
 
     ``block`` None, ``sms`` None and ``splits`` None price what the wrapper
     runs: its compiled tile and its split.  The sweeps pass a tile the
@@ -193,28 +217,29 @@ def predict_gemm(shape: GemmShape, block: Optional[BlockConfig] = None,
     from repro_torch.kernels.gemm import ops
 
     m, n, k = shape.m, shape.n, shape.k
-    q8 = dtype_bytes == 1
-    name = "gemm_q8" if q8 else "gemm"
+    q8, half = dtype_bytes == 1, dtype_bytes == HALF
+    name = "gemm_q8" if q8 else "gemm_16" if half else "gemm"
+    most = (ops.RESIDENT_BLOCKS_Q8 if q8 else ops.RESIDENT_BLOCKS_16 if half
+            else ops.RESIDENT_BLOCKS)
     if block is None:
-        bm, bn = ops.tile_q8(n) if q8 else ops.TILE[:2]
-        bk = ops.CHUNK_Q8 if q8 else ops.TILE[2]
-        resident = ops.RESIDENT_BLOCKS_Q8 if q8 else ops.RESIDENT_BLOCKS
+        bm, bn, bk = (ops.tile_q8(n) + (ops.CHUNK_Q8,) if q8
+                      else ops.TILE_16 if half else ops.TILE)
+        resident = most
     else:
         bm, bn, bk = block.bm, block.bn, block.bk
         smem = block.smem_bytes(dtype_bytes)
-        resident = max(1, min(ops.RESIDENT_BLOCKS_Q8 if q8
-                              else ops.RESIDENT_BLOCKS,
-                              hw.smem_per_sm_bytes // smem))
+        resident = max(1, min(most, hw.smem_per_sm_bytes // smem))
     if splits is None:
-        splits = (ops.call_splits_q8(m, n, k) if q8
-                  else ops.call_splits(m, n, k))
+        splits = (ops.call_splits_q8 if q8 else ops.call_splits_16 if half
+                  else ops.call_splits)(m, n, k)
     chunks = -(-k // bk)
     tiles = -(-m // bm) * -(-n // bn)
     grid = tiles * splits
     block_work = 2 * bm * bn * bk * -(-chunks // splits)
     compute_s, waves = _waved(block_work, grid, resident,
                               peak_flops(hw, dtype_bytes), hw, sms)
-    out_bytes = F32 * m * n * (splits if splits > 1 else 1)
+    out_bytes = (F32 * m * n * splits if splits > 1
+                 else (HALF if half else F32) * m * n)
     hbm = dtype_bytes * (m * k + k * n) + out_bytes + F32 * n * (2 if q8 else 1)
     smem = BlockConfig(bm, bn, bk).smem_bytes(dtype_bytes)
     parts = [_cost(name, hw, compute_s, hbm, grid, splits, waves, smem)]
@@ -269,7 +294,7 @@ def predict_im2col(spec, h: int, w: int, batch: int, cin: int, cout: int,
     as ``snap_row_tile`` does) and its split, and its reduce."""
     from repro_torch.kernels.im2col_gemm import ops
 
-    q8 = dtype_bytes == 1
+    q8, half = dtype_bytes == 1, dtype_bytes == HALF
     oh, ow = spec.out_hw(h, w)
     if toh is None:
         toh = ops.snap_row_tile(ops.pick_blocks(oh, ow)[0], oh)
@@ -282,19 +307,29 @@ def predict_im2col(spec, h: int, w: int, batch: int, cin: int, cout: int,
         chunk, chunks, resident = ops.CHUNK_Q8, -(-cin // ops.CHUNK_Q8), \
             ops.RESIDENT_BLOCKS_Q8
         smem = 2 * (win_px + taps * ops.BO) * ops.CHUNK_Q8
+    elif half:
+        # 16-channel chunks (32-byte window pixels), the weight rows
+        # padded to 72 values (csrc/im2col_conv_16.cu).
+        splits = ops.call_splits_16(batch, oh, ow, cin, cout, toh)
+        chunk, chunks, resident = ops.CHUNK_16, -(-cin // ops.CHUNK_16), \
+            ops.RESIDENT_BLOCKS_16
+        smem = 2 * (win_px + taps * (ops.BO + 8)) * ops.CHUNK_16 * HALF
     else:
         splits = ops.call_splits(batch, oh, ow, cin, cout, toh)
         chunk, chunks, resident = ops.BC, cin // ops.BC, ops.RESIDENT_BLOCKS
         smem = 2 * (win_px * ops.BC + taps * ops.BC * ops.BO) * F32
     grid = grid0 * splits
     block_work = 2 * toh * tow * ops.BO * taps * chunk * -(-chunks // splits)
-    compute_s, waves = _waved(block_work, grid, resident,
-                              hw.peak_rate("int8" if q8 else "fp32"), hw)
+    compute_s, waves = _waved(
+        block_work, grid, resident,
+        hw.peak_rate("int8" if q8 else "bf16" if half else "fp32"), hw)
     outputs = batch * oh * ow * cout
     hbm = (dtype_bytes * (batch * h * w * cin + taps * cin * cout)
-           + F32 * outputs * (splits if splits > 1 else 1)
+           + (F32 * outputs * splits if splits > 1
+              else (HALF if half else F32) * outputs)
            + F32 * cout * (2 if q8 else 1))
-    name = "im2col_conv_q8" if q8 else "im2col_conv"
+    name = "im2col_conv_q8" if q8 else "im2col_conv_16" if half \
+        else "im2col_conv"
     parts = [_cost(name, hw, compute_s, hbm, grid, splits, waves, smem)]
     parts += _reduce(name + "_reduce", splits, outputs, hw)
     return GemmEstimate(tuple(parts))
@@ -306,47 +341,65 @@ def predict_winograd(tiles: int, cin: int, cout: int,
                      fused: bool = True) -> GemmEstimate:
     """The Winograd kernels of one conv on ``tiles`` 8x8 tiles and ``cin``
     (padded) channels: the fused kernel, or the 3-pass pipeline's three
-    (``blocks`` is the realization's compiled tile; only it runs)."""
-    from repro_torch.kernels.winograd.ops import FUSED_BLOCKS, THREE_PASS_BLOCKS
+    (``blocks`` is the realization's compiled tile; only it runs).
+    ``dtype_bytes`` 2 prices the 16-bit kernels: U comes as hi and lo
+    parts, so the fused kernel's products are three 16-bit products each
+    (V split too) and the tuple multiply's two."""
+    from repro_torch.kernels.winograd.ops import (
+        FUSED_BLOCKS,
+        FUSED_BLOCKS_16,
+        THREE_PASS_BLOCKS,
+        THREE_PASS_BLOCKS_16,
+    )
 
-    want = FUSED_BLOCKS if fused else THREE_PASS_BLOCKS
+    half = dtype_bytes == HALF
+    if dtype_bytes not in (F32, HALF):
+        raise ValueError("the Winograd kernels run fp32, bf16 and fp16 only")
+    if half:
+        want = FUSED_BLOCKS_16 if fused else THREE_PASS_BLOCKS_16
+        sfx, unit, elem = "_16", "bf16", HALF
+    else:
+        want = FUSED_BLOCKS if fused else THREE_PASS_BLOCKS
+        sfx, unit, elem = "", "tf32x3", F32
     if blocks is not None and tuple(blocks) != want:
         raise ValueError(f"Winograd blocks {tuple(blocks)}: the "
                          f"{'fused' if fused else '3-pass'} kernel runs {want}")
-    if dtype_bytes != F32:
-        raise ValueError("the Winograd kernels run fp32 only")
     in_tf = 2 * (8 * 8 * 8) * 2                   # flops a tile and channel
     out_tf = 2 * (6 * 8 * 8 + 6 * 8 * 6)          # a tile and out channel
-    x_bytes, u_bytes = F32 * tiles * 64 * cin, F32 * 64 * cin * cout
-    y_bytes = F32 * (tiles * 36 * cout + cout)
+    x_bytes = elem * tiles * 64 * cin
+    u_bytes = (2 if half else 1) * elem * 64 * cin * cout
+    y_bytes = elem * tiles * 36 * cout + F32 * cout
     if fused:
-        bt, _, bo = FUSED_BLOCKS
+        bt, _, bo = want
         grid = -(-tiles // bt) * -(-cout // bo)
         waves = -(-grid // (hw.sm_count * RESIDENT_BLOCKS_FUSED))
-        # One block's products (3xTF32) and transforms (CUDA cores) at one
-        # SM's peak, shared by the blocks resident on it.
+        # One block's products (tensor cores) and transforms (CUDA cores)
+        # at one SM's peak, shared by the blocks resident on it.
         block_s = hw.sm_count * RESIDENT_BLOCKS_FUSED * (
-            2 * bt * bo * 64 * cin / hw.peak_rate("tf32x3")
+            (3 if half else 1) * 2 * bt * bo * 64 * cin / hw.peak_rate(unit)
             + (bt * cin * in_tf + bt * bo * out_tf) / hw.peak_rate("fp32"))
-        part = _cost("winograd_fused", hw, waves * block_s,
-                     x_bytes + u_bytes + y_bytes, grid, 1, waves,
-                     FUSED_SMEM_BYTES)
+        smem = FUSED16_SMEM_BYTES if half else FUSED_SMEM_BYTES
+        part = _cost("winograd_fused" + sfx, hw, waves * block_s,
+                     x_bytes + u_bytes + y_bytes, grid, 1, waves, smem)
         return GemmEstimate((part,))
-    from repro_torch.kernels.gemm.ops import RESIDENT_BLOCKS
+    from repro_torch.kernels.gemm.ops import RESIDENT_BLOCKS, RESIDENT_BLOCKS_16
 
-    bt, bk, bo = THREE_PASS_BLOCKS
-    v_bytes, m_bytes = F32 * tiles * 64 * cin, F32 * tiles * 64 * cout
+    bt, bk, bo = want
+    v_bytes, m_bytes = elem * tiles * 64 * cin, elem * tiles * 64 * cout
     # The tuple multiply: 64 position GEMMs in one grid, on the GEMM's
     # core at its tile, unsplit.
     grid = 64 * -(-tiles // bt) * -(-cout // bo)
-    compute_s, waves = _waved(2 * bt * bo * bk * -(-cin // bk), grid,
-                              RESIDENT_BLOCKS, hw.peak_rate("tf32x3"), hw)
+    compute_s, waves = _waved((2 if half else 1) * 2 * bt * bo * bk
+                              * -(-cin // bk), grid,
+                              RESIDENT_BLOCKS_16 if half else RESIDENT_BLOCKS,
+                              hw.peak_rate(unit), hw)
     parts = (
-        _cost("input_transform", hw,
+        _cost("input_transform" + sfx, hw,
               tiles * cin * in_tf / hw.peak_rate("fp32"), x_bytes + v_bytes),
-        _cost("tuple_multiply", hw, compute_s, v_bytes + u_bytes + m_bytes,
-              grid, 1, waves, BlockConfig(bt, bo, bk).smem_bytes()),
-        _cost("output_transform", hw,
+        _cost("tuple_multiply" + sfx, hw, compute_s,
+              v_bytes + u_bytes + m_bytes, grid, 1, waves,
+              BlockConfig(bt, bo, bk).smem_bytes(elem)),
+        _cost("output_transform" + sfx, hw,
               tiles * cout * out_tf / hw.peak_rate("fp32"), m_bytes + y_bytes),
     )
     return GemmEstimate(parts)
@@ -356,14 +409,17 @@ def predict_winograd(tiles: int, cin: int, cout: int,
 # PyTorch's copies around a conv
 
 
-def glue(hw: ChipSpec, *byte_counts: float) -> GemmEstimate:
+def glue(hw: ChipSpec, *byte_counts: float,
+         kernel: str = "glue") -> GemmEstimate:
     """PyTorch launches of the dispatcher (padding, tiling, untiling,
-    quantization), one per entry of ``byte_counts`` (bytes it moves)."""
-    return GemmEstimate(tuple(_cost("glue", hw, 0.0, b) for b in byte_counts))
+    quantization), one per entry of ``byte_counts`` (bytes it moves);
+    ``kernel`` 'glue_16' around a 16-bit conv."""
+    return GemmEstimate(tuple(_cost(kernel, hw, 0.0, b) for b in byte_counts))
 
 
 def winograd_glue(batch: int, h: int, w: int, cin: int, cout: int,
-                  spec, hw: ChipSpec = H100) -> GemmEstimate:
+                  spec, hw: ChipSpec = H100,
+                  dtype_bytes: int = F32) -> GemmEstimate:
     """The copies a Winograd conv makes around its kernels
     (kernels/winograd/ops.py), two launches to a zero pad (a fill, then
     the copy of the input into it): the conv's spatial pad, the pad to
@@ -375,13 +431,15 @@ def winograd_glue(batch: int, h: int, w: int, cin: int, cout: int,
     tiles = batch * nth * ntw
     padded = batch * (h + 2 * ph) * (w + 2 * pw) * cin
     need = batch * (nth * 6 + 2) * (ntw * 6 + 2) * cin
+    e = dtype_bytes
     moves = []
     if ph or pw:
-        moves += [F32 * padded, F32 * 2 * batch * h * w * cin]
-    moves += [F32 * need, F32 * 2 * padded,
-              F32 * 2 * tiles * 64 * cin,               # gather the tiles
-              F32 * 2 * tiles * 36 * cout]              # untile
-    return glue(hw, *moves)
+        moves += [e * padded, e * 2 * batch * h * w * cin]
+    moves += [e * need, e * 2 * padded,
+              e * 2 * tiles * 64 * cin,               # gather the tiles
+              e * 2 * tiles * 36 * cout]              # untile
+    return glue(hw, *moves,
+                kernel="glue_16" if dtype_bytes == HALF else "glue")
 
 
 def quantize_glue(elements: int, hw: ChipSpec = H100) -> GemmEstimate:

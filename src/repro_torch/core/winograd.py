@@ -8,6 +8,7 @@ a batched GEMM over the 64 transform positions:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -88,6 +89,48 @@ def transform_weights(w: torch.Tensor) -> torch.Tensor:
     """
     g = _const(G, w)
     return torch.einsum("ai,bj,ijco->abco", g, g, w)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitWeights:
+    """Transformed Winograd weights for the 16-bit kernels.
+
+    ``hl`` (2, 8, 8, C, O), of one 16-bit type: the hi and lo parts of
+    U[p] * 2^k[p], hi = round(U * 2^k), lo = round(U * 2^k - hi), so hi +
+    lo holds about 16 significant bits of U in bf16 and 22 in fp16;
+    ``inv_scale`` (64,) fp32: 2^-k[p], which the kernels apply to M[p]
+    (exact).  k[p] brings position p's largest |U| into [1, 2), which
+    keeps fp16's lo parts out of its subnormals.  F(6,3) needs the split:
+    U rounded to bf16 costs a 64-channel layer about 8 % of its largest
+    output (the reference multiplies by fp32 U).  ``shape`` and ``dtype``
+    are U's, so the dispatcher checks them as it checks a tensor's.
+    """
+
+    hl: torch.Tensor
+    inv_scale: torch.Tensor
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.hl.shape[1:]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.hl.dtype
+
+    def contiguous(self) -> "SplitWeights":
+        return SplitWeights(self.hl.contiguous(), self.inv_scale.contiguous())
+
+
+def split_transformed(u: torch.Tensor, dtype: torch.dtype) -> SplitWeights:
+    """fp32 U (8, 8, C, O) -> ``SplitWeights`` of ``dtype``."""
+    _, e = torch.frexp(u.abs().amax(dim=(2, 3)))          # max = m 2^e
+    e = e.to(torch.int32)
+    scaled = torch.ldexp(u, (1 - e)[..., None, None].to(u.dtype))
+    hi = scaled.to(dtype)
+    lo = (scaled - hi.float()).to(dtype)
+    inv = torch.ldexp(torch.ones((), dtype=torch.float32, device=u.device),
+                      (e - 1).reshape(TILE * TILE).float())
+    return SplitWeights(torch.stack([hi, lo]).contiguous(), inv.contiguous())
 
 
 def _tile_input(x: torch.Tensor, oh: int, ow: int) -> Tuple[torch.Tensor, int, int]:

@@ -18,8 +18,8 @@ Each bound divides by the peak of the units the kernel's work needs:
 
 ``peak_rate(unit)`` names those units for the cost model
 (core/smem_model.py): 'tf32x3' (fp32 products as three TF32 products,
-``peak_flops_tf32 / 3``), 'fp32' (the CUDA cores), 'int8' (s8 tensor
-cores).  The model's own constants -- the fixed cost of a launch in a
+``peak_flops_tf32 / 3``), 'fp32' (the CUDA cores), 'bf16' (bf16 and fp16
+tensor cores), 'int8' (s8 tensor cores).  The model's own constants -- the fixed cost of a launch in a
 replayed CUDA graph and each kernel's share of its roofline -- are
 measured on the card, not taken from a data sheet: each names its source.
 """
@@ -54,9 +54,11 @@ class ChipSpec:
     # duration = fixed + max(compute, memory) / share, as
     # scripts/cost_model_fit.py fits them to the card's per-call times
     # ('glue': PyTorch's launches around a conv).
-    # The fit of 149 candidate calls of YOLOv3-tiny 416 b1/b4, MODEL_20 608
-    # b1 and VGG-16 224 b1 on "NVIDIA H100 80GB HBM3, 700.00 W" by
-    # scripts/cost_model_fit.py, whose records are
+    # The fit of 149 fp32 and int8 candidate calls of YOLOv3-tiny 416
+    # b1/b4, MODEL_20 608 b1 and VGG-16 224 b1 on "NVIDIA H100 80GB HBM3,
+    # 700.00 W" by scripts/cost_model_fit.py, and of 112 bf16 ones of the
+    # same convs appended to them in a later run ('..._16' and 'glue_16',
+    # fit apart, so no fp32 or int8 entry moved); the records are
     # scripts/cost_model_records_h100.json (PERF.md section 6).  A share
     # above 1: the operands stayed in the 50 MB L2.
     kernel_fit: Tuple[Tuple[str, float, float], ...] = (
@@ -72,13 +74,23 @@ class ChipSpec:
         ("gemm_q8_reduce", 2.0e-6, 1.8704),
         ("im2col_conv_reduce", 1.6e-6, 0.8944),
         ("im2col_conv_q8_reduce", 1.1e-6, 0.5593),
+        ("gemm_16", 2.3e-6, 0.3999),
+        ("im2col_conv_16", 0.6e-6, 0.1223),
+        ("winograd_fused_16", 0.0, 0.2735),
+        ("input_transform_16", 2.7e-6, 1.3678),
+        ("tuple_multiply_16", 3.7e-6, 0.5849),
+        ("output_transform_16", 2.2e-6, 1.3375),
+        ("gemm_16_reduce", 1.7e-6, 1.5641),
+        ("im2col_conv_16_reduce", 2.0e-6, 4.0000),
         ("glue", 1.4e-6, 0.8746),
+        ("glue_16", 1.7e-6, 0.5593),
     )
 
     def peak_rate(self, unit: str) -> float:
         """Peak operations a second of the units ``unit`` names."""
         rates = {"tf32x3": self.peak_flops_tf32 / 3,
                  "fp32": self.peak_flops_fp32,
+                 "bf16": self.peak_flops_bf16,
                  "int8": self.peak_ops_int8}
         if unit not in rates:
             raise ValueError(f"unknown units {unit!r}; one of {sorted(rates)}")

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file has a plain C interface (it may include the
 ``.cuh`` headers beside it, and those of the shared directory ``csrc/``
-here, such as the fp32 tensor-core GEMM core ``sgemm_3xtf32.cuh``) and is
+here, such as the fp32 tensor-core GEMM core ``sgemm_3xtf32.cuh`` and its
+bf16/fp16 twin ``hmma16.cuh``) and is
 compiled on first use, for ``sm_90a``, into its own shared library under
 ``build/repro_torch/`` at the repository root (the file name carries a
 digest of the source, every header it includes and the flags, so an
@@ -38,7 +39,15 @@ SOURCES: Dict[str, str] = {
     "winograd_fused": "winograd/csrc/winograd_fused.cu",
     "winograd_3pass": "winograd/csrc/winograd_3pass.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "gemm_16": "gemm/csrc/gemm_16.cu",
+    "im2col_conv_16": "im2col_gemm/csrc/im2col_conv_16.cu",
+    "winograd_fused_16": "winograd/csrc/winograd_fused_16.cu",
+    "winograd_3pass_16": "winograd/csrc/winograd_3pass_16.cu",
 }
+
+#: The code of each 16-bit element type in the C entries of the 16-bit
+#: kernels (one template instance each).
+DTYPE16_CODES = {torch.bfloat16: 0, torch.float16: 1}
 
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch"
 
@@ -185,6 +194,26 @@ def require_cuda_operands(what: str, *tensors,
                              f"tensors, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: needs contiguous tensors")
+
+
+def require_dtype(what: str, dtype: torch.dtype, *tensors) -> None:
+    """Raise unless every given tensor (None skipped) is of ``dtype``, on
+    any device: a wrapper takes its own type and never casts quietly."""
+    for t in tensors:
+        if t is not None and t.dtype != dtype:
+            raise ValueError(f"{what}: needs {str(dtype).split('.')[-1]} "
+                             f"tensors, got {t.dtype}")
+
+
+def require_16bit(what: str, *tensors) -> torch.dtype:
+    """The one 16-bit type (bf16 or fp16) of all the given tensors; raises
+    on any other type or a mix."""
+    dtype = tensors[0].dtype
+    if dtype not in DTYPE16_CODES:
+        raise ValueError(f"{what}: needs bfloat16 or float16 tensors, got "
+                         f"{dtype}")
+    require_dtype(what, dtype, *tensors)
+    return dtype
 
 
 def require_int32_exact(what: str, k: int) -> None:

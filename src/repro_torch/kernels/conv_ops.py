@@ -6,7 +6,10 @@ kernel (direct), 3x3 stride-1 -> Winograd (the fused kernel, or the three
 else -> the implicit-GEMM conv kernel, each with bias + activation fused in
 its output stage.  An int8 input (an int8 plan's step, quantized at entry)
 runs the int8 GEMM or the int8 implicit-GEMM conv kernel, with the dequant
-scale fused before the bias; int8 never runs Winograd.  ``impl='cuda'``
+scale fused before the bias; int8 never runs Winograd.  A bf16 or fp16
+input (a 16-bit plan's step, whose prepared weights are of its type) runs
+the 16-bit kernel of the same algorithm, summed in fp32 and rounded to
+that type; a 16-bit tensor never reaches an fp32 kernel.  ``impl='cuda'``
 runs the hand-written kernels, ``impl='torch'`` their plain versions
 through the same layouts, so the two differ only inside the kernels.
 
@@ -25,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec, Epilogue
-from repro_torch.util import ceil_to
+from repro_torch.util import HALF_DTYPES, ceil_to
 
 if TYPE_CHECKING:
     from repro_torch.core.netplan import Layout
@@ -39,8 +42,13 @@ def in_channel_multiple(algo: ConvAlgorithm, dtype: str = "float32") -> int:
     C; the Winograd and fp32 implicit-GEMM kernels reduce in steps of 8
     channels with 16-byte loads, so their C is padded to a multiple of 8.
     Both int8 kernels load 16 channels (16 bytes) at a time: each
-    wrapper's own multiple.
+    wrapper's own multiple.  Every 16-bit kernel copies 8 values (16
+    bytes) at a time, its channel multiple.
     """
+    if dtype in HALF_DTYPES:
+        from repro_torch.kernels.gemm.ops import K_MULTIPLE_16
+
+        return K_MULTIPLE_16
     if algo is ConvAlgorithm.DIRECT:
         if dtype == "int8":
             from repro_torch.kernels.gemm.ops import K_MULTIPLE_Q8
@@ -61,26 +69,40 @@ def in_channel_multiple(algo: ConvAlgorithm, dtype: str = "float32") -> int:
 def plan_kernels(plan: "ConvPlan") -> Tuple[str, ...]:
     """The CUDA kernels one planned conv step launches, once each."""
     q8 = "_q8" if plan.dtype == "int8" else ""
+    h = "_16" if plan.dtype in HALF_DTYPES else ""
     if plan.algorithm is ConvAlgorithm.DIRECT:
-        return ("gemm" + q8,)
+        return ("gemm" + q8 + h,)
     if plan.algorithm is ConvAlgorithm.WINOGRAD:
         if plan.winograd_fused:
-            return ("winograd_fused",)
-        return ("input_transform", "tuple_multiply", "output_transform")
-    return ("im2col_conv" + q8,)
+            return ("winograd_fused" + h,)
+        return ("input_transform" + h, "tuple_multiply" + h,
+                "output_transform" + h)
+    return ("im2col_conv" + q8 + h,)
 
 
 def kernel_wrappers() -> Dict[str, Callable]:
     """Every CUDA kernel's wrapper by kernel name (the names of
     ``plan_kernels``); each counts the launches of its kernel in its
     ``launches`` attribute."""
-    from repro_torch.kernels.gemm.ops import matmul_bias_act, matmul_q8_bias_act
-    from repro_torch.kernels.im2col_gemm.ops import im2col_conv, im2col_conv_q8
+    from repro_torch.kernels.gemm.ops import (
+        matmul16_bias_act,
+        matmul_bias_act,
+        matmul_q8_bias_act,
+    )
+    from repro_torch.kernels.im2col_gemm.ops import (
+        im2col_conv,
+        im2col_conv16,
+        im2col_conv_q8,
+    )
     from repro_torch.kernels.winograd.ops import (
         fused_winograd,
+        fused_winograd16,
         input_transform,
+        input_transform16,
         output_transform,
+        output_transform16,
         tuple_multiply,
+        tuple_multiply16,
     )
 
     return {"gemm": matmul_bias_act, "gemm_q8": matmul_q8_bias_act,
@@ -88,7 +110,13 @@ def kernel_wrappers() -> Dict[str, Callable]:
             "winograd_fused": fused_winograd,
             "input_transform": input_transform,
             "tuple_multiply": tuple_multiply,
-            "output_transform": output_transform}
+            "output_transform": output_transform,
+            "gemm_16": matmul16_bias_act,
+            "im2col_conv_16": im2col_conv16,
+            "winograd_fused_16": fused_winograd16,
+            "input_transform_16": input_transform16,
+            "tuple_multiply_16": tuple_multiply16,
+            "output_transform_16": output_transform16}
 
 
 def conv2d_cuda(
@@ -115,7 +143,7 @@ def conv2d_cuda(
         from repro_torch.core.netplan import Layout
 
         c = x.shape[-1]
-        dtype = "int8" if x.dtype == torch.int8 else "float32"
+        dtype = str(x.dtype).split(".")[-1]
         cp = ceil_to(c, in_channel_multiple(algo, dtype))
         if cp != c:
             x = F.pad(x, (0, cp - c))
@@ -153,6 +181,7 @@ def _conv2d_cuda_laidout(
     if out_layout is not None:
         assert w.shape[-1] == out_layout.phys_c, (w.shape, out_layout)
     quantized = x.dtype == torch.int8
+    half = str(x.dtype).split(".")[-1] in HALF_DTYPES
     if quantized:
         if algo is ConvAlgorithm.WINOGRAD:
             raise ValueError("int8 never routes to Winograd "
@@ -162,6 +191,7 @@ def _conv2d_cuda_laidout(
 
     if algo is ConvAlgorithm.DIRECT:
         from repro_torch.kernels.gemm.ops import (
+            matmul16_bias_act,
             matmul_bias_act,
             matmul_q8_bias_act,
         )
@@ -179,13 +209,19 @@ def _conv2d_cuda_laidout(
         if quantized:
             out = matmul_q8_bias_act(a.contiguous(), wm, scale, bias,
                                      activation, impl=impl)
+        elif half:
+            out = matmul16_bias_act(a.contiguous(), wm, bias=bias,
+                                    activation=activation, impl=impl)
         else:
             out = matmul_bias_act(a, wm, bias=bias, activation=activation,
                                   impl=impl)
         return out.reshape(b, oh, ow, o)
 
     if algo is ConvAlgorithm.WINOGRAD:
-        from repro_torch.core.winograd import transform_weights
+        from repro_torch.core.winograd import (
+            split_transformed,
+            transform_weights,
+        )
         from repro_torch.kernels.winograd.ops import conv2d_winograd_padded_call
 
         _, h, ww, _ = x.shape
@@ -193,7 +229,10 @@ def _conv2d_cuda_laidout(
         ph, pw = spec.padding
         if ph or pw:
             x = F.pad(x, (0, 0, pw, pw, ph, ph))
-        u = w if pretransformed else transform_weights(w)
+        u = w if pretransformed else transform_weights(w.float())
+        if half and not pretransformed:
+            # The transform runs in fp32; the 16-bit kernels take it split.
+            u = split_transformed(u, x.dtype)
         # The self-contained path (no plan) runs the fused kernel.
         return conv2d_winograd_padded_call(
             x, u.contiguous(), oh, ow, blocks, bias=bias,
@@ -203,9 +242,13 @@ def _conv2d_cuda_laidout(
 
     from repro_torch.kernels.im2col_gemm.ops import (
         im2col_conv,
+        im2col_conv16,
         im2col_conv_q8,
     )
 
+    if half:
+        return im2col_conv16(x.contiguous(), w.contiguous(), spec, blocks,
+                             bias=bias, activation=activation, impl=impl)
     if quantized:
         return im2col_conv_q8(x.contiguous(), w.contiguous(), spec, scale,
                               blocks, bias=bias, activation=activation,

@@ -1,7 +1,9 @@
-"""Wrappers of the hand-written GEMM kernels (csrc/gemm.cu, csrc/gemm_q8.cu).
+"""Wrappers of the hand-written GEMM kernels (csrc/gemm.cu, csrc/gemm_16.cu,
+csrc/gemm_q8.cu).
 
 ``matmul_bias_act`` computes act(a @ b + bias) in fp32;
-``matmul_q8_bias_act`` computes act(float(a_q @ b_q) * scale + bias) from
+``matmul16_bias_act`` the same on bf16 or fp16 operands, summed in fp32
+and rounded to their type; ``matmul_q8_bias_act`` computes act(float(a_q @ b_q) * scale + bias) from
 int8 operands with an exact int32 sum.  ``impl='cuda'`` launches the
 kernel on CUDA tensors and raises on anything else; ``impl='torch'`` runs
 the plain version (ref.py), on any device.  The kernels mask the ragged
@@ -23,13 +25,23 @@ import torch
 from repro_torch.core.conv_spec import ACTIVATION_CODES
 from repro_torch.kernels import _build
 from repro_torch.kernels._splitk import split_k
-from repro_torch.kernels.gemm.ref import matmul_q8_ref, matmul_ref
+from repro_torch.kernels.gemm.ref import matmul16_ref, matmul_q8_ref, matmul_ref
+from repro_torch.util import HALF_DTYPES
 
 #: The kernel's compiled tile: 64x64 outputs per block, K steps of 16.
 TILE: Tuple[int, int, int] = (64, 64, 16)
 #: Blocks of the fp32 kernel resident on one SM: its launch bounds'
 #: minimum, ``MIN_BLOCKS`` in csrc/sgemm_3xtf32.cuh.
 RESIDENT_BLOCKS = 4
+
+#: The 16-bit kernel's compiled tile: 64x64 outputs per block, K chunks of
+#: 32 (two m16n8k16 steps).
+TILE_16: Tuple[int, int, int] = (64, 64, 32)
+#: Blocks of the 16-bit kernel resident on one SM: its launch bounds'
+#: minimum, ``MIN_BLOCKS`` in csrc/hmma16.cuh.
+RESIDENT_BLOCKS_16 = 4
+#: The 16-bit kernel's K multiple (A's rows go as 16-byte copies).
+K_MULTIPLE_16 = 8
 
 #: The int8 kernel's K multiple (A's rows go as 16-byte copies).
 K_MULTIPLE_Q8 = 16
@@ -44,15 +56,19 @@ RESIDENT_BLOCKS_Q8 = 2
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ARGTYPES_Q8 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES_16 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
-def default_block(m: int, n: int, k: int) -> Tuple[int, int, int]:
-    """(bm, bn, bk) for an (m, k) x (k, n) product: the one compiled tile.
+def default_block(m: int, n: int, k: int,
+                  dtype: str = "float32") -> Tuple[int, int, int]:
+    """(bm, bn, bk) for an (m, k) x (k, n) product: the compiled tile of
+    the kernel that runs ``dtype`` (``TILE_16`` for bf16 and fp16, else
+    ``TILE``).
 
     Ragged edges are masked in the kernel, so the tile does not depend on
     the shape; the arguments keep the reference's signature.
     """
-    return TILE
+    return TILE_16 if dtype in HALF_DTYPES else TILE
 
 
 def call_splits(m: int, n: int, k: int) -> int:
@@ -60,6 +76,13 @@ def call_splits(m: int, n: int, k: int) -> int:
     ceil(K / 16) chunks, over the kernel's ``RESIDENT_BLOCKS`` a SM."""
     bm, bn, bk = TILE
     return split_k(-(-m // bm) * -(-n // bn), -(-k // bk), RESIDENT_BLOCKS)
+
+
+def call_splits_16(m: int, n: int, k: int) -> int:
+    """``split_k`` for one 16-bit GEMM call: its grid of 64x64 tiles and its
+    ceil(K / 32) chunks, over the kernel's ``RESIDENT_BLOCKS_16`` a SM."""
+    bm, bn, bk = TILE_16
+    return split_k(-(-m // bm) * -(-n // bn), -(-k // bk), RESIDENT_BLOCKS_16)
 
 
 def tile_q8(n: int) -> Tuple[int, int]:
@@ -93,6 +116,7 @@ def matmul_bias_act(
     if k != k2 or (bias is not None and bias.shape != (n,)):
         raise ValueError(f"gemm: shapes {tuple(a.shape)} x {tuple(b.shape)}"
                          f" with bias {None if bias is None else tuple(bias.shape)}")
+    _build.require_dtype("gemm", torch.float32, a, b, bias)
     if impl == "torch":
         return matmul_ref(a, b, bias, activation)
     if impl != "cuda":
@@ -116,6 +140,56 @@ def matmul_bias_act(
 
 #: Kernel launches since the count was last set to 0.
 matmul_bias_act.launches = 0
+
+
+def matmul16_bias_act(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    activation: str = "linear",
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """(M, K) x (K, N) bf16 or fp16 -> act(a @ b + bias) in a's type, the
+    products summed in fp32 and rounded once; ``bias`` fp32 (N,) or None.
+    Under ``impl='cuda'`` K % 8 == 0 and A 16-byte aligned.  With
+    ``call_splits_16(M, N, K) > 1`` the fp32 partial sums go through a
+    workspace of ``splits * M * N`` floats from PyTorch's caching
+    allocator.
+    """
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2 or (bias is not None and bias.shape != (n,)):
+        raise ValueError(f"gemm_16: shapes {tuple(a.shape)} x {tuple(b.shape)}"
+                         f" with bias {None if bias is None else tuple(bias.shape)}")
+    dtype = _build.require_16bit("gemm_16", a, b)
+    _build.require_dtype("gemm_16", torch.float32, bias)
+    if impl == "torch":
+        return matmul16_ref(a, b, bias, activation)
+    if impl != "cuda":
+        raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+    _build.require_cuda_operands("gemm_16", a, b, dtype=dtype)
+    _build.require_cuda_operands("gemm_16", bias)
+    if k % K_MULTIPLE_16 or a.data_ptr() % 16:
+        raise ValueError(f"gemm_16: K must be a multiple of {K_MULTIPLE_16} "
+                         f"and A 16-byte aligned, got K = {k}")
+    out = torch.empty((m, n), device=a.device, dtype=dtype)
+    if m and n:
+        fn = _build.load("gemm_16", "repro_gemm16_bias_act", _ARGTYPES_16)
+        splits = call_splits_16(m, n, k)
+        ws = (torch.empty((splits, m, n), device=a.device, dtype=torch.float32)
+              if splits > 1 else None)
+        err = fn(a.data_ptr(), b.data_ptr(),
+                 bias.data_ptr() if bias is not None else None,
+                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                 m, n, k, ACTIVATION_CODES[activation], splits,
+                 _build.DTYPE16_CODES[dtype], _build.stream_handle(a))
+        _build.check(err, "gemm_16")
+        matmul16_bias_act.launches += 1
+    return out
+
+
+#: Kernel launches since the count was last set to 0.
+matmul16_bias_act.launches = 0
 
 
 def matmul_q8_bias_act(

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the GEMM kernels (fp32 and int8): the
+"""Plain PyTorch versions of the GEMM kernels (fp32, 16-bit and int8): the
 functions they must compute."""
 from __future__ import annotations
 
@@ -17,6 +17,15 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor,
     if bias is not None:
         out = out + bias
     return apply_activation(out, activation)
+
+
+def matmul16_ref(a: torch.Tensor, b: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None,
+                 activation: str = "linear") -> torch.Tensor:
+    """act(a @ b + bias) for bf16 or fp16 ``a`` and ``b``: the operands
+    upcast, the sum and the epilogue in fp32, rounded once to a's type, as
+    the kernel rounds."""
+    return matmul_ref(a.float(), b.float(), bias, activation).to(a.dtype)
 
 
 def matmul_q8_ref(a_q: torch.Tensor, b_q: torch.Tensor, scale: torch.Tensor,

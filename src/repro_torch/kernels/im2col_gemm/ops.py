@@ -1,8 +1,11 @@
 """Wrappers of the hand-written implicit-GEMM conv kernels
-(csrc/im2col_conv.cu, csrc/im2col_conv_q8.cu).
+(csrc/im2col_conv.cu, csrc/im2col_conv_16.cu, csrc/im2col_conv_q8.cu).
 
 ``im2col_conv`` computes act(conv(x, w) + bias) on NHWC input whose channel
-count is a multiple of ``BC``; ``im2col_conv_q8`` computes
+count is a multiple of ``BC``; ``im2col_conv16`` the same on bf16 or fp16
+input and weights whose channel count is a multiple of ``BC_16``, summed
+in fp32 on the tensor cores (chunks of ``CHUNK_16`` channels) and rounded
+to their type; ``im2col_conv_q8`` computes
 act(float(conv(x_q, w_q)) * scale + bias) on int8 input whose channel
 count is a multiple of ``BC_Q8``, with an exact int32 sum (on the int8
 tensor cores, in chunks of ``CHUNK_Q8`` channels).  The conv's spatial
@@ -27,11 +30,15 @@ from repro_torch.core.conv_spec import ACTIVATION_CODES, ConvSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels._splitk import split_k, split_ranges  # noqa: F401
 from repro_torch.kernels.im2col_gemm.ref import (
+    im2col_conv16_ref,
     im2col_conv_q8_ref,
     im2col_conv_ref,
 )
+from repro_torch.util import HALF_DTYPES
 
 BC = 8          # in channels per reduction step: C must be a multiple
+BC_16 = 8       # the 16-bit kernel's channel multiple (16-byte copies)
+CHUNK_16 = 16   # the 16-bit kernel's chunk: one m16n8k16 step per tap
 BC_Q8 = 16      # the int8 kernel's channel multiple (16-byte copies)
 CHUNK_Q8 = 32   # the int8 kernel's chunk: one m16n8k32 step per tap
 BO = 64         # out channels per block
@@ -41,14 +48,18 @@ RESIDENT_BLOCKS = 2
 #: Blocks of the int8 kernel resident on one SM (its launch bounds'
 #: MIN_BLOCKS).
 RESIDENT_BLOCKS_Q8 = 2
+#: Blocks of the 16-bit kernel resident on one SM (its launch bounds'
+#: MIN_BLOCKS).
+RESIDENT_BLOCKS_16 = 2
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 _ARGTYPES_Q8 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+_ARGTYPES_16 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
 
 
 def pick_blocks(oh: int, ow: int, dtype: str = "float32") -> Tuple[int, int, int]:
-    """(toh, bc, bo) for an OH x OW output map, for the fp32 or the int8
-    kernel (which differ only in bc).
+    """(toh, bc, bo) for an OH x OW output map, for the fp32, the 16-bit
+    or the int8 kernel (which differ only in bc, the channel multiple).
 
     A block computes a toh x tow tile of 64 output pixels: whole rows when a
     row fits (tow = OW, toh = 64 // OW), else 8 x 8 tiles.  The input window
@@ -57,7 +68,8 @@ def pick_blocks(oh: int, ow: int, dtype: str = "float32") -> Tuple[int, int, int
     instead of the whole padded image the TPU kernel holds.
     """
     toh = min(oh, PIXELS // ow) if ow <= PIXELS else 8
-    return max(toh, 1), BC_Q8 if dtype == "int8" else BC, BO
+    bc = BC_Q8 if dtype == "int8" else BC_16 if dtype in HALF_DTYPES else BC
+    return max(toh, 1), bc, BO
 
 
 def snap_row_tile(toh: int, oh: int) -> int:
@@ -87,6 +99,14 @@ def call_splits(batch: int, oh: int, ow: int, c: int, o: int,
                 toh: int) -> int:
     """``split_k`` for one fp32 conv call: its grid and C / BC chunks."""
     return split_k(grid_blocks(batch, oh, ow, o, toh), c // BC, RESIDENT_BLOCKS)
+
+
+def call_splits_16(batch: int, oh: int, ow: int, c: int, o: int,
+                   toh: int) -> int:
+    """``split_k`` for one 16-bit conv call: its grid and ceil(C /
+    CHUNK_16) chunks, over ``RESIDENT_BLOCKS_16``."""
+    return split_k(grid_blocks(batch, oh, ow, o, toh), -(-c // CHUNK_16),
+                   RESIDENT_BLOCKS_16)
 
 
 def call_splits_q8(batch: int, oh: int, ow: int, c: int, o: int,
@@ -133,6 +153,7 @@ def im2col_conv(
     floats from PyTorch's caching allocator.
     """
     oh, ow, toh = _conv_geometry("im2col_conv", x, w, spec, blocks, BC)
+    _build.require_dtype("im2col_conv", torch.float32, x, w, bias)
     if impl == "torch":
         return im2col_conv_ref(x, w, spec, bias, activation)
     if impl != "cuda":
@@ -162,6 +183,59 @@ def im2col_conv(
 
 #: Kernel launches since the count was last set to 0.
 im2col_conv.launches = 0
+
+
+def im2col_conv16(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    spec: ConvSpec,
+    blocks: Optional[Tuple[int, int, int]] = None,
+    bias: Optional[torch.Tensor] = None,
+    activation: str = "linear",
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """bf16 or fp16 x (B, H, W, C), w (kh, kw, C, O) -> (B, OH, OW, O) in
+    x's type = act(conv(x, w) + bias), summed in fp32 and rounded once;
+    C % BC_16 == 0, ``bias`` fp32 (O,) or None.
+
+    ``blocks`` is a (toh, BC_16, BO) plan tuple.  With
+    ``call_splits_16(...) > 1`` the fp32 partial sums go through a
+    workspace of ``splits * B * OH * OW * O`` floats from PyTorch's
+    caching allocator.
+    """
+    oh, ow, toh = _conv_geometry("im2col_conv_16", x, w, spec, blocks, BC_16)
+    dtype = _build.require_16bit("im2col_conv_16", x, w)
+    _build.require_dtype("im2col_conv_16", torch.float32, bias)
+    if impl == "torch":
+        return im2col_conv16_ref(x, w, spec, bias, activation)
+    if impl != "cuda":
+        raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+    _build.require_cuda_operands("im2col_conv_16", x, w, dtype=dtype)
+    _build.require_cuda_operands("im2col_conv_16", bias)
+    if x.data_ptr() % 16:
+        raise ValueError("im2col_conv_16: x must be 16-byte aligned")
+    b, h, ww, c = x.shape
+    kh, kw, _, o = w.shape
+    out = torch.empty((b, oh, ow, o), device=x.device, dtype=dtype)
+    if out.numel():
+        fn = _build.load("im2col_conv_16", "repro_im2col_conv16", _ARGTYPES_16)
+        (sh, sw), (ph, pw) = spec.stride, spec.padding
+        splits = call_splits_16(b, oh, ow, c, o, toh)
+        ws = (torch.empty((splits, b * oh * ow, o), device=x.device,
+                          dtype=torch.float32) if splits > 1 else None)
+        err = fn(x.data_ptr(), w.data_ptr(),
+                 bias.data_ptr() if bias is not None else None,
+                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                 b, h, ww, c, o, oh, ow, kh, kw, sh, sw, ph, pw, toh,
+                 tile_width(toh, ow), ACTIVATION_CODES[activation], splits,
+                 _build.DTYPE16_CODES[dtype], _build.stream_handle(x))
+        _build.check(err, "im2col_conv_16")
+        im2col_conv16.launches += 1
+    return out
+
+
+#: Kernel launches since the count was last set to 0.
+im2col_conv16.launches = 0
 
 
 def im2col_conv_q8(

@@ -7,6 +7,10 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+#: The 16-bit execution dtypes (ExecutionOptions.dtype) and their tensor
+#: types.
+HALF_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
 #: Above the H100's top boost clock (1.98 GHz), so a hold of the stream
 #: lasts at least as long as asked.
 _MAX_CLOCK_HZ = 2.0e9

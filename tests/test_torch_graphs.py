@@ -129,7 +129,7 @@ def _fake_forward(wrappers, plan):
 @pytest.mark.parametrize("warmups", [1, 3])
 def test_capture_tally_counts_replays_as_eager_runs(warmups):
     wrappers = graphs.launch_counters()
-    assert len(wrappers) == 9 and "flash_attention" in wrappers
+    assert len(wrappers) == 15 and "flash_attention" in wrappers
     plan = {"gemm": 2, "im2col_conv": 1, "winograd_fused": 3}
     forward = _fake_forward(wrappers, plan)
     saved = graphs.read_launches(wrappers)
