@@ -11,7 +11,8 @@ Phases, each on its own printed lines:
    and the card's reported properties beside ``repro_torch.hw.H100``;
 2. build every CUDA kernel of the port with nvcc (one process per source,
    all at once) and print the build seconds and ptxas' register, spill
-   and shared-memory counts;
+   and shared-memory counts (and the 16-bit Winograd kernels' dynamic
+   shared memory);
 3. each kernel against its plain PyTorch version at every shape the model
    cells below give it (YOLOv3-tiny at 416x416, batch 1 and 4; MODEL_20 at
    608x608, batch 1; VGG-16 at 224x224, batch 1, with the fused Winograd
@@ -106,12 +107,17 @@ Phases, each on its own printed lines:
    kernels) held against its plain version within two units of the last
    place at the largest output (2^-6 of max(1, max|ref|) in bf16, 2^-9 in
    fp16), each Winograd call's distance from the fp32 kernel on the same
-   values printed, timed at YOLOv3-tiny's and VGG-16's shapes (ms, plain
-   ms, the library call in the 16-bit type -- ``torch.addmm``,
-   ``F.conv2d``, ``torch.bmm``, einsum -- and the bound: 16-bit tensor-core
-   FLOPs over 989 TFLOP/s, the Winograd products counted three times
-   (fused) or twice (3-pass) for their split operands, the transforms over
-   the fp32 peak, or 2 bytes an operand over 3.35 TB/s); then each cell
+   values printed, timed at YOLOv3-tiny's and VGG-16's shapes and
+   MODEL_20's fused Winograd calls (ms, plain ms, the library call in the
+   16-bit type -- ``torch.addmm``, ``F.conv2d``, einsum, and one
+   ``torch.bmm`` of [V | V] by [U hi ; U lo] for the tuple multiply, with
+   the bmm of V by U's hi part alone beside it -- and the bound: 16-bit
+   tensor-core FLOPs over 989 TFLOP/s, the Winograd products counted three
+   times (fused) or twice (3-pass) for their split operands, the
+   transforms over the fp32 peak, or 2 bytes an operand over 3.35 TB/s;
+   the fused calls' lines give their grid and C split, the tuple
+   multiply's its work items), VGG-16's 16-bit fused time beside its
+   3-pass time per layer; then each cell
    end to end: ``impl='cuda'`` against ``impl='torch'`` (the same Winograd
    realization) within 2e-2 (bf16) or 5e-3 (fp16) of max(1, max|ref|), every
    step against its plain step on the cuda forward's own input
@@ -120,8 +126,9 @@ Phases, each on its own printed lines:
    for VGG-16's fc head), its distance from the fp32 forward of the same
    weights printed, the 16-bit and the fp32 replayed forwards timed in
    turns (ms and images/s), and the replayed and eager forwards profiled:
-   each 16-bit kernel (and its split-K reduce where a call splits) at most
-   as planned, and no other port kernel; then YOLOv3-tiny 416 b1 and
+   each 16-bit kernel (and its split-K reduce where a call splits, the
+   fused Winograd kernel's where it splits C) at most as planned, and no
+   other port kernel; then YOLOv3-tiny 416 b1 and
    VGG-16 224 b1 in bf16 planned by the cost model (``mode='model'``, the
    16-bit kernels' own fitted constants), each checked the same way beside
    the fp32 model-mode forward, its plan and modeled conv ms printed;
@@ -313,8 +320,11 @@ GEMM_SPLITK_REDUCE = "gemm_splitk_reduce_kernel"
 GEMM_Q8_SPLITK_REDUCE = "gemm_q8_splitk_reduce_kernel"
 SPLITK16_REDUCE = "im2col16_conv_splitk_reduce_kernel"
 GEMM16_SPLITK_REDUCE = "hgemm16_splitk_reduce_kernel"
+# The 16-bit fused Winograd kernel's, launched by the calls that split C.
+WINOGRAD16_SPLIT_REDUCE = "winograd16_split_reduce_kernel"
 REDUCE_NAMES = (SPLITK_REDUCE, Q8_SPLITK_REDUCE, GEMM_SPLITK_REDUCE,
-                GEMM_Q8_SPLITK_REDUCE, SPLITK16_REDUCE, GEMM16_SPLITK_REDUCE)
+                GEMM_Q8_SPLITK_REDUCE, SPLITK16_REDUCE, GEMM16_SPLITK_REDUCE,
+                WINOGRAD16_SPLIT_REDUCE)
 
 
 def kernel_tol(name, dtype):
@@ -620,7 +630,12 @@ def half_cases(s, t, pad_c, bias, head, hw, b, act):
     or two (3-pass: U split) per product -- and the transforms by the fp32
     CUDA-core peak; bytes are 2 an operand or output value, 4 a bias
     value.  The library calls run in the 16-bit type: ``torch.addmm``,
-    ``F.conv2d`` (cuDNN), ``torch.bmm`` of V by U's hi part, einsum."""
+    ``F.conv2d`` (cuDNN), einsum, and for the tuple multiply one
+    ``torch.bmm`` of [V | V] by [U hi ; U lo] (concatenated along C before
+    the timing: the same products and U bytes as the kernel), with the
+    ``torch.bmm`` of V by U's hi part alone printed beside it.  The fused
+    Winograd label gives its grid and C split, the tuple multiply's its
+    work items and their width."""
     import torch
     import torch.nn.functional as F
 
@@ -632,6 +647,8 @@ def half_cases(s, t, pad_c, bias, head, hw, b, act):
     from repro_torch.kernels.im2col_gemm.ops import call_splits_16, \
         im2col_conv16
     from repro_torch.kernels.winograd.ops import (
+        FUSED_BLOCKS_16,
+        call_splits_16 as fused_splits16,
         fused_winograd,
         fused_winograd16,
         input_transform,
@@ -701,9 +718,13 @@ def half_cases(s, t, pad_c, bias, head, hw, b, act):
     shape = f"T={n_t} C={phys_c} O={o}"
     products = 2 * n_t * 64 * c * o
     if s.plan.winograd_fused:
+        bt, _, bo = FUSED_BLOCKS_16
+        splits = fused_splits16(n_t, phys_c, o)
+        grid = -(-n_t // bt) * -(-o // bo) * splits
         return [dict(
             base, **conv_lib, kernel="winograd_fused_16",
-            label=f"{head} winograd_16 {dtype} {shape} blocks={blocks}",
+            label=(f"{head} winograd_16 {dtype} {shape} blocks={blocks} "
+                   f"grid={grid} splits={splits}"),
             args=(tiles, u.hl, u.inv_scale, bias),
             run=lambda tiles, hl, inv, bias, blocks=blocks, act=act,
             impl="cuda": fused_winograd16(tiles, hl, inv, blocks, bias, act,
@@ -729,12 +750,17 @@ def half_cases(s, t, pad_c, bias, head, hw, b, act):
              bytes=2 * 2 * 64 * n_t * c,
              fp32=lambda: input_transform(tiles.float())),
         dict(base, kernel="tuple_multiply_16",
-             label=f"{head} tuple_multiply_16 {dtype} {shape} blocks={blocks}",
+             label=(f"{head} tuple_multiply_16 {dtype} {shape} "
+                    f"blocks={blocks} items="
+                    f"{64 * -(-n_t // blocks[0]) * -(-o // blocks[2])}"),
              args=(v, u2, u.inv_scale),
              run=lambda v, u2, inv, impl="cuda": tuple_multiply16(
                  v, u2, inv, impl=impl),
-             lib_args=(v[..., :c].contiguous(), u2[0, :, :c].contiguous()),
+             lib_args=(torch.cat([v[..., :c], v[..., :c]], -1).contiguous(),
+                       torch.cat([u2[0, :, :c], u2[1, :, :c]], 1).contiguous()),
              library=torch.bmm,
+             alt_library=("hi-only bmm", torch.bmm, (
+                 v[..., :c].contiguous(), u2[0, :, :c].contiguous())),
              flops=2 * products,
              bytes=2 * 64 * (n_t * c + 2 * c * o + n_t * o),
              fp32=lambda: tuple_multiply(v.float(),
@@ -792,6 +818,12 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
                            args)
         library_ms = (cuda_ms(case["library"], case["lib_args"])
                       if case["library"] is not None else None)
+        alt = ""
+        if "alt_library" in case:
+            alt_name, alt_fn, alt_args = case["alt_library"]
+            alt_ms = cuda_ms(alt_fn, alt_args)
+            alt = (f" ({alt_name} {alt_ms:.4f}, ms/that="
+                   f"{ms / alt_ms:.3f})")
         # Work on the tensor cores over their peak, and what runs on the
         # fp32 CUDA cores beside it (the fused Winograd kernel's
         # transforms) over theirs: the two units run side by side.
@@ -811,10 +843,11 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
             + ("" if cc_bound_ms is None
                else f" fp32_cuda_core_bound_ms={cc_bound_ms:.5f}")
             + ("" if library_ms is None
-               else f" ms/library_ms={ms / library_ms:.3f}"))
+               else f" ms/library_ms={ms / library_ms:.3f}") + alt)
         agg = summary.setdefault(name, dict(
             calls=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-            bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0, cuda_core_bound_ms=0.0))
+            bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0, cuda_core_bound_ms=0.0,
+            alt_library_ms=0.0))
         agg["calls"] += 1
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
         agg["ms"] += ms
@@ -824,6 +857,8 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
         agg["bound_ms"] += bound_ms
         agg["ops_ms" if t_ops >= t_bytes else "bytes_ms"] += bound_ms
         agg["cuda_core_bound_ms"] += cc_bound_ms or 0.0
+        if alt:
+            agg["alt_library_ms"] += alt_ms
         per_step.setdefault(case["step"], {})[name] = ms
     log(f"kernels {cell}: {n} calls checked in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -833,7 +868,9 @@ def check_kernels(netplan, rng, hw, cell, timed=(), winograd_only=False):
             + ("-" if agg["library_ms"] is None else f"{agg['library_ms']:.4f}")
             + f" bound_ms={agg['bound_ms']:.5f}"
             + (f" fp32_cuda_core_bound_ms={agg['cuda_core_bound_ms']:.5f}"
-               if agg["cuda_core_bound_ms"] else ""))
+               if agg["cuda_core_bound_ms"] else "")
+            + (f" (hi-only bmm {agg['alt_library_ms']:.4f})"
+               if agg["alt_library_ms"] else ""))
     return summary, per_step
 
 
@@ -1196,8 +1233,8 @@ def deployment_sqnr(model, rng, name) -> None:
 def planned_cuda_launches(netplan):
     """CUDA launches of each port kernel in one forward of ``netplan``, by
     the profiler's name: the plan's count of each kernel, and each split-K
-    reduce kernel once for each fp32 im2col, int8 im2col, fp32 GEMM or
-    int8 GEMM call that splits."""
+    reduce kernel once for each im2col or GEMM call (fp32, 16-bit, int8)
+    that splits and each 16-bit fused Winograd call that splits C."""
     from repro_torch.core.conv_spec import ConvAlgorithm
     from repro_torch.kernels.gemm.ops import call_splits as gemm_splits
     from repro_torch.kernels.gemm.ops import call_splits_16 as gemm_splits16
@@ -1207,6 +1244,8 @@ def planned_cuda_launches(netplan):
         call_splits_16,
         call_splits_q8,
     )
+    from repro_torch.kernels.winograd.ops import \
+        call_splits_16 as call_splits_w16
 
     want = {CUDA_NAMES[k]: n for k, n in netplan.kernel_launches().items()}
     fp32 = [s for s in netplan.steps
@@ -1255,6 +1294,14 @@ def planned_cuda_launches(netplan):
         for s in half if s.plan.algorithm is ConvAlgorithm.DIRECT)
     if gemm16:
         want[GEMM16_SPLITK_REDUCE] = gemm16
+    wino16 = sum(
+        call_splits_w16(netplan.batch * -(-s.out_hw[0] // 6)
+                        * -(-s.out_hw[1] // 6), s.in_layout.phys_c,
+                        s.out_layout.phys_c) > 1
+        for s in half if s.plan.algorithm is ConvAlgorithm.WINOGRAD
+        and s.plan.winograd_fused)
+    if wino16:
+        want[WINOGRAD16_SPLIT_REDUCE] = wino16
     return want
 
 
@@ -1272,15 +1319,23 @@ def profile_forward(forward, ms_per_forward: float, name: str,
     appear in the trace, at most as often, and no other port kernel: for
     a CUDA graph's replay, the only evidence on the card of what it
     launches.  ``detail``: the rows by kernel, else the summary line
-    alone."""
+    alone.  A trace that holds no device record at all (the profiler's
+    tracing failed, as it has once on the card) is taken again, at most
+    twice; its gate is the same."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            forward()
-        torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                forward()
+            torch.cuda.synchronize()
+        if any(ev.device_type == DeviceType.CUDA for ev in prof.events()):
+            break
+        log(f"profile {name}: the trace holds no device record "
+            f"(attempt {attempt + 1})")
     # Kernel rows only: an operator's row repeats the time of its kernels.
     rows = sorted(
         ((ev.self_device_time_total / reps, ev.count // reps, ev.key)
@@ -1880,6 +1935,7 @@ def main() -> int:
                                     "src"))
     from repro_torch import configs as lm_configs
     from repro_torch.configs import vgg16, yolov3
+    from repro_torch.core import smem_model
     from repro_torch.core.conv_spec import ConvAlgorithm
     from repro_torch.core.netplan import plan_network
     from repro_torch.core.planner import Planner
@@ -1909,6 +1965,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    # ptxas counts static shared memory only; the 16-bit Winograd kernels'
+    # is dynamic, as the model and its tests read it from their sources.
+    log(f"  shared memory (dynamic) winograd16_fused_kernel "
+        f"{smem_model.FUSED16_SMEM_BYTES} bytes; "
+        "winograd16_tuple_multiply_kernel " + ", ".join(
+            f"N={n} {smem_model.tuple16_smem_bytes(n)} bytes "
+            f"({smem_model.tuple16_resident(n)} a SM)" for n in (64, 128, 256)))
 
     # Phase 3: each kernel against its plain version at every shape the
     # model cells give it; timed at YOLOv3-tiny b1's shapes and at
@@ -2086,7 +2149,8 @@ def main() -> int:
     half_cells = {
         "yolov3-tiny 416 b1": (yolov3.TINY_MODEL, {}, FORWARD_REPS, (
             "gemm_16", "im2col_conv_16", "winograd_fused_16")),
-        "yolov3-20 608 b1": (yolov3.MODEL_20, {}, SHORT_FORWARD_REPS, ()),
+        "yolov3-20 608 b1": (yolov3.MODEL_20, {}, SHORT_FORWARD_REPS, (
+            "winograd_fused_16",)),
         "vgg16 224 b1": (vgg16.MODEL, {}, FORWARD_REPS, (
             "im2col_conv_16", "winograd_fused_16")),
         vgg3_cell: (vgg16.MODEL, {"winograd_fused": False}, FORWARD_REPS, (
@@ -2098,10 +2162,11 @@ def main() -> int:
             half_params[model.name] = random_batchnorm(
                 init_cnn(rng_h, model.layers), rng_h)
     for dtype in HALF:
+        steps16 = {}
         for cell, (model, opts, reps, timed) in half_cells.items():
             name = f"{cell} {dtype}"
             three_pass = opts.get("winograd_fused") is False
-            summary, _ = check_kernels(
+            summary, steps16[cell] = check_kernels(
                 netplan_of(model, 1, dtype, **opts), rng_h, H100, name,
                 timed=timed, winograd_only=three_pass)
             counts, _ = run_cell(model, 1, rng_h, half_params[model.name],
@@ -2109,6 +2174,18 @@ def main() -> int:
                                  profile=True, reps=reps)
             if dtype == "bfloat16" and cell in (tiny_cell, vgg3_cell):
                 summaries[name], launches[name] = summary, counts
+        # VGG-16's 16-bit Winograd layers, the fused kernel's time beside
+        # the 3-pass pipeline's (the calls' T, C, O, grid and splits are
+        # in their kernel lines above).
+        for i, fused in sorted(steps16["vgg16 224 b1"].items()):
+            if "winograd_fused_16" not in fused:
+                continue
+            parts = steps16[vgg3_cell][i]
+            total = sum(parts.values())
+            log(f"vgg16 224 b1 {dtype} L{i}: fused "
+                f"{fused['winograd_fused_16']:.4f} ms, 3-pass {total:.4f} ms ("
+                + " + ".join(f"{k} {v:.4f}" for k, v in parts.items())
+                + f"), 3-pass / fused {total / fused['winograd_fused_16']:.2f}")
     # The cost model's 16-bit plans (mode="model", the '_16' constants of
     # hw.H100.kernel_fit), each beside the fp32 model-mode forward.
     for cell in (tiny_cell, "vgg16 224 b1"):

@@ -25,8 +25,10 @@ each,
 The records go to ``--out`` (JSON, ``build/cost_model_fit.json`` by
 default).  ``--dtypes`` measures only the candidates of those dtypes, and
 ``--append FILE`` adds the new records to a saved records file of the
-same card (the 16-bit ones were so added to
-``scripts/cost_model_records_h100.json``) and fits them all.  Then ``fit`` sets the cost model's
+same card, each in place of a saved record of the same cell, layer and
+candidate (the 16-bit ones were so added to
+``scripts/cost_model_records_h100.json``, and replaced when their kernels
+were redesigned), and fits them all.  Then ``fit`` sets the cost model's
 constants (``core/smem_model.py``) from them and prints each with the
 median and the worst predicted / measured ratio of its kernel; ``hw.py``
 holds the constants of such a run.  ``--records FILE`` refits saved
@@ -279,7 +281,8 @@ def main() -> int:
     ap.add_argument("--dtypes", default=",".join(DTYPES),
                     help="measure the candidates of these dtypes only")
     ap.add_argument("--append", help="add the measured records to this "
-                    "saved records file (of the same card) and fit them all")
+                    "saved records file (of the same card), in place of its "
+                    "records of the same candidates, and fit them all")
     args = ap.parse_args()
     if args.records:
         with open(args.records) as f:
@@ -309,7 +312,12 @@ def main() -> int:
                       f"{saved['device']!r}, this card is {smi!r}",
                       file=sys.stderr)
                 return 1
-            records = saved["records"] + records
+            # A measured candidate replaces its saved record (a kernel
+            # redesigned since), the rest are kept.
+            fresh = {(r["cell"], r["layer"], r["candidate"]) for r in records}
+            records = [r for r in saved["records"]
+                       if (r["cell"], r["layer"], r["candidate"])
+                       not in fresh] + records
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": smi, "records": records}, f, indent=1)

@@ -42,7 +42,7 @@ from repro_torch.core.conv_spec import (
     Epilogue,
     apply_activation,
 )
-from repro_torch.core.planner import ConvPlan, Planner
+from repro_torch.core.planner import ConvPlan, Planner, plan_is_current
 from repro_torch.models.cnn import _conv_spec
 from repro_torch.util import HALF_DTYPES, ceil_to, pad_bias_row
 
@@ -382,6 +382,10 @@ def _netplan_from_entry(layers: Tuple[Any, ...],
             raise ValueError(f"network entry step {i}: shapes {in_hw} -> "
                              f"{out_hw}, the layer table's {info['in']} -> "
                              f"{info['out']}")
+        if plan is not None and not plan_is_current(
+                plan, info["spec"], *in_hw, int(entry["batch"])):
+            raise ValueError(f"network entry step {i}: blocks "
+                             f"{plan.kernel_blocks} are not the kernel's")
         steps.append(NetStep(
             index=i, layer=l, spec=info["spec"], plan=plan,
             in_hw=in_hw, out_hw=out_hw,

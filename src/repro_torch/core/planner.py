@@ -526,7 +526,7 @@ class Planner:
             raise ValueError(f"dtype must be one of {DTYPES}, got {dtype!r}")
         key = self.key(spec, h, w, batch, dtype)
         cached = self._plans.get(key)
-        if cached is not None:
+        if cached is not None and plan_is_current(cached, spec, h, w, batch):
             self.stats["hits"] += 1
             return cached
         self.stats["tunes"] += 1
@@ -697,6 +697,18 @@ def kernel_blocks(spec: ConvSpec, algo: ConvAlgorithm, h: int, w: int,
     from repro_torch.kernels.im2col_gemm.ops import pick_blocks
 
     return pick_blocks(oh, ow, dtype)
+
+
+def plan_is_current(plan: ConvPlan, spec: ConvSpec, h: int, w: int,
+                    batch: int) -> bool:
+    """Whether ``plan`` still names the tile its kernel is compiled with
+    (``kernel_blocks``): a plan cached or saved before a kernel's tile
+    changed is stale, and replans.  The implicit-GEMM conv takes any row
+    tile (a network plan snaps it to the map), so its plans always are."""
+    if plan.algorithm is ConvAlgorithm.IM2COL_GEMM:
+        return True
+    return tuple(plan.kernel_blocks) == kernel_blocks(
+        spec, plan.algorithm, h, w, batch, plan.winograd_fused, plan.dtype)
 
 
 def candidate_operands(spec: ConvSpec, h: int, w: int, batch: int,

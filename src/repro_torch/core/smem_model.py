@@ -65,6 +65,7 @@ CUDA_FUNCTIONS: Dict[str, str] = {
     "output_transform_16": "winograd16_output_transform_kernel",
     "gemm_16_reduce": "hgemm16_splitk_reduce_kernel",
     "im2col_conv_16_reduce": "im2col16_conv_splitk_reduce_kernel",
+    "winograd_fused_16_reduce": "winograd16_split_reduce_kernel",
 }
 #: Every kind of launch the model prices: the kernels and PyTorch's own,
 #: fit apart around fp32 and int8 convs ('glue') and around 16-bit ones
@@ -85,12 +86,32 @@ Q8_STAGES, Q8_KS = 3, 128
 #: SMEM_FLOATS = 2 U stages + raw tiles + V).
 FUSED_SMEM_BYTES = (2 * 64 * 8 * 32 + 16 * 8 * 72 + 64 * 200) * F32
 #: The 16-bit fused Winograd kernel's shared memory
-#: (csrc/winograd_fused_16.cu, SMEM_BYTES: U and V, hi and lo, and the
-#: raw tiles).
-FUSED16_SMEM_BYTES = 2 * 64 * 16 * 32 * 2 + 16 * 8 * 272 + 2 * 64 * 16 * 32
+#: (csrc/winograd_fused_16.cu, SMEM_BYTES: the ring of 3 U stages, V hi
+#: and lo in rows of 528 bytes a position, the tiles in rows of 288 bytes,
+#: 3 mbarriers and counters, 512 bytes to align the ring).
+FUSED16_SMEM_BYTES = (3 * 2 * 16 * 16 * 32 * 2 + 2 * 64 * (16 * 32 + 16)
+                      + 16 * 8 * 288 + 3 * 12 + 512)
 #: Resident blocks of the fused Winograd kernel on one SM: its shared
 #: memory leaves room for one.
 RESIDENT_BLOCKS_FUSED = 1
+#: Shared memory a block the card keeps for itself beside a kernel's own.
+SMEM_RESERVED_PER_BLOCK = 1024
+
+
+def tuple16_smem_bytes(n: int) -> int:
+    """The 16-bit tuple multiply's shared memory at item width ``n``
+    (csrc/winograd_3pass_16.cu, TmTile<N>::SMEM): 2 stages of the 64 x 64
+    V slab and U's hi and lo rows (64 x n each), the staging of M (two
+    buffers, one at n = 128), 4 mbarriers, 1 KB to align."""
+    stage = 64 * 64 * HALF + 2 * 64 * n * HALF
+    return 2 * stage + (1 if n == 128 else 2) * 64 * n * HALF + 32 + 1024
+
+
+def tuple16_resident(n: int, hw: ChipSpec = H100) -> int:
+    """Resident blocks of the 16-bit tuple multiply at width ``n``: what
+    an SM's shared memory holds (TmTile<N>::RESIDENT)."""
+    return hw.smem_per_sm_bytes // (tuple16_smem_bytes(n)
+                                    + SMEM_RESERVED_PER_BLOCK)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -344,19 +365,22 @@ def predict_winograd(tiles: int, cin: int, cout: int,
     (``blocks`` is the realization's compiled tile; only it runs).
     ``dtype_bytes`` 2 prices the 16-bit kernels: U comes as hi and lo
     parts, so the fused kernel's products are three 16-bit products each
-    (V split too) and the tuple multiply's two."""
+    (V split too) and the tuple multiply's two; the fused kernel splits C
+    as its wrapper does (``call_splits_16``), with its reduce, and the
+    tuple multiply's persistent blocks walk 64 x N work items."""
     from repro_torch.kernels.winograd.ops import (
         FUSED_BLOCKS,
         FUSED_BLOCKS_16,
         THREE_PASS_BLOCKS,
-        THREE_PASS_BLOCKS_16,
+        call_splits_16,
+        three_pass_blocks_16,
     )
 
     half = dtype_bytes == HALF
     if dtype_bytes not in (F32, HALF):
         raise ValueError("the Winograd kernels run fp32, bf16 and fp16 only")
     if half:
-        want = FUSED_BLOCKS_16 if fused else THREE_PASS_BLOCKS_16
+        want = FUSED_BLOCKS_16 if fused else three_pass_blocks_16(cout)
         sfx, unit, elem = "_16", "bf16", HALF
     else:
         want = FUSED_BLOCKS if fused else THREE_PASS_BLOCKS
@@ -370,35 +394,50 @@ def predict_winograd(tiles: int, cin: int, cout: int,
     u_bytes = (2 if half else 1) * elem * 64 * cin * cout
     y_bytes = elem * tiles * 36 * cout + F32 * cout
     if fused:
-        bt, _, bo = want
-        grid = -(-tiles // bt) * -(-cout // bo)
+        bt, bc, bo = want
+        splits = call_splits_16(tiles, cin, cout) if half else 1
+        # One split's channels: its share of the 16-bit kernel's chunks.
+        chunks = -(-cin // bc)
+        cin_s = bc * -(-chunks // splits) if half else cin
+        grid = -(-tiles // bt) * -(-cout // bo) * splits
         waves = -(-grid // (hw.sm_count * RESIDENT_BLOCKS_FUSED))
         # One block's products (tensor cores) and transforms (CUDA cores)
         # at one SM's peak, shared by the blocks resident on it.
         block_s = hw.sm_count * RESIDENT_BLOCKS_FUSED * (
-            (3 if half else 1) * 2 * bt * bo * 64 * cin / hw.peak_rate(unit)
-            + (bt * cin * in_tf + bt * bo * out_tf) / hw.peak_rate("fp32"))
+            (3 if half else 1) * 2 * bt * bo * 64 * cin_s / hw.peak_rate(unit)
+            + (bt * cin_s * in_tf + bt * bo * out_tf) / hw.peak_rate("fp32"))
         smem = FUSED16_SMEM_BYTES if half else FUSED_SMEM_BYTES
+        outputs = tiles * 36 * cout
+        out_bytes = (F32 * outputs * splits + F32 * cout if splits > 1
+                     else y_bytes)
         part = _cost("winograd_fused" + sfx, hw, waves * block_s,
-                     x_bytes + u_bytes + y_bytes, grid, 1, waves, smem)
-        return GemmEstimate((part,))
-    from repro_torch.kernels.gemm.ops import RESIDENT_BLOCKS, RESIDENT_BLOCKS_16
+                     x_bytes + u_bytes + out_bytes, grid, splits, waves, smem)
+        return GemmEstimate((part,) + tuple(_reduce(
+            "winograd_fused" + sfx + "_reduce", splits, outputs, hw)))
+    from repro_torch.kernels.gemm.ops import RESIDENT_BLOCKS
 
     bt, bk, bo = want
     v_bytes, m_bytes = elem * tiles * 64 * cin, elem * tiles * 64 * cout
-    # The tuple multiply: 64 position GEMMs in one grid, on the GEMM's
-    # core at its tile, unsplit.
-    grid = 64 * -(-tiles // bt) * -(-cout // bo)
-    compute_s, waves = _waved((2 if half else 1) * 2 * bt * bo * bk
-                              * -(-cin // bk), grid,
-                              RESIDENT_BLOCKS_16 if half else RESIDENT_BLOCKS,
-                              hw.peak_rate(unit), hw)
+    if half:
+        # The tuple multiply: persistent blocks over 64 x N work items,
+        # both parts of U a stage.
+        items = 64 * -(-tiles // bt) * -(-cout // bo)
+        resident = tuple16_resident(bo, hw)
+        compute_s, waves = _waved(2 * 2 * bt * bo * bk * -(-cin // bk), items,
+                                  resident, hw.peak_rate(unit), hw)
+        grid, smem = min(items, hw.sm_count * resident), tuple16_smem_bytes(bo)
+    else:
+        # The tuple multiply: 64 position GEMMs in one grid, on the GEMM's
+        # core at its tile, unsplit.
+        grid = 64 * -(-tiles // bt) * -(-cout // bo)
+        compute_s, waves = _waved(2 * bt * bo * bk * -(-cin // bk), grid,
+                                  RESIDENT_BLOCKS, hw.peak_rate(unit), hw)
+        smem = BlockConfig(bt, bo, bk).smem_bytes(elem)
     parts = (
         _cost("input_transform" + sfx, hw,
               tiles * cin * in_tf / hw.peak_rate("fp32"), x_bytes + v_bytes),
         _cost("tuple_multiply" + sfx, hw, compute_s,
-              v_bytes + u_bytes + m_bytes, grid, 1, waves,
-              BlockConfig(bt, bo, bk).smem_bytes(elem)),
+              v_bytes + u_bytes + m_bytes, grid, 1, waves, smem),
         _cost("output_transform" + sfx, hw,
               tiles * cout * out_tf / hw.peak_rate("fp32"), m_bytes + y_bytes),
     )

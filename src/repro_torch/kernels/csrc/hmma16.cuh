@@ -1,13 +1,12 @@
 // The 16-bit GEMM core of the port, on the tensor cores of sm_90a: one 64x64
 // output tile of C = A.B over a range of K, A and B bf16 or fp16, the
-// products summed in fp32 registers.  Included by gemm/csrc/gemm_16.cu (the
-// 1x1-conv GEMM, with split-K) and winograd/csrc/winograd_3pass_16.cu (the
-// tuple multiply, one position per blockIdx.z); each owns its grid, its K
-// range and its epilogue.  im2col_gemm/csrc/im2col_conv_16.cu and
-// winograd/csrc/winograd_fused_16.cu use only its device helpers (the
-// element conversions, ldmatrix, mma, the cp.async wrappers), not the tile
-// loop.  It is the 16-bit twin of csrc/sgemm_3xtf32.cuh, with the same
-// interface.
+// products summed in fp32 registers.  Its tile loop serves
+// gemm/csrc/gemm_16.cu (the 1x1-conv GEMM, with split-K), which owns the
+// grid, the K range and the epilogue.  im2col_gemm/csrc/im2col_conv_16.cu
+// and the 16-bit Winograd kernels (winograd/csrc/winograd_fused_16.cu,
+// winograd_3pass_16.cu) use only its device helpers (the element
+// conversions, ldmatrix, mma, the cp.async wrappers, the split-K reduce).
+// It is the 16-bit twin of csrc/sgemm_3xtf32.cuh, with the same interface.
 //
 // Math.  mma.sync.aligned.m16n8k16.row.col.f32.{bf16,f16}.{bf16,f16}.f32;
 // 4 warps (128 threads) in a 2x2 layout, each warp a 32x32 quarter of the
@@ -18,12 +17,6 @@
 // by ldmatrix.x4 from rows of K, B's (16 of K x 16 columns, two n8
 // fragments) by ldmatrix.x4.trans from rows of N, so B is kept as it lies
 // in device memory (K, N) and never transposed.
-//
-// Split B.  With PARTS = 2, B is given as two arrays of T, B = hi + lo (lo
-// the rounding error of hi: about 16 significant bits for bf16, 22 for
-// fp16), and every product is A.Bhi + A.Blo, two m16n8k16 products into the
-// same fp32 accumulator: the 3-pass Winograd tuple multiply takes the
-// transformed weights so (winograd_3pass_16.cu).
 //
 // Staging.  A (64 rows x 32 of K) and B (32 of K x 64 columns) tiles go
 // into a ring of STAGES stages in shared memory by cp.async, 16 bytes (8
@@ -38,8 +31,8 @@
 // Shared memory.  A is stored [m][32 + 8] and B [k][64 + 8] (80- and
 // 144-byte rows): the 8 rows of each ldmatrix phase fall on 8 distinct
 // 16-byte bank groups, and every row start stays 16-byte aligned for the
-// copies.  3 stages x (5120 + 4608 PARTS) bytes = 29,184 bytes (43,008
-// with PARTS = 2), static and under 48 KB; MIN_BLOCKS blocks a SM (at most
+// copies.  3 stages x (5120 + 4608) bytes = 29,184 bytes, static and
+// under 48 KB; MIN_BLOCKS blocks a SM (at most
 // 128 registers a thread) are what the split-K rule counts
 // (gemm/ops.py::RESIDENT_BLOCKS_16).
 #pragma once
@@ -192,42 +185,38 @@ __device__ __forceinline__ int b_frag_n(int lane) { return (lane >> 4) * 8; }
 // ---------------------------------------------------------------------------
 // The tile loop.
 
-template <class T, int PARTS = 1>
+template <class T>
 struct Smem {
   T a[STAGES][BM][A_LD];
-  T b[STAGES][PARTS][BK][B_LD];
+  T b[STAGES][BK][B_LD];
 };
-static_assert(sizeof(Smem<__half, 2>) <= 48 * 1024, "static shared memory");
+static_assert(sizeof(Smem<__half>) <= 48 * 1024, "static shared memory");
 
 // One warp's 32x32 accumulator: [m16 tile][n8 tile][fragment element].
 using Acc = float[2][4][4];
 
-// A row-major (M, K), K % 8 == 0, 16-byte aligned; B row-major (K, N),
-// and B's lo part at B + b_lo (null without one); b_vec: 16-byte copies
-// of B's rows (N % 8 == 0, base and lo part 16-byte aligned).
+// A row-major (M, K), K % 8 == 0, 16-byte aligned; B row-major (K, N);
+// b_vec: 16-byte copies of B's rows (N % 8 == 0, base 16-byte aligned).
 template <class T>
 struct Operands {
   const T* A;
   const T* B;
-  size_t b_lo;
   int M, N, K;
   bool b_vec;
 };
 
 template <class T>
 __device__ __forceinline__ Operands<T> operands(const T* A, const T* B, int M,
-                                                int N, int K,
-                                                size_t b_lo = 0) {
-  return {A, B, b_lo, M, N, K,
-          N % 8 == 0 && (reinterpret_cast<uintptr_t>(B) & 15) == 0 &&
-              b_lo % 8 == 0};
+                                                int N, int K) {
+  return {A, B, M, N, K,
+          N % 8 == 0 && (reinterpret_cast<uintptr_t>(B) & 15) == 0};
 }
 
 // Copies chunk `chunk` (K from 32 * chunk) of A's rows [m0, m0 + 64) and of
 // B's columns [n0, n0 + 64) into stage `s`: 256 groups of 8 values of each
 // operand, two of each a thread.
-template <class T, int PARTS>
-__device__ __forceinline__ void load_chunk(Smem<T, PARTS>& sm, int s,
+template <class T>
+__device__ __forceinline__ void load_chunk(Smem<T>& sm, int s,
                                            const Operands<T>& op, int m0,
                                            int n0, int chunk) {
   const int k0 = chunk * BK;
@@ -241,18 +230,16 @@ __device__ __forceinline__ void load_chunk(Smem<T, PARTS>& sm, int s,
       cp_async16(&sm.a[s][r][c], in ? op.A + (size_t)gm * op.K + gk : op.A,
                  in);
     }
-#pragma unroll
-    for (int part = 0; part < PARTS; ++part) {  // B: 32 rows x 8 groups.
+    {  // B: 32 rows x 8 groups.
       const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
       const int gk = k0 + r, gn = n0 + c;
-      const T* b = op.B + part * op.b_lo;
-      T* dst = &sm.b[s][part][r][c];
+      T* dst = &sm.b[s][r][c];
       if (op.b_vec) {
         const bool in = gk < op.K && gn < op.N;
-        cp_async16(dst, in ? b + (size_t)gk * op.N + gn : op.B, in);
+        cp_async16(dst, in ? op.B + (size_t)gk * op.N + gn : op.B, in);
       } else {
         const uint16_t* src =
-            reinterpret_cast<const uint16_t*>(b) + (size_t)gk * op.N + gn;
+            reinterpret_cast<const uint16_t*>(op.B) + (size_t)gk * op.N + gn;
         uint16_t* d = reinterpret_cast<uint16_t*>(dst);
 #pragma unroll
         for (int e = 0; e < 8; ++e)
@@ -262,11 +249,10 @@ __device__ __forceinline__ void load_chunk(Smem<T, PARTS>& sm, int s,
   }
 }
 
-// acc += this warp's 32x32 part of stage s's A (64x32) . B (32x64), B's
-// parts one after the other.
-template <class T, int PARTS>
-__device__ __forceinline__ void compute_chunk(const Smem<T, PARTS>& sm,
-                                              int s, Acc& acc) {
+// acc += this warp's 32x32 part of stage s's A (64x32) . B (32x64).
+template <class T>
+__device__ __forceinline__ void compute_chunk(const Smem<T>& sm, int s,
+                                              Acc& acc) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
 #pragma unroll
@@ -277,29 +263,25 @@ __device__ __forceinline__ void compute_chunk(const Smem<T, PARTS>& sm,
       ldsm_x4(a[mi], smem_addr(&sm.a[s][wm + mi * 16 + a_frag_row(lane)]
                                     [kk + a_frag_col(lane)]));
 #pragma unroll
-    for (int part = 0; part < PARTS; ++part) {
+    for (int np = 0; np < 2; ++np)
+      ldsm_x4_trans(b[np], smem_addr(&sm.b[s][kk + b_frag_k(lane)]
+                                          [wn + np * 16 + b_frag_n(lane)]));
 #pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldsm_x4_trans(b[np],
-                      smem_addr(&sm.b[s][part][kk + b_frag_k(lane)]
-                                     [wn + np * 16 + b_frag_n(lane)]));
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma16<T>(acc[mi][ni], a[mi], b[ni / 2][2 * (ni % 2)],
-                   b[ni / 2][2 * (ni % 2) + 1]);
-    }
+      for (int ni = 0; ni < 4; ++ni)
+        mma16<T>(acc[mi][ni], a[mi], b[ni / 2][2 * (ni % 2)],
+                 b[ni / 2][2 * (ni % 2) + 1]);
   }
 }
 
 // acc = A[m0:m0+64, K chunks [chunk_lo, chunk_hi)] . B[same K, n0:n0+64],
 // zero where the tile passes M, N or K.  Every thread of the block calls
 // it; no other block is involved.
-template <class T, int PARTS>
+template <class T>
 __device__ __forceinline__ void tile(const Operands<T>& op, int m0, int n0,
-                                     int chunk_lo, int chunk_hi,
-                                     Smem<T, PARTS>& sm, Acc& acc) {
+                                     int chunk_lo, int chunk_hi, Smem<T>& sm,
+                                     Acc& acc) {
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll

@@ -16,18 +16,34 @@
 //    by bytes (256 read and written a pair).
 //
 // 2. winograd16_tuple_multiply_kernel replaces the 16-bit body of
-//    src/repro/kernels/winograd/kernel.py::tuple_multiply_pallas.
-//    A batched GEMM, blockIdx.z = position, each block one 64x64 (tiles x
-//    out channels) tile of one position over all of C on the 16-bit GEMM
-//    core, csrc/hmma16.cuh (mma.sync m16n8k16, fp32 sums), M rounded to T
-//    at the store.  U comes split (core/winograd.py::split_transformed):
-//    hi and lo parts of U[p] * 2^k[p], so the core takes B in two parts
-//    (PARTS = 2: V.Uhi + V.Ulo, about 16 significant bits of U in bf16, 22
-//    in fp16, where U rounded to T costs F(6,3) several percent of the
-//    output), and the sum is scaled back by 2^-k[p] (exact) before the
-//    rounding.  The TPU kernel multiplies V in T by U in fp32.  Ragged T,
-//    C and O are zero-filled by the copies and masked in the store (C % 8
-//    == 0: V's rows go as 16-byte copies).  Bound by the bytes of V, U
+//    src/repro/kernels/winograd/kernel.py::tuple_multiply_pallas:
+//    M[p] = V[p] (T, C) . U[p] (C, O), 64 small GEMMs.  U comes split
+//    (core/winograd.py::split_transformed): hi and lo parts of U[p] *
+//    2^k[p], both multiplied into one fp32 sum (V.Uhi + V.Ulo: about 16
+//    significant bits of U in bf16, 22 in fp16, where U rounded to T costs
+//    F(6,3) several percent of the output), scaled back by 2^-k[p]
+//    (exact) and rounded to T once.  The TPU kernel multiplies V in T by
+//    U in fp32.
+//
+//    Design.  Persistent blocks (3, 2 and 1 a SM at N = 64, 128, 256) walk
+//    the work items (position p, a slab of 64 tiles, an N-wide block of out
+//    channels, N = 64, 128 or 256 by O: all of O up to 256, so V is read
+//    once), items of one position next to each other so its U is read
+//    from L2 by the blocks after the first.  In a block one producer warp
+//    keeps TMA copies in flight through a ring of stages (each 64 channels:
+//    the V slab, 64 x 64, and U's hi and lo rows, 64 x N each, 128-byte
+//    rows with the 128-byte swizzle; a "full" and an "empty" mbarrier a
+//    stage), across item boundaries, so one item's epilogue overlaps the
+//    next item's copies (and its stores, from one of two staging buffers
+//    but at N = 128, the next item's products).  One consumer warpgroup
+//    runs wgmma m64nNk16 (A =
+//    the V slab, K-major; B = U, MN-major as it lies in device memory;
+//    csrc wgmma16.cuh), both parts into the same accumulator, 8 products a
+//    stage; the epilogue scales by 2^-k[p], rounds, stages M in shared
+//    memory (swizzled 128-byte rows) and writes it by TMA stores (the
+//    edges past T and O clipped by the copy engine).  Ragged T, C and O
+//    are zero-filled by the copies; C % 8 == 0 and O % 8 == 0 (TMA's
+//    16-byte strides; the wrapper pads O).  Bound by the bytes of V, U
 //    and M at VGG-16's widths.
 //
 // 3. winograd16_output_transform_kernel replaces the 16-bit body of
@@ -38,6 +54,8 @@
 #include <cuda_runtime.h>
 
 #include "hmma16.cuh"
+#include "hopper_async.cuh"
+#include "wgmma16.cuh"
 #include "winograd16_transforms.cuh"
 
 namespace {
@@ -80,29 +98,162 @@ winograd16_input_transform_kernel(const T* __restrict__ tiles,
   }
 }
 
-// Tuple multiply: 64 tiles x 64 out channels of one position per block;
-// U is (2, 64, C, O), hi then lo, and inv_scale (64,) the powers of two
-// that undo its scaling.
-template <class T>
-__global__ void __launch_bounds__(hm::THREADS, hm::MIN_BLOCKS)
-winograd16_tuple_multiply_kernel(const T* __restrict__ V,
-                                 const T* __restrict__ U,
-                                 const float* __restrict__ inv_scale,
-                                 T* __restrict__ M, int T_, int C, int O) {
-  __shared__ __align__(16) hm::Smem<T, 2> sm;
-  const size_t p = blockIdx.z;
-  const int m0 = blockIdx.x * hm::BM;
-  const int n0 = blockIdx.y * hm::BN;
-  hm::Acc acc;
-  // V[p] (T, C) . (U hi[p] + U lo[p]) (C, O) over all of C.
-  hm::tile(hm::operands(V + p * T_ * C, U + p * C * O, T_, O, C,
-                        (size_t)64 * C * O),
-           m0, n0, 0, (C + hm::BK - 1) / hm::BK, sm, acc);
-  const float s = __ldg(inv_scale + p);
-  T* Mp = M + p * T_ * O;
-  hm::for_each_pair(acc, m0, n0, [&](int row, int col, float v0, float v1) {
-    if (row < T_) hm::store_pair16(Mp, O, row, col, O, v0 * s, v1 * s);
-  });
+// Tuple multiply: the compiled tile of one work item, 64 tiles x TM_BK
+// channels a stage, N out channels (a template parameter).
+constexpr int TM_BM = 64;             // tiles per item (wgmma's M)
+constexpr int TM_BK = 64;             // channels per stage (128-byte rows)
+constexpr int TM_CONSUMERS = 128;     // one warpgroup
+constexpr int TM_THREADS = TM_CONSUMERS + 32;   // + the producer warp
+constexpr int TM_ALIGN = 1024;        // the 128-byte swizzle's period
+
+template <int N>
+struct TmTile {
+  static constexpr int A_BYTES = TM_BM * TM_BK * 2;   // the V slab
+  static constexpr int B_BLOCK = TM_BK * 128;         // 64 k x 64 n
+  static constexpr int B_PART = (N / 64) * B_BLOCK;   // U hi or lo, 64 x N
+  static constexpr int STAGE = A_BYTES + 2 * B_PART;
+  static constexpr int STAGES = 2;
+  static constexpr int EPI = TM_BM * N * 2;           // M staged
+  // Staging buffers: two, but one at N = 128, where two would leave room
+  // for one block a SM instead of two.
+  static constexpr int EPIS = N == 128 ? 1 : 2;
+  static constexpr int BAR_OFF = STAGES * STAGE + EPIS * EPI;
+  static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + TM_ALIGN;
+  // Blocks a SM: as many as its 228 KB hold (1 KB each kept by the card).
+  static constexpr int RESIDENT = 233472 / (SMEM + 1024);
+};
+static_assert(TmTile<64>::RESIDENT == 3 && TmTile<128>::RESIDENT == 2 &&
+                  TmTile<256>::RESIDENT == 1,
+              "tuple multiply blocks a SM");
+
+// M[p] = (V[p] . (U hi[p] + U lo[p])) * inv_scale[p] over the items
+// blockIdx.x, blockIdx.x + gridDim.x, ... of 64 * slabs * nblocks; V (64,
+// T, C), U (2, 64, C, O), M (64, T, O) through their tensor maps.
+template <class T, int N>
+__global__ void __launch_bounds__(TM_THREADS, TmTile<N>::RESIDENT)
+winograd16_tuple_multiply_kernel(const __grid_constant__ CUtensorMap v_map,
+                                 const __grid_constant__ CUtensorMap u_map,
+                                 const __grid_constant__ CUtensorMap m_map,
+                                 const float* __restrict__ inv_scale, int T_,
+                                 int C, int O) {
+  using Tile = TmTile<N>;
+  constexpr int STAGES = Tile::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((TM_ALIGN - (hopper::smem_u32(smem_raw) & (TM_ALIGN - 1))) &
+                  (TM_ALIGN - 1));
+  // EPIS staging buffers of M, each [N / 64][64 rows][128 bytes].
+  unsigned char* epis = smem + STAGES * Tile::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tile::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int slabs = (T_ + TM_BM - 1) / TM_BM;
+  const int nblocks = (O + N - 1) / N;
+  const int items = 64 * slabs * nblocks;
+  const int chunks = (C + TM_BK - 1) / TM_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], TM_CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == TM_CONSUMERS / 32) {
+    // The producer: one lane issues every copy of this block's items.
+    if (lane != 0) return;
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int p = item / (slabs * nblocks);
+      const int rem = item % (slabs * nblocks);
+      const int t0 = (rem / nblocks) * TM_BM, o0 = (rem % nblocks) * N;
+      for (int kc = 0; kc < chunks; ++kc, ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES)
+          hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        unsigned char* st = smem + s * Tile::STAGE;
+        hopper::mbar_expect_tx(&full[s], Tile::STAGE);
+        hopper::tma_load_3d(st, &v_map, &full[s], kc * TM_BK, t0, p);
+#pragma unroll
+        for (int part = 0; part < 2; ++part)
+#pragma unroll
+          for (int j = 0; j < N / 64; ++j)
+            hopper::tma_load_4d(
+                st + Tile::A_BYTES + part * Tile::B_PART + j * Tile::B_BLOCK,
+                &u_map, &full[s], o0 + 64 * j, kc * TM_BK, p, part);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup.
+  const int g = lane / 4, t4 = lane % 4;
+  float acc[N / 2];
+  int it = 0, n_item = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n_item) {
+    const int p = item / (slabs * nblocks);
+    const int rem = item % (slabs * nblocks);
+    const int t0 = (rem / nblocks) * TM_BM, o0 = (rem % nblocks) * N;
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;
+    for (int kc = 0; kc < chunks; ++kc, ++it) {
+      const int s = it % STAGES;
+      hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+      const uint32_t a = hopper::smem_u32(smem + s * Tile::STAGE);
+      const uint32_t b = a + Tile::A_BYTES;
+      wgmma16::fence();
+#pragma unroll
+      for (int k = 0; k < TM_BK / 16; ++k) {
+        const uint64_t da = wgmma16::desc(a + 32 * k, 16, 1024);
+#pragma unroll
+        for (int part = 0; part < 2; ++part)
+          wgmma16::wgmma(T{}, acc, da,
+                         wgmma16::desc(b + part * Tile::B_PART + 2048 * k,
+                                       Tile::B_BLOCK, 1024));
+      }
+      wgmma16::commit();
+      wgmma16::wait<0>();
+      // This warp is done with stage s.
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+    // Epilogue, into a staging buffer whose stores have read it (with two
+    // buffers, the previous item's stores may still run).
+    unsigned char* epi = epis + (n_item % Tile::EPIS) * Tile::EPI;
+    if (tid == 0) {
+      if (Tile::EPIS == 2)
+        hopper::tma_store_wait_read<1>();
+      else
+        hopper::tma_store_wait_read<0>();
+    }
+    hopper::bar_sync(1, TM_CONSUMERS);
+    const float sc = __ldg(inv_scale + p);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * warp + g + 8 * h;
+        // Block j / 8 of 64 columns, 16-byte chunk j % 8 of the row,
+        // swizzled by the row mod 8.
+        *reinterpret_cast<uint32_t*>(
+            epi + (j / 8) * (TM_BM * 128) + row * 128 +
+            16 * ((j % 8) ^ (row % 8)) + 4 * t4) =
+            hm::pack2<T>(acc[4 * j + 2 * h] * sc, acc[4 * j + 2 * h + 1] * sc);
+      }
+    hopper::fence_proxy_async();
+    hopper::bar_sync(1, TM_CONSUMERS);
+    if (tid == 0) {
+      for (int j = 0; j < N / 64 && o0 + 64 * j < O; ++j)
+        hopper::tma_store_3d(&m_map, epi + j * (TM_BM * 128), o0 + 64 * j,
+                             t0, p);
+      hopper::tma_store_commit();
+    }
+  }
+  if (tid == 0) hopper::tma_store_wait<0>();
 }
 
 template <class T>
@@ -147,6 +298,60 @@ unsigned int blocks_for(size_t n) {
 
 bool bad_dtype(int dtype) { return dtype != 0 && dtype != 1; }
 
+// The tuple multiply's N for O out channels: all of O up to 256.
+int tm_width(int O) { return O <= 64 ? 64 : O <= 128 ? 128 : 256; }
+
+template <class T, int N>
+int tm_launch(const CUtensorMap& v_map, const CUtensorMap& u_map,
+              const CUtensorMap& m_map, const float* inv_scale, int T_, int C,
+              int O, cudaStream_t stream) {
+  using Tile = TmTile<N>;
+  static bool smem_set = false;
+  static int sms = 0;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        winograd16_tuple_multiply_kernel<T, N>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
+    if (err == cudaSuccess) {
+      int dev = 0;
+      err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const long items =
+      64L * ((T_ + TM_BM - 1) / TM_BM) * ((O + N - 1) / N);
+#ifndef TM16_PERSISTENT
+#define TM16_PERSISTENT 1
+#endif
+  const long slots = TM16_PERSISTENT ? (long)sms * Tile::RESIDENT : items;
+  const unsigned grid = static_cast<unsigned>(items < slots ? items : slots);
+  winograd16_tuple_multiply_kernel<T, N><<<grid, TM_THREADS, Tile::SMEM,
+                                           stream>>>(v_map, u_map, m_map,
+                                                     inv_scale, T_, C, O);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int tm_dispatch(const CUtensorMap& v_map, const CUtensorMap& u_map,
+                const CUtensorMap& m_map, const float* inv_scale, int T_,
+                int C, int O, cudaStream_t stream) {
+  switch (tm_width(O)) {
+    case 64:
+      return tm_launch<T, 64>(v_map, u_map, m_map, inv_scale, T_, C, O,
+                              stream);
+    case 128:
+      return tm_launch<T, 128>(v_map, u_map, m_map, inv_scale, T_, C, O,
+                               stream);
+    default:
+      return tm_launch<T, 256>(v_map, u_map, m_map, inv_scale, T_, C, O,
+                               stream);
+  }
+}
+
 }  // namespace
 
 // V (8, 8, T, C) = B^T d B for tiles (T, 8, 8, C), bf16 (dtype 0) or fp16
@@ -170,30 +375,37 @@ extern "C" int repro_winograd16_input_transform(const void* tiles, void* V,
 
 // M[p] = V[p] @ (U hi[p] + U lo[p]) * inv_scale[p] for V (64, T, C), U
 // (2, 64, C, O) -> M (64, T, O), of one 16-bit type, M rounded; inv_scale
-// (64,) fp32.  C % 8 == 0 and V 16-byte aligned.  Returns
-// cudaGetLastError().
+// (64,) fp32.  C % 8 == 0, O % 8 == 0, V, U and M 16-byte aligned.
+// Returns cudaGetLastError().
 extern "C" int repro_winograd16_tuple_multiply(const void* V, const void* U,
                                                const float* inv_scale,
                                                void* M, int T, int C, int O,
                                                int dtype,
                                                cudaStream_t stream) {
-  if (T < 1 || C < 8 || C % 8 != 0 || O < 1 ||
-      (O + hm::BN - 1) / hm::BN > 65535 ||
-      (reinterpret_cast<uintptr_t>(V) & 15) != 0 || bad_dtype(dtype))
+  if (T < 1 || C < 8 || C % 8 != 0 || O < 8 || O % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(V) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(U) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(M) & 15) != 0 || bad_dtype(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((T + hm::BM - 1) / hm::BM, (O + hm::BN - 1) / hm::BN, 64);
+  const uint64_t t = T, c = C, o = O;
+  const uint64_t v_dims[3] = {c, t, 64}, v_strides[2] = {c * 2, t * c * 2};
+  const uint64_t u_dims[4] = {o, c, 64, 2};
+  const uint64_t u_strides[3] = {o * 2, c * o * 2, 64 * c * o * 2};
+  const uint64_t m_dims[3] = {o, t, 64}, m_strides[2] = {o * 2, t * o * 2};
+  const uint32_t v_box[3] = {TM_BK, TM_BM, 1}, u_box[4] = {64, TM_BK, 1, 1};
+  const uint32_t m_box[3] = {64, TM_BM, 1};
+  CUtensorMap v_map, u_map, m_map;
+  if (!hopper::make_map(&v_map, V, 3, v_dims, v_strides, v_box,
+                        CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_map(&u_map, U, 4, u_dims, u_strides, u_box,
+                        CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_map(&m_map, M, 3, m_dims, m_strides, m_box,
+                        CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    winograd16_tuple_multiply_kernel<__nv_bfloat16><<<grid, hm::THREADS, 0,
-                                                      stream>>>(
-        static_cast<const __nv_bfloat16*>(V),
-        static_cast<const __nv_bfloat16*>(U), inv_scale,
-        static_cast<__nv_bfloat16*>(M), T, C, O);
-  else
-    winograd16_tuple_multiply_kernel<__half><<<grid, hm::THREADS, 0,
-                                               stream>>>(
-        static_cast<const __half*>(V), static_cast<const __half*>(U),
-        inv_scale, static_cast<__half*>(M), T, C, O);
-  return static_cast<int>(cudaGetLastError());
+    return tm_dispatch<__nv_bfloat16>(v_map, u_map, m_map, inv_scale, T, C,
+                                      O, stream);
+  return tm_dispatch<__half>(v_map, u_map, m_map, inv_scale, T, C, O, stream);
 }
 
 // Y (T, 6, 6, O) = act(A^T M A + bias) for M (8, 8, T, O), of one 16-bit

@@ -1,7 +1,8 @@
 // Fused Winograd F(6x6, 3x3) bf16 and fp16 kernel for sm_90a: input
 // transform, the 64 per-position tuple products on the tensor cores
 // (mma.sync m16n8k16, fp32 sums), output transform, bias and activation in
-// one pass.
+// one pass, with the in-channel reduction split across blocks where the
+// grid alone would leave SMs idle.
 //
 // Replaces the 16-bit bodies of the TPU kernel
 // src/repro/kernels/winograd/kernel.py::fused_winograd_pallas:
@@ -23,19 +24,23 @@
 // is off by 8 % of its largest value, against 0.2 % here (the CPU replay
 // of the plain versions, PERF.md).
 //
-// Design.  The fp32 kernel's (winograd_fused.cu) block of BT = 16 tiles x
-// BO = 32 out channels, with M for all 64 positions of its 512 (tile, out
-// channel) pairs in registers as mma.sync accumulators, spread over the 16
-// warps by position: warp w holds positions 4w .. 4w + 3, each a 16 x 32
-// tile of 4 m16n8 fragments (64 floats a thread).  The in-channel
-// reduction is a loop over chunks of BC = 16 channels, one k16 step of the
-// 64 small GEMMs M[p] += V[p] . U[p]:
+// Design.  A block of BT = 16 tiles x BO = 32 out channels keeps M for all
+// 64 positions of its 512 (tile, out channel) pairs in registers as
+// mma.sync accumulators, 64 floats a thread over 16 warps; warp w owns the
+// positions w, w + 16, w + 32, w + 48, one of each group of 16.  The
+// in-channel reduction is a loop over chunks of BC = 16 channels, one k16
+// step of the 64 small GEMMs M[p] += V[p] . U[p]:
 //
-//  - U's chunk, 64 positions x 16 channels x 32 out channels, hi and lo,
-//    is copied by cp.async into shared memory (16-byte copies; value by
-//    value where O % 8 != 0; zero past C and O), behind the chunk's input
-//    transform.  The two parts take 128 KB, so there is one stage: the
-//    copy starts once the previous chunk's products are done.
+//  - U streams through a ring of STAGES stages, each one position group's
+//    chunk (16 positions x 16 channels x 32 out channels, hi and lo: 32 KB),
+//    copied by one 4-d TMA box (64-byte rows, 64-byte swizzle) that
+//    completes on the stage's "full" mbarrier.  A warp releases a stage
+//    once its fragments are in registers (a shared counter a stage), and
+//    the last warp to release it at once issues the copy STAGES groups
+//    ahead into it; so U's copies run behind the input transform and the
+//    products of the groups before, and no block-wide barrier waits for
+//    U.  Every stage feeds all 16 warps (each takes its own position of
+//    the group).
 //  - Each warp owns one tile: it copies the tile's chunk (64 positions x
 //    32 bytes) by cp.async into shared memory, one chunk ahead, and
 //    transforms it with 2 lanes per channel: each lane the rows i = q, q +
@@ -43,60 +48,90 @@
 //    half of them with its partner lane (__shfl_xor 16), the columns b =
 //    4 q .. 4 q + 3; V's hi and lo parts are stored in shared memory as
 //    the A operands of the products (16 tiles x 16 channels a position).
+//    Two barriers of the 16 warps a chunk: V is free (every warp past the
+//    previous chunk's products; the row pass runs before it), V is whole.
 //  - The products read V by ldmatrix.x4 and U by ldmatrix.x4.trans (U
 //    keeps its (c, o) rows as they lie in device memory).
 //
-// After the last chunk the accumulators go through shared memory, and each
-// thread applies the output transform, bias and activation to one (tile,
-// out channel) pair in fp32 and writes 36 outputs, rounded, coalesced over
-// out channels.  V and M never leave the chip.  Three barriers a chunk.
+// After the last chunk the accumulators go through shared memory (over the
+// U ring and V), and each thread applies the output transform to one
+// (tile, out channel) pair in fp32.  Unsplit (splits == 1), it adds the
+// bias, applies the activation and writes 36 outputs rounded to T,
+// coalesced over out channels.  Split, block z takes the chunks [z n /
+// splits, (z + 1) n / splits) of the n = ceil(C / 16) and writes its 36
+// fp32 partial outputs A^T M_z A (the transform is linear) to the
+// workspace (splits, T, 6, 6, O); winograd16_split_reduce_kernel adds the
+// partials in split order (no atomics: the same bits every run), the bias
+// and the activation, and rounds once.  The split count comes from
+// kernels/winograd/ops.py::call_splits_16 (kernels/_splitk.py::split_k,
+// one block a SM): VGG-16's 56-block layers run 2 splits on 132 SMs.
 //
-// Shared memory: U 2 parts x 64 x 16 x 32 values (64-byte rows whose
-// 16-byte groups are XOR-swizzled by (c / 2) % 4, so the 8 rows of an
-// ldmatrix phase hit distinct banks), the tiles 16 x 8 rows of 272 bytes,
-// V 2 parts x 64 x 16 x 32 bytes (halves swapped as in the implicit-GEMM
-// conv): 231,424 bytes, one block of 512 threads a SM.  M (64 x 16 x 40
-// floats) reuses U and the tiles.
+// Shared memory: the U ring 3 x 32 KB, V 2 parts x 64 positions of 528
+// bytes (16 tiles x 16 channels, halves swapped as in the implicit-GEMM
+// conv, and 16 bytes that put the positions a warp writes at once on
+// other banks), the tiles 16 x 8 rows of 288 bytes, 3 mbarriers and
+// counters, 512 bytes to align the ring: 203,300 bytes, one block of 512
+// threads a SM.  M (64 x 16 x 40 floats) reuses the ring and V.
 //
-// What bounds it.  One block a SM, so nothing overlaps its barriers but
-// the copies; the products are three 16-bit products per fp32 product
-// (the fp32 kernel's are three TF32 ones, at half the rate), and the
-// transforms on the CUDA cores are the same.
+// What bounds it.  No one unit: a block of 16 warps an SM runs the
+// transform, the products and U's copies in lockstep, and leaving out any
+// one of the products, U's copies, V's stores or a barrier saves a tenth
+// of the time or less (scripts/winograd16_variants.py, PERF.md).  Shared
+// memory moves 448 KB a chunk (U in by TMA and out by ldmatrix, 128 KB
+// each way; V, 64 KB each way; the tiles, 32 KB each way), V's and the
+// tiles' 2 bytes a lane.  The ring keeps U's copies off the critical path;
+// the split fills the SMs a small grid leaves idle.
 #include <cuda_runtime.h>
 
 #include "hmma16.cuh"
+#include "hopper_async.cuh"
 #include "winograd16_transforms.cuh"
 
 namespace {
 
 namespace hm = hmma16;
+namespace hp = hopper;
 using winograd16::at8;
 using winograd16::bt8;
 
-constexpr int BT = 16;           // tiles per block
-constexpr int BO = 32;           // out channels per block
-constexpr int BC = 16;           // in channels per chunk (one k16 step)
-constexpr int THREADS = 512;     // 16 warps
+constexpr int BT = 16;            // tiles per block
+constexpr int BO = 32;            // out channels per block
+constexpr int BC = 16;            // in channels per chunk (one k16 step)
+constexpr int THREADS = 512;      // 16 warps
 constexpr int WARPS = THREADS / 32;
-constexpr int POS = 64 / WARPS;  // positions per warp
-constexpr int U_ROW = BO * 2;    // bytes of a (p, c) row of U
-constexpr int U_P = BC * U_ROW;  // bytes of a position of U
-constexpr int U_PART = 64 * U_P; // bytes of one part (hi or lo) of U
-constexpr int RAW_LD = 8 * 32 + 16;  // bytes of a tile row: 8 positions + 16
+constexpr int GP = WARPS;         // positions per group (one a warp)
+constexpr int GROUPS = 64 / GP;   // position groups per chunk
+constexpr int STAGES = 3;         // U ring stages
+constexpr int U_ROW = BO * 2;     // bytes of a (p, c) row of U
+constexpr int U_P = BC * U_ROW;   // bytes of a position of U
+constexpr int U_PART = GP * U_P;  // bytes of one part (hi or lo) of a stage
+constexpr int U_STAGE = 2 * U_PART;
+constexpr int U_RING = STAGES * U_STAGE;
+// Bytes of a position of V: 16 tiles x 16 channels, and 16 more, so that
+// the positions p and p + 4 one warp writes at once fall on other banks.
+constexpr int V_P = BT * 32 + 16;
+constexpr int V_PART = 64 * V_P;  // bytes of one part (hi or lo) of V
+// Bytes of a tile row: 8 positions and 32 more, so that the rows i and
+// i + 1 one warp reads at once fall on other banks.
+constexpr int RAW_LD = 8 * 32 + 32;
 constexpr int RAW_TILE = 8 * RAW_LD;
 constexpr int RAW = BT * RAW_TILE;
-constexpr int V_P = BT * 32;     // bytes of a position of V: 16 tiles x 16 c
-constexpr int V_PART = 64 * V_P; // bytes of one part (hi or lo) of V
-constexpr int SMEM_BYTES = 2 * U_PART + RAW + 2 * V_PART;
-constexpr int LDM = BO + 8;      // M row stride (floats)
+constexpr int V_OFF = U_RING;
+constexpr int RAW_OFF = V_OFF + 2 * V_PART;
+constexpr int BAR_OFF = RAW_OFF + RAW;
+constexpr int ALIGN = 512;        // the 64-byte swizzle's period
+constexpr int SMEM_BYTES = BAR_OFF + STAGES * (8 + 4) + ALIGN;
+constexpr int LDM = BO + 8;       // M row stride (floats)
 static_assert(SMEM_BYTES <= 232448, "one block's shared memory");
-static_assert(64 * BT * LDM * 4 <= 2 * U_PART + RAW,
-              "M reuses U and the raw tiles");
+static_assert(64 * BT * LDM * 4 <= V_OFF + 2 * V_PART,
+              "M reuses the U ring and V");
 static_assert(BT == WARPS && BT * BO == THREADS,
               "one tile a warp, one pair a thread");
 
-// Byte offset of U's (position p, channel c, out channel o) in a stage:
-// 16-byte groups of 8 out channels, XOR-swizzled by (c / 2) % 4.
+// Byte offset of U's (position p of the group, channel c, out channel o)
+// in one part of a stage, as the TMA box lays it out: 64-byte rows (p, c),
+// their 16-byte groups of 8 out channels XOR-ed by row bits 1-2 (the
+// 64-byte swizzle on a 512-byte aligned stage).
 __device__ __forceinline__ int u_off(int p, int c, int o) {
   return p * U_P + c * U_ROW + 16 * ((o >> 3) ^ ((c >> 1) & 3)) + 2 * (o & 7);
 }
@@ -109,53 +144,47 @@ __device__ __forceinline__ int v_half(int t, int h) {
 
 template <class T>
 __global__ void __launch_bounds__(THREADS, 1)
-winograd16_fused_kernel(const T* __restrict__ tiles, const T* __restrict__ U,
+winograd16_fused_kernel(const __grid_constant__ CUtensorMap u_map,
+                        const T* __restrict__ tiles,
                         const float* __restrict__ inv_scale,
                         const float* __restrict__ bias, T* __restrict__ out,
-                        int T_, int C, int O, int act) {
-  extern __shared__ __align__(16) unsigned char smem_wf[];
-  unsigned char* us = smem_wf;                   // [2 parts][64][BC] rows
-  unsigned char* raw = smem_wf + 2 * U_PART;     // [BT][8 rows][RAW_LD]
-  unsigned char* vs = raw + RAW;                 // [2 parts][64][BT] rows
+                        float* __restrict__ ws, int T_, int C, int O, int act,
+                        int splits) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((ALIGN - (hp::smem_u32(smem_raw) & (ALIGN - 1))) &
+                  (ALIGN - 1));
+  unsigned char* us = smem;                    // [STAGES][2 parts][GP][BC] rows
+  unsigned char* vs = smem + V_OFF;            // [2 parts][64][BT] rows
+  unsigned char* raw = smem + RAW_OFF;         // [BT][8 rows][RAW_LD]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  int* released = reinterpret_cast<int*>(full + STAGES);  // warps, a stage
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
-  const int t0 = blockIdx.x * BT, o0 = blockIdx.y * BO;
+  const int t0 = blockIdx.x * BT, o0 = blockIdx.y * BO, split = blockIdx.z;
   const int chunks = (C + BC - 1) / BC;
-  const size_t u_lo = (size_t)64 * C * O;        // U's lo part, in values
-  const bool u_vec =
-      O % 8 == 0 && (reinterpret_cast<uintptr_t>(U) & 15) == 0;
+  const int lo = split * chunks / splits, hi = (split + 1) * chunks / splits;
+  const int n_it = (hi - lo) * GROUPS;   // U stages this block reads
 
-  // U's chunk `chunk`, both parts: rows (part, p, c) of BO out channels, 4
-  // groups of 8 a row.  A thread keeps its channel c and group g and takes
-  // positions p0 + 8 k of both parts.
-  const int ug = tid % (BO / 8), uc = (tid / (BO / 8)) % BC;
-  const int up0 = tid / (BC * (BO / 8));
-  constexpr int U_P_STEP = THREADS / (BC * (BO / 8));
-  static_assert(64 % U_P_STEP == 0, "U copies");
-  const int uo = o0 + 8 * ug;
-  auto stage_u = [&](int chunk) {
-    const int c = chunk * BC + uc;
-    const bool in_c = c < C;
-#pragma unroll 2
-    for (int part = 0; part < 2; ++part) {
-#pragma unroll 4
-      for (int p = up0; p < 64; p += U_P_STEP) {
-        unsigned char* dst = us + part * U_PART + u_off(p, uc, 8 * ug);
-        const size_t off = part * u_lo + ((size_t)p * C + c) * O + uo;
-        if (u_vec) {
-          const bool in = in_c && uo < O;
-          hm::cp_async16(dst, in ? U + off : U, in);
-        } else {
-          const uint16_t* src = reinterpret_cast<const uint16_t*>(U) + off;
-          uint16_t* d = reinterpret_cast<uint16_t*>(dst);
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            d[e] = in_c && uo + e < O ? src[e] : uint16_t(0);
-        }
-      }
-    }
+  // Copy j of U (chunk lo + j / GROUPS, position group j % GROUPS) into
+  // stage j % STAGES, which no warp reads any more.
+  auto issue = [&](int j) {
+    const int s = j % STAGES;
+    hp::mbar_expect_tx(&full[s], U_STAGE);
+    hp::tma_load_4d(us + s * U_STAGE, &u_map, &full[s], o0,
+                    (lo + j / GROUPS) * BC, (j % GROUPS) * GP, 0);
   };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int j = 0; j < STAGES && j < n_it; ++j) issue(j);
 
   // The input transform's roles: this warp's tile, this lane's channel and
   // its row / column half q.
@@ -178,51 +207,50 @@ winograd16_fused_kernel(const T* __restrict__ tiles, const T* __restrict__ U,
     }
   };
 
-  // This warp's accumulators: positions 4 warp + pp, m16 = the 16 tiles,
-  // 4 n8 tiles over the 32 out channels.
-  float acc[POS][4][4];
+  // This warp's accumulators: group g's position GP g + warp, m16 = the 16
+  // tiles, 4 n8 tiles over the 32 out channels.
+  float acc[GROUPS][4][4];
 #pragma unroll
-  for (int pp = 0; pp < POS; ++pp)
+  for (int g = 0; g < GROUPS; ++g)
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[pp][ni][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[g][ni][e] = 0.f;
 
-  const uint32_t us_addr = hm::smem_addr(us);
-  const uint32_t vs_addr = hm::smem_addr(vs);
+  const uint32_t us_addr = hp::smem_u32(us);
   const int a_off = v_half(hm::a_frag_row(lane), hm::a_frag_col(lane) / 8);
   const int b_k = hm::b_frag_k(lane), b_n = hm::b_frag_n(lane);
+  const uint32_t vs_addr = hp::smem_u32(vs);
   // This lane's V slot within a position (tile tt, channel tcn).
   const int v_slot = v_half(tt, tcn / 8) + 2 * (tcn % 8);
 
-  stage_tile(0);
+  stage_tile(lo);
   hm::cp_async_commit();
 
-  for (int chunk = 0; chunk < chunks; ++chunk) {
-    // Every warp is past the previous chunk's products (the barrier that
-    // ends each chunk): U and V are free.
-    stage_u(chunk);
-    hm::cp_async_commit();
-    // This warp's tile chunk has landed (U's copy may still fly).
-    hm::cp_async_wait<1>();
+  for (int chunk = lo; chunk < hi; ++chunk) {
+    const int i = chunk - lo;
+    // This warp's tile chunk has landed.
+    hm::cp_async_wait<0>();
     __syncwarp();
 
     // Rows i = 2 s + q: r[s][b] = sum_j BT[b][j] d[i][j], in fp32.
     float r[4][8];
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      const int i = 2 * s + q;
+      const int row = 2 * s + q;
       float d[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         d[j] = hm::to_f32(*reinterpret_cast<const T*>(
-            r_tile + i * RAW_LD + j * 32 + 2 * tcn));
+            r_tile + row * RAW_LD + j * 32 + 2 * tcn));
       bt8(d, r[s]);
     }
     __syncwarp();
     // The warp's next tile chunk, into the buffer its row pass has read.
-    if (chunk + 1 < chunks) stage_tile(chunk + 1);
+    if (chunk + 1 < hi) stage_tile(chunk + 1);
     hm::cp_async_commit();
+    // Every warp is past the previous chunk's products: V is free.
+    hp::bar_sync(1, THREADS);
     // Columns b = 4 q + k: the partner lane (q ^ 1, same channel) holds the
     // other 4 rows; each lane sends the partner's column.  V[8 a + b] =
     // sum_i BT[a][i] r[i][b], split into hi and lo parts of T.
@@ -242,21 +270,22 @@ winograd16_fused_kernel(const T* __restrict__ tiles, const T* __restrict__ U,
       const int b = 4 * q + k;
 #pragma unroll
       for (int a = 0; a < 8; ++a) {
-        const T hi = hm::from_f32<T>(v[a]);
+        const T vh = hm::from_f32<T>(v[a]);
         unsigned char* slot = vs + (8 * a + b) * V_P + v_slot;
-        *reinterpret_cast<T*>(slot) = hi;
+        *reinterpret_cast<T*>(slot) = vh;
         *reinterpret_cast<T*>(slot + V_PART) =
-            hm::from_f32<T>(v[a] - hm::to_f32(hi));
+            hm::from_f32<T>(v[a] - hm::to_f32(vh));
       }
     }
-    // U's chunk has landed (the next tile's copy may still fly); then V
-    // and U are complete for every warp.
-    hm::cp_async_wait<1>();
-    __syncthreads();
+    // V is whole for every warp.
+    hp::bar_sync(1, THREADS);
 
 #pragma unroll
-    for (int pp = 0; pp < POS; ++pp) {
-      const int p = POS * warp + pp;
+    for (int g = 0; g < GROUPS; ++g) {
+      const int it = GROUPS * i + g;
+      const int s = it % STAGES;
+      hp::mbar_wait(&full[s], (it / STAGES) & 1);
+      const int p = GP * g + warp;
       // A = V[p] (16 tiles x 16 channels), hi and lo; B = U[p] (16
       // channels x 32 out channels), hi and lo, two x4.trans loads of 16
       // out channels each.
@@ -265,45 +294,56 @@ winograd16_fused_kernel(const T* __restrict__ tiles, const T* __restrict__ U,
       hm::ldsm_x4(al, vs_addr + V_PART + p * V_P + a_off);
 #pragma unroll
       for (int pair = 0; pair < 2; ++pair) {
-        const uint32_t ua = us_addr + u_off(p, b_k, 16 * pair + b_n);
+        const uint32_t ua =
+            us_addr + s * U_STAGE + u_off(warp, b_k, 16 * pair + b_n);
         hm::ldsm_x4_trans(bh[pair], ua);
         hm::ldsm_x4_trans(bl[pair], ua + U_PART);
+      }
+      // This warp is done with stage s; the last warp to be done refills
+      // it, STAGES groups ahead.
+      __syncwarp();
+      if (lane == 0) {
+        __threadfence_block();
+        if (atomicAdd(&released[s], 1) % WARPS == WARPS - 1 &&
+            it + STAGES < n_it) {
+          __threadfence_block();
+          issue(it + STAGES);
+        }
       }
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int pr = ni / 2, e = 2 * (ni % 2);
-        hm::mma16<T>(acc[pp][ni], al, bh[pr][e], bh[pr][e + 1]);
-        hm::mma16<T>(acc[pp][ni], ah, bl[pr][e], bl[pr][e + 1]);
-        hm::mma16<T>(acc[pp][ni], ah, bh[pr][e], bh[pr][e + 1]);
+        hm::mma16<T>(acc[g][ni], al, bh[pr][e], bh[pr][e + 1]);
+        hm::mma16<T>(acc[g][ni], ah, bl[pr][e], bl[pr][e + 1]);
+        hm::mma16<T>(acc[g][ni], ah, bh[pr][e], bh[pr][e + 1]);
       }
     }
-    // Every warp is done with U and V before the next chunk replaces them.
-    __syncthreads();
   }
-  hm::cp_async_wait<0>();
+  // Every warp is done with U and V (every copy issued has been waited
+  // for).
   __syncthreads();
 
-  // M through shared memory (over U and the raw tiles), scaled back by
+  // M through shared memory (over the U ring and V), scaled back by
   // 2^-k[p]: ms[(p * BT + tile) * LDM + o].
-  float* ms = reinterpret_cast<float*>(smem_wf);
-  const int g = lane / 4, t4 = lane % 4;
+  float* ms = reinterpret_cast<float*>(smem);
+  const int gr = lane / 4, t4 = lane % 4;
 #pragma unroll
-  for (int pp = 0; pp < POS; ++pp) {
-    const int p = POS * warp + pp;
+  for (int g = 0; g < GROUPS; ++g) {
+    const int p = GP * g + warp;
     const float sc = __ldg(inv_scale + p);
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         *reinterpret_cast<float2*>(
-            ms + (p * BT + g + 8 * h) * LDM + 8 * ni + 2 * t4) =
-            make_float2(acc[pp][ni][2 * h] * sc, acc[pp][ni][2 * h + 1] * sc);
+            ms + (p * BT + gr + 8 * h) * LDM + 8 * ni + 2 * t4) =
+            make_float2(acc[g][ni][2 * h] * sc, acc[g][ni][2 * h + 1] * sc);
   }
   __syncthreads();
 
-  // One (tile, out channel) pair a thread: Y = act(A^T M A + bias) in
-  // fp32, columns then rows, reading M a column at a time; each output
-  // rounded to T.
+  // One (tile, out channel) pair a thread: A^T M A in fp32, columns then
+  // rows, reading M a column at a time; unsplit, act(. + bias) rounded to
+  // T, split, the fp32 partial into the workspace.
   const int pt = tid / BO, po = tid % BO;
   const int t = t0 + pt, o = o0 + po;
   if (t >= T_ || o >= O) return;
@@ -318,6 +358,17 @@ winograd16_fused_kernel(const T* __restrict__ tiles, const T* __restrict__ U,
 #pragma unroll
     for (int x = 0; x < 6; ++x) tmp[x][b] = r[x];
   }
+  if (splits > 1) {
+    float* dst = ws + ((size_t)split * T_ + t) * 36 * O + o;
+#pragma unroll
+    for (int x = 0; x < 6; ++x) {
+      float r[6];
+      at8(tmp[x], r);
+#pragma unroll
+      for (int y = 0; y < 6; ++y) dst[(size_t)(x * 6 + y) * O] = r[y];
+    }
+    return;
+  }
   const float bo_v = bias != nullptr ? __ldg(bias + o) : 0.f;
   T* dst = out + (size_t)t * 36 * O + o;
 #pragma unroll
@@ -331,10 +382,21 @@ winograd16_fused_kernel(const T* __restrict__ tiles, const T* __restrict__ U,
   }
 }
 
+// Y = act(sum over the splits of ws + bias) rounded to T, V consecutive
+// elements per thread (V = 4 when O % 4 == 0), the splits summed in order.
+template <class T, int V>
+__global__ void __launch_bounds__(256)
+winograd16_split_reduce_kernel(const float* __restrict__ ws,
+                               const float* __restrict__ bias,
+                               T* __restrict__ out, size_t n, int O,
+                               int splits, int act) {
+  hm::splitk_reduce<T, V>(ws, bias, out, n, O, splits, act);
+}
+
 template <class T>
-int launch(const T* tiles, const T* U, const float* inv_scale,
-           const float* bias, T* out, int T_, int C, int O, int act,
-           cudaStream_t stream) {
+int launch(const CUtensorMap& u_map, const T* tiles, const float* inv_scale,
+           const float* bias, T* out, float* ws, int T_, int C, int O,
+           int act, int splits, cudaStream_t stream) {
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -343,34 +405,63 @@ int launch(const T* tiles, const T* U, const float* inv_scale,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
-  const dim3 grid((T_ + BT - 1) / BT, (O + BO - 1) / BO);
+  const dim3 grid((T_ + BT - 1) / BT, (O + BO - 1) / BO, splits);
   winograd16_fused_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      tiles, U, inv_scale, bias, out, T_, C, O, act);
+      u_map, tiles, inv_scale, bias, out, ws, T_, C, O, act, splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t n = (size_t)T_ * 36 * O;
+  if (O % 4 == 0) {
+    const unsigned blocks = static_cast<unsigned>((n / 4 + 255) / 256);
+    winograd16_split_reduce_kernel<T, 4><<<blocks, 256, 0, stream>>>(
+        ws, bias, out, n, O, splits, act);
+  } else {
+    const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+    winograd16_split_reduce_kernel<T, 1><<<blocks, 256, 0, stream>>>(
+        ws, bias, out, n, O, splits, act);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Y (T, 6, 6, O) = act(A^T M A + bias), M[p] = sum_c (B^T d B)[p] (U hi +
-// U lo)[p] * inv_scale[p], for tiles (T, 8, 8, C) and U (2, 8, 8, C, O)
-// (hi, then lo), bf16 (dtype 0) or fp16 (dtype 1), inv_scale (64,) and
-// bias fp32 (bias may be null), Y of the tiles' type.  C % 8 == 0, (bt,
-// bo) the compiled (16, 32), tiles 16-byte aligned.  Returns
-// cudaGetLastError().
+// U lo)[p] * inv_scale[p], for tiles (T, 8, 8, C) and U (2, 8, 8, C, O8)
+// (hi, then lo; O8 = O rounded up to a multiple of 8, the rows past O
+// zero), bf16 (dtype 0) or fp16 (dtype 1), inv_scale (64,) and bias fp32
+// (bias may be null), Y of the tiles' type.  C % 8 == 0, (bt, bo) the
+// compiled (16, 32), tiles and U 16-byte aligned; 1 <= splits <=
+// ceil(C / 16), ws holds splits * T * 36 * O floats when splits > 1 (else
+// it may be null).  Returns cudaGetLastError().
 extern "C" int repro_winograd16_fused(const void* tiles, const void* U,
                                       const float* inv_scale,
-                                      const float* bias, void* out, int T,
-                                      int C, int O, int bt, int bo, int act,
-                                      int dtype, cudaStream_t stream) {
+                                      const float* bias, void* out, float* ws,
+                                      int T, int C, int O, int bt, int bo,
+                                      int act, int splits, int dtype,
+                                      cudaStream_t stream) {
+  const int chunks = (C + BC - 1) / BC;
   if (T < 1 || O < 1 || C % 8 != 0 || C < 8 || bt != BT || bo != BO ||
+      splits < 1 || splits > chunks || splits > 65535 ||
+      (splits > 1 && ws == nullptr) || (O + BO - 1) / BO > 65535 ||
       (reinterpret_cast<uintptr_t>(tiles) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(U) & 15) != 0 ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  // U as (2, 64, C, O8): boxes of 32 out channels x 16 channels x 16
+  // positions x both parts, 64-byte rows swizzled.
+  const uint64_t o8 = (O + 7) / 8 * 8;
+  const uint64_t dims[4] = {o8, (uint64_t)C, 64, 2};
+  const uint64_t strides[3] = {o8 * 2, (uint64_t)C * o8 * 2,
+                               64 * (uint64_t)C * o8 * 2};
+  const uint32_t box[4] = {BO, BC, GP, 2};
+  CUtensorMap u_map;
+  if (!hp::make_map(&u_map, U, 4, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_64B))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch(static_cast<const __nv_bfloat16*>(tiles),
-                  static_cast<const __nv_bfloat16*>(U), inv_scale, bias,
-                  static_cast<__nv_bfloat16*>(out), T, C, O, act, stream);
-  return launch(static_cast<const __half*>(tiles),
-                static_cast<const __half*>(U), inv_scale, bias,
-                static_cast<__half*>(out), T, C, O, act, stream);
+    return launch(u_map, static_cast<const __nv_bfloat16*>(tiles), inv_scale,
+                  bias, static_cast<__nv_bfloat16*>(out), ws, T, C, O, act,
+                  splits, stream);
+  return launch(u_map, static_cast<const __half*>(tiles), inv_scale, bias,
+                static_cast<__half*>(out), ws, T, C, O, act, splits, stream);
 }

@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.conv_spec import ACTIVATION_CODES
 from repro_torch.core.winograd import OUT_TILE, TILE, SplitWeights, _tile_input
 from repro_torch.kernels import _build
+from repro_torch.kernels._splitk import split_k
 from repro_torch.kernels.winograd.ref import (
     fused_winograd16_ref,
     fused_winograd_ref,
@@ -51,26 +52,39 @@ BC_16 = 8
 #: The 16-bit fused kernel's compiled tile: 16 tiles x 32 out channels per
 #: block, in-channel steps of 16 (one m16n8k16 step).
 FUSED_BLOCKS_16: Tuple[int, int, int] = (16, 16, 32)
-#: The 16-bit tuple multiply's compiled tile: 64 tiles x 64 out channels
-#: per block, in-channel steps of 32 (csrc/hmma16.cuh).
-THREE_PASS_BLOCKS_16: Tuple[int, int, int] = (64, 32, 64)
+#: Resident blocks of the 16-bit fused kernel on one SM (its 199,728 bytes
+#: of shared memory leave room for one): what its split rule counts.
+RESIDENT_BLOCKS_FUSED_16 = 1
+#: The 16-bit tuple multiply's work item: 64 tiles x N out channels, in
+#: stages of 64 channels (csrc/winograd_3pass_16.cu, wgmma m64nNk16); N is
+#: the first of these that holds all of O, else the last.
+TUPLE_WIDTHS_16: Tuple[int, ...] = (64, 128, 256)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 6 + [_P]
 _INPUT_ARGTYPES = [_P, _P, _I, _I, _P]
 _TUPLE_ARGTYPES = [_P, _P, _P, _I, _I, _I, _P]
 _OUTPUT_ARGTYPES = [_P, _P, _P, _I, _I, _I, _P]
-_ARGTYPES_16 = [_P] * 5 + [_I] * 7 + [_P]
+_ARGTYPES_16 = [_P] * 6 + [_I] * 8 + [_P]
 _INPUT_ARGTYPES_16 = [_P, _P, _I, _I, _I, _P]
 _TUPLE_ARGTYPES_16 = [_P] * 4 + [_I] * 4 + [_P]
 _OUTPUT_ARGTYPES_16 = [_P, _P, _P, _I, _I, _I, _I, _P]
 
 
+def three_pass_blocks_16(o: int) -> Tuple[int, int, int]:
+    """The 16-bit tuple multiply's tile (bt, bc, bo) for O out channels:
+    64 tiles, 64-channel stages, the width of ``TUPLE_WIDTHS_16`` that
+    holds all of O (the widest past it)."""
+    n = next((w for w in TUPLE_WIDTHS_16 if o <= w), TUPLE_WIDTHS_16[-1])
+    return (64, 64, n)
+
+
 def pick_blocks(t: int, c: int, o: int, fused: bool = True,
                 dtype: str = "float32") -> Tuple[int, int, int]:
     """(bt, bc, bo) for T tiles and C -> O channels, for the realization
-    that runs in ``dtype``: each kernel's compiled tile, whatever the shape
-    (``FUSED_BLOCKS_16`` and ``THREE_PASS_BLOCKS_16`` in bf16 and fp16).
+    that runs in ``dtype``: each kernel's compiled tile (in bf16 and fp16
+    ``FUSED_BLOCKS_16``, and the tuple multiply's ``three_pass_blocks_16``,
+    whose width follows O).
 
     Fused: ``FUSED_BLOCKS``; the block keeps the 64 positions' M of its
     16 x 32 (tile, out channel) pairs as tensor-core accumulators and
@@ -79,8 +93,20 @@ def pick_blocks(t: int, c: int, o: int, fused: bool = True,
     (tile, channel) pair per thread and no block.
     """
     if dtype in HALF_DTYPES:
-        return FUSED_BLOCKS_16 if fused else THREE_PASS_BLOCKS_16
+        return FUSED_BLOCKS_16 if fused else three_pass_blocks_16(o)
     return FUSED_BLOCKS if fused else THREE_PASS_BLOCKS
+
+
+def call_splits_16(t: int, c: int, o: int) -> int:
+    """How many ranges of its 16-channel chunks the 16-bit fused kernel
+    cuts C into for T tiles and C -> O channels (C the padded count):
+    ``kernels/_splitk.py::split_k`` over its grid of ceil(T / 16) x
+    ceil(O / 32) blocks, one resident a SM.  1 where the grid fills the
+    card; each split is a block of its own over its chunks, and the
+    partial outputs are summed in split order by the reduce kernel."""
+    bt, bc, bo = FUSED_BLOCKS_16
+    return split_k(-(-t // bt) * -(-o // bo), -(-c // bc),
+                   RESIDENT_BLOCKS_FUSED_16)
 
 
 def _check_impl(impl: str) -> None:
@@ -232,7 +258,12 @@ def fused_winograd16(
 
     ``blocks`` is ``FUSED_BLOCKS_16`` (or None).  V is split into hi and lo
     parts of the operands' type and each product is three 16-bit products
-    summed in fp32 on the tensor cores; the output is rounded once.
+    summed in fp32 on the tensor cores; the output is rounded once.  With
+    ``call_splits_16(T, C, O) > 1`` the blocks split C, their fp32 partial
+    outputs go through a workspace of ``splits * T * 36 * O`` floats from
+    PyTorch's caching allocator, and a second kernel sums them in split
+    order, adds the bias and the activation and rounds; the plain version
+    sums the same partials in the same order.
     """
     t, _, _, c = tiles.shape
     o = u.shape[-1]
@@ -249,10 +280,15 @@ def fused_winograd16(
     _check_impl(impl)
     dtype = _build.require_16bit("fused_winograd_16", tiles, u)
     _build.require_dtype("fused_winograd_16", torch.float32, inv_scale, bias)
+    splits = call_splits_16(t, c, o)
     if impl == "torch":
-        return fused_winograd16_ref(tiles, u, inv_scale, bias, activation)
+        return fused_winograd16_ref(tiles, u, inv_scale, bias, activation,
+                                    splits)
     _build.require_cuda_operands("fused_winograd_16", tiles, u, dtype=dtype)
     _build.require_cuda_operands("fused_winograd_16", inv_scale, bias)
+    if o % 8:
+        # U's rows go by TMA, whose strides are multiples of 16 bytes.
+        u = torch.nn.functional.pad(u, (0, 8 - o % 8)).contiguous()
     if tiles.data_ptr() % 16 or u.data_ptr() % 16:
         raise ValueError("fused_winograd_16: tiles and u must be 16-byte "
                          "aligned")
@@ -260,11 +296,15 @@ def fused_winograd16(
                       dtype=dtype)
     if out.numel():
         bt, _, bo = FUSED_BLOCKS_16
+        ws = (torch.empty((splits, t, OUT_TILE, OUT_TILE, o),
+                          device=tiles.device, dtype=torch.float32)
+              if splits > 1 else None)
         fn = _build.load("winograd_fused_16", "repro_winograd16_fused",
                          _ARGTYPES_16)
         err = fn(tiles.data_ptr(), u.data_ptr(), inv_scale.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), t, c, o, bt, bo, ACTIVATION_CODES[activation],
+                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                 t, c, o, bt, bo, ACTIVATION_CODES[activation], splits,
                  _build.DTYPE16_CODES[dtype], _build.stream_handle(tiles))
         _build.check(err, "fused_winograd_16")
         fused_winograd16.launches += 1
@@ -300,8 +340,9 @@ def tuple_multiply16(v: torch.Tensor, u: torch.Tensor,
     """M[p] = V[p] @ U[p] on bf16 or fp16 V (64, T, C) and split U (2, 64,
     C, O) (hi and lo of U * 2^k, ``inv_scale`` (64,) = 2^-k), the two
     products summed in fp32, scaled back and rounded to V's type: (64, T,
-    O), in the kernel's compiled tile ``THREE_PASS_BLOCKS_16``; C % BC_16
-    == 0 under ``impl='cuda'``."""
+    O), in the kernel's tile ``three_pass_blocks_16(O)``; C % BC_16 == 0
+    under ``impl='cuda'`` (an O that is not a multiple of 8 runs padded
+    to one: the kernel's copies move 16-byte rows)."""
     p, t, c = v.shape
     o = u.shape[-1]
     if (p != TILE * TILE or u.shape[:3] != (2, p, c)
@@ -316,19 +357,22 @@ def tuple_multiply16(v: torch.Tensor, u: torch.Tensor,
         return tuple_multiply16_ref(v, u, inv_scale)
     _build.require_cuda_operands("tuple_multiply_16", v, u, dtype=dtype)
     _build.require_cuda_operands("tuple_multiply_16", inv_scale)
-    if c % BC_16 or v.data_ptr() % 16:
+    o8 = -(-o // 8) * 8
+    if o8 != o:
+        u = torch.nn.functional.pad(u, (0, o8 - o)).contiguous()
+    if c % BC_16 or v.data_ptr() % 16 or u.data_ptr() % 16:
         raise ValueError(f"tuple_multiply_16: C must be a multiple of "
-                         f"{BC_16} and V 16-byte aligned, got C = {c}")
-    m = torch.empty((p, t, o), device=v.device, dtype=dtype)
+                         f"{BC_16} and V and U 16-byte aligned, got C = {c}")
+    m = torch.empty((p, t, o8), device=v.device, dtype=dtype)
     if m.numel():
         fn = _build.load("winograd_3pass_16", "repro_winograd16_tuple_multiply",
                          _TUPLE_ARGTYPES_16)
         err = fn(v.data_ptr(), u.data_ptr(), inv_scale.data_ptr(),
-                 m.data_ptr(), t, c, o, _build.DTYPE16_CODES[dtype],
+                 m.data_ptr(), t, c, o8, _build.DTYPE16_CODES[dtype],
                  _build.stream_handle(v))
         _build.check(err, "tuple_multiply_16")
         tuple_multiply16.launches += 1
-    return m
+    return m if o8 == o else m[..., :o].contiguous()
 
 
 def output_transform16(
@@ -407,7 +451,7 @@ def conv2d_winograd_padded_call(
     elif fused:
         y = fused_winograd(tiles, u, blocks, bias, activation, impl)
     else:
-        want = THREE_PASS_BLOCKS_16 if half else THREE_PASS_BLOCKS
+        want = three_pass_blocks_16(o) if half else THREE_PASS_BLOCKS
         if blocks is not None and tuple(blocks) != want:
             raise ValueError(f"3-pass Winograd: blocks {tuple(blocks)} (the "
                              f"tuple multiply takes {want})")

@@ -19,6 +19,10 @@ import torch
 from repro_torch.core.conv_spec import apply_activation
 from repro_torch.core.winograd import AT, BT, TILE, _const
 
+#: The 16-bit fused kernel's in-channel chunk (one m16n8k16 step): the unit
+#: its split of C counts in.
+SPLIT_CHUNK_16 = 16
+
 
 def input_transform_ref(tiles: torch.Tensor) -> torch.Tensor:
     """V = B^T d B: (T, 8, 8, C) -> (8, 8, T, C)."""
@@ -84,16 +88,39 @@ def output_transform16_ref(m: torch.Tensor,
 def fused_winograd16_ref(tiles: torch.Tensor, u: torch.Tensor,
                          inv_scale: torch.Tensor,
                          bias: Optional[torch.Tensor] = None,
-                         activation: str = "linear") -> torch.Tensor:
+                         activation: str = "linear",
+                         splits: int = 1) -> torch.Tensor:
     """The fused kernel's function on bf16 or fp16 tiles and split U (2,
     8, 8, C, O): V in fp32, split into hi + lo of the tiles' type, M[p] =
     (V lo U hi + V hi U lo + V hi U hi)[p] * inv_scale[p] in fp32 (the
-    kernel's three products), the output transform in fp32, rounded."""
+    kernel's three products), the output transform in fp32, rounded.
+
+    With ``splits`` > 1, as the kernel splits C: split s takes the
+    16-channel chunks [s n / splits, (s + 1) n / splits) of the n =
+    ceil(C / 16), its fp32 partial output A^T M_s A is summed with the
+    others in split order, then the bias and the activation, then one
+    rounding."""
     t, c, o = tiles.shape[0], tiles.shape[-1], u.shape[-1]
     vh, vl = _split(input_transform_ref(tiles.float()).reshape(
         TILE * TILE, t, c), tiles.dtype)
     uh = u[0].float().reshape(TILE * TILE, c, o)
     ul = u[1].float().reshape(TILE * TILE, c, o)
-    m = (vl @ uh + vh @ ul + vh @ uh) * inv_scale.reshape(-1, 1, 1)
-    return output_transform_ref(m.reshape(TILE, TILE, t, o), bias,
-                                activation).to(tiles.dtype)
+    scale = inv_scale.reshape(-1, 1, 1)
+    if splits == 1:
+        m = (vl @ uh + vh @ ul + vh @ uh) * scale
+        return output_transform_ref(m.reshape(TILE, TILE, t, o), bias,
+                                    activation).to(tiles.dtype)
+    chunks = -(-c // SPLIT_CHUNK_16)
+    if not 1 <= splits <= chunks:
+        raise ValueError(f"splits must be in [1, {chunks}], got {splits}")
+    y = None
+    for s in range(splits):
+        lo = s * chunks // splits * SPLIT_CHUNK_16
+        hi = min((s + 1) * chunks // splits * SPLIT_CHUNK_16, c)
+        m = (vl[..., lo:hi] @ uh[:, lo:hi] + vh[..., lo:hi] @ ul[:, lo:hi]
+             + vh[..., lo:hi] @ uh[:, lo:hi]) * scale
+        part = output_transform_ref(m.reshape(TILE, TILE, t, o))
+        y = part if y is None else y + part
+    if bias is not None:
+        y = y + bias
+    return apply_activation(y, activation).to(tiles.dtype)

@@ -47,13 +47,13 @@ from repro_torch.kernels.gemm.ops import (
 from repro_torch.kernels.im2col_gemm.ops import im2col_conv, im2col_conv16
 from repro_torch.kernels.winograd.ops import (
     FUSED_BLOCKS_16,
-    THREE_PASS_BLOCKS_16,
     fused_winograd,
     fused_winograd16,
     input_transform,
     input_transform16,
     output_transform,
     output_transform16,
+    three_pass_blocks_16,
     tuple_multiply,
     tuple_multiply16,
 )
@@ -298,7 +298,7 @@ def test_compiled_slice16_matches_reference(rows, hw, batch, seed, options,
         if s.plan.algorithm is ConvAlgorithm.WINOGRAD:
             assert s.plan.kernel_blocks == (
                 FUSED_BLOCKS_16 if s.plan.winograd_fused
-                else THREE_PASS_BLOCKS_16)
+                else three_pass_blocks_16(s.spec.out_channels))
         if s.plan.algorithm is ConvAlgorithm.DIRECT:
             assert s.plan.kernel_blocks == TILE_16
     got = compiled.run(x)
@@ -419,6 +419,9 @@ def test_cost_plans16_equal_reference(cell, dtype):
                          "winograd_3pass_16"}),
     ("winograd/csrc/winograd16_transforms.cuh", {"winograd_fused_16",
                                                  "winograd_3pass_16"}),
+    ("winograd/csrc/hopper_async.cuh", {"winograd_fused_16",
+                                        "winograd_3pass_16"}),
+    ("winograd/csrc/wgmma16.cuh", {"winograd_3pass_16"}),
 ])
 def test_library_path_follows_the_16bit_headers(tmp_path, monkeypatch, header,
                                                 users):
