@@ -108,7 +108,8 @@ Phases, each on its own printed lines:
    place at the largest output (2^-6 of max(1, max|ref|) in bf16, 2^-9 in
    fp16), each Winograd call's distance from the fp32 kernel on the same
    values printed, timed at YOLOv3-tiny's and VGG-16's shapes and
-   MODEL_20's fused Winograd calls (ms, plain ms, the library call in the
+   MODEL_20's GEMM, im2col and fused Winograd calls (ms, plain ms, the
+   library call in the
    16-bit type -- ``torch.addmm``, ``F.conv2d``, einsum, and one
    ``torch.bmm`` of [V | V] by [U hi ; U lo] for the tuple multiply, with
    the bmm of V by U's hi part alone beside it -- and the bound: 16-bit
@@ -116,7 +117,10 @@ Phases, each on its own printed lines:
    times (fused) or twice (3-pass) for their split operands, the
    transforms over the fp32 peak, or 2 bytes an operand over 3.35 TB/s;
    the fused calls' lines give their grid and C split, the tuple
-   multiply's its work items), VGG-16's 16-bit fused time beside its
+   multiply's its work items, the GEMM's and the im2col conv's their
+   tile, work items, cluster and K split, the conv's window and ring,
+   and both their dynamic shared memory), VGG-16's 16-bit fused time
+   beside its
    3-pass time per layer; then each cell
    end to end: ``impl='cuda'`` against ``impl='torch'`` (the same Winograd
    realization) within 2e-2 (bf16) or 5e-3 (fp16) of max(1, max|ref|), every
@@ -126,12 +130,14 @@ Phases, each on its own printed lines:
    for VGG-16's fc head), its distance from the fp32 forward of the same
    weights printed, the 16-bit and the fp32 replayed forwards timed in
    turns (ms and images/s), and the replayed and eager forwards profiled:
-   each 16-bit kernel (and its split-K reduce where a call splits, the
-   fused Winograd kernel's where it splits C) at most as planned, and no
-   other port kernel; then YOLOv3-tiny 416 b1 and
-   VGG-16 224 b1 in bf16 planned by the cost model (``mode='model'``, the
-   16-bit kernels' own fitted constants), each checked the same way beside
-   the fp32 model-mode forward, its plan and modeled conv ms printed;
+   each 16-bit kernel (and the fused Winograd kernel's reduce where it
+   splits C; the GEMM and the im2col conv sum their K splits in their own
+   launch) at most as planned, and no other port kernel; then
+   YOLOv3-tiny 416 b1 and VGG-16 224 b1 planned by the cost model
+   (``mode='model'``, the 16-bit kernels' own fitted constants): every
+   kernel call of their plans held in bf16 and fp16, and each cell run in
+   bf16 the same way beside the fp32 model-mode forward, its plan and
+   modeled conv ms printed;
 8. the LM stack (``repro_torch.compile(cfg, params)`` on an LM config,
    random weights from a seeded ``torch.Generator`` on the card):
    the flash-attention kernel against its plain version at the shapes of
@@ -318,13 +324,10 @@ SPLITK_REDUCE = "im2col_conv_splitk_reduce_kernel"
 Q8_SPLITK_REDUCE = "im2col_conv_q8_splitk_reduce_kernel"
 GEMM_SPLITK_REDUCE = "gemm_splitk_reduce_kernel"
 GEMM_Q8_SPLITK_REDUCE = "gemm_q8_splitk_reduce_kernel"
-SPLITK16_REDUCE = "im2col16_conv_splitk_reduce_kernel"
-GEMM16_SPLITK_REDUCE = "hgemm16_splitk_reduce_kernel"
 # The 16-bit fused Winograd kernel's, launched by the calls that split C.
 WINOGRAD16_SPLIT_REDUCE = "winograd16_split_reduce_kernel"
 REDUCE_NAMES = (SPLITK_REDUCE, Q8_SPLITK_REDUCE, GEMM_SPLITK_REDUCE,
-                GEMM_Q8_SPLITK_REDUCE, SPLITK16_REDUCE, GEMM16_SPLITK_REDUCE,
-                WINOGRAD16_SPLIT_REDUCE)
+                GEMM_Q8_SPLITK_REDUCE, WINOGRAD16_SPLIT_REDUCE)
 
 
 def kernel_tol(name, dtype):
@@ -642,10 +645,11 @@ def half_cases(s, t, pad_c, bias, head, hw, b, act):
     from repro_torch.core.conv_spec import ConvAlgorithm, apply_activation
     from repro_torch.core.winograd import AT, BT, _const, _tile_input, \
         split_transformed, transform_weights
+    from repro_torch.kernels.gemm.ops import TILE_16, gemm16_smem_bytes
     from repro_torch.kernels.gemm.ops import call_splits_16 as gemm_splits16
     from repro_torch.kernels.gemm.ops import matmul16_bias_act
     from repro_torch.kernels.im2col_gemm.ops import call_splits_16, \
-        im2col_conv16
+        conv16_geometry, im2col_conv16
     from repro_torch.kernels.winograd.ops import (
         FUSED_BLOCKS_16,
         call_splits_16 as fused_splits16,
@@ -673,13 +677,22 @@ def half_cases(s, t, pad_c, bias, head, hw, b, act):
     if algo is ConvAlgorithm.DIRECT:
         m = b * oh * ow
         a, wm = t(m, c).to(dt), (t(c, o) * c ** -0.5).to(dt)
+        # As the network plan keeps them: B's rows padded to a multiple of
+        # 8 (a view of the first N columns reaches the kernel).
+        wm_rows = F.pad(pad_c(wm, 0), (0, -(-o // 8) * 8 - o))
+        splits = gemm_splits16(m, o, phys_c)
+        tiles = -(-m // TILE_16[0]) * -(-o // TILE_16[1])
         return [dict(
             base, kernel="gemm_16",
             label=(f"{head} gemm_16 {dtype} M={m} K={phys_c} N={o} "
-                   f"splits={gemm_splits16(m, o, phys_c)}"),
-            args=(pad_c(a, 1), pad_c(wm, 0), bias),
-            run=lambda a, wm, bias, act=act, impl="cuda":
-                matmul16_bias_act(a, wm, bias, act, impl=impl),
+                   f"tile={TILE_16[0]}x{TILE_16[1]}x{TILE_16[2]} "
+                   f"items={tiles} grid="
+                   f"{tiles * splits if splits > 1 else 'persistent'} "
+                   f"cluster={splits} splits={splits} "
+                   f"smem={gemm16_smem_bytes(phys_c, splits)}"),
+            args=(pad_c(a, 1), wm_rows, bias),
+            run=lambda a, wm, bias, o=o, act=act, impl="cuda":
+                matmul16_bias_act(a, wm[:, :o], bias, act, impl=impl),
             lib_args=(a, wm, bias.to(dt)),
             library=lambda a, wm, bias, act=act:
                 apply_activation(torch.addmm(bias, a, wm), act),
@@ -697,11 +710,20 @@ def half_cases(s, t, pad_c, bias, head, hw, b, act):
                 x.permute(0, 3, 1, 2), w_oihw, bias, spec.stride,
                 spec.padding), act).permute(0, 2, 3, 1))
     if algo is ConvAlgorithm.IM2COL_GEMM:
+        splits = call_splits_16(b, oh, ow, phys_c, o)
+        geom = conv16_geometry(phys_c, o, oh, ow, kh, kw,
+                               *spec.stride, splits)
         return [dict(
             base, **conv_lib, kernel="im2col_conv_16",
             label=(f"{head} im2col_16 {dtype} {h}x{w}x{phys_c}->{oh}x{ow}x{o}"
-                   f" k{kh} s{spec.stride[0]} blocks={blocks} splits="
-                   f"{call_splits_16(b, oh, ow, phys_c, o, blocks[0])}"),
+                   f" k{kh} s{spec.stride[0]} tile={blocks[0]}x{blocks[2]}"
+                   f"x{blocks[1]} {'raster' if geom['raster'] else 'runs'} "
+                   f"items={b * geom['tiles_img'] * geom['o_blocks']}"
+                   f" grid={b * geom['tiles_img'] * geom['o_blocks'] * splits
+                            if splits > 1 else 'persistent'}"
+                   f" cluster={splits} splits={splits} window="
+                   f"{geom['segs']}x{geom['seg_h']}x{geom['win_w']} stages="
+                   f"{geom['stages']} smem={geom['smem']}"),
             args=(pad_c(x, 3), pad_c(wt, 2), bias),
             run=lambda x, wt, bias, spec=spec, blocks=blocks, act=act,
             impl="cuda": im2col_conv16(x, wt, spec, blocks, bias, act,
@@ -1233,17 +1255,13 @@ def deployment_sqnr(model, rng, name) -> None:
 def planned_cuda_launches(netplan):
     """CUDA launches of each port kernel in one forward of ``netplan``, by
     the profiler's name: the plan's count of each kernel, and each split-K
-    reduce kernel once for each im2col or GEMM call (fp32, 16-bit, int8)
-    that splits and each 16-bit fused Winograd call that splits C."""
+    reduce kernel once for each fp32 or int8 im2col or GEMM call that
+    splits and each 16-bit fused Winograd call that splits C (the 16-bit
+    GEMM and im2col conv sum their splits in the same launch)."""
     from repro_torch.core.conv_spec import ConvAlgorithm
     from repro_torch.kernels.gemm.ops import call_splits as gemm_splits
-    from repro_torch.kernels.gemm.ops import call_splits_16 as gemm_splits16
     from repro_torch.kernels.gemm.ops import call_splits_q8 as gemm_splits_q8
-    from repro_torch.kernels.im2col_gemm.ops import (
-        call_splits,
-        call_splits_16,
-        call_splits_q8,
-    )
+    from repro_torch.kernels.im2col_gemm.ops import call_splits, call_splits_q8
     from repro_torch.kernels.winograd.ops import \
         call_splits_16 as call_splits_w16
 
@@ -1282,18 +1300,6 @@ def planned_cuda_launches(netplan):
         want[GEMM_Q8_SPLITK_REDUCE] = gemm_q8
     half = [s for s in netplan.steps
             if s.layer.kind == "conv" and s.plan.dtype in HALF]
-    im16 = sum(
-        call_splits_16(netplan.batch, *s.out_hw, s.in_layout.phys_c,
-                       s.out_layout.phys_c, s.plan.kernel_blocks[0]) > 1
-        for s in half if s.plan.algorithm is ConvAlgorithm.IM2COL_GEMM)
-    if im16:
-        want[SPLITK16_REDUCE] = im16
-    gemm16 = sum(
-        gemm_splits16(netplan.batch * s.out_hw[0] * s.out_hw[1],
-                      s.out_layout.phys_c, s.in_layout.phys_c) > 1
-        for s in half if s.plan.algorithm is ConvAlgorithm.DIRECT)
-    if gemm16:
-        want[GEMM16_SPLITK_REDUCE] = gemm16
     wino16 = sum(
         call_splits_w16(netplan.batch * -(-s.out_hw[0] // 6)
                         * -(-s.out_hw[1] // 6), s.in_layout.phys_c,
@@ -1320,8 +1326,9 @@ def profile_forward(forward, ms_per_forward: float, name: str,
     a CUDA graph's replay, the only evidence on the card of what it
     launches.  ``detail``: the rows by kernel, else the summary line
     alone.  A trace that holds no device record at all (the profiler's
-    tracing failed, as it has once on the card) is taken again, at most
-    twice; its gate is the same."""
+    tracing failed, as it has once on the card), or none of a planned
+    port kernel (it lost them, as it has on the card: 7 records of 5
+    forwards), is taken again, at most twice; its gate is the same."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1332,9 +1339,16 @@ def profile_forward(forward, ms_per_forward: float, name: str,
             for _ in range(reps):
                 forward()
             torch.cuda.synchronize()
-        if any(ev.device_type == DeviceType.CUDA for ev in prof.events()):
+        # The device records in time order.
+        kernels = sorted((ev for ev in prof.events()
+                          if ev.device_type == DeviceType.CUDA),
+                         key=lambda ev: ev.time_range.start)
+        lost = [c for c in want or {}
+                if not any(c in ev.name for ev in kernels)]
+        if kernels and not lost:
             break
-        log(f"profile {name}: the trace holds no device record "
+        log(f"profile {name}: the trace holds no record of "
+            f"{', '.join(lost) if kernels else 'device work'} "
             f"(attempt {attempt + 1})")
     # Kernel rows only: an operator's row repeats the time of its kernels.
     rows = sorted(
@@ -1355,10 +1369,6 @@ def profile_forward(forward, ms_per_forward: float, name: str,
                    if ev.device_type == DeviceType.CPU), reverse=True)
     for us, n, key in host[:host_rows]:
         log(f"  host {us / 1e3:.4f} ms x{n} {key[:90]}")
-    # Each port kernel's launches in forward order, median over the reps.
-    kernels = sorted((ev for ev in prof.events()
-                      if ev.device_type == DeviceType.CUDA),
-                     key=lambda ev: ev.time_range.start)
     kept = None
     if want is not None:
         # The trace may lose kernel records here (86 of 95 launches in one
@@ -1378,6 +1388,7 @@ def profile_forward(forward, ms_per_forward: float, name: str,
             log(f"  profile {name}: port kernel launches in {reps} forwards "
                 f"{ {c: n for c, n in seen.items() if n} }, the plan's per "
                 f"forward {want}")
+    # Each port kernel's launches in forward order, median over the reps.
     for cname in (*CUDA_NAMES.values(), *REDUCE_NAMES) if detail else ():
         us = [ev.time_range.elapsed_us() for ev in kernels if cname in ev.name]
         n = len(us) // reps
@@ -2150,7 +2161,7 @@ def main() -> int:
         "yolov3-tiny 416 b1": (yolov3.TINY_MODEL, {}, FORWARD_REPS, (
             "gemm_16", "im2col_conv_16", "winograd_fused_16")),
         "yolov3-20 608 b1": (yolov3.MODEL_20, {}, SHORT_FORWARD_REPS, (
-            "winograd_fused_16",)),
+            "gemm_16", "im2col_conv_16", "winograd_fused_16")),
         "vgg16 224 b1": (vgg16.MODEL, {}, FORWARD_REPS, (
             "im2col_conv_16", "winograd_fused_16")),
         vgg3_cell: (vgg16.MODEL, {"winograd_fused": False}, FORWARD_REPS, (
@@ -2187,12 +2198,14 @@ def main() -> int:
                 + " + ".join(f"{k} {v:.4f}" for k, v in parts.items())
                 + f"), 3-pass / fused {total / fused['winograd_fused_16']:.2f}")
     # The cost model's 16-bit plans (mode="model", the '_16' constants of
-    # hw.H100.kernel_fit), each beside the fp32 model-mode forward.
+    # hw.H100.kernel_fit), every kernel call held in both types, each cell
+    # run in bf16 beside the fp32 model-mode forward.
     for cell in (tiny_cell, "vgg16 224 b1"):
         model, _, reps, _ = half_cells[cell]
         name = f"{cell} bfloat16 mode=model"
-        check_kernels(netplan_of(model, 1, "bfloat16", mode="model"), rng_h,
-                      H100, name)
+        for dtype in HALF:
+            check_kernels(netplan_of(model, 1, dtype, mode="model"), rng_h,
+                          H100, f"{cell} {dtype} mode=model")
         _, modeled = run_cell(model, 1, rng_h, half_params[model.name],
                               {"dtype": "bfloat16", "mode": "model"}, name,
                               profile=True, reps=reps)

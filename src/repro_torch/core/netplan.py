@@ -150,11 +150,12 @@ def _in_channel_multiple(plan: ConvPlan) -> int:
 
 
 def _snap_row_tile(plan: ConvPlan, algo: ConvAlgorithm, oh: int) -> ConvPlan:
-    """Network-level adjustment: make the im2col row tile divide OH
-    (``im2col_gemm.ops.snap_row_tile``)."""
+    """Network-level adjustment: make the fp32 or int8 im2col row tile
+    divide OH (``im2col_gemm.ops.snap_row_tile``); the 16-bit kernel's
+    tiles run over consecutive pixels, with no row tile to snap."""
     from repro_torch.kernels.im2col_gemm.ops import snap_row_tile
 
-    if algo is not ConvAlgorithm.IM2COL_GEMM:
+    if algo is not ConvAlgorithm.IM2COL_GEMM or plan.dtype in HALF_DTYPES:
         return plan
     toh, bc, bo = plan.kernel_blocks
     snapped = snap_row_tile(toh, oh)
@@ -498,8 +499,15 @@ def prepare_net_params(
             # fp32: the 16-bit kernels take both operands in their type;
             # transformed Winograd weights go split into hi and lo parts.
             # The bias stays fp32.
-            w = (split_transformed(w, HALF_DTYPES[s.plan.dtype]) if pre
-                 else w.to(HALF_DTYPES[s.plan.dtype]))
+            if pre:
+                w = split_transformed(w, HALF_DTYPES[s.plan.dtype])
+            else:
+                from repro_torch.kernels.gemm.ops import tma_rows16
+
+                # Rows padded for the kernels' TMA (a head's N = 255), once.
+                out.append({"w": tma_rows16(w.to(HALF_DTYPES[s.plan.dtype])),
+                            "b": b.contiguous()})
+                continue
         out.append({"w": w.contiguous(), "b": b.contiguous()})
     return out
 

@@ -703,12 +703,16 @@ def plan_is_current(plan: ConvPlan, spec: ConvSpec, h: int, w: int,
                     batch: int) -> bool:
     """Whether ``plan`` still names the tile its kernel is compiled with
     (``kernel_blocks``): a plan cached or saved before a kernel's tile
-    changed is stale, and replans.  The implicit-GEMM conv takes any row
-    tile (a network plan snaps it to the map), so its plans always are."""
-    if plan.algorithm is ConvAlgorithm.IM2COL_GEMM:
-        return True
-    return tuple(plan.kernel_blocks) == kernel_blocks(
-        spec, plan.algorithm, h, w, batch, plan.winograd_fused, plan.dtype)
+    changed is stale, and replans.  The fp32 and int8 implicit-GEMM convs
+    take any row tile (a network plan snaps it to the map), so only their
+    channel step and out-channel block must be the kernel's; the 16-bit
+    one's whole tile must."""
+    want = kernel_blocks(spec, plan.algorithm, h, w, batch,
+                         plan.winograd_fused, plan.dtype)
+    if (plan.algorithm is ConvAlgorithm.IM2COL_GEMM
+            and plan.dtype not in HALF_DTYPES):
+        return tuple(plan.kernel_blocks[1:]) == want[1:]
+    return tuple(plan.kernel_blocks) == want
 
 
 def candidate_operands(spec: ConvSpec, h: int, w: int, batch: int,
@@ -771,9 +775,11 @@ def candidate_call(spec: ConvSpec, plan: ConvPlan,
     if plan.dtype in HALF_DTYPES:
         from repro_torch.core.winograd import split_transformed
 
+        from repro_torch.kernels.gemm.ops import tma_rows16
+
         dt = getattr(torch, plan.dtype)
         x = x.to(dt)
-        wts = split_transformed(wts, dt) if pre else wts.to(dt).contiguous()
+        wts = split_transformed(wts, dt) if pre else tma_rows16(wts.to(dt))
     epi = Epilogue(bias=bias, activation="relu")
 
     def call():

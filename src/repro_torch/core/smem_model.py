@@ -63,8 +63,6 @@ CUDA_FUNCTIONS: Dict[str, str] = {
     "input_transform_16": "winograd16_input_transform_kernel",
     "tuple_multiply_16": "winograd16_tuple_multiply_kernel",
     "output_transform_16": "winograd16_output_transform_kernel",
-    "gemm_16_reduce": "hgemm16_splitk_reduce_kernel",
-    "im2col_conv_16_reduce": "im2col16_conv_splitk_reduce_kernel",
     "winograd_fused_16_reduce": "winograd16_split_reduce_kernel",
 }
 #: Every kind of launch the model prices: the kernels and PyTorch's own,
@@ -77,9 +75,6 @@ HALF = 2           # bytes of a bf16 or fp16 element
 #: The fp32 GEMM core's ring (csrc/sgemm_3xtf32.cuh): STAGES chunks of A
 #: (BM x (BK + 4)) and B (BK x (BN + 8)).
 SGEMM_STAGES = 3
-#: The 16-bit GEMM core's ring (csrc/hmma16.cuh): STAGES chunks of A
-#: (BM x (BK + 8)) and B (BK x (BN + 8)).
-HMMA16_STAGES = 3
 #: The int8 GEMM's ring (csrc/gemm_q8.cu): STAGES stages of 128 K bytes.
 Q8_STAGES, Q8_KS = 3, 128
 #: The fused Winograd kernel's shared memory (csrc/winograd_fused.cu,
@@ -137,13 +132,17 @@ class BlockConfig:
     def smem_bytes(self, dtype_bytes: int = F32) -> int:
         """Shared memory of the fp32 GEMM core's ring at this tile, with its
         padded rows (for int8, the s8 kernel's ring of 128-byte K lines and
-        its staging of B; for 2-byte types, the 16-bit core's ring,
-        csrc/hmma16.cuh, whose rows are padded by 8 values)."""
+        its staging of B; for 2-byte types, the 16-bit GEMM's ring of
+        swizzled, unpadded rows, csrc/gemm_16.cu)."""
         if dtype_bytes == 1:
             return Q8_STAGES * (self.bm + self.bn) * Q8_KS + self.bn * Q8_KS
         if dtype_bytes == 2:
-            return HMMA16_STAGES * (self.bm * (self.bk + 8)
-                                    + self.bk * (self.bn + 8)) * dtype_bytes
+            # Up to MAX_STAGES_16 chunks of A (BM x BK) and B (BK x BN),
+            # unpadded (TMA's 128-byte swizzle).
+            from repro_torch.kernels.gemm.ops import MAX_STAGES_16
+
+            return MAX_STAGES_16 * (self.bm * self.bk
+                                    + self.bk * self.bn) * dtype_bytes
         return SGEMM_STAGES * (self.bm * (self.bk + 4)
                                + self.bk * (self.bn + 8)) * dtype_bytes
 
@@ -259,12 +258,16 @@ def predict_gemm(shape: GemmShape, block: Optional[BlockConfig] = None,
     block_work = 2 * bm * bn * bk * -(-chunks // splits)
     compute_s, waves = _waved(block_work, grid, resident,
                               peak_flops(hw, dtype_bytes), hw, sms)
-    out_bytes = (F32 * m * n * splits if splits > 1
+    # The 16-bit kernel sums a tile's splits in its cluster: no partial
+    # sums through device memory and no reduce launch.
+    out_bytes = (F32 * m * n * splits if splits > 1 and not half
                  else (HALF if half else F32) * m * n)
     hbm = dtype_bytes * (m * k + k * n) + out_bytes + F32 * n * (2 if q8 else 1)
-    smem = BlockConfig(bm, bn, bk).smem_bytes(dtype_bytes)
+    smem = (ops.gemm16_smem_bytes(k, splits) if half and block is None
+            else BlockConfig(bm, bn, bk).smem_bytes(dtype_bytes))
     parts = [_cost(name, hw, compute_s, hbm, grid, splits, waves, smem)]
-    parts += _reduce(name + "_reduce", splits, m * n, hw)
+    if not half:
+        parts += _reduce(name + "_reduce", splits, m * n, hw)
     return GemmEstimate(tuple(parts))
 
 
@@ -317,6 +320,8 @@ def predict_im2col(spec, h: int, w: int, batch: int, cin: int, cout: int,
 
     q8, half = dtype_bytes == 1, dtype_bytes == HALF
     oh, ow = spec.out_hw(h, w)
+    if half:
+        return _predict_im2col16(spec, h, w, batch, cin, cout, hw)
     if toh is None:
         toh = ops.snap_row_tile(ops.pick_blocks(oh, ow)[0], oh)
     tow = ops.tile_width(toh, ow)
@@ -328,13 +333,6 @@ def predict_im2col(spec, h: int, w: int, batch: int, cin: int, cout: int,
         chunk, chunks, resident = ops.CHUNK_Q8, -(-cin // ops.CHUNK_Q8), \
             ops.RESIDENT_BLOCKS_Q8
         smem = 2 * (win_px + taps * ops.BO) * ops.CHUNK_Q8
-    elif half:
-        # 16-channel chunks (32-byte window pixels), the weight rows
-        # padded to 72 values (csrc/im2col_conv_16.cu).
-        splits = ops.call_splits_16(batch, oh, ow, cin, cout, toh)
-        chunk, chunks, resident = ops.CHUNK_16, -(-cin // ops.CHUNK_16), \
-            ops.RESIDENT_BLOCKS_16
-        smem = 2 * (win_px + taps * (ops.BO + 8)) * ops.CHUNK_16 * HALF
     else:
         splits = ops.call_splits(batch, oh, ow, cin, cout, toh)
         chunk, chunks, resident = ops.BC, cin // ops.BC, ops.RESIDENT_BLOCKS
@@ -349,11 +347,35 @@ def predict_im2col(spec, h: int, w: int, batch: int, cin: int, cout: int,
            + (F32 * outputs * splits if splits > 1
               else (HALF if half else F32) * outputs)
            + F32 * cout * (2 if q8 else 1))
-    name = "im2col_conv_q8" if q8 else "im2col_conv_16" if half \
-        else "im2col_conv"
+    name = "im2col_conv_q8" if q8 else "im2col_conv"
     parts = [_cost(name, hw, compute_s, hbm, grid, splits, waves, smem)]
     parts += _reduce(name + "_reduce", splits, outputs, hw)
     return GemmEstimate(tuple(parts))
+
+
+def _predict_im2col16(spec, h: int, w: int, batch: int, cin: int, cout: int,
+                      hw: ChipSpec) -> GemmEstimate:
+    """``predict_im2col`` of the 16-bit kernel: tiles of ``PIXELS_16``
+    consecutive output pixels by ``BO_16`` out channels, chunks of
+    ``CHUNK_16`` channels, its shared memory from ``conv16_geometry``; one
+    launch, the splits summed in their cluster."""
+    from repro_torch.kernels.im2col_gemm import ops
+
+    oh, ow = spec.out_hw(h, w)
+    (sh, sw), taps = spec.stride, spec.kh * spec.kw
+    splits = ops.call_splits_16(batch, oh, ow, cin, cout)
+    geom = ops.conv16_geometry(cin, cout, oh, ow, spec.kh, spec.kw,
+                               sh, sw, splits)
+    chunks = -(-cin // ops.CHUNK_16)
+    grid = batch * geom["tiles_img"] * geom["o_blocks"] * splits
+    block_work = (2 * ops.PIXELS_16 * ops.BO_16 * taps * ops.CHUNK_16
+                  * -(-chunks // splits))
+    compute_s, waves = _waved(block_work, grid, ops.RESIDENT_BLOCKS_16,
+                              hw.peak_rate("bf16"), hw)
+    hbm = (HALF * (batch * h * w * cin + taps * cin * cout
+                   + batch * oh * ow * cout) + F32 * cout)
+    return GemmEstimate((_cost("im2col_conv_16", hw, compute_s, hbm, grid,
+                               splits, waves, geom["smem"]),))
 
 
 def predict_winograd(tiles: int, cin: int, cout: int,

@@ -60,7 +60,9 @@ class ChipSpec:
     # same convs appended to them in a later run ('..._16' and 'glue_16',
     # fit apart, so no fp32 or int8 entry moved) and measured again once
     # the 16-bit Winograd kernels were redesigned (the split fused kernel's
-    # reduce, 'winograd_fused_16_reduce', added); the records are
+    # reduce, 'winograd_fused_16_reduce', added) and again once the 16-bit
+    # GEMM and im2col conv were (their K splits summed in one launch: no
+    # reduce entry of theirs); the records are
     # scripts/cost_model_records_h100.json (PERF.md section 6).  A share
     # above 1: the operands stayed in the 50 MB L2.
     kernel_fit: Tuple[Tuple[str, float, float], ...] = (
@@ -76,17 +78,15 @@ class ChipSpec:
         ("gemm_q8_reduce", 2.0e-6, 1.8704),
         ("im2col_conv_reduce", 1.6e-6, 0.8944),
         ("im2col_conv_q8_reduce", 1.1e-6, 0.5593),
-        ("gemm_16", 2.5e-6, 0.4090),
-        ("im2col_conv_16", 0.1e-6, 0.1223),
-        ("winograd_fused_16", 3.8e-6, 0.4783),
+        ("gemm_16", 5.0e-6, 1.2231),
+        ("im2col_conv_16", 12.4e-6, 0.3657),
+        ("winograd_fused_16", 3.7e-6, 0.4783),
         ("input_transform_16", 2.7e-6, 1.3987),
-        ("tuple_multiply_16", 1.9e-6, 0.7314),
-        ("output_transform_16", 2.1e-6, 1.3080),
-        ("gemm_16_reduce", 1.9e-6, 1.7104),
-        ("im2col_conv_16_reduce", 1.8e-6, 4.0000),
-        ("winograd_fused_16_reduce", 1.3e-6, 1.6726),
+        ("tuple_multiply_16", 2.0e-6, 0.7479),
+        ("output_transform_16", 2.2e-6, 1.3678),
+        ("winograd_fused_16_reduce", 1.2e-6, 1.5295),
         ("glue", 1.4e-6, 0.8746),
-        ("glue_16", 1.7e-6, 0.5469),
+        ("glue_16", 1.7e-6, 0.5593),
     )
 
     def peak_rate(self, unit: str) -> float:

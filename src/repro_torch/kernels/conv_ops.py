@@ -247,8 +247,9 @@ def _conv2d_cuda_laidout(
     )
 
     if half:
-        return im2col_conv16(x.contiguous(), w.contiguous(), spec, blocks,
-                             bias=bias, activation=activation, impl=impl)
+        # The weights as they were prepared (gemm.ops.tma_rows16).
+        return im2col_conv16(x.contiguous(), w, spec, blocks, bias=bias,
+                             activation=activation, impl=impl)
     if quantized:
         return im2col_conv_q8(x.contiguous(), w.contiguous(), spec, scale,
                               blocks, bias=bias, activation=activation,

@@ -1,40 +1,19 @@
-// The 16-bit GEMM core of the port, on the tensor cores of sm_90a: one 64x64
-// output tile of C = A.B over a range of K, A and B bf16 or fp16, the
-// products summed in fp32 registers.  Its tile loop serves
-// gemm/csrc/gemm_16.cu (the 1x1-conv GEMM, with split-K), which owns the
-// grid, the K range and the epilogue.  im2col_gemm/csrc/im2col_conv_16.cu
-// and the 16-bit Winograd kernels (winograd/csrc/winograd_fused_16.cu,
-// winograd_3pass_16.cu) use only its device helpers (the element
-// conversions, ldmatrix, mma, the cp.async wrappers, the split-K reduce).
-// It is the 16-bit twin of csrc/sgemm_3xtf32.cuh, with the same interface.
+// The 16-bit device helpers of the port's bf16 and fp16 kernels on sm_90a:
+// the element conversions, the fused activation, the mma.sync m16n8k16
+// product with fp32 sums, ldmatrix, the cp.async copies and an ordered
+// split-K reduce.  The 16-bit fused Winograd kernel
+// (winograd/csrc/winograd_fused_16.cu) runs its products on mma.sync and
+// its C split's reduce here; the 16-bit GEMM, implicit-GEMM conv and tuple
+// multiply run theirs on wgmma (csrc/wgmma16.cuh) and take the
+// conversions, activation and ldmatrix from here.
 //
-// Math.  mma.sync.aligned.m16n8k16.row.col.f32.{bf16,f16}.{bf16,f16}.f32;
-// 4 warps (128 threads) in a 2x2 layout, each warp a 32x32 quarter of the
-// tile: 2 x 4 m16n8 accumulator fragments, 32 floats a thread.  The
-// product of two 16-bit values is exact in fp32, so the sum is an fp32 sum
-// of exact products; the caller rounds once, at its store.  The operand
+// Math.  mma.sync.aligned.m16n8k16.row.col.f32.{bf16,f16}.{bf16,f16}.f32:
+// the product of two 16-bit values is exact in fp32, so a sum is an fp32
+// sum of exact products; the caller rounds once, at its store.  Operand
 // fragments come from shared memory by ldmatrix: A's (16 rows x 16 of K)
 // by ldmatrix.x4 from rows of K, B's (16 of K x 16 columns, two n8
 // fragments) by ldmatrix.x4.trans from rows of N, so B is kept as it lies
 // in device memory (K, N) and never transposed.
-//
-// Staging.  A (64 rows x 32 of K) and B (32 of K x 64 columns) tiles go
-// into a ring of STAGES stages in shared memory by cp.async, 16 bytes (8
-// values) a copy: chunk i + 2 is in flight while chunk i is computed, and
-// one barrier per chunk both publishes chunk i and frees the stage chunk
-// i + 2 overwrites.  Ragged M, N and K are zero-filled by the copies'
-// source size, so no caller pads an operand to a tile; A's rows need K % 8
-// == 0 and a 16-byte aligned base (the wrappers check it).  B's rows go as
-// 16-byte copies where N % 8 == 0 and the base is 16-byte aligned, else
-// value by value through registers (N = 255 heads).
-//
-// Shared memory.  A is stored [m][32 + 8] and B [k][64 + 8] (80- and
-// 144-byte rows): the 8 rows of each ldmatrix phase fall on 8 distinct
-// 16-byte bank groups, and every row start stays 16-byte aligned for the
-// copies.  3 stages x (5120 + 4608) bytes = 29,184 bytes, static and
-// under 48 KB; MIN_BLOCKS blocks a SM (at most
-// 128 registers a thread) are what the split-K rule counts
-// (gemm/ops.py::RESIDENT_BLOCKS_16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,18 +26,6 @@
 // shared between the libraries that include it.
 namespace {
 namespace hmma16 {
-
-constexpr int BM = 64;          // output rows per tile
-constexpr int BN = 64;          // output columns per tile
-constexpr int BK = 32;          // K per chunk (two k16 steps)
-constexpr int STAGES = 3;       // chunks in the cp.async ring
-constexpr int THREADS = 128;    // 4 warps, 2 x 2, 32 x 32 outputs each
-constexpr int MIN_BLOCKS = 4;   // __launch_bounds__ minimum blocks a SM
-constexpr int A_LD = BK + 8;    // smem row stride of A, values
-constexpr int B_LD = BN + 8;    // smem row stride of B, values
-
-// load_chunk moves each operand's tile as 2 groups of 8 values a thread.
-static_assert(BM * BK == 16 * THREADS && BK * BN == 16 * THREADS, "tile");
 
 // ---------------------------------------------------------------------------
 // The two element types.
@@ -183,181 +150,7 @@ __device__ __forceinline__ int b_frag_k(int lane) {
 __device__ __forceinline__ int b_frag_n(int lane) { return (lane >> 4) * 8; }
 
 // ---------------------------------------------------------------------------
-// The tile loop.
-
-template <class T>
-struct Smem {
-  T a[STAGES][BM][A_LD];
-  T b[STAGES][BK][B_LD];
-};
-static_assert(sizeof(Smem<__half>) <= 48 * 1024, "static shared memory");
-
-// One warp's 32x32 accumulator: [m16 tile][n8 tile][fragment element].
-using Acc = float[2][4][4];
-
-// A row-major (M, K), K % 8 == 0, 16-byte aligned; B row-major (K, N);
-// b_vec: 16-byte copies of B's rows (N % 8 == 0, base 16-byte aligned).
-template <class T>
-struct Operands {
-  const T* A;
-  const T* B;
-  int M, N, K;
-  bool b_vec;
-};
-
-template <class T>
-__device__ __forceinline__ Operands<T> operands(const T* A, const T* B, int M,
-                                                int N, int K) {
-  return {A, B, M, N, K,
-          N % 8 == 0 && (reinterpret_cast<uintptr_t>(B) & 15) == 0};
-}
-
-// Copies chunk `chunk` (K from 32 * chunk) of A's rows [m0, m0 + 64) and of
-// B's columns [n0, n0 + 64) into stage `s`: 256 groups of 8 values of each
-// operand, two of each a thread.
-template <class T>
-__device__ __forceinline__ void load_chunk(Smem<T>& sm, int s,
-                                           const Operands<T>& op, int m0,
-                                           int n0, int chunk) {
-  const int k0 = chunk * BK;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int idx = threadIdx.x + THREADS * j;
-    {  // A: 64 rows x 4 groups.
-      const int r = idx / (BK / 8), c = (idx % (BK / 8)) * 8;
-      const int gm = m0 + r, gk = k0 + c;
-      const bool in = gm < op.M && gk < op.K;
-      cp_async16(&sm.a[s][r][c], in ? op.A + (size_t)gm * op.K + gk : op.A,
-                 in);
-    }
-    {  // B: 32 rows x 8 groups.
-      const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
-      const int gk = k0 + r, gn = n0 + c;
-      T* dst = &sm.b[s][r][c];
-      if (op.b_vec) {
-        const bool in = gk < op.K && gn < op.N;
-        cp_async16(dst, in ? op.B + (size_t)gk * op.N + gn : op.B, in);
-      } else {
-        const uint16_t* src =
-            reinterpret_cast<const uint16_t*>(op.B) + (size_t)gk * op.N + gn;
-        uint16_t* d = reinterpret_cast<uint16_t*>(dst);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          d[e] = gk < op.K && gn + e < op.N ? src[e] : uint16_t(0);
-      }
-    }
-  }
-}
-
-// acc += this warp's 32x32 part of stage s's A (64x32) . B (32x64).
-template <class T>
-__device__ __forceinline__ void compute_chunk(const Smem<T>& sm, int s,
-                                              Acc& acc) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t a[2][4], b[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      ldsm_x4(a[mi], smem_addr(&sm.a[s][wm + mi * 16 + a_frag_row(lane)]
-                                    [kk + a_frag_col(lane)]));
-#pragma unroll
-    for (int np = 0; np < 2; ++np)
-      ldsm_x4_trans(b[np], smem_addr(&sm.b[s][kk + b_frag_k(lane)]
-                                          [wn + np * 16 + b_frag_n(lane)]));
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        mma16<T>(acc[mi][ni], a[mi], b[ni / 2][2 * (ni % 2)],
-                 b[ni / 2][2 * (ni % 2) + 1]);
-  }
-}
-
-// acc = A[m0:m0+64, K chunks [chunk_lo, chunk_hi)] . B[same K, n0:n0+64],
-// zero where the tile passes M, N or K.  Every thread of the block calls
-// it; no other block is involved.
-template <class T>
-__device__ __forceinline__ void tile(const Operands<T>& op, int m0, int n0,
-                                     int chunk_lo, int chunk_hi, Smem<T>& sm,
-                                     Acc& acc) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  // Prologue: chunks lo .. lo + STAGES - 2 in flight, one group each
-  // (empty past the range, so the group count stays fixed).
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (chunk_lo + s < chunk_hi) load_chunk(sm, s, op, m0, n0, chunk_lo + s);
-    cp_async_commit();
-  }
-  for (int chunk = chunk_lo; chunk < chunk_hi; ++chunk) {
-    const int i = chunk - chunk_lo;
-    // This chunk's group has landed (at most STAGES - 2 younger ones
-    // pending), and every thread is past computing chunk - 1, whose stage
-    // the copy below takes (and whose value-by-value stores of B the
-    // barrier publishes).
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int next = chunk + STAGES - 1;
-    if (next < chunk_hi) load_chunk(sm, (i + STAGES - 1) % STAGES, op, m0, n0,
-                                    next);
-    cp_async_commit();
-    compute_chunk(sm, i % STAGES, acc);
-  }
-  cp_async_wait<0>();
-}
-
-// Calls store(row, col, v0, v1) for each pair of this thread's
-// accumulators, (row, col) and (row, col + 1) of the tile at (m0, n0);
-// col is even.  The caller masks M and N.
-template <class Store>
-__device__ __forceinline__ void for_each_pair(const Acc& acc, int m0, int n0,
-                                              Store store) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        store(m0 + wm + mi * 16 + g + 8 * h, n0 + wn + ni * 8 + 2 * t,
-              acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-}
-
-// dst[row * ld + col .. col + 1] = (v0, v1) rounded to T, masked at N; one
-// 4-byte store where both lie inside and the address allows it.
-template <class T>
-__device__ __forceinline__ void store_pair16(T* dst, int ld, int row, int col,
-                                             int N, float v0, float v1) {
-  T* p = dst + (size_t)row * ld + col;
-  if (col + 1 < N && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
-    *reinterpret_cast<uint32_t*>(p) = pack2<T>(v0, v1);
-  } else {
-    if (col < N) p[0] = from_f32<T>(v0);
-    if (col + 1 < N) p[1] = from_f32<T>(v1);
-  }
-}
-
-// The fp32 twin, for split-K partial sums.
-__device__ __forceinline__ void store_pair32(float* dst, int ld, int row,
-                                             int col, int N, float v0,
-                                             float v1) {
-  float* p = dst + (size_t)row * ld + col;
-  if (col + 1 < N && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
-    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-  } else {
-    if (col < N) p[0] = v0;
-    if (col + 1 < N) p[1] = v1;
-  }
-}
+// The ordered split-K reduce.
 
 // out[i .. i + V) = act(sum over the splits of ws[., i .. i + V) + bias)
 // rounded to T, the partials added in split order (V = 4 needs cols % 4 ==

@@ -1,7 +1,10 @@
-// Hopper's asynchronous copies for the 16-bit Winograd kernels
-// (winograd_fused_16.cu, winograd_3pass_16.cu): shared-memory barriers
-// (mbarrier), bulk tensor copies (TMA) between device memory and shared
-// memory, and the host-side tensor maps that describe them.
+// Hopper's asynchronous copies and thread block clusters for the port's
+// 16-bit kernels (gemm/csrc/gemm_16.cu, im2col_gemm/csrc/im2col_conv_16.cu,
+// winograd/csrc/winograd_fused_16.cu, winograd_3pass_16.cu): shared-memory
+// barriers (mbarrier), bulk tensor copies (TMA) between device memory and
+// shared memory, the host-side tensor maps that describe them, and the
+// cluster helpers (rank, barrier, distributed shared memory, a launch with
+// a cluster dimension).
 //
 // A TMA copy moves a whole box of a tensor of up to five dimensions; one
 // thread issues it, the copy engine computes the addresses, zero-fills
@@ -14,12 +17,19 @@
 // cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint (nothing
 // links libcuda), and passed to a kernel by value as a __grid_constant__
 // parameter, so a CUDA graph captures them with the launch.
+//
+// A cluster is a group of blocks the card runs at once on neighbouring
+// SMs; each may read the others' shared memory through shared::cluster
+// addresses (mapa) between two cluster barriers.  The 16-bit GEMM and
+// implicit-GEMM conv put the K splits of one output tile in one cluster
+// and add their partial sums there (wgmma16.cuh, reduce_tile).
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <utility>
 
 namespace {
 namespace hopper {
@@ -78,6 +88,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // ---------------------------------------------------------------------------
 // TMA
 
+// Box at element coordinates (c0 innermost, c1) of `map` into shared
+// memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // Box at element coordinates (c0 innermost ...) of `map` into shared
 // memory at `dst`, completing on `bar`.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
@@ -100,6 +122,14 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Brings `map` into the copy engine's descriptor cache ahead of its first
+// copy.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 
 // Shared memory at `src` into the box at (c0, c1, c2) of `map`; the part of
@@ -139,6 +169,66 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters
+
+// This block's rank in its cluster (blockIdx.x % the cluster's x size for
+// a cluster of (x, 1, 1)).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every non-exited thread of the cluster arrives (release) and waits
+// (acquire): each block's shared-memory writes before it are visible to
+// every block after it.  Every thread of a warp calls it together.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of shared::cta address `addr` in the block
+// of rank `rank` of this cluster.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes at a shared::cluster address (any block of the cluster).
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// Launches `kernel` on `grid` in clusters of (cluster_x, 1, 1) blocks
+// (gridDim.x a multiple of cluster_x; cluster_x == 1: a launch without
+// clusters); a CUDA graph captures it as any other launch.
+template <class... Params, class... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads,
+                             size_t smem, cudaStream_t stream,
+                             unsigned cluster_x, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster_x > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }
 
 // ---------------------------------------------------------------------------

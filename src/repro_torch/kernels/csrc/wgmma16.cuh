@@ -1,17 +1,25 @@
-// Warpgroup matrix products (wgmma) of the 16-bit Winograd tuple multiply
-// (winograd_3pass_16.cu): shared-memory matrix descriptors and the
-// m64nNk16 products with fp32 sums, N = 64, 128 or 256, bf16 or fp16.
+// The 16-bit warpgroup matrix-product core of the port (wgmma, sm_90a):
+// shared-memory matrix descriptors, the m64nNk16 products with fp32 sums
+// (bf16 or fp16 operands), and the epilogue that adds the K splits of one
+// output tile across a thread block cluster.  Its users: the 16-bit GEMM
+// (gemm/csrc/gemm_16.cu: A and B from shared memory, N = 64), the 16-bit
+// implicit-GEMM conv (im2col_gemm/csrc/im2col_conv_16.cu: A from registers,
+// B from shared memory, N = 64) and the 16-bit Winograd tuple multiply
+// (winograd/csrc/winograd_3pass_16.cu: N = 64, 128 or 256).
 //
 // A warpgroup (4 warps, 128 threads) issues one asynchronous product of a
-// 64-row A tile by an N-wide B tile, both read from shared memory through
-// 64-bit descriptors, into N / 2 fp32 accumulators a thread: warp w of the
-// group holds rows 16 w .. 16 w + 15, and d[4 j + 2 h + e] is row 16 w +
-// lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e (the m16n8 fragment of
-// mma.sync, repeated along N).
+// 64-row A tile by an N-wide B tile into N / 2 fp32 accumulators a thread:
+// warp w of the group holds rows 16 w .. 16 w + 15, and d[4 j + 2 h + e] is
+// row 16 w + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e (the m16n8
+// fragment of mma.sync, repeated along N).  A from registers (the "RS"
+// form) is, for each warp, the m16k16 A fragment of mma.sync m16n8k16 of
+// its 16 rows, as ldmatrix.x4 gives it; those registers must not change
+// until the product that reads them has completed (wait), and a fence
+// orders their writes before it.
 //
-// Both operands use the 128-byte swizzle that TMA writes (16-byte chunks of
-// each 128-byte row XOR-ed with the row's index mod 8, on a 1024-byte
-// aligned tile):
+// Shared-memory operands use the 128-byte swizzle that TMA writes (16-byte
+// chunks of each 128-byte row XOR-ed with the row's index mod 8, on a
+// 1024-byte aligned tile):
 //  - A, K-major: rows of 64 values of K (128 bytes), 8-row groups 1024
 //    bytes apart (the stride byte offset); the k16 step s starts 32 s
 //    bytes into the rows.
@@ -26,6 +34,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hmma16.cuh"
+#include "hopper_async.cuh"
 
 namespace {
 namespace wgmma16 {
@@ -288,6 +299,135 @@ __device__ __forceinline__ void wgmma(__half, float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, this warp's m16k16 fragment in a) .
+// B (16 x 64, MN-major at descriptor db), of the type of the first
+// argument.
+#define WGMMA16_RS_N64(TYPE, PTX_TYPE)                                        \
+  __device__ __forceinline__ void wgmma_rs(TYPE, float (&d)[32],              \
+                                           const uint32_t (&a)[4],            \
+                                           uint64_t db) {                     \
+    asm volatile(                                                             \
+        "{\n"                                                                 \
+        ".reg .pred p;\n"                                                     \
+        "setp.ne.b32 p, %37, 0;\n"                                            \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX_TYPE "." PTX_TYPE   \
+        " {%0, %1, %2, %3, %4, %5, %6, %7,"                                   \
+        " %8, %9, %10, %11, %12, %13, %14, %15,"                              \
+        " %16, %17, %18, %19, %20, %21, %22, %23,"                            \
+        " %24, %25, %26, %27, %28, %29, %30, %31},"                           \
+        " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"                           \
+        "}\n"                                                                 \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+          "+f"(d[30]), "+f"(d[31])                                            \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));       \
+  }
+WGMMA16_RS_N64(__nv_bfloat16, "bf16")
+WGMMA16_RS_N64(__half, "f16")
+#undef WGMMA16_RS_N64
+
+// ---------------------------------------------------------------------------
+// The tile epilogue, with the K splits of the tile added across a cluster
+
+// Row stride, in floats, of a block's fp32 partial tile in shared memory
+// (64 columns and 8 of padding: the float2 stores of one fragment row fall
+// on distinct banks two rows apart).
+constexpr int RED_LD = 64 + 8;
+
+// Writes this warp's 64-column accumulators (rows 16 w .. 16 w + 15 of
+// warpgroup `wg`, columns 0 .. 63) into the partial tile at `red`, rows
+// 64 wg + ...; warp w is threadIdx.x / 32 % 4.
+__device__ __forceinline__ void stage_partial(float* red, int wg,
+                                              const float (&acc)[32]) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32 % 4;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(
+          red + (64 * wg + 16 * w + g + 8 * h) * RED_LD + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+}
+
+// The sum over the `splits` blocks of this cluster (ranks 0 .. splits - 1)
+// of their partial tiles, each `rows` x 64 fp32 at `red` (the same place
+// in every block; read through distributed shared memory where splits >
+// 1, as plain shared memory otherwise), for this block's share of the
+// rows: rank r
+// takes rows [r * rows / splits, (r + 1) * rows / splits).  Each of the
+// `threads` calling threads (threadIdx.x < threads) takes 8 consecutive
+// columns of a row at a time, adds the partials in rank order (the same
+// sum on every run), and hands them to store(row, col, v[8]).  The caller
+// has made every partial visible to the cluster (cluster_sync, or a block
+// barrier when splits == 1) and keeps every block alive until all have
+// read (a second cluster_sync).
+template <class Store>
+__device__ __forceinline__ void reduce_tile(const float* red, int rows,
+                                            int splits, int threads,
+                                            Store store) {
+  const int rank = splits > 1 ? static_cast<int>(hopper::cluster_rank()) : 0;
+  const int lo = rank * rows / splits, hi = (rank + 1) * rows / splits;
+  for (int idx = threadIdx.x; idx < (hi - lo) * 8; idx += threads) {
+    const int row = lo + idx / 8, col = (idx % 8) * 8;
+    const float* mine = red + row * RED_LD + col;
+    float4 x0, x1;
+    if (splits == 1) {
+      x0 = *reinterpret_cast<const float4*>(mine);
+      x1 = *reinterpret_cast<const float4*>(mine + 4);
+    } else {
+      const uint32_t off = hopper::smem_u32(mine);
+      x0 = hopper::ld_cluster_f4(hopper::mapa(off, 0));
+      x1 = hopper::ld_cluster_f4(hopper::mapa(off, 0) + 16);
+      for (int q = 1; q < splits; ++q) {
+        const uint32_t src = hopper::mapa(off, q);
+        const float4 y0 = hopper::ld_cluster_f4(src);
+        const float4 y1 = hopper::ld_cluster_f4(src + 16);
+        x0.x += y0.x; x0.y += y0.y; x0.z += y0.z; x0.w += y0.w;
+        x1.x += y1.x; x1.y += y1.y; x1.z += y1.z; x1.w += y1.w;
+      }
+    }
+    float v[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    store(row, col, v);
+  }
+}
+
+// dst[0 .. 8) = act(v + bias[col0 .. col0 + 8)) rounded to T, columns from
+// `n` on left alone (bias may be null); one 16-byte store where all 8 lie
+// inside and dst is 16-byte aligned.
+template <class T>
+__device__ __forceinline__ void store8(T* dst, const float* bias, int col0,
+                                       int n, int act, float (&v)[8]) {
+  float b[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (bias != nullptr && col0 + 8 <= n &&
+      (reinterpret_cast<uintptr_t>(bias + col0) & 15) == 0) {
+    const float4 b0 = __ldg(reinterpret_cast<const float4*>(bias + col0));
+    const float4 b1 = __ldg(reinterpret_cast<const float4*>(bias + col0) + 1);
+    b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+    b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+  } else if (bias != nullptr) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (col0 + e < n) b[e] = __ldg(bias + col0 + e);
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (col0 + e < n) v[e] = hmma16::activate(v[e] + b[e], act);
+  if (col0 + 8 <= n && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(
+        hmma16::pack2<T>(v[0], v[1]), hmma16::pack2<T>(v[2], v[3]),
+        hmma16::pack2<T>(v[4], v[5]), hmma16::pack2<T>(v[6], v[7]));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (col0 + e < n) dst[e] = hmma16::from_f32<T>(v[e]);
+  }
 }
 
 }  // namespace wgmma16

@@ -1,133 +1,271 @@
-// bf16 and fp16 GEMM with a fused bias + activation epilogue, on the tensor
-// cores of sm_90a (mma.sync m16n8k16, fp32 sums), with split-K.
+// bf16 and fp16 GEMM with a fused bias + activation epilogue for Hopper
+// (sm_90a): wgmma m64n64k16 with fp32 sums, operands by TMA through an
+// mbarrier ring, and split-K added inside the launch across a thread block
+// cluster.
 //
 // Replaces the 16-bit bodies of the TPU kernel
 // src/repro/kernels/gemm/kernel.py::matmul_pallas: C = act(A @ B + bias),
-// A (M, K) and B (K, N) row-major of one 16-bit type T, bias fp32, C of
-// type T (the TPU kernel writes a.dtype).  The products of the 16-bit
+// A (M, K) and B (K, N) row-major (B's rows `ldb` values apart) of one
+// 16-bit type T, bias fp32, C of type T (the TPU kernel writes a.dtype).  The products of the 16-bit
 // operands are summed in fp32, bias and activation act on the fp32 sum,
 // which is rounded to T once, at the store.
 //
 // Design.  The TPU kernel walks a (M/bm, N/bn, K/bk) grid in order and
-// carries the fp32 accumulator in VMEM scratch across the K axis.  Here
-// each block computes one 64x64 tile of C over one contiguous range of K
-// with the shared 16-bit core, csrc/hmma16.cuh: 128 threads, A and B
-// chunks of depth 32 staged by cp.async in a 3-stage ring, fragments by
-// ldmatrix (B's transposed on the way), one barrier per chunk.  The ragged
-// M, N and K edges are zero-filled by the copies; K must be a multiple of
-// 8 (A's rows go as 16-byte copies), which the network plan's channel
-// layout gives every 1x1 conv (kernels/conv_ops.py::in_channel_multiple).
+// carries the fp32 accumulator in VMEM scratch across the K axis.  Here a
+// block computes 64 x 64 tiles of C, each over a contiguous range of K
+// chunks of 64: one tile where K is split, else as many as the grid of
+// persistent blocks (the SMs' resident blocks) gives it, the producer
+// running on into the next tile while the consumers store the last.  One
+// producer warp keeps the chunks in flight through a ring of up to
+// MAX_STAGES stages (a "full" and an "empty" mbarrier each): A's
+// 64 x 64 box K-major and B's 64 x 64 box as it lies (MN-major), both by
+// TMA with the 128-byte swizzle, ragged M, N and K zero-filled by the copy
+// engine.  One consumer warpgroup runs 4 wgmma m64n64k16 a chunk
+// (csrc/wgmma16.cuh, both operands from shared memory), then frees the
+// stage.  TMA wants B's rows 16-byte multiples apart: a B with N % 8 != 0
+// (YOLOv3's heads, N = 255) comes as the first N columns of rows padded
+// to a multiple of 8 (ops.py::tma_rows16, where the weights are
+// prepared), and the copy engine zero-fills the columns past N.
 //
-// Split-K.  As the fp32 GEMM (gemm.cu): the grid is (M/64, N/64, splits),
-// split s takes the 32-deep K chunks [s * n / splits, (s + 1) * n /
-// splits) of the n = ceil(K / 32), `splits` from kernels/_splitk.py over
-// this kernel's MIN_BLOCKS resident blocks.  With splits == 1 the kernel
-// applies bias and activation and rounds; with splits > 1 each block
-// writes its fp32 partial tile to the workspace (splits, M, N) and
-// hgemm16_splitk_reduce_kernel sums the partials in split order (no
-// atomics: bit-identical from run to run), then adds the bias, applies the
-// activation and rounds to T.
+// Split-K.  Where the grid of tiles leaves the card's block slots empty,
+// `splits` blocks share a tile, each over its own contiguous range of the
+// ceil(K / 64) chunks (split s takes [s n / splits, (s + 1) n / splits)),
+// and they form one cluster of `splits` blocks (at most MAX_SPLITS, the
+// portable cluster size; ops.py::call_splits_16 picks the count).  Each
+// block stages its fp32 partial tile in its own shared memory (over the
+// ring it no longer needs); after a cluster barrier, rank r reads the
+// partials of every block of the cluster through distributed shared
+// memory, adds them in split order (the same result on every run), applies
+// bias and activation to rows [64 r / splits, 64 (r + 1) / splits), rounds
+// and stores them.  A second barrier keeps each block's partial alive
+// until all have read it.  No workspace, and one launch a call.
 //
 // What bounds it.  2 bytes an operand value and 989 TFLOP/s of dense
 // 16-bit products: the 1x1 convs of the paper's networks (K = 64 to 1024)
 // have few FLOPs per byte, so the bound is mostly bytes (A read once, C
-// written once); a call of a few chunks a block waits on its copies.
+// written once); small-M calls (YOLOv3-tiny's M = 169) are a few chunks'
+// latency, which the split spreads over more SMs.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "hmma16.cuh"
+#include "hopper_async.cuh"
+#include "wgmma16.cuh"
 
 namespace {
 
-namespace hm = hmma16;
+constexpr int BM = 64;               // rows of C a block (wgmma's M)
+constexpr int BN = 64;               // columns of C a block (wgmma's N)
+constexpr int BK = 64;               // K a chunk: 128-byte rows
+constexpr int MAX_STAGES = 3;       // chunks in the ring, at most
+constexpr int MAX_SPLITS = 8;        // blocks a cluster, at most
+constexpr int CONSUMERS = 128;       // one warpgroup
+constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
+constexpr int MIN_BLOCKS = 3;        // __launch_bounds__ minimum blocks a SM
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int B_BYTES = BK * BN * 2;
+constexpr int STAGE = A_BYTES + B_BYTES;
+constexpr int RED_BYTES = BM * wgmma16::RED_LD * 4;   // the fp32 partial
+constexpr int ALIGN = 1024;          // the 128-byte swizzle's period
 
+// The ring's stages: one a chunk of a split (of a tile's K where blocks
+// are persistent), up to MAX_STAGES: a short K keeps its blocks small, so
+// more of them fit an SM.
+__host__ __device__ inline int stages_for(int K, int splits) {
+  const int chunks = (K + BK - 1) / BK;
+  const int per_split = (chunks + splits - 1) / splits;
+  return per_split < 1 ? 1 : per_split < MAX_STAGES ? per_split : MAX_STAGES;
+}
+// The ring and the fp32 partial tile: its own buffer after the ring when a
+// block walks several tiles (splits == 1), else staged over the ring.
+__host__ __device__ inline int body_bytes(int stages, int splits) {
+  return splits == 1 ? stages * STAGE + RED_BYTES
+         : stages * STAGE > RED_BYTES ? stages * STAGE : RED_BYTES;
+}
+// Dynamic shared memory of a launch: the ring and the partial, 2 mbarriers
+// a stage, and room to align the ring to ALIGN.
+__host__ __device__ inline int smem_bytes(int stages, int splits) {
+  return body_bytes(stages, splits) + 2 * MAX_STAGES * 8 + ALIGN;
+}
+
+// act(A @ B + bias) for the tiles blockIdx.x / splits, + gridDim.x /
+// splits, ... and K split blockIdx.x % splits (the block's rank in its
+// cluster); A and B through their tensor maps.  With splits > 1 the grid
+// holds one
+// block a tile and split; with splits == 1 the blocks are persistent, and
+// the producer runs on into the next tile while the consumers store.
 template <class T>
-__global__ void __launch_bounds__(hm::THREADS, hm::MIN_BLOCKS)
-hgemm16_bias_act_kernel(const T* __restrict__ A, const T* __restrict__ B,
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+hgemm16_bias_act_kernel(const __grid_constant__ CUtensorMap a_map,
+                        const __grid_constant__ CUtensorMap b_map,
                         const float* __restrict__ bias, T* __restrict__ C,
-                        float* __restrict__ ws, int M, int N, int K, int act,
-                        int splits) {
-  __shared__ __align__(16) hm::Smem<T> sm;
-  const int m0 = blockIdx.x * hm::BM;
-  const int n0 = blockIdx.y * hm::BN;
-  const int split = blockIdx.z;
-  const int chunks = (K + hm::BK - 1) / hm::BK;
-  hm::Acc acc;
-  hm::tile(hm::operands(A, B, M, N, K), m0, n0, split * chunks / splits,
-           (split + 1) * chunks / splits, sm, acc);
+                        int M, int N, int K, int act, int splits) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((ALIGN - (hopper::smem_u32(smem_raw) & (ALIGN - 1))) &
+                  (ALIGN - 1));
+  const int stages = stages_for(K, splits);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + body_bytes(stages, splits));
+  uint64_t* empty = full + MAX_STAGES;
+  float* red = reinterpret_cast<float*>(smem + (splits == 1 ? stages * STAGE
+                                                            : 0));
 
-  // splits == 1: act(acc + bias) rounded into C; else the fp32 partial
-  // sums into this split's slice of the workspace.
-  float* part = ws + (size_t)split * M * N;
-  hm::for_each_pair(acc, m0, n0, [&](int row, int col, float v0, float v1) {
-    if (row >= M || col >= N) return;
-    if (splits > 1) {
-      hm::store_pair32(part, N, row, col, N, v0, v1);
-      return;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int split = blockIdx.x % splits;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int tiles = ((M + BM - 1) / BM) * n_tiles;
+  const int step = gridDim.x / splits;
+  const int chunks = (K + BK - 1) / BK;
+  const int lo = split * chunks / splits, hi = (split + 1) * chunks / splits;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS / 32);
     }
-    v0 = hm::activate(v0 + (bias != nullptr ? __ldg(bias + col) : 0.f), act);
-    if (col + 1 < N)
-      v1 = hm::activate(v1 + (bias != nullptr ? __ldg(bias + col + 1) : 0.f),
-                        act);
-    hm::store_pair16(C, N, row, col, N, v0, v1);
-  });
-}
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-// C = act(sum over the splits of ws + bias) rounded to T, V consecutive
-// elements per thread (V = 4 when N % 4 == 0), the splits summed in order.
-template <class T, int V>
-__global__ void __launch_bounds__(256)
-hgemm16_splitk_reduce_kernel(const float* __restrict__ ws,
-                             const float* __restrict__ bias,
-                             T* __restrict__ C, size_t n, int N, int splits,
-                             int act) {
-  hm::splitk_reduce<T, V>(ws, bias, C, n, N, splits, act);
+  if (warp == CONSUMERS / 32) {
+    // The producer warp: lane 0 issues the copies.
+    if (lane != 0) return;
+    hopper::prefetch_map(&a_map);
+    hopper::prefetch_map(&b_map);
+    int it = 0;
+    for (int tile = blockIdx.x / splits; tile < tiles; tile += step) {
+      const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
+      for (int c = lo; c < hi; ++c, ++it) {
+        const int s = it % stages;
+        if (it >= stages)
+          hopper::mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
+        unsigned char* st = smem + s * STAGE;
+        hopper::mbar_expect_tx(&full[s], STAGE);
+        hopper::tma_load_2d(st, &a_map, &full[s], c * BK, m0);
+        hopper::tma_load_2d(st + A_BYTES, &b_map, &full[s], n0, c * BK);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup.
+  int it = 0;
+  for (int tile = blockIdx.x / splits; tile < tiles; tile += step) {
+    const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    for (int c = lo; c < hi; ++c, ++it) {
+      const int s = it % stages;
+      hopper::mbar_wait(&full[s], (it / stages) & 1);
+      const uint32_t a = hopper::smem_u32(smem + s * STAGE);
+      const uint32_t b = a + A_BYTES;
+      wgmma16::fence();
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k)
+        wgmma16::wgmma(T{}, acc, wgmma16::desc(a + 32 * k, 16, 1024),
+                       wgmma16::desc(b + 2048 * k, B_BYTES, 1024));
+      wgmma16::commit();
+      wgmma16::wait<0>();
+      // This warp is done with stage s.
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: the partial tile (over the ring, once every consumer warp
+    // is past its last product; or in its own buffer, once the previous
+    // tile's stores have read it), then the cluster's sum of this block's
+    // rows.
+    hopper::bar_sync(1, CONSUMERS);
+    wgmma16::stage_partial(red, 0, acc);
+    if (splits > 1)
+      hopper::cluster_sync();
+    else
+      hopper::bar_sync(1, CONSUMERS);
+    wgmma16::reduce_tile(
+        red, BM, splits, CONSUMERS,
+        [&](int row, int col, float(&v)[8]) {
+          const int m = m0 + row, n = n0 + col;
+          if (m < M && n < N)
+            wgmma16::store8(C + (size_t)m * N + n, bias, n, N, act, v);
+        });
+    if (splits > 1) hopper::cluster_sync();
+  }
 }
 
 template <class T>
-int launch(const T* A, const T* B, const float* bias, T* C, float* ws, int M,
-           int N, int K, int act, int splits, cudaStream_t stream) {
-  const dim3 grid((M + hm::BM - 1) / hm::BM, (N + hm::BN - 1) / hm::BN,
-                  splits);
-  hgemm16_bias_act_kernel<T><<<grid, hm::THREADS, 0, stream>>>(
-      A, B, bias, C, ws, M, N, K, act, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t n = (size_t)M * N;
-  if (N % 4 == 0) {
-    const unsigned blocks = static_cast<unsigned>((n / 4 + 255) / 256);
-    hgemm16_splitk_reduce_kernel<T, 4><<<blocks, 256, 0, stream>>>(
-        ws, bias, C, n, N, splits, act);
-  } else {
-    const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
-    hgemm16_splitk_reduce_kernel<T, 1><<<blocks, 256, 0, stream>>>(
-        ws, bias, C, n, N, splits, act);
+int launch(const CUtensorMap& a_map, const CUtensorMap& b_map,
+           const float* bias, T* C, int M, int N, int K, int act, int splits,
+           cudaStream_t stream) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        hgemm16_bias_act_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes(MAX_STAGES, 1));
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int smem = smem_bytes(stages_for(K, splits), splits);
+  const long tiles = (long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  long blocks = tiles * splits;
+  if (splits == 1) {
+    // Persistent: as many blocks as the SMs hold at once.
+    int per_sm = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, hgemm16_bias_act_kernel<T>, THREADS, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
+    blocks = tiles < slots ? tiles : slots;
+  }
+  const dim3 grid(static_cast<unsigned>(blocks), 1, 1);
+  return static_cast<int>(hopper::launch_clustered(
+      hgemm16_bias_act_kernel<T>, grid, THREADS,
+      static_cast<size_t>(smem), stream,
+      static_cast<unsigned>(splits), a_map, b_map, bias, C, M, N, K, act,
+      splits));
 }
 
 }  // namespace
 
-// C = act(A @ B + bias), A, B and C bf16 (dtype 0) or fp16 (dtype 1), bias
-// fp32 or null.  K % 8 == 0 and A, C 16-byte aligned; 1 <= splits <=
-// max(1, ceil(K / 32)); ws holds splits * M * N floats when splits > 1
-// (else it may be null).  Returns cudaGetLastError().
+// C = act(A @ B + bias), A, B and C bf16 (dtype 0) or fp16 (dtype 1), B's
+// rows ldb >= N values apart, bias fp32 or null.  K % 8 == 0 and ldb % 8
+// == 0 (TMA's 16-byte strides), A, B and C 16-byte aligned; 1 <= splits
+// <= min(MAX_SPLITS, ceil(K / 64)).  Returns cudaGetLastError() (or
+// cudaErrorInvalidValue for arguments it does not take, or when the
+// driver refuses a tensor map).
 extern "C" int repro_gemm16_bias_act(const void* A, const void* B,
-                                     const float* bias, void* C, float* ws,
-                                     int M, int N, int K, int act, int splits,
+                                     const float* bias, void* C, int M, int N,
+                                     int K, int ldb, int act, int splits,
                                      int dtype, cudaStream_t stream) {
-  const int chunks = (K + hm::BK - 1) / hm::BK;
-  if (M < 1 || N < 1 || K < 0 || K % 8 != 0 || splits < 1 ||
-      splits > (chunks > 1 ? chunks : 1) || (splits > 1 && ws == nullptr) ||
-      (N + hm::BN - 1) / hm::BN > 65535 || splits > 65535 ||
+  const int chunks = (K + BK - 1) / BK;
+  if (M < 1 || N < 1 || K < 8 || K % 8 != 0 || ldb < N || ldb % 8 != 0 ||
+      splits < 1 ||
+      splits > MAX_SPLITS || splits > chunks ||
+      (long)((M + BM - 1) / BM) * ((N + BN - 1) / BN) * splits > 0x7fffffffL ||
       (reinterpret_cast<uintptr_t>(A) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(B) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(C) & 15) != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t m = M, n = N, k = K;
+  const uint64_t a_dims[2] = {k, m}, a_strides[1] = {k * 2};
+  const uint64_t b_dims[2] = {n, k};
+  const uint64_t b_strides[1] = {static_cast<uint64_t>(ldb) * 2};
+  const uint32_t box[2] = {64, 64};
+  CUtensorMap a_map, b_map;
+  if (!hopper::make_map(&a_map, A, 2, a_dims, a_strides, box,
+                        CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_map(&b_map, B, 2, b_dims, b_strides, box,
+                        CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch(static_cast<const __nv_bfloat16*>(A),
-                  static_cast<const __nv_bfloat16*>(B), bias,
-                  static_cast<__nv_bfloat16*>(C), ws, M, N, K, act, splits,
-                  stream);
-  return launch(static_cast<const __half*>(A), static_cast<const __half*>(B),
-                bias, static_cast<__half*>(C), ws, M, N, K, act, splits,
-                stream);
+    return launch(a_map, b_map, bias, static_cast<__nv_bfloat16*>(C), M, N,
+                  K, act, splits, stream);
+  return launch(a_map, b_map, bias, static_cast<__half*>(C), M, N, K, act,
+                splits, stream);
 }

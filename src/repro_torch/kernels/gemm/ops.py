@@ -9,11 +9,13 @@ kernel on CUDA tensors and raises on anything else; ``impl='torch'`` runs
 the plain version (ref.py), on any device.  The kernels mask the ragged
 M, N and K edges themselves (the int8 one takes K in multiples of 16), so
 no operand is padded here.  Both kernels run on the tensor cores (the
-fp32 one as 3xTF32, the int8 one as s8 ``mma.sync``) and split their
-reduction over their K chunks (16 deep, 32 deep) across blocks where
-their grid alone would leave the card's block slots empty
-(``call_splits``, ``call_splits_q8``); one wrapper call is one product,
-whatever the number of CUDA kernels it launches.
+fp32 one as 3xTF32, the int8 one as s8 ``mma.sync``, the 16-bit one as
+``wgmma``) and split their reduction over their K chunks (16, 32 and 64
+deep) across blocks where their grid alone would leave the card's block
+slots empty (``call_splits``, ``call_splits_q8``, ``call_splits_16``);
+the fp32 and int8 kernels sum the splits in a second kernel, the 16-bit
+one across a thread block cluster in the same launch.  One wrapper call
+is one product, whatever the number of CUDA kernels it launches.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.conv_spec import ACTIVATION_CODES
 from repro_torch.kernels import _build
@@ -34,14 +37,30 @@ TILE: Tuple[int, int, int] = (64, 64, 16)
 #: minimum, ``MIN_BLOCKS`` in csrc/sgemm_3xtf32.cuh.
 RESIDENT_BLOCKS = 4
 
-#: The 16-bit kernel's compiled tile: 64x64 outputs per block, K chunks of
-#: 32 (two m16n8k16 steps).
-TILE_16: Tuple[int, int, int] = (64, 64, 32)
+#: The 16-bit kernel's compiled tile (csrc/gemm_16.cu, BM, BN, BK): 64x64
+#: outputs per block (one wgmma m64n64 warpgroup), K chunks of 64 (128-byte
+#: rows, four k16 steps).
+TILE_16: Tuple[int, int, int] = (64, 64, 64)
 #: Blocks of the 16-bit kernel resident on one SM: its launch bounds'
-#: minimum, ``MIN_BLOCKS`` in csrc/hmma16.cuh.
-RESIDENT_BLOCKS_16 = 4
-#: The 16-bit kernel's K multiple (A's rows go as 16-byte copies).
+#: minimum, ``MIN_BLOCKS`` in csrc/gemm_16.cu.
+RESIDENT_BLOCKS_16 = 3
+#: The 16-bit kernel's K multiple (TMA wants 16-byte row strides of A).
 K_MULTIPLE_16 = 8
+#: The most K splits of one 16-bit tile: the blocks of a portable thread
+#: block cluster, which sums them (``MAX_SPLITS`` in csrc/gemm_16.cu).
+MAX_SPLITS_16 = 8
+#: What adding a split tile's partials across its cluster costs the 16-bit
+#: kernel, in chunk steps a split (``split_k``'s ``sum_steps``): its
+#: distributed-shared-memory reads take about as long as a chunk of 64 a
+#: partial (scripts/conv16_variants.py on an NVIDIA H100 80GB HBM3 at
+#: 700 W).
+SUM_STEPS_16 = 1
+#: Stages of the 16-bit kernel's ring at most (``MAX_STAGES``); a call
+#: with fewer chunks of K takes one a chunk.
+MAX_STAGES_16 = 3
+#: The 16-bit kernel's fp32 partial tile: 64 rows of 64 + 8 floats
+#: (``wgmma16::RED_LD`` in csrc/wgmma16.cuh).
+RED_LD_16 = 72
 
 #: The int8 kernel's K multiple (A's rows go as 16-byte copies).
 K_MULTIPLE_Q8 = 16
@@ -56,7 +75,7 @@ RESIDENT_BLOCKS_Q8 = 2
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ARGTYPES_Q8 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_ARGTYPES_16 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES_16 = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def default_block(m: int, n: int, k: int,
@@ -80,9 +99,56 @@ def call_splits(m: int, n: int, k: int) -> int:
 
 def call_splits_16(m: int, n: int, k: int) -> int:
     """``split_k`` for one 16-bit GEMM call: its grid of 64x64 tiles and its
-    ceil(K / 32) chunks, over the kernel's ``RESIDENT_BLOCKS_16`` a SM."""
+    ceil(K / 64) chunks, over the kernel's ``RESIDENT_BLOCKS_16`` a SM, at
+    most ``MAX_SPLITS_16`` (one cluster a tile), the cluster's sum priced
+    at ``SUM_STEPS_16``."""
     bm, bn, bk = TILE_16
-    return split_k(-(-m // bm) * -(-n // bn), -(-k // bk), RESIDENT_BLOCKS_16)
+    return split_k(-(-m // bm) * -(-n // bn), -(-k // bk), RESIDENT_BLOCKS_16,
+                   MAX_SPLITS_16, SUM_STEPS_16)
+
+
+def tma_rows16(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (..., N) 16-bit weights (a GEMM's B, a conv's HWIO) as the
+    16-bit GEMM and conv kernels read them by TMA: rows of N contiguous
+    values a multiple of 8 apart (16 bytes), the dimensions before them
+    packed, 16-byte aligned.  ``w`` itself where it is so laid out, else a
+    view of the first N columns of a copy with rows padded with zeros to a
+    multiple of 8 (YOLOv3's heads have N = 255).  The network plan makes
+    it once, where the weights are prepared; the wrappers pass anything
+    else through it on each call."""
+    if _tma_rows(w):
+        return w
+    n = w.shape[-1]
+    return F.pad(w, (0, -(-n // 8) * 8 - n)).contiguous()[..., :n]
+
+
+def _tma_rows(w: torch.Tensor) -> bool:
+    """Whether ``w`` is laid out as ``tma_rows16`` returns it."""
+    if w.dim() < 2 or w.stride(-1) != 1 or w.data_ptr() % 16:
+        return False
+    ld = w.stride(-2)
+    if ld % 8 or ld < w.shape[-1]:
+        return False
+    step = ld * w.shape[-2]
+    for size, stride in zip(reversed(w.shape[:-2]), reversed(w.stride()[:-2])):
+        if size != 1 and stride != step:
+            return False
+        step *= size
+    return True
+
+
+def gemm16_smem_bytes(k: int, splits: int = 1) -> int:
+    """Dynamic shared memory of one 16-bit GEMM launch with K = ``k`` cut
+    into ``splits`` (``smem_bytes(stages_for(K, splits), splits)`` in
+    csrc/gemm_16.cu): a stage a chunk of 64 of a split, at most
+    ``MAX_STAGES_16``, each A's and B's 64 x 64 boxes; the fp32 partial
+    tile after the ring (persistent blocks, splits == 1) or over it; two
+    8-byte mbarriers a stage of the most, and 1 KB to align the ring."""
+    bm, bn, bk = TILE_16
+    stages = max(1, min(MAX_STAGES_16, -(-(-(-k // bk)) // splits)))
+    ring, red = stages * (bm * bk + bk * bn) * 2, bm * RED_LD_16 * 4
+    body = ring + red if splits == 1 else max(ring, red)
+    return body + 2 * MAX_STAGES_16 * 8 + 1024
 
 
 def tile_q8(n: int) -> Tuple[int, int]:
@@ -151,10 +217,11 @@ def matmul16_bias_act(
 ) -> torch.Tensor:
     """(M, K) x (K, N) bf16 or fp16 -> act(a @ b + bias) in a's type, the
     products summed in fp32 and rounded once; ``bias`` fp32 (N,) or None.
-    Under ``impl='cuda'`` K % 8 == 0 and A 16-byte aligned.  With
-    ``call_splits_16(M, N, K) > 1`` the fp32 partial sums go through a
-    workspace of ``splits * M * N`` floats from PyTorch's caching
-    allocator.
+    Under ``impl='cuda'`` K % 8 == 0 and A 16-byte aligned; B goes
+    through ``tma_rows16`` (a copy unless it is laid out so already, as
+    ``core/netplan.py`` keeps a head's weights).  One launch, split K or
+    not (``call_splits_16``): the splits of a tile are summed in its
+    thread block cluster, with no workspace.
     """
     m, k = a.shape
     k2, n = b.shape
@@ -167,21 +234,21 @@ def matmul16_bias_act(
         return matmul16_ref(a, b, bias, activation)
     if impl != "cuda":
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
-    _build.require_cuda_operands("gemm_16", a, b, dtype=dtype)
+    _build.require_cuda_operands("gemm_16", a, dtype=dtype)
     _build.require_cuda_operands("gemm_16", bias)
+    if b.device != a.device:
+        raise ValueError("gemm_16: B must lie on A's card")
+    b = tma_rows16(b)
     if k % K_MULTIPLE_16 or a.data_ptr() % 16:
         raise ValueError(f"gemm_16: K must be a multiple of {K_MULTIPLE_16} "
                          f"and A 16-byte aligned, got K = {k}")
     out = torch.empty((m, n), device=a.device, dtype=dtype)
     if m and n:
         fn = _build.load("gemm_16", "repro_gemm16_bias_act", _ARGTYPES_16)
-        splits = call_splits_16(m, n, k)
-        ws = (torch.empty((splits, m, n), device=a.device, dtype=torch.float32)
-              if splits > 1 else None)
         err = fn(a.data_ptr(), b.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
-                 m, n, k, ACTIVATION_CODES[activation], splits,
+                 out.data_ptr(), m, n, k, b.stride(0),
+                 ACTIVATION_CODES[activation], call_splits_16(m, n, k),
                  _build.DTYPE16_CODES[dtype], _build.stream_handle(a))
         _build.check(err, "gemm_16")
         matmul16_bias_act.launches += 1

@@ -1,308 +1,437 @@
 // Implicit-GEMM (fused im2col + GEMM) bf16 and fp16 convolution, NHWC /
-// HWIO, for sm_90a, on the tensor cores (mma.sync m16n8k16, fp32 sums),
-// with split-K and a fused bias + activation epilogue.
+// HWIO, for Hopper (sm_90a): wgmma m64n64k16 with fp32 sums, A from
+// registers, weights and input windows by TMA through an mbarrier ring,
+// split-K added inside the launch across a thread block cluster, and a
+// fused bias + activation epilogue.
 //
 // Replaces the 16-bit bodies of the TPU kernel
 // src/repro/kernels/im2col_gemm/kernel.py::conv2d_im2col_gemm_pallas
 // (_accumulate_taps, _conv_kernel, _conv_bias_kernel): out = act(conv(x, w)
-// + bias), x (B, H, W, C) and w (kh, kw, C, O) of one 16-bit type T, bias
-// fp32, out of type T (the TPU kernel writes x.dtype).  The products are
+// + bias), x (B, H, W, C) and w (kh, kw, C, O) of one 16-bit type T (w's
+// channel rows `ldw` values apart), bias fp32, out of type T (the TPU kernel writes x.dtype).  The products are
 // summed in fp32; bias and activation act on the fp32 sum, rounded to T
 // once, at the store.
 //
-// Design.  The shape of the int8 kernel im2col_conv_q8.cu, on 16-bit
-// operands.  The TPU kernel keeps a whole padded image slab per program and
+// Design.  The TPU kernel keeps a whole padded image slab per program and
 // walks the in-channel blocks as a sequential grid axis into an fp32 VMEM
-// accumulator.  Here one block owns a toh x tow output tile (toh * tow <=
-// 64) of one image and 64 out channels: a 64 x 64 fp32 tile of the GEMM
-// whose rows are output pixels and whose K runs over (channel chunk, tap,
-// 16 channels).  Its 8 warps (4 x 2) each hold a 16 pixel x 32 channel
-// slab as m16n8k16 accumulators: one k16 step is one tap of 16 channels, so
-// A's rows are the tile's pixels read through that tap's offset into the
-// staged input window (ldmatrix takes any row address), and B is the tap's
-// weights, read transposed by ldmatrix.x4.trans from rows of out channels,
-// so the HWIO weights are copied as they lie.
+// accumulator.  Here a work item is a 128 x 64 fp32 tile of the GEMM whose
+// rows are output pixels of one image and whose columns are out channels,
+// and whose K runs over (chunk of CK = 32 channels, tap, 16 channels).
+//  - Pixels.  An item is 128 consecutive output pixels in raster order
+//    (OW <= 128), so no row is idle on a 13-, 14-, 26- or 28-wide map; on
+//    a wider map, two runs of 64 pixels of a row (one a warpgroup), so a
+//    152- or 304-wide row wastes at most one part-run.
+//  - Staging.  Per chunk one producer warp fills a stage of the ring by
+//    TMA: the weights (taps, 32 channels, 64 out channels) as one 3-D box
+//    of the HWIO tensor, rows of 64 out channels with the 128-byte
+//    swizzle (MN-major B for wgmma), zero past C and O (TMA wants the rows
+//    16-byte multiples apart: weights with O % 8 != 0 come as the first O
+//    columns of rows padded to a multiple of 8, gemm/ops.py::tma_rows16,
+//    where they are prepared); and the input window the item's taps read,
+//    halo included, one box (32 channels x up to 256 columns) for each
+//    window row, 64-byte rows with the 64-byte swizzle, zero-filled by
+//    the copy engine outside the image (the conv's padding: the caller
+//    pads nothing spatially) and past C (C = 8 leaves a chunk three
+//    quarters zero).  A raster item's window is the whole
+//    width of every input row its pixels' taps touch; a run's, the rows
+//    and columns of its own taps.  The ring holds at most MAX_STAGES
+//    stages, and no more than a block's chunks: a short K keeps the block
+//    small, so that two fit an SM.
+//  - Products.  Two consumer warpgroups, 64 pixels each.  For each tap a
+//    warp reads its 16 pixels' A fragment (16 pixels x 16 channels) from
+//    the window by ldmatrix.x4, each lane at its pixel's window position
+//    shifted by the tap (any row address will do), and the warpgroup
+//    issues wgmma m64n64k16 with A from registers and the tap's weights
+//    from shared memory (csrc/wgmma16.cuh).  Two register sets alternate
+//    across taps, so a tap's ldmatrix overlaps the previous tap's product.
+//  - Blocks.  Unsplit, the blocks are persistent (as many as the SMs hold
+//    at once, each over items blockIdx.x, + gridDim.x, ...): the producer
+//    runs on into the next item while the consumers store the last one,
+//    from a partial-tile buffer of their own.
 //
-// Staging.  Per chunk of 16 channels the block needs the input window of
-// its tile — (toh-1)*sh + kh rows by (tow-1)*sw + kw columns, the halo
-// included, 32 bytes a pixel — and the (kh*kw, 16, 64) weight slice; both
-// go by cp.async, 16 bytes a copy, into the idle one of two buffers while
-// the block computes from the other, one barrier a chunk.  The window is
-// zero-filled outside the image (the conv's padding: the caller pads
-// nothing spatially) and past C (C % 16 == 8 leaves the last chunk's upper
-// half zero); the weights past C and O.  Weight rows where O % 8 != 0 go
-// value by value through registers.  Each 32-byte window row keeps its two
-// 16-byte halves swapped where (row / 4) is odd, so the 8 rows of an
-// ldmatrix phase fall on distinct banks at stride 1; the weight rows are
-// padded to 144 bytes for the same reason.
+// Split-K.  Where the items leave the card's SMs idle, `splits` blocks
+// share an item, each over its own contiguous range of the ceil(C / 32)
+// chunks, as one cluster of `splits` blocks (at most MAX_SPLITS;
+// ops.py::call_splits_16 picks the count).  Each block stages its fp32
+// partial over the ring; after a cluster barrier, rank r adds the
+// partials of all the cluster's blocks over distributed shared memory in
+// split order (the same result on every run), applies bias and
+// activation, rounds and stores rows [128 r / splits, 128 (r + 1) /
+// splits); a second barrier keeps every partial alive until all have read
+// it.  No workspace, and one launch a call.
 //
-// Split-K.  As the int8 kernel: the chunks are cut into `splits`
-// contiguous ranges on the grid's z axis beside the image
-// (ops.py::call_splits_16 picks splits from the shape and
-// RESIDENT_BLOCKS_16, this kernel's __launch_bounds__ minimum).  With
-// splits > 1 each block writes its fp32 partial tile to a workspace
-// (splits, B*OH*OW, O), and im2col16_conv_splitk_reduce_kernel adds the
-// partials in split order, applies the epilogue and rounds; with splits ==
-// 1 the conv kernel does.
-//
-// What bounds it.  At batch 1 the layers are small (0.1-1.4 GFLOP): a
-// call is a few chunks' latency — the weight slice from L2, the window
-// from device memory — far below the 989 TFLOP/s of the tensor cores.
-// Inside a chunk, 3 ldmatrix.x4 feed 4 mma per warp and tap.
+// What bounds it.  At batch 1 the layers are small (0.1 to 3.7 GFLOP): the
+// dense 16-bit tensor-core rate (989 TFLOP/s) against the weights read
+// once from device memory.  On an NVIDIA H100 80GB HBM3 at 700 W a call
+// costs some 7 us besides about 1.5 us a chunk of a block, and neither the
+// copies' bytes nor the products alone set it (scripts/conv16_variants.py
+// and its diagnostics, PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hmma16.cuh"
+#include "hopper_async.cuh"
+#include "wgmma16.cuh"
 
 namespace {
 
 namespace hm = hmma16;
 
-constexpr int CK = 16;         // channels per chunk: one k16 step per tap
-constexpr int BO = 64;         // out channels per block
-constexpr int PIX = 64;        // output pixels per block (toh * tow <= PIX)
-constexpr int THREADS = 256;   // 8 warps: 4 over pixels x 2 over channels
-constexpr int MIN_BLOCKS = 2;  // __launch_bounds__ minimum blocks a SM
-constexpr int ROW = CK * 2;    // bytes of a window pixel's chunk
-constexpr int W_ROW = (BO + 8) * 2;  // bytes of a weight row (64 out ch)
-constexpr int MAX_SMEM = 232448;
+constexpr int BM = 128;              // output pixels a block
+constexpr int RUN = 64;              // pixels a run (a warpgroup's rows)
+constexpr int BN = 64;               // out channels a block (wgmma's N)
+constexpr int CK = 32;               // channels a chunk: 64-byte window rows
+constexpr int MAX_STAGES = 2;       // chunks in the ring, at most
+constexpr int MAX_SPLITS = 8;        // blocks a cluster, at most
+constexpr int CONSUMERS = 256;       // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
+constexpr int MIN_BLOCKS = 1;        // __launch_bounds__ minimum blocks a SM
+constexpr int MAX_BOX = 256;         // TMA's largest box side
+constexpr int RED_BYTES = BM * wgmma16::RED_LD * 4;   // the fp32 partial
+constexpr int ALIGN = 1024;          // the 128-byte swizzle's period
+constexpr int MAX_SMEM = 232448;     // dynamic shared memory a block
 
-// Byte offset of 16-byte half h of 32-byte row `row`: halves swapped where
-// (row / 4) is odd, so rows r and r + 4 of an ldmatrix phase differ in bank.
-__device__ __forceinline__ int row_half(int row, int h) {
-  return row * ROW + 16 * (h ^ ((row >> 2) & 1));
+// One launch's shapes and the layout of its ring (geom_for).
+struct Geom {
+  int B, H, W, C, O, ldw, OH, OW, kh, kw, sh, sw, ph, pw, act, splits;
+  int raster;      // 1: tiles of BM consecutive pixels of the map (OW <=
+                   // BM), else two runs of RUN pixels of a row a tile
+  int rpr;         // runs a row (raster == 0)
+  int tiles_img;   // pixel tiles an image
+  int o_blocks;    // 64-wide out-channel blocks
+  int tiles;       // work items: images x out-channel blocks x pixel tiles
+  int segs;        // window segments: 1 (raster), or 2 (a run each)
+  int seg_h;       // input rows a segment
+  int box_w;       // window columns a TMA box (a multiple of 8)
+  int ncb;         // boxes a segment row
+  int win_w;       // window row stride in pixels: ncb * box_w
+  int w_bytes;     // the weights' part of a stage (the window follows)
+  int stage_bytes; // a stage, a multiple of ALIGN
+  int stages;      // stages in the ring
+  int tx_bytes;    // bytes the copies of a stage write
+  int red_off;     // the fp32 partial tile: after the ring (splits == 1,
+                   // persistent blocks) or over it (0)
+  int bar_off;     // the mbarriers
+  int smem;        // dynamic shared memory of the launch
+};
+
+int round_up(int v, int q) { return (v + q - 1) / q * q; }
+
+// The launch's geometry; false when a stage does not fit in shared memory.
+bool geom_for(Geom& g) {
+  const int taps = g.kh * g.kw;
+  const int chunks = (g.C + CK - 1) / CK;
+  g.raster = g.OW <= BM;
+  g.rpr = (g.OW + RUN - 1) / RUN;
+  g.tiles_img = g.raster ? (g.OH * g.OW + BM - 1) / BM
+                         : (g.OH * g.rpr + 1) / 2;
+  g.o_blocks = (g.O + BN - 1) / BN;
+  g.tiles = g.B * g.o_blocks * g.tiles_img;
+  int cols;
+  if (g.raster) {
+    // The most output rows BM consecutive pixels can touch.
+    const int span = (g.OW - 1 + BM - 1) / g.OW + 1;
+    g.segs = 1;
+    g.seg_h = (span - 1) * g.sh + g.kh;
+    cols = (g.OW - 1) * g.sw + g.kw;
+  } else {
+    g.segs = 2;
+    g.seg_h = g.kh;
+    cols = (RUN - 1) * g.sw + g.kw;
+  }
+  g.ncb = (cols + MAX_BOX - 1) / MAX_BOX;
+  g.box_w = round_up((cols + g.ncb - 1) / g.ncb, 8);
+  g.win_w = g.ncb * g.box_w;
+  g.w_bytes = taps * CK * BN * 2;
+  const int win_bytes = g.segs * g.seg_h * g.win_w * CK * 2;
+  g.stage_bytes = round_up(g.w_bytes + win_bytes, ALIGN);
+  g.tx_bytes = g.w_bytes + win_bytes;
+  const int room = MAX_SMEM - ALIGN - 2 * MAX_STAGES * 8 -
+                   (g.splits == 1 ? RED_BYTES : 0);
+  // No more stages than a split's chunks (a work item's, where blocks are
+  // persistent): a small ring keeps more blocks on an SM.
+  const int per_split = (chunks + g.splits - 1) / g.splits;
+  g.stages = room / g.stage_bytes;
+  if (g.stages > MAX_STAGES) g.stages = MAX_STAGES;
+  if (g.stages > per_split) g.stages = per_split;
+  if (g.stages < 1) return false;
+  const int ring = g.stages * g.stage_bytes;
+  g.red_off = g.splits == 1 ? ring : 0;
+  g.bar_off = g.splits == 1 ? ring + RED_BYTES
+                            : ring > RED_BYTES ? ring : RED_BYTES;
+  g.smem = g.bar_off + 2 * MAX_STAGES * 8 + ALIGN;
+  return true;
+}
+
+// One work item: its image, out channels, and its pixels (a raster tile
+// from pixel p0, or the runs of rows oh[j] from columns ow0[j], n[j]
+// pixels each; a run past the map has none).
+struct Tile {
+  int b, o0, p0, oh_lo, oh[2], ow0[2], n[2];
+};
+
+__device__ __forceinline__ Tile tile_of(const Geom& g, int t) {
+  Tile x;
+  const int pt = t % g.tiles_img;
+  t /= g.tiles_img;
+  x.o0 = (t % g.o_blocks) * BN;
+  x.b = t / g.o_blocks;
+  x.p0 = pt * BM;
+  x.oh_lo = x.p0 / g.OW;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = 2 * pt + j;
+    x.oh[j] = r / g.rpr;
+    x.ow0[j] = (r % g.rpr) * RUN;
+    const int left = g.OW - x.ow0[j];
+    x.n[j] = x.oh[j] < g.OH ? (left < RUN ? left : RUN) : 0;
+  }
+  return x;
 }
 
 template <class T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-im2col16_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+im2col16_conv_kernel(const __grid_constant__ CUtensorMap x_map,
+                     const __grid_constant__ CUtensorMap w_map,
                      const float* __restrict__ bias, T* __restrict__ out,
-                     float* __restrict__ ws, int B, int H, int W, int C, int O,
-                     int OH, int OW, int kh, int kw, int sh, int sw, int ph,
-                     int pw, int toh, int tow, int col_tiles, int act,
-                     int splits) {
-  extern __shared__ __align__(16) unsigned char smem_16[];
-  const int win_h = (toh - 1) * sh + kh;
-  const int win_w = (tow - 1) * sw + kw;
-  const int win_px = win_h * win_w;
-  const int taps = kh * kw;
-  const int win_bytes = win_px * ROW;
-  const int buf_bytes = win_bytes + taps * CK * W_ROW;
+                     const Geom g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((ALIGN - (hopper::smem_u32(smem_raw) & (ALIGN - 1))) &
+                  (ALIGN - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + g.bar_off);
+  uint64_t* empty = full + MAX_STAGES;
+  float* red = reinterpret_cast<float*>(smem + g.red_off);
 
   const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int wm = warp % 4, wn = warp / 4;     // 16-pixel and 32-channel slab
-  const int b = blockIdx.z / splits;
-  const int split = blockIdx.z % splits;
-  const int o0 = blockIdx.y * BO;
-  const int oh0 = (blockIdx.x / col_tiles) * toh;
-  const int ow0 = (blockIdx.x % col_tiles) * tow;
-  const int ih0 = oh0 * sh - ph;
-  const int iw0 = ow0 * sw - pw;
-  const int chunks = (C + CK - 1) / CK;
-  const int chunk_lo = split * chunks / splits;
-  const int chunk_hi = (split + 1) * chunks / splits;
-  const bool w_vec =
-      O % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const int warp = tid / 32, lane = tid % 32;
+  const int split = blockIdx.x % g.splits;
+  const int step = gridDim.x / g.splits;
+  const int chunks = (g.C + CK - 1) / CK;
+  const int lo = split * chunks / g.splits;
+  const int hi = (split + 1) * chunks / g.splits;
+  const int taps = g.kh * g.kw;
 
-  // The input window of chunk `chunk` into buffer `buf`.
-  auto stage_window = [&](int chunk, int buf) {
-    unsigned char* win = smem_16 + buf * buf_bytes;
-    const int c0 = chunk * CK;
-    for (int idx = tid; idx < win_px * 2; idx += THREADS) {
-      const int px = idx / 2, h = idx % 2;
-      const int ih = ih0 + px / win_w, iw = iw0 + px % win_w;
-      const bool in =
-          ih >= 0 && ih < H && iw >= 0 && iw < W && c0 + 8 * h < C;
-      hm::cp_async16(
-          win + row_half(px, h),
-          in ? x + (((size_t)b * H + ih) * W + iw) * C + c0 + 8 * h : x, in);
+  if (tid == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS / 32);
     }
-  };
-  // The weights of chunk `chunk` into buffer `buf`, as [tap][16 channels]
-  // rows of 64 out channels: 8 groups of 8 a row, zero past C and O.
-  auto stage_weights = [&](int chunk, int buf) {
-    unsigned char* wgt = smem_16 + buf * buf_bytes + win_bytes;
-    const int c0 = chunk * CK;
-    for (int idx = tid; idx < taps * CK * (BO / 8); idx += THREADS) {
-      const int g = idx % (BO / 8), row = idx / (BO / 8);
-      const int tap = row / CK, c = c0 + row % CK, o = o0 + 8 * g;
-      unsigned char* dst = wgt + row * W_ROW + 16 * g;
-      const size_t off = ((size_t)tap * C + c) * O + o;
-      if (w_vec) {
-        const bool in = c < C && o < O;
-        hm::cp_async16(dst, in ? w + off : w, in);
-      } else {
-        const uint16_t* src = reinterpret_cast<const uint16_t*>(w) + off;
-        uint16_t* d = reinterpret_cast<uint16_t*>(dst);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          d[e] = c < C && o + e < O ? src[e] : uint16_t(0);
-      }
-    }
-  };
-
-  // This lane's ldmatrix rows of A: tile pixel m -> its window pixel at
-  // tap (0, 0), or pixel 0 for rows past the tile (computed, never stored).
-  const int a_m = 16 * wm + hm::a_frag_row(lane);
-  const int a_half = hm::a_frag_col(lane) / 8;
-  int a_px;
-  {
-    const int r = a_m / tow, q = a_m % tow;
-    a_px = a_m < toh * tow ? r * sh * win_w + q * sw : 0;
+    hopper::fence_barrier_init();
   }
-  // ... and of B: the weight row (channel) and out channel of this lane,
-  // per pair of n8 tiles.
-  const int b_k = hm::b_frag_k(lane);
-  const int b_n = 32 * wn + hm::b_frag_n(lane);
-
-  float acc[4][4];
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
-
-  stage_window(chunk_lo, 0);
-  stage_weights(chunk_lo, 0);
-  hm::cp_async_commit();
-  hm::cp_async_wait<0>();
   __syncthreads();
 
-  for (int chunk = chunk_lo; chunk < chunk_hi; ++chunk) {
-    const int buf = (chunk - chunk_lo) & 1;
-    if (chunk + 1 < chunk_hi) {
-      stage_window(chunk + 1, buf ^ 1);
-      stage_weights(chunk + 1, buf ^ 1);
-    }
-    hm::cp_async_commit();
-
-    const uint32_t win = hm::smem_addr(smem_16 + buf * buf_bytes);
-    const uint32_t wgt = win + win_bytes;
-    for (int di = 0; di < kh; ++di) {
-      for (int dj = 0; dj < kw; ++dj) {
-        const int tap = di * kw + dj;
-        uint32_t a[4], bw[2][4];
-        hm::ldsm_x4(a, win + row_half(a_px + di * win_w + dj, a_half));
-#pragma unroll
-        for (int pair = 0; pair < 2; ++pair)
-          hm::ldsm_x4_trans(bw[pair], wgt + (tap * CK + b_k) * W_ROW +
-                                          2 * (b_n + 16 * pair));
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          hm::mma16<T>(acc[ni], a, bw[ni / 2][2 * (ni % 2)],
-                       bw[ni / 2][2 * (ni % 2) + 1]);
+  if (warp == CONSUMERS / 32) {
+    // The producer: one lane issues every copy of this block's chunks,
+    // running on into its next work item while the consumers store.
+    if (lane != 0) return;
+    hopper::prefetch_map(&x_map);
+    hopper::prefetch_map(&w_map);
+    int it = 0;
+    for (int t = blockIdx.x / g.splits; t < g.tiles; t += step) {
+      const Tile x = tile_of(g, t);
+      for (int c = lo; c < hi; ++c, ++it) {
+        const int s = it % g.stages;
+        if (it >= g.stages)
+          hopper::mbar_wait(&empty[s], ((it / g.stages) & 1) ^ 1);
+        unsigned char* st = smem + s * g.stage_bytes;
+        hopper::mbar_expect_tx(&full[s], g.tx_bytes);
+        hopper::tma_load_3d(st, &w_map, &full[s], x.o0, c * CK, 0);
+        for (int j = 0; j < g.segs; ++j) {
+          // The window's top-left input pixel of segment j.
+          const int ih0 = (g.raster ? x.oh_lo : x.oh[j]) * g.sh - g.ph;
+          const int iw0 = (g.raster ? 0 : x.ow0[j] * g.sw) - g.pw;
+          for (int r = 0; r < g.seg_h; ++r)
+            for (int k = 0; k < g.ncb; ++k)
+              hopper::tma_load_4d(
+                  st + g.w_bytes +
+                      ((j * g.seg_h + r) * g.win_w + k * g.box_w) * CK * 2,
+                  &x_map, &full[s], c * CK, iw0 + k * g.box_w, ih0 + r, x.b);
+        }
       }
     }
-    // The next chunk has landed in buf ^ 1, and every warp is done with buf.
-    hm::cp_async_wait<0>();
-    __syncthreads();
+    return;
   }
 
-  // splits == 1: the epilogue, rounded into out; else the fp32 partial
-  // tile into this split's slice of the workspace.
-  const int g = lane / 4, t = lane % 4;
-  const size_t pixels = (size_t)B * OH * OW;
+  // The consumer warpgroups: warpgroup wg holds tile rows 64 wg .. 64 wg +
+  // 63 (a run each where the tile is two runs).  This lane's ldmatrix row
+  // is tile row m, its 8-channel half of a k16 step khalf.
+  const int wg = warp / 4;
+  const int m = 64 * wg + 16 * (warp % 4) + hm::a_frag_row(lane);
+  const int khalf = hm::a_frag_col(lane) / 8;
+  // A of tap `tap`, both k16 steps of the chunk, for the tile row at
+  // window pixel px0 at tap (0, 0): window pixel px's 64-byte row holds
+  // 16-byte chunk q at chunk q ^ ((px / 2) % 4) (TMA's 64-byte swizzle on
+  // a window that starts on a 512-byte boundary).
+  auto load_a = [&](uint32_t(&a)[2][4], uint32_t win, int px0, int tap) {
+    const int px = px0 + (tap / g.kw) * g.win_w + tap % g.kw;
+    const uint32_t row = win + px * CK * 2;
+    const int swz = (px >> 1) & 3;
 #pragma unroll
-  for (int hrow = 0; hrow < 2; ++hrow) {
-    const int m = 16 * wm + g + 8 * hrow;
-    if (m >= toh * tow) continue;
-    const int oh = oh0 + m / tow, ow = ow0 + m % tow;
-    if (oh >= OH || ow >= OW) continue;
-    const size_t pix = ((size_t)b * OH + oh) * OW + ow;
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int o = o0 + 32 * wn + 8 * ni + 2 * t;
-      float v0 = acc[ni][2 * hrow], v1 = acc[ni][2 * hrow + 1];
-      if (splits == 1) {
-        v0 = hm::activate(v0 + (bias != nullptr && o < O ? __ldg(bias + o)
-                                                          : 0.f), act);
-        v1 = hm::activate(v1 + (bias != nullptr && o + 1 < O
-                                    ? __ldg(bias + o + 1) : 0.f), act);
-        hm::store_pair16(out + pix * O, 0, 0, o, O, v0, v1);
-      } else {
-        hm::store_pair32(ws + (split * pixels + pix) * O, 0, 0, o, O, v0,
-                         v1);
-      }
+    for (int ks = 0; ks < 2; ++ks)
+      hm::ldsm_x4(a[ks], row + 16 * ((2 * ks + khalf) ^ swz));
+  };
+  int it = 0;
+  for (int t = blockIdx.x / g.splits; t < g.tiles; t += step) {
+    const Tile x = tile_of(g, t);
+    // This lane's window pixel at tap (0, 0); pixel 0 for rows past the
+    // map (computed, never stored).
+    int px0 = 0;
+    if (g.raster) {
+      const int p = x.p0 + m;
+      if (p < g.OH * g.OW)
+        px0 = (p / g.OW - x.oh_lo) * g.sh * g.win_w + (p % g.OW) * g.sw;
+    } else if (m % 64 < (wg == 0 ? x.n[0] : x.n[1])) {
+      px0 = wg * g.seg_h * g.win_w + (m % 64) * g.sw;
     }
-  }
-}
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    // acc += A (this warpgroup's 64 pixels x 32 channels) . the tap's
+    // weights (32 channels x 64 out channels, rows of 128 bytes).
+    auto product = [&](const uint32_t(&a)[2][4], uint32_t wgt, int tap) {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        wgmma16::wgmma_rs(T{}, acc, a[ks],
+                          wgmma16::desc(wgt + (tap * CK + 16 * ks) * 128,
+                                        CK * BN * 2, 1024));
+    };
+    for (int c = lo; c < hi; ++c, ++it) {
+      const int s = it % g.stages;
+      hopper::mbar_wait(&full[s], (it / g.stages) & 1);
+      const uint32_t wgt = hopper::smem_u32(smem + s * g.stage_bytes);
+      const uint32_t win = wgt + g.w_bytes;
+      uint32_t a0[2][4], a1[2][4];
+      load_a(a0, win, px0, 0);
+      for (int tap = 0; tap < taps; tap += 2) {
+        wgmma16::fence();
+        product(a0, wgt, tap);
+        wgmma16::commit();
+        if (tap + 1 < taps) {
+          wgmma16::wait<1>();   // the product that read a1 is done
+          load_a(a1, win, px0, tap + 1);
+          wgmma16::fence();
+          product(a1, wgt, tap + 1);
+          wgmma16::commit();
+        }
+        if (tap + 2 < taps) {
+          wgmma16::wait<1>();   // the product that read a0 is done
+          load_a(a0, win, px0, tap + 2);
+        }
+      }
+      wgmma16::wait<0>();
+      // This warp is done with stage s.
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
 
-// out = act(sum over the splits of ws + bias) rounded to T, V consecutive
-// elements per thread (V = 4 when O % 4 == 0).
-template <class T, int V>
-__global__ void __launch_bounds__(256)
-im2col16_conv_splitk_reduce_kernel(const float* __restrict__ ws,
-                                   const float* __restrict__ bias,
-                                   T* __restrict__ out, size_t n, int O,
-                                   int splits, int act) {
-  hm::splitk_reduce<T, V>(ws, bias, out, n, O, splits, act);
+    // Epilogue: the partial tile (over the ring, once both warpgroups are
+    // past their last product; or in its own buffer, once the previous
+    // item's stores have read it), then the cluster's sum of this block's
+    // rows.
+    hopper::bar_sync(1, CONSUMERS);
+    wgmma16::stage_partial(red, wg, acc);
+    if (g.splits > 1)
+      hopper::cluster_sync();
+    else
+      hopper::bar_sync(1, CONSUMERS);
+    wgmma16::reduce_tile(
+        red, BM, g.splits, CONSUMERS,
+        [&](int row, int col, float(&v)[8]) {
+          size_t pix;
+          if (g.raster) {
+            const int p = x.p0 + row;
+            if (p >= g.OH * g.OW) return;
+            pix = (size_t)x.b * g.OH * g.OW + p;
+          } else {
+            const bool j = row >= 64;
+            const int k = row % 64;
+            if (k >= (j ? x.n[1] : x.n[0])) return;
+            pix = ((size_t)x.b * g.OH + (j ? x.oh[1] : x.oh[0])) * g.OW +
+                  (j ? x.ow0[1] : x.ow0[0]) + k;
+          }
+          const int o = x.o0 + col;
+          if (o < g.O)
+            wgmma16::store8(out + pix * g.O + o, bias, o, g.O, g.act, v);
+        });
+    if (g.splits > 1) hopper::cluster_sync();
+  }
 }
 
 template <class T>
-int launch(const T* x, const T* w, const float* bias, T* out, float* ws,
-           int B, int H, int W, int C, int O, int OH, int OW, int kh, int kw,
-           int sh, int sw, int ph, int pw, int toh, int tow, int act,
-           int splits, cudaStream_t stream) {
-  const int win_px = ((toh - 1) * sh + kh) * ((tow - 1) * sw + kw);
-  const size_t smem =
-      2 * ((size_t)win_px * ROW + (size_t)kh * kw * CK * W_ROW);
-  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  static size_t smem_limit = 48 * 1024;
-  if (smem > smem_limit) {
-    const cudaError_t err = cudaFuncSetAttribute(
+int launch(const CUtensorMap& x_map, const CUtensorMap& w_map,
+           const float* bias, T* out, const Geom& g, cudaStream_t stream) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaFuncSetAttribute(
         im2col16_conv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        MAX_SMEM);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_limit = smem;
   }
-  const int row_tiles = (OH + toh - 1) / toh;
-  const int col_tiles = (OW + tow - 1) / tow;
-  const dim3 grid(row_tiles * col_tiles, (O + BO - 1) / BO, B * splits);
-  im2col16_conv_kernel<T><<<grid, THREADS, smem, stream>>>(
-      x, w, bias, out, ws, B, H, W, C, O, OH, OW, kh, kw, sh, sw, ph, pw, toh,
-      tow, col_tiles, act, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t n = (size_t)B * OH * OW * O;
-  if (O % 4 == 0) {
-    const unsigned blocks = static_cast<unsigned>((n / 4 + 255) / 256);
-    im2col16_conv_splitk_reduce_kernel<T, 4><<<blocks, 256, 0, stream>>>(
-        ws, bias, out, n, O, splits, act);
-  } else {
-    const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
-    im2col16_conv_splitk_reduce_kernel<T, 1><<<blocks, 256, 0, stream>>>(
-        ws, bias, out, n, O, splits, act);
+  long blocks = (long)g.tiles * g.splits;
+  if (g.splits == 1) {
+    // Persistent: as many blocks as the SMs hold at once.
+    int per_sm = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, im2col16_conv_kernel<T>, THREADS, g.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
+    blocks = g.tiles < slots ? g.tiles : slots;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(hopper::launch_clustered(
+      im2col16_conv_kernel<T>, dim3(static_cast<unsigned>(blocks), 1, 1),
+      THREADS, static_cast<size_t>(g.smem), stream,
+      static_cast<unsigned>(g.splits), x_map, w_map, bias, out, g));
 }
 
 }  // namespace
 
 // out (B, OH, OW, O) = act(conv(x, w) + bias), x (B, H, W, C) and w (kh,
-// kw, C, O) bf16 (dtype 0) or fp16 (dtype 1), bias fp32 or null, out of
-// the same type.  C % 8 == 0, x and out 16-byte aligned, toh * tow <= 64,
-// 1 <= splits <= ceil(C / 16); ws holds splits * B * OH * OW * O floats
-// when splits > 1 (else it may be null).  Returns cudaGetLastError().
+// kw, C, O) bf16 (dtype 0) or fp16 (dtype 1), w's channel rows ldw >= O
+// values apart (and its taps C ldw apart), bias fp32 or null, out of the
+// same type.  C % 8 == 0 and ldw % 8 == 0 (TMA's 16-byte strides), x, w
+// and out 16-byte aligned, 1 <= splits <= min(MAX_SPLITS, ceil(C / 32)).  Returns
+// cudaGetLastError() (or cudaErrorInvalidValue for arguments it does not
+// take, a window that does not fit, or a tensor map the driver refuses).
 extern "C" int repro_im2col_conv16(const void* x, const void* w,
-                                   const float* bias, void* out, float* ws,
-                                   int B, int H, int W, int C, int O, int OH,
-                                   int OW, int kh, int kw, int sh, int sw,
-                                   int ph, int pw, int toh, int tow, int act,
-                                   int splits, int dtype,
+                                   const float* bias, void* out, int B, int H,
+                                   int W, int C, int O, int ldw, int OH, int OW,
+                                   int kh, int kw, int sh, int sw, int ph,
+                                   int pw, int act, int splits, int dtype,
                                    cudaStream_t stream) {
   const int chunks = (C + CK - 1) / CK;
-  if (C % 8 != 0 || C < 8 || toh * tow > PIX || toh < 1 || tow < 1 ||
-      splits < 1 || splits > chunks || (splits > 1 && ws == nullptr) ||
+  Geom g{B, H, W, C, O, ldw, OH, OW, kh, kw, sh, sw, ph, pw, act, splits};
+  if (B < 1 || C < 8 || C % 8 != 0 || O < 1 || ldw < O || ldw % 8 != 0 ||
+      OH < 1 ||
+      OW < 1 || kh < 1 || kw < 1 || kh * kw > MAX_BOX || sh < 1 || sw < 1 ||
+      splits < 1 || splits > MAX_SPLITS || splits > chunks ||
       (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(w) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) ||
+      (long)B * ((O + BN - 1) / BN) * ((OH * OW + BM - 1) / BM + OH) *
+              splits > 0x7fffffffL ||
+      !geom_for(g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t c = C, o = O, ld = ldw, wd = W, h = H;
+  const uint64_t x_dims[4] = {c, wd, h, static_cast<uint64_t>(B)};
+  const uint64_t x_strides[3] = {c * 2, wd * c * 2, h * wd * c * 2};
+  const uint32_t x_box[4] = {CK, static_cast<uint32_t>(g.box_w), 1, 1};
+  const uint64_t w_dims[3] = {o, c, static_cast<uint64_t>(kh * kw)};
+  const uint64_t w_strides[2] = {ld * 2, c * ld * 2};
+  const uint32_t w_box[3] = {BN, CK, static_cast<uint32_t>(kh * kw)};
+  CUtensorMap x_map, w_map;
+  if (!hopper::make_map(&x_map, x, 4, x_dims, x_strides, x_box,
+                        CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !hopper::make_map(&w_map, w, 3, w_dims, w_strides, w_box,
+                        CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch(static_cast<const __nv_bfloat16*>(x),
-                  static_cast<const __nv_bfloat16*>(w), bias,
-                  static_cast<__nv_bfloat16*>(out), ws, B, H, W, C, O, OH, OW,
-                  kh, kw, sh, sw, ph, pw, toh, tow, act, splits, stream);
-  return launch(static_cast<const __half*>(x), static_cast<const __half*>(w),
-                bias, static_cast<__half*>(out), ws, B, H, W, C, O, OH, OW,
-                kh, kw, sh, sw, ph, pw, toh, tow, act, splits, stream);
+    return launch(x_map, w_map, bias, static_cast<__nv_bfloat16*>(out), g,
+                  stream);
+  return launch(x_map, w_map, bias, static_cast<__half*>(out), g, stream);
 }

@@ -4,31 +4,34 @@
 ``im2col_conv`` computes act(conv(x, w) + bias) on NHWC input whose channel
 count is a multiple of ``BC``; ``im2col_conv16`` the same on bf16 or fp16
 input and weights whose channel count is a multiple of ``BC_16``, summed
-in fp32 on the tensor cores (chunks of ``CHUNK_16`` channels) and rounded
-to their type; ``im2col_conv_q8`` computes
+in fp32 on the tensor cores (``wgmma``, chunks of ``CHUNK_16`` channels,
+tiles of ``PIXELS_16`` consecutive output pixels) and rounded to their
+type; ``im2col_conv_q8`` computes
 act(float(conv(x_q, w_q)) * scale + bias) on int8 input whose channel
 count is a multiple of ``BC_Q8``, with an exact int32 sum (on the int8
 tensor cores, in chunks of ``CHUNK_Q8`` channels).  The conv's spatial
 zero padding is applied inside the kernels, and out channels and ragged
 row/column tiles are masked there, so the only layout the caller owns is
-the channel multiple.  Both kernels split their reduction over the
+the channel multiple.  The kernels split their reduction over the
 channel chunks across blocks where the grid alone would leave the card
-half empty (``split_k``, each over its own kernel's resident blocks); one
-wrapper call is one conv, whatever the number of CUDA kernels it
-launches.
+half empty (``split_k``, each over its own kernel's resident blocks): the
+fp32 and int8 kernels sum the splits in a second kernel, the 16-bit one
+across a thread block cluster in the same launch.  One wrapper call is
+one conv, whatever the number of CUDA kernels it launches.
 ``impl='cuda'`` launches the kernel on CUDA tensors and raises on anything
 else; ``impl='torch'`` runs the plain version (ref.py).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.conv_spec import ACTIVATION_CODES, ConvSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels._splitk import split_k, split_ranges  # noqa: F401
+from repro_torch.kernels.gemm.ops import tma_rows16
 from repro_torch.kernels.im2col_gemm.ref import (
     im2col_conv16_ref,
     im2col_conv_q8_ref,
@@ -37,8 +40,11 @@ from repro_torch.kernels.im2col_gemm.ref import (
 from repro_torch.util import HALF_DTYPES
 
 BC = 8          # in channels per reduction step: C must be a multiple
-BC_16 = 8       # the 16-bit kernel's channel multiple (16-byte copies)
-CHUNK_16 = 16   # the 16-bit kernel's chunk: one m16n8k16 step per tap
+BC_16 = 8       # the 16-bit kernel's channel multiple (TMA's 16-byte strides)
+CHUNK_16 = 32   # the 16-bit kernel's chunk: two k16 steps per tap (CK)
+BO_16 = 64      # the 16-bit kernel's out channels per block (BN)
+PIXELS_16 = 128  # the 16-bit kernel's output pixels per block (BM)
+RUN_16 = 64     # ... in runs of 64 of one row where OW > PIXELS_16 (RUN)
 BC_Q8 = 16      # the int8 kernel's channel multiple (16-byte copies)
 CHUNK_Q8 = 32   # the int8 kernel's chunk: one m16n8k32 step per tap
 BO = 64         # out channels per block
@@ -49,17 +55,31 @@ RESIDENT_BLOCKS = 2
 #: MIN_BLOCKS).
 RESIDENT_BLOCKS_Q8 = 2
 #: Blocks of the 16-bit kernel resident on one SM (its launch bounds'
-#: MIN_BLOCKS).
-RESIDENT_BLOCKS_16 = 2
+#: MIN_BLOCKS: its ring fills most of an SM's shared memory).
+RESIDENT_BLOCKS_16 = 1
+#: The most K splits of one 16-bit tile: the blocks of a portable thread
+#: block cluster, which sums them (``MAX_SPLITS`` in
+#: csrc/im2col_conv_16.cu).
+MAX_SPLITS_16 = 8
+#: The 16-bit kernel's ring: at most ``MAX_STAGES_16`` stages in
+#: ``MAX_SMEM_16`` bytes of dynamic shared memory, TMA boxes of at most
+#: ``MAX_BOX_16`` window columns, the fp32 partial tile's rows of
+#: ``RED_LD_16`` floats.
+MAX_STAGES_16 = 2
+MAX_SMEM_16 = 232448
+MAX_BOX_16 = 256
+RED_LD_16 = 72
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 _ARGTYPES_Q8 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
-_ARGTYPES_16 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+_ARGTYPES_16 = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 
 
 def pick_blocks(oh: int, ow: int, dtype: str = "float32") -> Tuple[int, int, int]:
-    """(toh, bc, bo) for an OH x OW output map, for the fp32, the 16-bit
-    or the int8 kernel (which differ only in bc, the channel multiple).
+    """(toh, bc, bo) for an OH x OW output map, for the fp32 or the int8
+    kernel (which differ only in bc, the channel multiple); for the 16-bit
+    kernel its compiled tile (``PIXELS_16``, ``CHUNK_16``, ``BO_16``): a
+    block's consecutive output pixels, channels a chunk, out channels.
 
     A block computes a toh x tow tile of 64 output pixels: whole rows when a
     row fits (tow = OW, toh = 64 // OW), else 8 x 8 tiles.  The input window
@@ -67,8 +87,10 @@ def pick_blocks(oh: int, ow: int, dtype: str = "float32") -> Tuple[int, int, int
     ((toh-1)*sh + kh) x ((tow-1)*sw + kw) x bc values, at most 12 KB here —
     instead of the whole padded image the TPU kernel holds.
     """
+    if dtype in HALF_DTYPES:
+        return PIXELS_16, CHUNK_16, BO_16
     toh = min(oh, PIXELS // ow) if ow <= PIXELS else 8
-    bc = BC_Q8 if dtype == "int8" else BC_16 if dtype in HALF_DTYPES else BC
+    bc = BC_Q8 if dtype == "int8" else BC
     return max(toh, 1), bc, BO
 
 
@@ -101,12 +123,78 @@ def call_splits(batch: int, oh: int, ow: int, c: int, o: int,
     return split_k(grid_blocks(batch, oh, ow, o, toh), c // BC, RESIDENT_BLOCKS)
 
 
-def call_splits_16(batch: int, oh: int, ow: int, c: int, o: int,
-                   toh: int) -> int:
-    """``split_k`` for one 16-bit conv call: its grid and ceil(C /
-    CHUNK_16) chunks, over ``RESIDENT_BLOCKS_16``."""
-    return split_k(grid_blocks(batch, oh, ow, o, toh), -(-c // CHUNK_16),
-                   RESIDENT_BLOCKS_16)
+def pixel_tiles_16(oh: int, ow: int) -> List[Tuple[Tuple[int, int, int], ...]]:
+    """The 16-bit kernel's pixel tiles of one image, each as its runs of
+    one output row (row, first column, pixels): ``PIXELS_16`` consecutive
+    pixels of the map in raster order where a row fits (OW <= PIXELS_16;
+    the last tile ragged), else two runs of ``RUN_16`` pixels of a row (a
+    warpgroup's rows each; the last run of a row ragged, the last tile's
+    second run empty where the map has an odd number of runs)."""
+    tiles = []
+    if ow <= PIXELS_16:
+        n = oh * ow
+        for p0 in range(0, n, PIXELS_16):
+            runs, p = [], p0
+            while p < min(p0 + PIXELS_16, n):
+                k = min(ow - p % ow, p0 + PIXELS_16 - p, n - p)
+                runs.append((p // ow, p % ow, k))
+                p += k
+            tiles.append(tuple(runs))
+        return tiles
+    runs = [(r, c, min(RUN_16, ow - c)) for r in range(oh)
+            for c in range(0, ow, RUN_16)]
+    return [tuple(runs[i:i + 2]) for i in range(0, len(runs), 2)]
+
+
+def conv16_geometry(c: int, o: int, oh: int, ow: int, kh: int, kw: int,
+                    sh: int, sw: int, splits: int = 1) -> Dict[str, int]:
+    """One 16-bit conv launch's layout, as csrc/im2col_conv_16.cu's
+    ``geom_for`` computes it: the pixel tiles of an image, the window a
+    stage holds (``segs`` segments of ``seg_h`` rows of ``win_w`` pixels,
+    ``ncb`` TMA boxes of ``box_w`` columns a row, 64 bytes a pixel), the
+    weights (taps x 32 x 64 values), the stage and the ring's stages (at
+    most ``MAX_STAGES_16``, and no more than a split's chunks), the fp32
+    partial tile (after the ring where blocks are persistent, splits == 1;
+    over it otherwise), the dynamic shared memory; raises where one stage
+    does not fit."""
+    raster = ow <= PIXELS_16
+    if raster:
+        span = (ow - 1 + PIXELS_16 - 1) // ow + 1
+        segs, seg_h, cols = 1, (span - 1) * sh + kh, (ow - 1) * sw + kw
+    else:
+        segs, seg_h, cols = 2, kh, (RUN_16 - 1) * sw + kw
+    ncb = -(-cols // MAX_BOX_16)
+    box_w = -(-(-(-cols // ncb)) // 8) * 8
+    win_w = ncb * box_w
+    w_bytes = kh * kw * CHUNK_16 * BO_16 * 2
+    win_bytes = segs * seg_h * win_w * CHUNK_16 * 2
+    stage = -(-(w_bytes + win_bytes) // 1024) * 1024
+    red = PIXELS_16 * RED_LD_16 * 4
+    room = (MAX_SMEM_16 - 1024 - 2 * MAX_STAGES_16 * 8
+            - (red if splits == 1 else 0))
+    per_split = -(-(-(-c // CHUNK_16)) // splits)
+    stages = min(MAX_STAGES_16, per_split, room // stage)
+    if stages < 1:
+        raise ValueError(f"im2col_conv_16: a stage of {stage} bytes does not "
+                         f"fit in {MAX_SMEM_16} bytes of shared memory")
+    ring = stages * stage
+    bar_off = ring + red if splits == 1 else max(ring, red)
+    return dict(raster=int(raster), tiles_img=len(pixel_tiles_16(oh, ow)),
+                o_blocks=-(-o // BO_16), segs=segs, seg_h=seg_h,
+                box_w=box_w, ncb=ncb, win_w=win_w, w_bytes=w_bytes,
+                stage_bytes=stage, stages=stages,
+                tx_bytes=w_bytes + win_bytes,
+                red_off=ring if splits == 1 else 0, bar_off=bar_off,
+                smem=bar_off + 2 * MAX_STAGES_16 * 8 + 1024)
+
+
+def call_splits_16(batch: int, oh: int, ow: int, c: int, o: int) -> int:
+    """``split_k`` for one 16-bit conv call: its grid (pixel tiles times
+    64-channel blocks times images) and ceil(C / CHUNK_16) chunks, over
+    ``RESIDENT_BLOCKS_16``, at most ``MAX_SPLITS_16`` (one cluster a
+    tile)."""
+    grid = batch * len(pixel_tiles_16(oh, ow)) * -(-o // BO_16)
+    return split_k(grid, -(-c // CHUNK_16), RESIDENT_BLOCKS_16, MAX_SPLITS_16)
 
 
 def call_splits_q8(batch: int, oh: int, ow: int, c: int, o: int,
@@ -119,8 +207,9 @@ def call_splits_q8(batch: int, oh: int, ow: int, c: int, o: int,
 
 def _conv_geometry(what: str, x: torch.Tensor, w: torch.Tensor,
                    spec: ConvSpec, blocks: Optional[Tuple[int, int, int]],
-                   bc: int) -> Tuple[int, int, int]:
-    """(OH, OW, toh) of one call; raises on what the kernel does not take."""
+                   bc: int, half: bool = False) -> Tuple[int, int, int]:
+    """(OH, OW, toh) of one call; raises on what the kernel does not take
+    (a 16-bit call's blocks must be the 16-bit kernel's compiled tile)."""
     c = x.shape[-1]
     kh, kw, wc, _ = w.shape
     if (kh, kw) != spec.kernel_size or wc != c or c % bc:
@@ -129,6 +218,11 @@ def _conv_geometry(what: str, x: torch.Tensor, w: torch.Tensor,
     if spec.dilation != (1, 1):
         raise ValueError(f"{what}: dilation is not supported")
     oh, ow = spec.out_hw(x.shape[1], x.shape[2])
+    if half:
+        want = pick_blocks(oh, ow, "bfloat16")
+        if blocks is not None and tuple(blocks) != want:
+            raise ValueError(f"{what}: blocks {blocks} (kernel takes {want})")
+        return oh, ow, want[0]
     toh = blocks[0] if blocks is not None else pick_blocks(oh, ow)[0]
     if (blocks is not None and tuple(blocks[1:]) != (bc, BO)) or not 1 <= toh <= PIXELS:
         raise ValueError(f"{what}: blocks {blocks} (kernel takes "
@@ -198,37 +292,40 @@ def im2col_conv16(
     x's type = act(conv(x, w) + bias), summed in fp32 and rounded once;
     C % BC_16 == 0, ``bias`` fp32 (O,) or None.
 
-    ``blocks`` is a (toh, BC_16, BO) plan tuple.  With
-    ``call_splits_16(...) > 1`` the fp32 partial sums go through a
-    workspace of ``splits * B * OH * OW * O`` floats from PyTorch's
-    caching allocator.
+    ``blocks`` is the plan's tuple, ``pick_blocks``'s for 16 bits
+    (``PIXELS_16``, ``CHUNK_16``, ``BO_16``).  Under ``impl='cuda'`` the
+    weights go through ``gemm.ops.tma_rows16`` (a copy unless they are laid
+    out so already, as ``core/netplan.py`` keeps them).  One launch, split
+    or not (``call_splits_16``): the splits of a tile are summed in its
+    thread block cluster, with no workspace.
     """
-    oh, ow, toh = _conv_geometry("im2col_conv_16", x, w, spec, blocks, BC_16)
+    oh, ow, toh = _conv_geometry("im2col_conv_16", x, w, spec, blocks, BC_16,
+                                 half=True)
     dtype = _build.require_16bit("im2col_conv_16", x, w)
     _build.require_dtype("im2col_conv_16", torch.float32, bias)
     if impl == "torch":
         return im2col_conv16_ref(x, w, spec, bias, activation)
     if impl != "cuda":
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
-    _build.require_cuda_operands("im2col_conv_16", x, w, dtype=dtype)
+    _build.require_cuda_operands("im2col_conv_16", x, dtype=dtype)
     _build.require_cuda_operands("im2col_conv_16", bias)
-    if x.data_ptr() % 16:
-        raise ValueError("im2col_conv_16: x must be 16-byte aligned")
+    if w.device != x.device:
+        raise ValueError("im2col_conv_16: w must lie on x's card")
+    w = tma_rows16(w)
     b, h, ww, c = x.shape
     kh, kw, _, o = w.shape
+    if x.data_ptr() % 16:
+        raise ValueError("im2col_conv_16: x must be 16-byte aligned")
     out = torch.empty((b, oh, ow, o), device=x.device, dtype=dtype)
     if out.numel():
         fn = _build.load("im2col_conv_16", "repro_im2col_conv16", _ARGTYPES_16)
         (sh, sw), (ph, pw) = spec.stride, spec.padding
-        splits = call_splits_16(b, oh, ow, c, o, toh)
-        ws = (torch.empty((splits, b * oh * ow, o), device=x.device,
-                          dtype=torch.float32) if splits > 1 else None)
         err = fn(x.data_ptr(), w.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
-                 b, h, ww, c, o, oh, ow, kh, kw, sh, sw, ph, pw, toh,
-                 tile_width(toh, ow), ACTIVATION_CODES[activation], splits,
-                 _build.DTYPE16_CODES[dtype], _build.stream_handle(x))
+                 out.data_ptr(), b, h, ww, c, o, w.stride(2), oh, ow, kh, kw,
+                 sh, sw, ph, pw, ACTIVATION_CODES[activation],
+                 call_splits_16(b, oh, ow, c, o), _build.DTYPE16_CODES[dtype],
+                 _build.stream_handle(x))
         _build.check(err, "im2col_conv_16")
         im2col_conv16.launches += 1
     return out

@@ -345,10 +345,14 @@ def test_16bit_estimate_launches_what_the_dispatcher_launches(spec, h, w):
             plan = ConvPlan(algo, "cuda", kernel_blocks(
                 spec, algo, h, w, 1, wf, "bfloat16"), dtype="bfloat16",
                 winograd_fused=wf and algo is ConvAlgorithm.WINOGRAD)
-            assert tuple(p.kernel for p in est.parts
-                         if p.kernel != "glue_16"
-                         and not p.kernel.endswith("_reduce")) == \
-                plan_kernels(plan)
+            # One launch a call, split or not, but for the fused Winograd
+            # kernel's C split, which has its own reduce.
+            kernels = tuple(p.kernel for p in est.parts
+                            if p.kernel != "glue_16")
+            if algo is ConvAlgorithm.WINOGRAD and wf:
+                kernels = tuple(k for k in kernels
+                                if k != "winograd_fused_16_reduce")
+            assert kernels == plan_kernels(plan)
             assert all("_16" in p.kernel for p in est.parts)
 
 
@@ -419,9 +423,9 @@ def test_cost_plans16_equal_reference(cell, dtype):
                          "winograd_3pass_16"}),
     ("winograd/csrc/winograd16_transforms.cuh", {"winograd_fused_16",
                                                  "winograd_3pass_16"}),
-    ("winograd/csrc/hopper_async.cuh", {"winograd_fused_16",
-                                        "winograd_3pass_16"}),
-    ("winograd/csrc/wgmma16.cuh", {"winograd_3pass_16"}),
+    ("csrc/hopper_async.cuh", {"gemm_16", "im2col_conv_16",
+                               "winograd_fused_16", "winograd_3pass_16"}),
+    ("csrc/wgmma16.cuh", {"gemm_16", "im2col_conv_16", "winograd_3pass_16"}),
 ])
 def test_library_path_follows_the_16bit_headers(tmp_path, monkeypatch, header,
                                                 users):
