@@ -15,8 +15,12 @@ Phases, each on its own printed lines:
    shared memory);
 3. each kernel against its plain PyTorch version at every shape the model
    cells below give it (YOLOv3-tiny at 416x416, batch 1 and 4; MODEL_20 at
-   608x608, batch 1; VGG-16 at 224x224, batch 1, with the fused Winograd
-   kernel and with the 3-pass pipeline; the int8 plans of YOLOv3-tiny 416,
+   608x608, batch 1; VGG-16 at 224x224, batch 1 with the fused Winograd
+   kernel, and batch 8 with it (its Winograd calls) and with
+   ``winograd_fused=False``, where cost mode's rule, the reference
+   planner's, sends conv4_2 and conv4_3 to the 3-pass pipeline and the
+   other 3x3 convs to im2col (its Winograd calls); the int8 plans of
+   YOLOv3-tiny 416,
    VGG-16 224 and MODEL_20 608 at batch 1, on seeded int8 operands): the
    max-abs error of every call.
    At the shapes of YOLOv3-tiny at batch 1 (GEMM, im2col, fused Winograd),
@@ -42,8 +46,8 @@ Phases, each on its own printed lines:
    the wrapper chose (``splits``); MODEL_20 608 b1 int8's int8 GEMM calls
    (large M, bytes-bound) are timed too; each timed cell's sums per
    kernel follow; then,
-   per VGG-16 Winograd layer, the fused kernel's time beside the 3-pass
-   pipeline's;
+   per 3-pass layer of VGG-16 b8, the fused kernel's time beside the
+   3-pass pipeline's;
 4. YOLOv3-tiny at 416x416, batch 1 and 4, through ``repro_torch.compile``
    with ``impl='cuda'``, held against ``impl='torch'`` on the card; ``run``
    replays the forward's CUDA graph (``repro_torch.graphs``), captured at
@@ -65,12 +69,13 @@ Phases, each on its own printed lines:
    records, so the exact counts are the wrappers');
 5. the first 20 layers of Darknet-53 (MODEL_20) at 608x608, batch 1: the
    same comparison (stride-2 im2col, shortcut);
-6. VGG-16 at 224x224, batch 1, three forwards: the default (fused
-   Winograd), ``winograd_fused=False`` (the 3-pass pipeline on all seven
-   Winograd layers) and ``mode='measure'`` (each layer's candidates timed
-   on the card; its per-layer choice printed), each the same comparison
-   and each profiled; then every kernel call of the measure-mode plan held
-   against its plain version, as in phase 3;
+6. VGG-16 at 224x224, three forwards: batch 1 by default (fused
+   Winograd), batch 8 with ``winograd_fused=False`` (the 3-pass pipeline
+   on conv4_2 and conv4_3: two launches of each 3-pass kernel) and batch
+   1 with ``mode='measure'`` (each layer's candidates timed on the card;
+   its per-layer choice printed), each the same comparison and each
+   profiled; then every kernel call of the measure-mode plan held against
+   its plain version, as in phase 3;
 6b. the co-design cost model (``mode='model'``): YOLOv3-tiny 416 (batch 1
    and 4), MODEL_20 608 b1 and VGG-16 224 b1 planned by it, each the same
    comparison as in phases 4 to 6 (profiled) with every layer planned by
@@ -101,8 +106,8 @@ Phases, each on its own printed lines:
    planned by the cost model's int8 gate (``mode='model'``), under the same
    gates as the first int8 cell;
 7b. bf16 and fp16 (``dtype='bfloat16' | 'float16'``), on their own
-   generator's draws: YOLOv3-tiny 416 b1, MODEL_20 608 b1 and VGG-16 224 b1
-   (fused, and ``winograd_fused=False``), in each type: every call of the
+   generator's draws: YOLOv3-tiny 416 b1, MODEL_20 608 b1, VGG-16 224 b1
+   (fused) and b8 (``winograd_fused=False``), in each type: every call of the
    16-bit kernels (GEMM, im2col conv, fused Winograd, the three 3-pass
    kernels) held against its plain version within two units of the last
    place at the largest output (2^-6 of max(1, max|ref|) in bf16, 2^-9 in
@@ -119,9 +124,8 @@ Phases, each on its own printed lines:
    the fused calls' lines give their grid and C split, the tuple
    multiply's its work items, the GEMM's and the im2col conv's their
    tile, work items, cluster and K split, the conv's window and ring,
-   and both their dynamic shared memory), VGG-16's 16-bit fused time
-   beside its
-   3-pass time per layer; then each cell
+   and both their dynamic shared memory), VGG-16 b8's 16-bit fused time
+   beside its 3-pass time per 3-pass layer; then each cell
    end to end: ``impl='cuda'`` against ``impl='torch'`` (the same Winograd
    realization) within 2e-2 (bf16) or 5e-3 (fp16) of max(1, max|ref|), every
    step against its plain step on the cuda forward's own input
@@ -177,16 +181,36 @@ Phases, each on its own printed lines:
    loop and against the same engine with its step run eagerly
    (``EagerServingEngine``), tokens/s of both; one decode step's replay
    beside the eager step, timed in turns and profiled (no port kernel in
-   either trace); ``prefill_with_cache`` (the kernel) then one decode step against
+   either trace), and a greedy step through the engine's guarded call
+   beside the replay with an argmax and its copy; ``prefill_with_cache`` (the kernel) then one decode step against
    token-by-token decode (fp32 within 1e-3 of max(1, max|ref|); bf16
    printed), tokens/s; each LM cell prints its peak device memory;
+8b. CNN serving (``CompiledCNN.serve()``): YOLOv3-tiny at 416x416 at full
+   width, buckets 1, 4 and 8 (one CUDA graph each, captured when the
+   engine is made), in fp32, bf16 and int8: every kernel call of each
+   bucket's plan whose batch and dtype no earlier phase checks (fp32 b8,
+   bf16 and int8 b4 and b8) against its plain version, as phase 3 does;
+   13 requests drain as 8 + 4 + 1; the bucket sequence, the stats and every ``health()`` counter (0)
+   checked; each bucket's wrapper launches equal to its plan's; each row
+   bit for bit the bucket's compiled forward of the same batch
+   (``executor(b)``) and within the cells' tolerance of the
+   ``impl='torch'`` forward of that batch (fp32 1e-3, bf16 2e-2 of max(1,
+   max|ref|), int8 an SQNR of at least 40 dB); the drain profiled, with
+   every planned port kernel of the three buckets in the trace, at most
+   as planned; the ms of each bucket's step on the host's clock (stack,
+   copy in, replay, copy out) beside that bucket's ``compiled.run``
+   replay, and the drain's images/s; then, in fp32, a fault run on the
+   card: an injected exception one retry recovers, a NaN row that fails
+   its one request while its neighbours equal the clean rows, a latency
+   fault (``FakeClock``) that expires the next request, and
+   ``Backpressure`` at ``max_queue``;
 9. one JSON line with every kernel's numbers — its launches in the forward
    its ``cell`` names (YOLOv3-tiny 416 b1 for the GEMM, im2col and fused
-   Winograd kernels, VGG-16 224 b1 with ``winograd_fused=False`` for the
+   Winograd kernels, VGG-16 224 b8 with ``winograd_fused=False`` for the
    three 3-pass kernels, YOLOv3-tiny 416 b1 int8 for the two int8
    kernels, the Llama-3.2-1B prefill for flash attention, YOLOv3-tiny 416
    b1 bfloat16 for the 16-bit GEMM, im2col and fused Winograd kernels,
-   VGG-16 224 b1 with ``winograd_fused=False`` in bfloat16 for the three
+   VGG-16 224 b8 with ``winograd_fused=False`` in bfloat16 for the three
    16-bit 3-pass kernels), and its times,
    errors and bounds summed over the calls of that forward — then the
    last line ``{"ok": true, "device": ...}``.
@@ -1897,6 +1921,21 @@ def lm_serving_cell(cfg, params, params32, name):
                    lambda: engine._decode(tokens, live),
                    lambda: engine.step(*step_args), 10, per_call=batch,
                    unit="tokens", want={}, detail=True, host_rows=8)
+    # A greedy step through the guarded call (replay, one copy of the
+    # graph's greedy tokens and finiteness flags, the check) beside the
+    # replay with an argmax after it and its copy.
+    steps = {
+        "bare": lambda: engine._decode(tokens, live).argmax(dim=-1).tolist(),
+        "guarded": lambda: engine._guarded_decode(tokens, live)[0][1].tolist(),
+    }
+    reps = {}
+    for kind in ("bare", "guarded", "bare", "guarded"):
+        reps.setdefault(kind, []).append(forward_ms(steps[kind], 20))
+    bare, guarded = min(reps["bare"]), min(reps["guarded"])
+    log(f"decode step {name} batch={batch} on the host's clock: replay, "
+        f"argmax and copy {bare:.4f} ms, through the guarded call "
+        f"{guarded:.4f} ms ({guarded - bare:+.4f} ms; best of two runs of "
+        f"20)")
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
@@ -1933,6 +1972,227 @@ def lm_serving_cell(cfg, params, params32, name):
     log(f"serve {name}: peak device memory allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (both weight "
         f"copies included)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8b: CNN serving
+
+
+SERVE_BUCKETS = (1, 4, 8)
+SERVE_REQUESTS = 13        # drains as 8 + 4 + 1
+SERVE_REPS = 10            # timed drains
+
+
+def serve_cell(model, dtype, rng, name, checked=()):
+    """``CompiledCNN.serve()`` over ``SERVE_BUCKETS``: first every kernel
+    call of each bucket's plan, but those of the batches in ``checked``
+    (held one by one by an earlier phase at this model and dtype), against
+    its plain version; then one drain of ``SERVE_REQUESTS`` images with the
+    counts at zero, checked (the bucket sequence, the stats, the health
+    counters, each bucket's launches, each row against the bucket's
+    executor and against ``impl='torch'``), then profiled and timed per
+    bucket beside the bucket's ``run``.  Returns the compiled model, the
+    images, the drain's results and their uids."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core.quant import sqnr_db
+    from repro_torch.hw import H100
+    from repro_torch.models.cnn import init_cnn, random_batchnorm
+
+    int8 = dtype == "int8"
+    # int8 as the int8 cells: identity batchnorm, calibrated on the input.
+    params = init_cnn(rng, model.layers)
+    if not int8:
+        params = random_batchnorm(params, rng)
+    h, w = model.input_hw
+    images = rng.standard_normal(
+        (SERVE_REQUESTS, h, w, model.in_channels)).astype(np.float32)
+    calibration = (torch.tensor(images[:SERVE_BUCKETS[-1]], device="cuda")
+                   if int8 else None)
+    opts = repro_torch.ExecutionOptions(dtype=dtype, buckets=SERVE_BUCKETS)
+    cu = repro_torch.compile(model, params, opts, calibration=calibration)
+    plain = repro_torch.compile(model, params, dataclasses.replace(
+        opts, impl="torch"), calibration=calibration)
+    t0 = time.perf_counter()
+    engine = cu.serve()
+    build_s = time.perf_counter() - t0
+    if any(cu.executor(b).graph is None for b in SERVE_BUCKETS):
+        raise AssertionError(f"{name}: a bucket's graph was not captured "
+                             f"when the engine was made")
+    # The plans differ by batch (algorithms, tiles, splits): each bucket's
+    # kernel calls at the shapes its plan gives them, on draws of their own.
+    rng_k = np.random.default_rng(SEED)
+    for b in SERVE_BUCKETS:
+        if b not in checked:
+            check_kernels(cu.network_plan(b), rng_k, H100, f"{name} b{b}")
+
+    reset_counts()
+    uids = [engine.submit(img) for img in images]
+    results, served = {}, []
+    while engine.queue:
+        before = dict(engine.stats["batches"])
+        results.update(engine.step())
+        served += [b for b, n in engine.stats["batches"].items()
+                   if n != before[b]]
+    counts = read_counts()
+    stats = {k: (dict(v) if isinstance(v, dict) else v)
+             for k, v in engine.stats.items()}
+    want = {}
+    for b in served:
+        for k, n in cu.network_plan(b).kernel_launches().items():
+            want[k] = want.get(k, 0) + n
+    health = engine.health()
+    zero = ("evictions", "rejections", "retries", "request_failures",
+            "failed_batches", "faults_injected")
+    if served != [8, 4, 1] or engine.stats != {
+            "batches": {1: 1, 4: 1, 8: 1}, "padded_slots": 0,
+            "requests": SERVE_REQUESTS}:
+        raise AssertionError(f"{name}: buckets {served}, stats "
+                             f"{engine.stats}")
+    if any(health[k] for k in zero) or health["ladder"] != ["primary"]:
+        raise AssertionError(f"{name}: health {health}")
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts} != the three "
+                             f"buckets' plans {want}")
+    # Each row: the bucket's executor on the same batch bit for bit, and
+    # the plain forward of that batch within the cells' tolerance.
+    gaps, start = [], 0
+    for b in served:
+        x = torch.tensor(images[start:start + b], device="cuda").to(
+            getattr(torch, opts.input_dtype))
+        rows = torch.stack([results[u] for u in uids[start:start + b]])
+        y = cu.executor(b)(x).cpu()
+        ref = plain.run(x).float().cpu()
+        if not (rows.dtype == y.dtype and torch.equal(rows, y)):
+            raise AssertionError(f"{name}: bucket {b}'s rows differ from "
+                                 f"its executor's forward")
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((rows.float() - ref).abs().max())
+        ok = bool(torch.isfinite(rows).all())
+        if int8:
+            gaps.append(sqnr_db(ref, rows.float()))
+            ok = ok and gaps[-1] >= INT8_VS_PLAIN_DB
+        else:
+            gaps.append(err / scale)
+            ok = ok and err <= (NET_TOL16[dtype] if dtype in HALF
+                                else NET_RTOL) * scale
+        if not ok:
+            raise AssertionError(f"{name}: bucket {b} against impl='torch':"
+                                 f" max_abs_err {err} (max|ref| {scale})")
+        start += b
+
+    def drain():
+        for img in images:
+            engine.submit(img)
+        engine.run()
+
+    step_ms = {b: [] for b in SERVE_BUCKETS}
+    t0 = time.perf_counter()
+    for _ in range(SERVE_REPS):
+        for img in images:
+            engine.submit(img)
+        while engine.queue:
+            pending = len(engine.queue)
+            t1 = time.perf_counter()
+            engine.step()
+            step_ms[engine.pick_bucket(pending)].append(
+                (time.perf_counter() - t1) * 1e3)
+    drain_ms = (time.perf_counter() - t0) * 1e3 / SERVE_REPS
+    planned = {}
+    for b in SERVE_BUCKETS:
+        for k, n in planned_cuda_launches(cu.network_plan(b)).items():
+            planned[k] = planned.get(k, 0) + n
+    busy, kept = profile_forward(drain, drain_ms, f"{name} drain",
+                                 want=planned, detail=False)
+    replay = {}
+    for b in SERVE_BUCKETS:
+        x = torch.tensor(images[:b], device="cuda")
+        replay[b] = forward_ms(lambda: cu.run(x), SERVE_REPS)
+    log(f"serve {name}: buckets {served} stats {stats} health "
+        f"counters 0; launches={counts}; rows equal to executor(b), vs "
+        f"impl='torch' "
+        + (f"min sqnr_db={min(gaps):.2f}" if int8
+           else f"max_abs_err/max(1,max|ref|)={max(gaps):.3g}")
+        + f"; build (plan and capture of {len(SERVE_BUCKETS)} graphs) "
+        f"{build_s:.2f} s; ms per step on the host's clock (stack, copy in,"
+        f" replay, copy out), median of {SERVE_REPS}: "
+        + ", ".join(f"b{b} {statistics.median(step_ms[b]):.4f} (run "
+                    f"{replay[b]:.4f})" for b in SERVE_BUCKETS)
+        + f"; drain of {SERVE_REQUESTS} {drain_ms:.4f} ms, "
+        f"{SERVE_REQUESTS * 1e3 / drain_ms:.1f} images/s; device busy "
+        f"{busy:.4f} ms a drain, idle share "
+        f"{max(0.0, 1.0 - busy / drain_ms):.3f}"
+        + ("" if kept in (None, 1.0) else f" (the trace kept {kept:.2f})"))
+    return cu, images, results, uids
+
+
+def serve_faults(cu, images, clean, uids, name) -> None:
+    """Faults on the card, on ``cu``'s buckets: an exception one retry
+    recovers, a NaN row that fails its one request while its neighbours
+    equal the clean rows (``clean``, by uid of the clean drain of
+    ``images``), a latency spike on a ``FakeClock`` that expires the next
+    request, and ``Backpressure`` at ``max_queue``."""
+    import torch
+
+    import repro_torch
+    from repro_torch.serving import (
+        Backpressure,
+        DeadlineExceeded,
+        FakeClock,
+        FaultPlan,
+        FaultSpec,
+        RequestFailed,
+    )
+
+    plan = FaultPlan([FaultSpec("exception", step=1, times=1),
+                      FaultSpec("nan", step=2, rows=(1,), times=2)])
+    engine = cu.serve(faults=plan)
+    got = {}
+    for img in images[:8]:
+        engine.submit(img)
+    got.update(engine.step())                     # bucket 8, retried once
+    for img in images[8:12]:
+        engine.submit(img)
+    got.update(engine.step())                     # bucket 4, row 1 NaN
+    h = engine.health()
+    want = [clean[u] for u in uids[:12]]
+    rows = [got[u] for u in sorted(got)]
+    failed = [i for i, r in enumerate(rows) if isinstance(r, RequestFailed)]
+    if (failed != [9] or h["retries"] != 2 or h["faults_injected"] != 3
+            or h["request_failures"] != 1 or h["failed_batches"] != 0
+            or not all(torch.equal(r, want[i]) for i, r in enumerate(rows)
+                       if i != 9)):
+        raise AssertionError(f"{name} faults: failed rows {failed}, health "
+                             f"{h}")
+    clock = FakeClock()
+    late = cu.serve(buckets=(1,), clock=clock, faults=FaultPlan(
+        [FaultSpec("latency", latency_s=10.0)]))
+    # images[12] rode bucket 1 in the clean drain.
+    u1 = late.submit(images[12], deadline_s=5.0)
+    u2 = late.submit(images[11], deadline_s=5.0)
+    res = late.run()
+    if not (torch.equal(res[u1], clean[uids[12]])
+            and isinstance(res[u2], DeadlineExceeded)
+            and late.health()["evictions"] == 1):
+        raise AssertionError(f"{name} latency fault: {res}")
+    bounded = repro_torch.compile(cu.model, cu.params, dataclasses.replace(
+        cu.options, max_queue=2)).serve(buckets=(1,))
+    bounded.submit(images[0])
+    bounded.submit(images[1])
+    try:
+        bounded.submit(images[2])
+    except Backpressure as e:
+        rejected = e
+    else:
+        raise AssertionError(f"{name}: a third request at max_queue=2 was "
+                             f"admitted")
+    bounded.run()
+    log(f"serve faults {name}: injected exception retried (bucket 8 rows "
+        f"equal the clean rows), NaN row 1 of bucket 4 failed alone "
+        f"({h['request_failures']} request failure, {h['retries']} retries,"
+        f" {h['faults_injected']} faults), latency 10 s on a FakeClock "
+        f"expired the next request (deadline 5 s), {rejected}")
 
 
 def main() -> int:
@@ -1988,7 +2248,10 @@ def main() -> int:
     # model cells give it; timed at YOLOv3-tiny b1's shapes and at
     # VGG-16's Winograd layers.
     rng = np.random.default_rng(SEED)
-    tiny_cell, vgg3_cell = "yolov3-tiny 416 b1", "vgg16 224 b1 winograd_fused=False"
+    # Cost mode's rule (the reference planner's) sends VGG-16's conv4_2 and
+    # conv4_3 to the 3-pass pipeline at batch 8 under winograd_fused=False,
+    # and every 3x3 conv to im2col at batch 1.
+    tiny_cell, vgg3_cell = "yolov3-tiny 416 b1", "vgg16 224 b8 winograd_fused=False"
     tiny8_cell = "yolov3-tiny 416 b1 int8"
 
     def netplan_of(model, batch, dtype="float32", **planner):
@@ -2006,20 +2269,21 @@ def main() -> int:
     # forward: timed too.
     check_kernels(netplan_of(yolov3.MODEL_20, 1), rng, H100, "yolov3-20 608 b1",
                   timed=("gemm", "winograd_fused"))
+    check_kernels(netplan_of(vgg16.MODEL, 1), rng, H100, "vgg16 224 b1",
+                  timed=("winograd_fused",))
     _, fused_steps = check_kernels(
-        netplan_of(vgg16.MODEL, 1), rng, H100, "vgg16 224 b1",
-        timed=("winograd_fused",))
+        netplan_of(vgg16.MODEL, 8), rng, H100, "vgg16 224 b8",
+        timed=("winograd_fused",), winograd_only=True)
     summaries[vgg3_cell], three_steps = check_kernels(
-        netplan_of(vgg16.MODEL, 1, winograd_fused=False), rng, H100, vgg3_cell,
+        netplan_of(vgg16.MODEL, 8, winograd_fused=False), rng, H100, vgg3_cell,
         timed=("input_transform", "tuple_multiply", "output_transform"),
         winograd_only=True)
-    for i, fused in sorted(fused_steps.items()):
-        parts = three_steps[i]
-        total = sum(parts.values())
-        log(f"vgg16 224 b1 L{i}: fused {fused['winograd_fused']:.4f} ms, "
+    for i, parts in sorted(three_steps.items()):
+        fused, total = fused_steps[i]["winograd_fused"], sum(parts.values())
+        log(f"vgg16 224 b8 L{i}: fused {fused:.4f} ms, "
             f"3-pass {total:.4f} ms ("
             + " + ".join(f"{k} {v:.4f}" for k, v in parts.items())
-            + f"), 3-pass / fused {total / fused['winograd_fused']:.2f}")
+            + f"), 3-pass / fused {total / fused:.2f}")
     # The int8 kernels: every call of the int8 plans, timed at YOLOv3-tiny
     # b1's shapes; MODEL_20's stride-2 int8 im2col with 8x8 tiles is on no
     # other cell, and its int8 GEMM calls (large M, bytes-bound) are timed.
@@ -2044,15 +2308,16 @@ def main() -> int:
     _, cost["yolov3-20 608 b1"] = run_cell(yolov3.MODEL_20, 1, rng,
                                            reps=SHORT_FORWARD_REPS)
 
-    # Phase 6: VGG-16 at 224, batch 1: fused, 3-pass (the main path of the
-    # three 3-pass kernels), measure mode; one set of weights.
+    # Phase 6: VGG-16 at 224: fused at batch 1, 3-pass at batch 8 (the main
+    # path of the three 3-pass kernels), measure mode at batch 1; one set
+    # of weights.
     params = random_batchnorm(init_cnn(rng, vgg16.MODEL.layers), rng)
     _, cost["vgg16 224 b1"] = run_cell(vgg16.MODEL, 1, rng, params,
                                        profile=True)
     launches[vgg3_cell], _ = run_cell(
-        vgg16.MODEL, 1, rng, params, {"winograd_fused": False}, vgg3_cell,
+        vgg16.MODEL, 8, rng, params, {"winograd_fused": False}, vgg3_cell,
         profile=True)
-    want = {k: 7 for k in ("input_transform", "tuple_multiply",
+    want = {k: 2 for k in ("input_transform", "tuple_multiply",
                            "output_transform")}
     if any(launches[vgg3_cell].get(k) != n for k, n in want.items()):
         raise AssertionError(f"{vgg3_cell}: launches {launches[vgg3_cell]}, "
@@ -2151,57 +2416,63 @@ def main() -> int:
     log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     # Phase 7b: bf16 and fp16 (YOLOv3-tiny 416 b1 is the main path of the
-    # 16-bit GEMM, im2col and fused Winograd kernels, VGG-16 224 b1 with
+    # 16-bit GEMM, im2col and fused Winograd kernels, VGG-16 224 b8 with
     # winograd_fused=False that of the three 16-bit 3-pass kernels), on
     # their own generator's draws: every 16-bit kernel call of the four
     # cells against its plain version (timed at YOLOv3-tiny's and VGG-16's
     # shapes), then each cell end to end beside its fp32 forward.
     rng_h = np.random.default_rng(SEED)
     half_cells = {
-        "yolov3-tiny 416 b1": (yolov3.TINY_MODEL, {}, FORWARD_REPS, (
+        "yolov3-tiny 416 b1": (yolov3.TINY_MODEL, 1, {}, FORWARD_REPS, (
             "gemm_16", "im2col_conv_16", "winograd_fused_16")),
-        "yolov3-20 608 b1": (yolov3.MODEL_20, {}, SHORT_FORWARD_REPS, (
+        "yolov3-20 608 b1": (yolov3.MODEL_20, 1, {}, SHORT_FORWARD_REPS, (
             "gemm_16", "im2col_conv_16", "winograd_fused_16")),
-        "vgg16 224 b1": (vgg16.MODEL, {}, FORWARD_REPS, (
+        "vgg16 224 b1": (vgg16.MODEL, 1, {}, FORWARD_REPS, (
             "im2col_conv_16", "winograd_fused_16")),
-        vgg3_cell: (vgg16.MODEL, {"winograd_fused": False}, FORWARD_REPS, (
-            "input_transform_16", "tuple_multiply_16", "output_transform_16")),
+        vgg3_cell: (vgg16.MODEL, 8, {"winograd_fused": False},
+                    SHORT_FORWARD_REPS, ("input_transform_16",
+                                         "tuple_multiply_16",
+                                         "output_transform_16")),
     }
     half_params = {}                    # one set of weights a network
-    for model, _, _, _ in half_cells.values():
+    for model, _, _, _, _ in half_cells.values():
         if model.name not in half_params:
             half_params[model.name] = random_batchnorm(
                 init_cnn(rng_h, model.layers), rng_h)
     for dtype in HALF:
         steps16 = {}
-        for cell, (model, opts, reps, timed) in half_cells.items():
+        for cell, (model, batch, opts, reps, timed) in half_cells.items():
             name = f"{cell} {dtype}"
             three_pass = opts.get("winograd_fused") is False
             summary, steps16[cell] = check_kernels(
-                netplan_of(model, 1, dtype, **opts), rng_h, H100, name,
+                netplan_of(model, batch, dtype, **opts), rng_h, H100, name,
                 timed=timed, winograd_only=three_pass)
-            counts, _ = run_cell(model, 1, rng_h, half_params[model.name],
+            counts, _ = run_cell(model, batch, rng_h, half_params[model.name],
                                  {"dtype": dtype, **opts}, name,
                                  profile=True, reps=reps)
+            if three_pass and any(counts.get(k) != 2 for k in timed):
+                raise AssertionError(f"{name}: launches {counts}, want 2 of "
+                                     f"each of {timed}")
             if dtype == "bfloat16" and cell in (tiny_cell, vgg3_cell):
                 summaries[name], launches[name] = summary, counts
-        # VGG-16's 16-bit Winograd layers, the fused kernel's time beside
-        # the 3-pass pipeline's (the calls' T, C, O, grid and splits are
-        # in their kernel lines above).
-        for i, fused in sorted(steps16["vgg16 224 b1"].items()):
-            if "winograd_fused_16" not in fused:
-                continue
-            parts = steps16[vgg3_cell][i]
-            total = sum(parts.values())
-            log(f"vgg16 224 b1 {dtype} L{i}: fused "
-                f"{fused['winograd_fused_16']:.4f} ms, 3-pass {total:.4f} ms ("
+        # VGG-16 b8's 3-pass layers, the fused kernel's time beside the
+        # 3-pass pipeline's (the calls' T, C, O, grid and splits are in
+        # their kernel lines above).
+        _, fused16 = check_kernels(
+            netplan_of(vgg16.MODEL, 8, dtype), rng_h, H100,
+            f"vgg16 224 b8 {dtype}", timed=("winograd_fused_16",),
+            winograd_only=True)
+        for i, parts in sorted(steps16[vgg3_cell].items()):
+            fused, total = fused16[i]["winograd_fused_16"], sum(parts.values())
+            log(f"vgg16 224 b8 {dtype} L{i}: fused {fused:.4f} ms, 3-pass "
+                f"{total:.4f} ms ("
                 + " + ".join(f"{k} {v:.4f}" for k, v in parts.items())
-                + f"), 3-pass / fused {total / fused['winograd_fused_16']:.2f}")
+                + f"), 3-pass / fused {total / fused:.2f}")
     # The cost model's 16-bit plans (mode="model", the '_16' constants of
     # hw.H100.kernel_fit), every kernel call held in both types, each cell
     # run in bf16 beside the fp32 model-mode forward.
     for cell in (tiny_cell, "vgg16 224 b1"):
-        model, _, reps, _ = half_cells[cell]
+        model, _, _, reps, _ = half_cells[cell]
         name = f"{cell} bfloat16 mode=model"
         for dtype in HALF:
             check_kernels(netplan_of(model, 1, dtype, mode="model"), rng_h,
@@ -2254,6 +2525,23 @@ def main() -> int:
         ops_ms=n * f["bound_ms"] if f["bound_by"] == "operations" else 0.0,
         bytes_ms=n * f["bound_ms"] if f["bound_by"] == "bytes" else 0.0)}
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+
+    # Phase 8b: CNN serving through the bucket ladder, on its own
+    # generator's draws, in the three types; then faults on the fp32 one.
+    # The batches of YOLOv3-tiny 416 whose kernel calls phases 3 and 7b
+    # held against their plain versions, by dtype.
+    rng_s = np.random.default_rng(SEED)
+    checked = {"float32": (1, 4), "bfloat16": (1,), "int8": (1,)}
+    for dtype in ("float32", "bfloat16", "int8"):
+        name = f"yolov3-tiny 416 {dtype} buckets {SERVE_BUCKETS}"
+        served = serve_cell(yolov3.TINY_MODEL, dtype, rng_s, name,
+                            checked[dtype])
+        if dtype == "float32":
+            fp32_served = (*served, name)
+        del served
+    serve_faults(*fp32_served)
+    del fp32_served
+    log(f"phase 8b done at {time.perf_counter() - t_start:.1f} s")
 
     # Phase 9: the kernels line, then the last line.
     kernels = []

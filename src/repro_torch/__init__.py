@@ -10,6 +10,7 @@ neither it nor JAX.  The public surface mirrors it::
     compiled = repro_torch.compile(yolov3.TINY_MODEL, params,
                                    repro_torch.ExecutionOptions())
     y = compiled.run(x)          # (B, 416, 416, 3) NHWC on the card
+    engine = compiled.serve()    # buckets 1/4/8: submit(image), run()
 
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
@@ -49,6 +50,25 @@ from repro_torch.core import (
     conv2d,
     conv2d_reference,
 )
+from repro_torch.serving import (
+    Backpressure,
+    CNNServingEngine,
+    DeadlineExceeded,
+    FakeClock,
+    FaultPlan,
+    FaultSpec,
+    ImageRequest,
+    InjectedFault,
+    InvalidRequest,
+    QueueNotDrained,
+    Request,
+    RequestFailed,
+    ResilientEngine,
+    ServingEngine,
+    ServingError,
+    corrupt_cache_file,
+    is_failure,
+)
 
 __all__ = [
     "CNNModel",
@@ -67,4 +87,21 @@ __all__ = [
     "Planner",
     "conv2d",
     "conv2d_reference",
+    "Backpressure",
+    "CNNServingEngine",
+    "DeadlineExceeded",
+    "FakeClock",
+    "FaultPlan",
+    "FaultSpec",
+    "ImageRequest",
+    "InjectedFault",
+    "InvalidRequest",
+    "QueueNotDrained",
+    "Request",
+    "RequestFailed",
+    "ResilientEngine",
+    "ServingEngine",
+    "ServingError",
+    "corrupt_cache_file",
+    "is_failure",
 ]

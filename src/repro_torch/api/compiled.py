@@ -6,10 +6,12 @@ prepare (batchnorm fold, channel padding, offline Winograd weight
 transform; under int8, calibration and weight quantization) -> run.  An LM
 ``ModelConfig`` compiles to a ``CompiledLM``: the full-sequence forward
 (prefill) for ``run``, the continuous-batching engine for ``serve``.
+``serve`` of a CNN returns the bucket-ladder engine
+(serving/cnn_engine.py), of an LM the decode engine (serving/engine.py).
 ``save`` writes a small JSON artifact: the model's identity, the option
 surface and, of a CNN, the whole-network plans of its planned batch
 sizes; ``load`` rebuilds the compiled model from it and re-tunes nothing,
-with or without a plan cache.  CNN serving comes in a later slice.
+with or without a plan cache.
 """
 from __future__ import annotations
 
@@ -155,6 +157,16 @@ class CompiledCNN:
     def __call__(self, x) -> torch.Tensor:
         return self.run(x)
 
+    def serve(self, buckets: Optional[Sequence[int]] = None, **kw):
+        """A ``CNNServingEngine`` on this compilation: one executor (on the
+        card one CUDA graph) per bucket of ``buckets`` (None:
+        ``options.buckets``), each planned and captured now; admission,
+        deadlines and retries from the options.  ``clock=`` and
+        ``faults=`` pass through."""
+        from repro_torch.serving.cnn_engine import CNNServingEngine
+
+        return CNNServingEngine.from_compiled(self, buckets=buckets, **kw)
+
     def plan_report(self, batch: Optional[int] = None) -> Dict[str, Any]:
         """The resolved per-layer decisions, machine-readable."""
         netplan = self.network_plan(batch)
@@ -266,7 +278,8 @@ class CompiledLM:
     def serve(self, batch_size: Optional[int] = None, capacity: int = 256,
               **engine_opts):
         """A continuous-batching ServingEngine for this model;
-        ``batch_size`` defaults to ``options.batch``."""
+        ``batch_size`` defaults to ``options.batch``, admission, deadlines
+        and retries come from the options (``engine_opts`` win)."""
         from repro_torch.serving.engine import ServingEngine
 
         return ServingEngine.from_compiled(

@@ -1,17 +1,30 @@
 """ExecutionOptions: the option surface of the ``repro_torch`` facade.
 
-The port of ``repro/api/options.py``, cut to what the port runs.
+The port of ``repro/api/options.py``, cut to what the port runs: no
+``shard_batch``, ``pipeline_stages`` or ``microbatch`` (multi-GPU,
+ROADMAP.md queue 1 item 5), no ``validate`` (item 6), and no ``fallback``:
+the port's serving engines have one rung, the kernels, and a batch that
+fails on them after its retries fails its requests.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 _IMPLS = ("cuda", "torch")
 _MODES = ("cost", "measure", "model")
 _DTYPES = ("float32", "bfloat16", "float16", "int8")
+
+
+def normalize_buckets(buckets) -> Tuple[int, ...]:
+    """Serving batch sizes, sorted and deduplicated; ValueError unless a
+    non-empty set of positive integers."""
+    if not buckets or any(int(b) <= 0 for b in buckets):
+        raise ValueError(f"buckets must be a non-empty tuple of positive "
+                         f"batch sizes, got {buckets!r}")
+    return tuple(sorted({int(b) for b in buckets}))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,7 +37,8 @@ class ExecutionOptions:
       device        where parameters and activations live; 'cuda' by
                     default.  The CPU is used only when asked for
                     (``device='cpu', impl='torch'``).
-      mode          'cost' (default): the planner's tile rule;
+      mode          'cost' (default): the reference planner's rule
+                    (core/cost_rule.py);
                     'model': the card's co-design cost model
                     (core/codesign.py) prices each candidate's launches
                     and keeps the cheapest, and gates int8 by it;
@@ -36,7 +50,8 @@ class ExecutionOptions:
                     the planner choose (the fused kernel in cost mode, the
                     faster in measure mode); True forces the fused kernel,
                     False the 3-pass pipeline (input transform, tuple
-                    multiply, output transform).
+                    multiply, output transform), which cost mode then
+                    weighs against im2col.
       batch         the batch size planned and prepared by ``compile``.
       pretransform  apply the offline Winograd weight transform during
                     parameter preparation (paper §VII.A excludes it from
@@ -58,6 +73,18 @@ class ExecutionOptions:
                     stays fp32); int8 layers run the int8 kernels on
                     inputs quantized at their entry with scales
                     calibrated in ``compile``.  Inputs stay fp32.
+      buckets       the serving engine's batch sizes (``serve()``), sorted
+                    and deduplicated: one planned forward, and on the card
+                    one CUDA graph, each.
+      max_queue     admission bound of the serving engines: ``submit``
+                    raises ``Backpressure`` once this many requests wait
+                    (None: unbounded).
+      default_deadline_s
+                    a request's deadline, in seconds from its ``submit``,
+                    when it names none (None: no deadline); an expired
+                    request gets a ``DeadlineExceeded`` result.
+      retries       calls of a failed batch again on the same kernels
+                    (>= 0) before its requests fail with ``RequestFailed``.
     """
 
     impl: str = "cuda"
@@ -68,6 +95,10 @@ class ExecutionOptions:
     pretransform: bool = True
     dtype: str = "float32"
     cache_path: Optional[str] = None
+    buckets: Tuple[int, ...] = (1, 4, 8)
+    max_queue: Optional[int] = None
+    default_deadline_s: Optional[float] = None
+    retries: int = 1
 
     def __post_init__(self) -> None:
         if self.impl not in _IMPLS:
@@ -81,6 +112,16 @@ class ExecutionOptions:
             raise ValueError(f"dtype must be one of {_DTYPES}, got {self.dtype!r}")
         if self.batch < 1:
             raise ValueError(f"batch must be >= 1, got {self.batch}")
+        object.__setattr__(self, "buckets", normalize_buckets(self.buckets))
+        if self.retries < 0:
+            raise ValueError(f"retries must be >= 0, got {self.retries}")
+        if self.max_queue is not None and self.max_queue < 1:
+            raise ValueError(
+                f"max_queue must be None or >= 1, got {self.max_queue}")
+        if self.default_deadline_s is not None and self.default_deadline_s <= 0:
+            raise ValueError(
+                f"default_deadline_s must be None or > 0, got "
+                f"{self.default_deadline_s}")
         dev = torch.device(self.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -104,10 +145,14 @@ class ExecutionOptions:
     # -- persistence (CompiledCNN.save and load ride this) -------------------
 
     def to_json(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        d["buckets"] = list(self.buckets)
+        return d
 
     @classmethod
     def from_json(cls, d: Dict[str, Any]) -> "ExecutionOptions":
+        """The options of ``to_json``'s dict; a field it lacks (an artifact
+        saved before the field existed) takes its default."""
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
 

@@ -682,9 +682,10 @@ class NetworkExecutor:
             return run_network(self.netplan, self.params, x,
                                pretransformed=self.pretransformed)
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if x.device.type != "cuda":
-            return self.eager(x)
+    def capture(self, x: torch.Tensor) -> None:
+        """Capture the forward's CUDA graph on ``x`` (a batch on the card)
+        unless it is captured: the warm-up and capture that the first call
+        would make, without the call's replay."""
         self._check(x)
         if self.graph is None:
             from repro_torch.graphs import CapturedCall
@@ -694,4 +695,9 @@ class NetworkExecutor:
                 self.eager, (x,),
                 f"the planned forward ({p.dtype}, batch {p.batch} at "
                 f"{p.input_hw[0]}x{p.input_hw[1]})", pool=self._pool)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "cuda":
+            return self.eager(x)
+        self.capture(x)
         return self.graph(x)

@@ -6,23 +6,17 @@ algorithm, Winograd realization, precision and kernel blocks of a conv
 layer are decided once per (layer, input shape, batch, mode, policy,
 chip) and reused, in memory and, with a ``cache_path``, across processes.
 
-**Cost mode** (the default).  A tile-count rule stands in for the
-reference's roofline selection, chosen only to reproduce the TPU
-planner's split:
-
-- a 3x3 stride-1 conv goes to Winograd when it has at least
-  ``WINOGRAD_MIN_TILES`` 6x6 output tiles (B * ceil(OH/6) * ceil(OW/6)),
-  and to im2col otherwise;
-- a 1x1 stride-1 conv goes to the direct GEMM;
-- everything else goes to im2col.
-
-An explicit ``ConvSpec.algorithm`` wins over the rule.  Its threshold
-gives the reference planner's split on YOLOv3-tiny at 416x416, batch 1
-(Winograd on layers 0, 2, 4, 6, im2col on 8, 10, 12, 14, 20, direct on the
-1x1 convs).  A Winograd layer runs the fused kernel unless the planner's
-``winograd_fused`` policy is False: the policy None (auto) resolves to
-fused, the port's stand-in for the reference's modeled comparison, whose
-TPU model never picks the 3-pass pipeline.
+**Cost mode** (the default): the reference planner's own rule
+(core/cost_rule.py, the port of its roofline selection).  A 1x1 stride-1
+conv goes to the direct GEMM, a 3x3 stride-1 conv to Winograd where the
+realization the policy would run (the fused kernel under None and True,
+the 3-pass pipeline under False) is cheaper than im2col under the rule,
+and everything else to im2col; an explicit ``ConvSpec.algorithm`` wins.
+The policy None resolves to the fused kernel, as the reference's
+comparison of the two realizations always does.  bf16 and fp16 layers
+are priced at their operand width.  The plan's ``source`` is
+'cost_rule' and it carries no predicted time: the rule decides as the
+reference does, and prices nothing on this card.
 
 **Model mode** (``mode='model'``, the port of the reference's cost mode,
 ``_tune_cost_model``): the co-design cost model of this card
@@ -55,22 +49,16 @@ on too.
 layer quantizes only when it passes the gates of core/quant.py.  Its fp32
 plan is taken first; a layer that fails ``int8_worthwhile`` keeps it; a
 1x1 stride-1 conv goes to the int8 GEMM and every other layer to the int8
-implicit-GEMM conv -- in model mode only where the model prices that
-below the fp32 plan (the reference's time gate, entry quantization
-included); in cost and measure mode, as a stand-in for that gate, except
-that an fp32 Winograd plan stays fp32 Winograd when the layer has at
-least ``INT8_WINOGRAD_MIN_TILES`` 6x6 output tiles (any value in
-(361, 1225] reproduces the reference's split on YOLOv3-tiny 416, batch 1
-and 4, VGG-16 224 and MODEL_20 608 at batch 1, and nothing more is claimed
-for it).  int8 candidates are not timed in measure mode.
+implicit-GEMM conv, but only where that costs less than the fp32 plan:
+under the card's model in model mode, and under the reference's rule in
+cost and measure mode (int8 candidates are not timed).
 
 **bf16 and fp16** (``plan(..., dtype='bfloat16' | 'float16')``): every
 layer runs in the requested type, through the 16-bit kernel of the
-algorithm the mode picks.  Cost mode's split is its fp32 split (the
-reference's cost-mode plans of YOLOv3-tiny 416, MODEL_20 608 and VGG-16
-224 at batch 1 are the same in all three types); measure mode times the
-16-bit candidates; model mode prices the 16-bit kernels with their own
-fitted constants (``hw.H100.kernel_fit``: ``gemm_16`` ... ``glue_16``).
+algorithm the mode picks: cost mode's rule at 2-byte operands, measure
+mode's timings of the 16-bit candidates, model mode's prices of the
+16-bit kernels with their own fitted constants (``hw.H100.kernel_fit``:
+``gemm_16`` ... ``glue_16``).
 
 **Persistence** (``cache_path``; None, the default, keeps plans in
 memory only).  The cache is one versioned JSON file: "plans" (per layer),
@@ -102,15 +90,16 @@ from repro_torch.core.conv_spec import ConvAlgorithm, ConvSpec
 from repro_torch.hw import H100, ChipSpec
 from repro_torch.util import HALF_DTYPES
 
-WINOGRAD_MIN_TILES = 64
-INT8_WINOGRAD_MIN_TILES = 1024
 DTYPES = ("float32", "bfloat16", "float16", "int8")
 MODES = ("cost", "measure", "model")
 MEASURE_REPS = 10         # timed calls per measure-mode candidate
 
 #: The version of the cache file's layout; a file of another version is a
-#: cold start.
-PLAN_CACHE_VERSION = 1
+#: cold start.  2: cost mode decides by the reference's rule.
+PLAN_CACHE_VERSION = 2
+#: The ``source`` of plans made by a rule cost mode no longer runs (the
+#: tile count before version 2): such a plan, in a save artifact, replans.
+RETIRED_SOURCES = ("tile_rule",)
 #: A cache file for callers who want one (``Planner``'s ``cache_path``
 #: defaults to None).
 DEFAULT_CACHE_PATH = os.environ.get(
@@ -266,13 +255,13 @@ class ConvPlan:
     entry, 'bfloat16' and 'float16' the 16-bit kernels, 'float32' the fp32
     ones.  ``predicted_s`` is the modeled
     seconds in model mode, the measured seconds in measure mode, and None
-    from the tile rule (``source`` says which).
+    in cost mode (``source`` says which).
     """
 
     algorithm: ConvAlgorithm
     impl: str
     kernel_blocks: Tuple[int, int, int]
-    source: str = "tile_rule"
+    source: str = "cost_rule"
     winograd_fused: bool = True
     measured_ms: Tuple[Tuple[str, float], ...] = ()
     dtype: str = "float32"
@@ -321,6 +310,11 @@ class ConvPlan:
         )
 
 
+def _itemsize(dtype: str) -> int:
+    """Bytes of one operand of a ``dtype`` plan."""
+    return {"float32": 4, "int8": 1}.get(dtype, 2)
+
+
 def plan_key(spec: ConvSpec, h: int, w: int, batch: int, impl: str,
              mode: str, winograd_fused: Optional[bool],
              dtype: str = "float32", chip: str = H100.name,
@@ -356,23 +350,6 @@ def winograd_tiles(spec: ConvSpec, h: int, w: int, batch: int) -> int:
     return batch * -(-oh // 6) * -(-ow // 6)
 
 
-def select_algorithm_by_tiles(spec: ConvSpec, h: int, w: int,
-                              batch: int) -> ConvAlgorithm:
-    """The tile-count rule of the module docstring."""
-    if spec.algorithm is not ConvAlgorithm.AUTO:
-        return spec.algorithm
-    if spec.kernel_size == (1, 1) and spec.stride == (1, 1):
-        return ConvAlgorithm.DIRECT
-    if (
-        spec.kernel_size == (3, 3)
-        and spec.stride == (1, 1)
-        and spec.dilation == (1, 1)
-        and winograd_tiles(spec, h, w, batch) >= WINOGRAD_MIN_TILES
-    ):
-        return ConvAlgorithm.WINOGRAD
-    return ConvAlgorithm.IM2COL_GEMM
-
-
 def eligible_algorithms(spec: ConvSpec) -> List[ConvAlgorithm]:
     """Measure mode's candidates (a forced spec collapses to one)."""
     if spec.algorithm is not ConvAlgorithm.AUTO:
@@ -391,7 +368,7 @@ def eligible_algorithms(spec: ConvSpec) -> List[ConvAlgorithm]:
 class Planner:
     """Resolves and caches ConvPlans.
 
-    ``mode`` is 'cost' (the tile rule), 'model' (the card's cost model,
+    ``mode`` is 'cost' (the reference's rule), 'model' (the card's cost model,
     priced with ``hw``) or 'measure' (time the candidates on ``device``).
     ``winograd_fused`` is the Winograd realization policy: None lets the
     planner choose (fused in cost mode, the cheaper in model mode, the
@@ -538,13 +515,8 @@ class Planner:
             plan = self._tune_measured(spec, h, w, batch, dtype)
         elif self.mode == "model":
             plan = self._tune_cost_model(spec, h, w, batch, dtype)
-        elif dtype in HALF_DTYPES:
-            fp32_plan = self._tune_cost(spec, h, w, batch)
-            plan = self._candidate(spec, fp32_plan.algorithm,
-                                   fp32_plan.winograd_fused, h, w, batch,
-                                   fp32_plan.source, dtype=dtype)
         else:
-            plan = self._tune_cost(spec, h, w, batch)
+            plan = self._tune_cost(spec, h, w, batch, dtype)
         self._plans[key] = plan
         self._dirty = True
         return plan
@@ -560,11 +532,16 @@ class Planner:
                         source=source, winograd_fused=wf, dtype=dtype,
                         predicted_s=predicted_s)
 
-    def _tune_cost(self, spec: ConvSpec, h: int, w: int,
-                   batch: int) -> ConvPlan:
-        algo = select_algorithm_by_tiles(spec, h, w, batch)
+    def _tune_cost(self, spec: ConvSpec, h: int, w: int, batch: int,
+                   dtype: str = "float32") -> ConvPlan:
+        """The reference's rule (core/cost_rule.py) at ``dtype``'s operand
+        width, under the realization the policy runs."""
+        from repro_torch.core import cost_rule
+
         wf = self.winograd_fused if self.winograd_fused is not None else True
-        return self._candidate(spec, algo, wf, h, w, batch, "tile_rule")
+        algo = cost_rule.select(spec, h, w, _itemsize(dtype), batch, wf)
+        return self._candidate(spec, algo, wf, h, w, batch, "cost_rule",
+                               dtype=dtype)
 
     def _tune_cost_model(self, spec: ConvSpec, h: int, w: int, batch: int,
                          dtype: str = "float32") -> ConvPlan:
@@ -581,26 +558,28 @@ class Planner:
 
     def _tune_int8(self, spec: ConvSpec, h: int, w: int,
                    batch: int) -> ConvPlan:
-        """The int8 gate of cost and measure mode (module docstring).  As
-        in the reference, Winograd is an int8 candidate only when
+        """The int8 gates of cost and measure mode, the reference's: past
+        the traffic gate, the int8 candidate is kept only where the rule
+        (core/cost_rule.py) prices it below the fp32 plan.  As in the
+        reference, Winograd is an int8 candidate only when
         ``quant.winograd_int8_budget_ok()`` holds; F(6,3) misses that
         transform-stage error budget, so an int8 3x3 layer runs the
         implicit-GEMM conv (the dispatcher has no int8 Winograd kernel and
         refuses such a plan)."""
+        from repro_torch.core.cost_rule import rule_time
         from repro_torch.core.quant import int8_worthwhile
 
         fp32_plan = self._tune_cost(spec, h, w, batch)
         if not int8_worthwhile(spec, h, w, batch):
             return fp32_plan
         algo = self._int8_algorithm(spec, fp32_plan)
-        # The stand-in for the reference's time gate: a layer with many
-        # tiles keeps fp32 Winograd rather than int8 im2col.
-        if (fp32_plan.algorithm is ConvAlgorithm.WINOGRAD
-                and algo is ConvAlgorithm.IM2COL_GEMM
-                and winograd_tiles(spec, h, w, batch) >= INT8_WINOGRAD_MIN_TILES):
+        wf = fp32_plan.winograd_fused and algo is ConvAlgorithm.WINOGRAD
+        if (rule_time(spec, h, w, algo, 1, batch, wf)
+                >= rule_time(spec, h, w, fp32_plan.algorithm, 4, batch,
+                             fp32_plan.winograd_fused)):
             return fp32_plan
-        return self._candidate(spec, algo, fp32_plan.winograd_fused, h, w,
-                               batch, "tile_rule", dtype="int8")
+        return self._candidate(spec, algo, wf, h, w, batch, "cost_rule",
+                               dtype="int8")
 
     def _tune_int8_model(self, spec: ConvSpec, h: int, w: int,
                          batch: int) -> ConvPlan:
@@ -701,12 +680,15 @@ def kernel_blocks(spec: ConvSpec, algo: ConvAlgorithm, h: int, w: int,
 
 def plan_is_current(plan: ConvPlan, spec: ConvSpec, h: int, w: int,
                     batch: int) -> bool:
-    """Whether ``plan`` still names the tile its kernel is compiled with
-    (``kernel_blocks``): a plan cached or saved before a kernel's tile
-    changed is stale, and replans.  The fp32 and int8 implicit-GEMM convs
+    """Whether ``plan`` comes from a rule the planner still runs (not one
+    of ``RETIRED_SOURCES``) and still names the tile its kernel is
+    compiled with (``kernel_blocks``): a plan cached or saved before its
+    rule or its kernel's tile changed is stale, and replans.  The fp32 and int8 implicit-GEMM convs
     take any row tile (a network plan snaps it to the map), so only their
     channel step and out-channel block must be the kernel's; the 16-bit
     one's whole tile must."""
+    if plan.source in RETIRED_SOURCES:
+        return False
     want = kernel_blocks(spec, plan.algorithm, h, w, batch,
                          plan.winograd_fused, plan.dtype)
     if (plan.algorithm is ConvAlgorithm.IM2COL_GEMM

@@ -290,7 +290,7 @@ def test_compiled_slice16_matches_reference(rows, hw, batch, seed, options,
     assert netplan.dtype == dtype and compiled.plan_report()["dtype"] == dtype
     wf = options.get("winograd_fused", True)
     source = {"measure": "measured", "model": "cost_model"}.get(
-        options.get("mode"), "tile_rule")
+        options.get("mode"), "cost_rule")
     for s in netplan.steps:
         if s.plan is None:
             continue

@@ -334,18 +334,26 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
                            torch.ones(4, device=cuda_device))
 
 
-def _small_network_on_card(device, **options):
-    """A narrow YOLOv3-tiny-shaped net: impl='cuda' against impl='torch',
-    with each kernel launched as often as the plan says."""
-    def conv(ch, k=3):
-        return CNNLayer("conv", out_channels=ch, kernel=k)
+def _conv(ch, k=3, s=1):
+    return CNNLayer("conv", out_channels=ch, kernel=k, stride=s)
 
-    pool2 = CNNLayer("maxpool", size=2, stride=2)
-    # Winograd at 64 and 32 px, the GEMM on the 1x1s, im2col at 16 px.
-    layers = (conv(13), pool2, conv(24), pool2, conv(16, 1),
-              CNNLayer("maxpool", size=2, stride=1), conv(32),
-              CNNLayer("conv", out_channels=21, kernel=1, batch_norm=False,
-                       activation="linear"))
+
+_POOL2 = CNNLayer("maxpool", size=2, stride=2)
+_HEAD = CNNLayer("conv", out_channels=21, kernel=1, batch_norm=False,
+                 activation="linear")
+# A narrow YOLOv3-tiny-shaped net: the GEMM on the 1x1s, fused Winograd
+# at 64 and 16 px, im2col on the stride-2 conv; a forced 3-pass planner
+# keeps Winograd only on the 32 -> 16 conv.
+_NARROW = (_conv(32), _conv(16), _POOL2, _conv(24, s=2), _conv(16, 1),
+           CNNLayer("maxpool", size=2, stride=1), _conv(32), _HEAD)
+# Its int8 variant: a 13-wide stem and no stride-2 conv.
+_NARROW_INT8 = (_conv(13), _POOL2, _conv(24), _POOL2, _conv(16, 1),
+                CNNLayer("maxpool", size=2, stride=1), _conv(32), _HEAD)
+
+
+def _small_network_on_card(device, layers=_NARROW, **options):
+    """A narrow net: impl='cuda' against impl='torch', with each kernel
+    launched as often as the plan says."""
     model = repro_torch.CNNModel(layers, (64, 64), name="narrow")
     rng = np.random.default_rng(0)
     params = random_batchnorm(init_cnn(rng, layers), rng)
@@ -376,16 +384,17 @@ def test_small_network_on_card(cuda_device):
     assert set(netplan.algorithm_counts()) == {
         ConvAlgorithm.DIRECT, ConvAlgorithm.IM2COL_GEMM, ConvAlgorithm.WINOGRAD}
     assert launches == netplan.kernel_launches() == {
-        "gemm": 2, "im2col_conv": 1, "winograd_fused": 2}
+        "gemm": 2, "im2col_conv": 1, "winograd_fused": 3}
 
 
 def test_small_network_3pass_on_card(cuda_device):
-    """The same net with the 3-pass pipeline on both Winograd layers."""
+    """The same net with the policy forcing the 3-pass pipeline: the
+    32 -> 16 conv runs it, the other 3x3 convs im2col."""
     netplan, launches = _small_network_on_card(cuda_device,
                                                winograd_fused=False)
     assert launches == netplan.kernel_launches() == {
-        "gemm": 2, "im2col_conv": 1, "input_transform": 2,
-        "tuple_multiply": 2, "output_transform": 2}
+        "gemm": 2, "im2col_conv": 3, "input_transform": 1,
+        "tuple_multiply": 1, "output_transform": 1}
 
 
 def test_small_network_int8_on_card(cuda_device):
@@ -395,7 +404,8 @@ def test_small_network_int8_on_card(cuda_device):
     and the output is within 40 dB of the plain int8 forward (an fp32
     difference before an int8 layer may round a value near a quantization
     step the other way)."""
-    netplan, launches = _small_network_on_card(cuda_device, dtype="int8")
+    netplan, launches = _small_network_on_card(cuda_device, _NARROW_INT8,
+                                               dtype="int8")
     assert launches == netplan.kernel_launches() == {
         "im2col_conv_q8": 3, "gemm": 2}
 

@@ -51,6 +51,42 @@ def test_port_sources_import_no_jax_or_reference():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("module", [
+    "core/cost_rule.py", "serving/cnn_engine.py", "serving/faults.py",
+    "serving/resilience.py", "serving/engine.py"])
+def test_the_planner_rule_and_serving_modules_are_walked(module):
+    """The cost rule and the serving modules, which copy the reference's
+    logic, are among the walked sources and import neither JAX nor the
+    reference (the rule's crossovers are constants of its own)."""
+    path = PORT / module
+    assert path in _port_files()
+    assert not [m for m in _imported_modules(path)
+                if m.split(".")[0] in FORBIDDEN]
+
+
+def test_a_served_cnn_on_the_card_path_never_serves_on_the_cpu():
+    """The serving engine runs its compilation's executors: a
+    CUDA-planned executor fed a CPU batch raises, and the engine fails the
+    request rather than serving it through a plain version."""
+    from repro_torch.serving import RequestFailed
+    from repro_torch.serving.cnn_engine import CNNServingEngine
+
+    layers = yolov3.TINY_LAYERS[:2]
+    model = repro_torch.CNNModel(layers, (32, 32))
+    compiled = repro_torch.compile(model, init_cnn(np.random.default_rng(0),
+                                                   layers),
+                                   repro_torch.ExecutionOptions(
+                                       impl="torch", device="cpu"))
+    engine = CNNServingEngine.from_compiled(compiled, buckets=(1,))
+    cuda_plan = plan_network(layers, 32, 32, Planner(impl="cuda"))
+    engine._executors[1] = NetworkExecutor(cuda_plan, compiled.params)
+    uid = engine.submit(np.zeros((32, 32, 3), np.float32))
+    result = engine.run()[uid]
+    assert isinstance(result, RequestFailed)
+    assert "needs CUDA tensors" in result.reason
+    assert engine.health()["failed_batches"] == 1
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

@@ -141,6 +141,18 @@ def _narrow_vgg16():
     ]
 
 
+def _narrow_vgg16_3pass():
+    """Relu convs that halve their channels (16 -> 8) on a large map,
+    where the reference's planner sends them to the 3-pass pipeline when a
+    policy forces it (and the convs before them to im2col)."""
+    pool = dict(kind="maxpool", size=2, stride=2)
+    return [
+        _conv(16, act="relu"), _conv(8, act="relu"), pool,
+        _conv(16, act="relu"), _conv(8, act="relu"), pool,
+        dict(kind="fc", out_channels=10, activation="linear", batch_norm=False),
+    ]
+
+
 ALL_ALGOS = {ConvAlgorithm.DIRECT, ConvAlgorithm.IM2COL_GEMM,
              ConvAlgorithm.WINOGRAD}
 
@@ -157,17 +169,23 @@ def _models(spec_rows, hw, name):
     (_narrow_tiny(), (64, 64), 2, 1, ALL_ALGOS, {}),
     (_narrow_tiny(), (64, 64), 2, 1, ALL_ALGOS, {"pretransform": False}),
     (_narrow_layers_20(), (64, 56), 1, 2, ALL_ALGOS, {}),
-    (_narrow_vgg16(), (48, 48), 2, 3,
-     {ConvAlgorithm.IM2COL_GEMM, ConvAlgorithm.WINOGRAD}, {}),
-    (_narrow_tiny(), (64, 64), 2, 1, ALL_ALGOS, {"winograd_fused": False}),
-    (_narrow_vgg16(), (48, 48), 2, 3,
+    (_narrow_vgg16(), (48, 48), 2, 3, {ConvAlgorithm.WINOGRAD}, {}),
+    # A forced 3-pass planner competes im2col against the 3-pass pipeline,
+    # which these narrow widths never pick, as the reference's planner.
+    (_narrow_tiny(), (64, 64), 2, 1,
+     {ConvAlgorithm.DIRECT, ConvAlgorithm.IM2COL_GEMM},
+     {"winograd_fused": False}),
+    (_narrow_vgg16(), (48, 48), 2, 3, {ConvAlgorithm.IM2COL_GEMM},
+     {"winograd_fused": False}),
+    (_narrow_vgg16_3pass(), (96, 96), 2, 4,
      {ConvAlgorithm.IM2COL_GEMM, ConvAlgorithm.WINOGRAD},
      {"winograd_fused": False}),
     # Measure mode picks per layer from the CPU's timings: any split is
     # right, as long as the output matches.
     (_narrow_vgg16(), (48, 48), 2, 3, None, {"mode": "measure"}),
 ], ids=["tiny-b1", "tiny-b2", "tiny-b2-no-pretransform", "layers20-b1",
-        "vgg16-b2", "tiny-b2-3pass", "vgg16-b2-3pass", "vgg16-b2-measure"])
+        "vgg16-b2", "tiny-b2-3pass", "vgg16-b2-3pass", "vgg16-3pass-96-b2",
+        "vgg16-b2-measure"])
 def test_compiled_slice_matches_reference(rows, hw, batch, seed, algos,
                                           options):
     ours, ref_model = _models(rows, hw, "narrow")
@@ -189,7 +207,7 @@ def test_compiled_slice_matches_reference(rows, hw, batch, seed, algos,
         if s.layer.kind != "conv":
             continue
         assert s.plan.source == ("measured" if options.get("mode") == "measure"
-                                 else "tile_rule")
+                                 else "cost_rule")
         if s.plan.algorithm is ConvAlgorithm.WINOGRAD:
             assert s.plan.winograd_fused is (
                 options.get("winograd_fused") is not False)
@@ -198,7 +216,8 @@ def test_compiled_slice_matches_reference(rows, hw, batch, seed, algos,
     got = compiled.run(x).numpy()
 
     ref = np.asarray(repro.compile(ref_model, params, repro.ExecutionOptions(
-        impl="jax", batch=batch, cache_path=None)).run(jnp.asarray(x)))
+        impl="jax", batch=batch, cache_path=None,
+        winograd_fused=options.get("winograd_fused"))).run(jnp.asarray(x)))
     assert got.shape == ref.shape
     scale = float(np.abs(ref).max())
     np.testing.assert_allclose(got, ref, rtol=1e-4,

@@ -38,9 +38,9 @@ class _EveryConvIm2col(Planner):
     """Plans every conv as the implicit-GEMM conv: the calls measure mode
     could make, since im2col is a candidate of every conv."""
 
-    def _tune_cost(self, spec, h, w, batch):
+    def _tune_cost(self, spec, h, w, batch, dtype="float32"):
         return self._candidate(spec, ConvAlgorithm.IM2COL_GEMM, False, h, w,
-                               batch, "measured")
+                               batch, "measured", dtype=dtype)
 
 
 CELLS = {

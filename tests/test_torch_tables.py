@@ -3,7 +3,7 @@
 The layer tables of ``repro_torch.configs`` are plain-data copies of
 ``repro.configs`` (whose modules import JAX); they must stay equal field
 by field.  ``params_from_numpy`` must move a reference parameter list into
-the port unchanged, and the planner's tile-count rule must give YOLOv3-tiny
+the port unchanged, and cost mode's rule must give YOLOv3-tiny
 at 416x416, batch 1, the split of the reference's cost-mode planner.
 """
 import dataclasses
@@ -87,7 +87,7 @@ def test_init_cnn_shapes_match_reference():
 
 
 def test_planner_split_yolov3_tiny_416():
-    """The tile-count rule gives the reference cost-mode planner's split."""
+    """Cost mode's rule gives the reference cost-mode planner's split."""
     netplan = plan_network(yolov3.TINY_LAYERS, *yolov3.TINY_INPUT_HW,
                            Planner(), batch=1)
     got = {s.index: s.plan.algorithm for s in netplan.steps if s.plan}

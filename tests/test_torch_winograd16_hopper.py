@@ -48,7 +48,7 @@ from repro_torch.kernels.winograd.ref import (
     fused_winograd16_ref,
 )
 from repro_torch.models.cnn import init_cnn, random_batchnorm
-from test_torch_slice import _models, _narrow_vgg16
+from test_torch_slice import _models, _narrow_vgg16_3pass
 
 DTYPES = ("bfloat16", "float16")
 TOL = {"bfloat16": 2e-2, "float16": 5e-3}
@@ -196,7 +196,7 @@ OLD_TILE = [64, 32, 64]
 
 
 def _narrow_vgg(tmp_path):
-    model, _ = _models(_narrow_vgg16(), (96, 96), "narrow")
+    model, _ = _models(_narrow_vgg16_3pass(), (96, 96), "narrow")
     rng = np.random.default_rng(7)
     params = random_batchnorm(init_cnn(rng, model.layers), rng)
     x = rng.standard_normal((2, 96, 96, 3)).astype(np.float32)

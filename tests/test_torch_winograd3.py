@@ -7,6 +7,8 @@ the Pallas side padded to blocks of 8, at rtol = atol = 5e-4
 (tests/test_conv_conformance.py).  The CUDA kernels themselves are held
 against these plain versions on the card in tests/test_torch_cuda.py.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,9 @@ import torch.nn.functional as F
 
 import repro_torch
 from repro.core.conv_spec import ConvSpec as JConvSpec
+from repro.core.netplan import plan_network as j_plan_network
+from repro.core.planner import Planner as JPlanner
+from repro.models.cnn import CNNLayer as JCNNLayer
 from repro.kernels.winograd import conv2d_winograd_pallas
 from repro.kernels.winograd.kernel import (
     input_transform_pallas,
@@ -143,7 +148,7 @@ def _narrow_vgg():
         return CNNLayer("conv", out_channels=ch, kernel=3, activation="relu")
 
     pool = CNNLayer("maxpool", size=2, stride=2)
-    return (conv(8), conv(11), pool, conv(12), pool, conv(16),
+    return (conv(8), conv(11), pool, conv(12), pool, conv(16), conv(8),
             CNNLayer("fc", out_channels=10, activation="linear",
                      batch_norm=False))
 
@@ -161,27 +166,37 @@ def _winograd_steps(compiled):
             and s.plan.algorithm is ConvAlgorithm.WINOGRAD]
 
 
-@pytest.mark.parametrize("policy,fused", [(None, True), (True, True),
-                                          (False, False)])
-def test_planner_policy_picks_the_realization(policy, fused):
+@pytest.mark.parametrize("policy,fused,winograd,launches", [
+    (None, True, [0, 1, 3, 5, 6], {"winograd_fused": 5}),
+    (True, True, [0, 1, 3, 5, 6], {"winograd_fused": 5}),
+    # A forced 3-pass planner competes im2col against the 3-pass pipeline:
+    # only the conv that halves its channels keeps Winograd.
+    (False, False, [6], {"input_transform": 1, "tuple_multiply": 1,
+                         "output_transform": 1, "im2col_conv": 4}),
+])
+def test_planner_policy_picks_the_realization(policy, fused, winograd,
+                                              launches):
     compiled = _compile(winograd_fused=policy)
     steps = _winograd_steps(compiled)
-    assert len(steps) == 2          # the two 48x48 layers
+    assert [s.index for s in steps] == winograd
     for s in steps:
         assert s.plan.winograd_fused is fused
-        assert s.plan.source == "tile_rule"
+        assert s.plan.source == "cost_rule"
         spec, (h, w) = s.spec, s.in_hw
         assert s.plan.kernel_blocks == pick_blocks(
             2 * -(-h // 6) * -(-w // 6), spec.in_channels, spec.out_channels,
             fused=fused)
     rows = {r["index"]: r for r in compiled.plan_report()["layers"]}
     assert all(rows[s.index]["winograd_fused"] is fused for s in steps)
-    launches = compiled.network_plan().kernel_launches()
-    if fused:
-        assert launches == {"winograd_fused": 2, "im2col_conv": 2}
-    else:
-        assert launches == {"input_transform": 2, "tuple_multiply": 2,
-                            "output_transform": 2, "im2col_conv": 2}
+    assert compiled.network_plan().kernel_launches() == launches
+    # The reference's planner under the same policy makes the same plans.
+    ref = j_plan_network(
+        [JCNNLayer(**dataclasses.asdict(l)) for l in _narrow_vgg()], 48, 48,
+        JPlanner(impl="jax", cache_path=None, winograd_fused=policy), batch=2)
+    assert [(s.plan.algorithm.value, s.plan.winograd_fused)
+            for s in ref.steps if s.plan is not None] == [
+        (s.plan.algorithm.value, s.plan.winograd_fused)
+        for s in compiled.network_plan().steps if s.plan is not None]
 
 
 def test_policy_and_mode_are_part_of_the_plan_key():
