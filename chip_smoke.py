@@ -204,6 +204,24 @@ Phases, each on its own printed lines:
    its one request while its neighbours equal the clean rows, a latency
    fault (``FakeClock``) that expires the next request, and
    ``Backpressure`` at ``max_queue``;
+8c. multi-device CNN inference, each stage and shard its own entry of a
+   device list (its own stream, CUDA-graph pool and parameter copy), on
+   this card repeated: first the tick of an empty pipeline schedule (2
+   and 4 stages of one add each, 8 microbatches; ``core/netplan.
+   TICK_OVERHEAD_S`` is set from it); then YOLOv3-tiny 416 b8 pipelined
+   over 2 stages in fp32, bf16 and int8, VGG-16 224 b8 over 4 stages in
+   fp32, and YOLOv3-tiny 416 b8 batch-sharded 2 ways in fp32 and bf16,
+   each through ``repro_torch.compile(..., devices=...)`` and held
+   against the single-device replay of the same compilation's plan and
+   params (fp32 1e-3, bf16 2e-2 of max(1, max|ref|), int8 40 dB), each
+   stage's or shard's graph launching its slice of the plan, n_micro (or
+   shard) times a call, a held output unchanged by the next call, then
+   timed in turns beside the single replay and profiled (only planned
+   port kernels); then YOLOv3-tiny 416 served over buckets 1/4/8 with
+   ``pipeline_stages=2`` (rows bit-equal to the bucket's pipelined
+   forward, ``health()`` counters 0, ms per step beside the bucket's
+   ``run``); the same pipeline and shards over two cards where two are
+   visible, else a line that says multi-card execution was not run;
 9. one JSON line with every kernel's numbers — its launches in the forward
    its ``cell`` names (YOLOv3-tiny 416 b1 for the GEMM, im2col and fused
    Winograd kernels, VGG-16 224 b8 with ``winograd_fused=False`` for the
@@ -1276,12 +1294,15 @@ def deployment_sqnr(model, rng, name) -> None:
         f"sqnr_vs_plain_db={sqnr_db(y_plain, y):.2f} (printed, not gated)")
 
 
-def planned_cuda_launches(netplan):
-    """CUDA launches of each port kernel in one forward of ``netplan``, by
-    the profiler's name: the plan's count of each kernel, and each split-K
-    reduce kernel once for each fp32 or int8 im2col or GEMM call that
-    splits and each 16-bit fused Winograd call that splits C (the 16-bit
-    GEMM and im2col conv sum their splits in the same launch)."""
+def planned_cuda_launches(netplan, batch=None, start=0, stop=None):
+    """CUDA launches of each port kernel in one forward of ``netplan``'s
+    ``steps[start:stop]`` at ``batch`` (None: the plan's; a pipeline
+    stage runs a slice at microbatch size, a shard the whole plan at its
+    share of the batch), by the profiler's name: the plan's count of each
+    kernel, and each split-K reduce kernel once for each fp32 or int8
+    im2col or GEMM call that splits and each 16-bit fused Winograd call
+    that splits C (the 16-bit GEMM and im2col conv sum their splits in the
+    same launch; the split counts follow the call's shapes)."""
     from repro_torch.core.conv_spec import ConvAlgorithm
     from repro_torch.kernels.gemm.ops import call_splits as gemm_splits
     from repro_torch.kernels.gemm.ops import call_splits_q8 as gemm_splits_q8
@@ -1289,19 +1310,22 @@ def planned_cuda_launches(netplan):
     from repro_torch.kernels.winograd.ops import \
         call_splits_16 as call_splits_w16
 
-    want = {CUDA_NAMES[k]: n for k, n in netplan.kernel_launches().items()}
-    fp32 = [s for s in netplan.steps
+    batch = netplan.batch if batch is None else batch
+    steps = netplan.steps[start:stop]
+    want = {CUDA_NAMES[k]: n
+            for k, n in netplan.kernel_launches(start, stop).items()}
+    fp32 = [s for s in steps
             if s.layer.kind == "conv" and s.plan.dtype == "float32"]
     splits = sum(
-        call_splits(netplan.batch, *s.out_hw, s.in_layout.phys_c,
+        call_splits(batch, *s.out_hw, s.in_layout.phys_c,
                     s.out_layout.phys_c, s.plan.kernel_blocks[0]) > 1
         for s in fp32 if s.plan.algorithm is ConvAlgorithm.IM2COL_GEMM)
     if splits:
         want[SPLITK_REDUCE] = splits
     q8 = sum(
-        call_splits_q8(netplan.batch, *s.out_hw, s.in_layout.phys_c,
+        call_splits_q8(batch, *s.out_hw, s.in_layout.phys_c,
                        s.out_layout.phys_c, s.plan.kernel_blocks[0]) > 1
-        for s in netplan.steps
+        for s in steps
         if s.layer.kind == "conv" and s.plan.dtype == "int8"
         and s.plan.algorithm is ConvAlgorithm.IM2COL_GEMM)
     if q8:
@@ -1309,23 +1333,23 @@ def planned_cuda_launches(netplan):
     # A 1x1 conv's GEMM: M = B * OH * OW (the output map; a strided 1x1
     # subsamples its input first), K and N the physical channels.
     gemm = sum(
-        gemm_splits(netplan.batch * s.out_hw[0] * s.out_hw[1],
+        gemm_splits(batch * s.out_hw[0] * s.out_hw[1],
                     s.out_layout.phys_c, s.in_layout.phys_c) > 1
         for s in fp32 if s.plan.algorithm is ConvAlgorithm.DIRECT)
     if gemm:
         want[GEMM_SPLITK_REDUCE] = gemm
     gemm_q8 = sum(
-        gemm_splits_q8(netplan.batch * s.out_hw[0] * s.out_hw[1],
+        gemm_splits_q8(batch * s.out_hw[0] * s.out_hw[1],
                        s.out_layout.phys_c, s.in_layout.phys_c) > 1
-        for s in netplan.steps
+        for s in steps
         if s.layer.kind == "conv" and s.plan.dtype == "int8"
         and s.plan.algorithm is ConvAlgorithm.DIRECT)
     if gemm_q8:
         want[GEMM_Q8_SPLITK_REDUCE] = gemm_q8
-    half = [s for s in netplan.steps
+    half = [s for s in steps
             if s.layer.kind == "conv" and s.plan.dtype in HALF]
     wino16 = sum(
-        call_splits_w16(netplan.batch * -(-s.out_hw[0] // 6)
+        call_splits_w16(batch * -(-s.out_hw[0] // 6)
                         * -(-s.out_hw[1] // 6), s.in_layout.phys_c,
                         s.out_layout.phys_c) > 1
         for s in half if s.plan.algorithm is ConvAlgorithm.WINOGRAD
@@ -2195,6 +2219,310 @@ def serve_faults(cu, images, clean, uids, name) -> None:
         f"expired the next request (deadline 5 s), {rejected}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8c: multi-device CNN inference (pipeline stages, batch shards)
+
+# Microbatches and stages of the empty schedule whose tick is timed (the
+# YOLOv3-tiny b8 cells' scale), its timed forwards a round, and the rounds
+# whose median sets ``core/netplan.TICK_OVERHEAD_S``.
+TICK_MICRO, TICK_STAGES, TICK_REPS, TICK_ROUNDS = 8, 2, 50, 7
+
+
+def pipeline_tick_ms(device, n_stages=TICK_STAGES, n_micro=TICK_MICRO):
+    """Host ms per tick of the pipeline schedule (distributed/pipeline.py)
+    on stages that do no work: ``n_stages`` ``DeviceCall``s on ``device``,
+    each a CUDA graph of one add on a (1, 256) microbatch, driven by
+    ``pipeline_forward`` over ``n_micro`` microbatches; a forward's time
+    (ending in a synchronize) over its n_micro + n_stages - 1 ticks.  One
+    stage's run costs a graph replay, the stream waits and the boundary
+    copy; ``core/netplan.TICK_OVERHEAD_S`` is set from this."""
+    import torch
+
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.graphs import DeviceCall
+
+    stages = [DeviceCall(lambda t: t + 1, device, f"empty stage {s}")
+              for s in range(n_stages)]
+    x = torch.zeros((n_micro, 256), device=device)
+    for st in stages:
+        st.capture(x[:1])
+    y = pipeline_forward(stages, x, n_micro)
+    if not torch.equal(y, x + n_stages):
+        raise AssertionError("the empty pipeline did not add 1 a stage")
+    ms = forward_ms(lambda: pipeline_forward(stages, x, n_micro), TICK_REPS)
+    return ms / (n_micro + n_stages - 1)
+
+
+def check_microbatch(model, netplan, mb, name, checks):
+    """Every kernel call of ``netplan`` at batch ``mb`` (the batch a stage
+    or shard runs the full batch's plan at) against its plain version, on
+    the draws of ``checks``' generator, unless its set holds (network,
+    dtype, plan batch, mb): the fused Winograd and im2col calls take their
+    split counts from the call's shapes, so a plan run at another batch
+    makes calls of its own."""
+    from repro_torch.hw import H100
+
+    rng, checked = checks
+    key = (model.name, netplan.dtype, netplan.batch, mb)
+    if key not in checked:
+        checked.add(key)
+        check_kernels(dataclasses.replace(netplan, batch=mb), rng, H100,
+                      f"{name} mb{mb}")
+
+
+def multi_device_cell(model, batch, dtype, rng, name, devices, stages=0, *,
+                      checks):
+    """``repro_torch.compile(..., devices=devices)`` with ``pipeline_stages
+    = stages`` (0: batch-sharded over ``devices``) run once with the counts
+    at zero and held against the single-device replay of the same
+    compilation's plan and prepared params (a ``NetworkExecutor`` of its
+    own, one graph): fp32 within ``NET_RTOL`` and bf16 within
+    ``NET_TOL16`` of max(1, max|ref|), int8 at ``INT8_VS_PLAIN_DB``.
+    First every kernel call of the plan at the stages' (shards') batch
+    against its plain version (``check_microbatch``, ``checks``).  Each
+    stage's (shard's) graph must launch what its slice of the plan
+    launches, and the call n_micro (shards) times that; a second input
+    must give the single replay's second output while the first output,
+    held, stays as it was.  Then both forwards timed in turns (single,
+    multi, multi, single) and the multi-device one profiled: only the
+    planned port kernels, at most as planned at the stages' and shards'
+    batch."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core.netplan import NetworkExecutor
+    from repro_torch.core.quant import sqnr_db
+    from repro_torch.models.cnn import init_cnn, random_batchnorm
+
+    int8 = dtype == "int8"
+    params = init_cnn(rng, model.layers)
+    if not int8:
+        params = random_batchnorm(params, rng)
+    h, w = model.input_hw
+    x, x2 = (torch.tensor(rng.standard_normal(
+        (batch, h, w, model.in_channels)).astype(np.float32), device="cuda")
+        for _ in range(2))
+    t0 = time.perf_counter()
+    cu = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
+        batch=batch, dtype=dtype, pipeline_stages=stages,
+        shard_batch=not stages), calibration=x if int8 else None,
+        devices=devices)
+    compile_s = time.perf_counter() - t0
+    netplan = cu.network_plan(batch)
+    single = NetworkExecutor(netplan, cu.params, calibration=cu.calibration)
+    if stages:
+        ex = cu.pipeline_executor(batch)
+        parts, per = ex.stages, ex.n_micro
+        bounds, mb = ex.pipeplan.stage_bounds, batch // ex.n_micro
+    else:
+        ex = cu.executor(batch)
+        parts, per = ex.shards, len(ex.shards)
+        bounds, mb = [(0, None)] * len(parts), batch // max(1, len(parts))
+        if len(parts) != len(devices):
+            raise AssertionError(f"{name}: {len(parts)} shards over "
+                                 f"{len(devices)} devices")
+    check_microbatch(model, netplan, mb, name, checks)
+    reset_counts()
+    y = cu.run(x)               # captures every part's graph, then replays
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: per * n for k, n in netplan.kernel_launches().items()}
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts} != {want}")
+    for i, (part, (a, z)) in enumerate(zip(parts, bounds)):
+        if part.graph.launches != netplan.kernel_launches(a, z):
+            raise AssertionError(f"{name}: part {i} launches "
+                                 f"{part.graph.launches}, its slice's plan "
+                                 f"{netplan.kernel_launches(a, z)}")
+    held = y.clone()
+    y2 = cu.run(x2)
+    ref, ref2 = single(x), single(x2)
+    torch.cuda.synchronize()
+    gaps = []
+    for got, want_y in ((y, ref), (y2, ref2)):
+        scale = max(1.0, float(want_y.float().abs().max()))
+        err = float((got.float() - want_y.float()).abs().max())
+        ok = (got.shape == want_y.shape and got.dtype == want_y.dtype
+              and bool(torch.isfinite(got.float()).all()))
+        if int8:
+            gaps.append(sqnr_db(want_y, got))
+            ok = ok and gaps[-1] >= INT8_VS_PLAIN_DB
+        else:
+            gaps.append(err / scale)
+            ok = ok and err <= (NET_TOL16[dtype] if dtype in HALF
+                                else NET_RTOL) * scale
+        if not ok:
+            raise AssertionError(f"{name}: against the single replay "
+                                 f"max_abs_err {err} (max|ref| {scale})")
+    if not torch.equal(y, held) or torch.equal(y, y2):
+        raise AssertionError(f"{name}: a held output changed, or two inputs "
+                             f"gave one output")
+    s1 = forward_ms(lambda: single(x), SHORT_FORWARD_REPS)
+    m1 = forward_ms(lambda: cu.run(x), SHORT_FORWARD_REPS)
+    m2 = forward_ms(lambda: cu.run(x), SHORT_FORWARD_REPS)
+    s2 = forward_ms(lambda: single(x), SHORT_FORWARD_REPS)
+    multi_ms, single_ms = (m1 + m2) / 2, (s1 + s2) / 2
+    planned = {}            # a stage runs n_micro times a call, a shard once
+    for a, z in bounds:
+        for k, n in planned_cuda_launches(netplan, mb, a, z).items():
+            planned[k] = planned.get(k, 0) + (per if stages else 1) * n
+    busy, kept = profile_forward(lambda: cu.run(x), multi_ms, name,
+                                 want=planned, detail=False)
+    what = (f"{len(parts)} stages {list(map(list, bounds))} n_micro {per}"
+            if stages else f"{len(parts)} shards of {mb}")
+    log(f"multi-device {name}: {what} on {[str(d) for d in devices]}; "
+        f"launches={counts}; vs the single replay "
+        + (f"min sqnr_db={min(gaps):.2f}" if int8
+           else f"max_abs_err/max(1,max|ref|)={max(gaps):.3g}")
+        + f"; compile_s={compile_s:.2f}; in turns ms_per_forward "
+        f"multi={multi_ms:.4f} ({m1:.4f} {m2:.4f}) single={single_ms:.4f} "
+        f"({s1:.4f} {s2:.4f}) multi/single={multi_ms / single_ms:.3f}; "
+        f"device busy {busy:.4f} ms"
+        + ("" if kept in (None, 1.0) else f" (the trace kept {kept:.2f})"))
+    return cu
+
+
+def pipelined_serve_cell(model, rng, name, devices, checks):
+    """``CompiledCNN.serve()`` with ``pipeline_stages=2`` over
+    ``SERVE_BUCKETS``, in fp32: each bucket its own pipeline, captured when
+    the engine is made (bucket 1 at one microbatch); every kernel call of
+    each bucket's plan at its microbatch against its plain version
+    (``check_microbatch``, ``checks``); one drain of
+    ``SERVE_REQUESTS`` images with the counts at zero (the bucket
+    sequence, the stats, every ``health()`` counter 0, the launches each
+    bucket's pipeline makes), each row bit for bit its bucket's pipelined
+    forward of the same batch; then the ms of each bucket's step on the
+    host's clock beside that bucket's pipelined ``run``."""
+    import torch
+
+    import repro_torch
+    from repro_torch.distributed.pipeline import PipelineExecutor
+    from repro_torch.models.cnn import init_cnn, random_batchnorm
+
+    params = random_batchnorm(init_cnn(rng, model.layers), rng)
+    h, w = model.input_hw
+    images = rng.standard_normal(
+        (SERVE_REQUESTS, h, w, model.in_channels)).astype(np.float32)
+    cu = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
+        buckets=SERVE_BUCKETS, pipeline_stages=2), devices=devices)
+    t0 = time.perf_counter()
+    engine = cu.serve()
+    build_s = time.perf_counter() - t0
+    pipes = {b: cu.pipeline_executor(b) for b in SERVE_BUCKETS}
+    if (any(not isinstance(engine._executors[b], PipelineExecutor)
+            or engine._executors[b] is not pipes[b]
+            or any(st.graph is None for st in pipes[b].stages)
+            for b in SERVE_BUCKETS) or pipes[1].n_micro != 1):
+        raise AssertionError(f"{name}: the buckets are not pipelines "
+                             f"captured when the engine was made")
+    for b in SERVE_BUCKETS:
+        check_microbatch(model, cu.network_plan(b), b // pipes[b].n_micro,
+                         f"{name} b{b}", checks)
+    reset_counts()
+    uids = [engine.submit(img) for img in images]
+    results, served = {}, []
+    while engine.queue:
+        before = dict(engine.stats["batches"])
+        results.update(engine.step())
+        served += [b for b, n in engine.stats["batches"].items()
+                   if n != before[b]]
+    counts = read_counts()
+    want = {}
+    for b in served:
+        for k, n in cu.network_plan(b).kernel_launches().items():
+            want[k] = want.get(k, 0) + pipes[b].n_micro * n
+    health = engine.health()
+    zero = ("evictions", "rejections", "retries", "request_failures",
+            "failed_batches", "faults_injected")
+    if served != [8, 4, 1] or any(health[k] for k in zero):
+        raise AssertionError(f"{name}: buckets {served}, health {health}")
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts} != {want}")
+    start = 0
+    for b in served:
+        x = torch.tensor(images[start:start + b], device="cuda")
+        rows = torch.stack([results[u] for u in uids[start:start + b]])
+        if not torch.equal(rows, pipes[b](x).cpu()):
+            raise AssertionError(f"{name}: bucket {b}'s rows differ from its "
+                                 f"pipelined forward")
+        start += b
+    step_ms = {b: [] for b in SERVE_BUCKETS}
+    for _ in range(SERVE_REPS):
+        for img in images:
+            engine.submit(img)
+        while engine.queue:
+            pending = len(engine.queue)
+            t1 = time.perf_counter()
+            engine.step()
+            step_ms[engine.pick_bucket(pending)].append(
+                (time.perf_counter() - t1) * 1e3)
+    xs = {b: torch.tensor(images[:b], device="cuda") for b in SERVE_BUCKETS}
+    run_ms = {b: forward_ms(lambda: cu.run(xs[b]), SERVE_REPS)
+              for b in SERVE_BUCKETS}
+    log(f"serve {name}: buckets {served} health counters 0; launches="
+        f"{counts}; rows equal to the bucket's pipelined forward; n_micro "
+        + ", ".join(f"b{b} {pipes[b].n_micro} stages "
+                    f"{list(map(list, pipes[b].pipeplan.stage_bounds))}"
+                    for b in SERVE_BUCKETS)
+        + f"; build {build_s:.2f} s; ms per step on the host's clock, median"
+        f" of {SERVE_REPS}: "
+        + ", ".join(f"b{b} {statistics.median(step_ms[b]):.4f} (run "
+                    f"{run_ms[b]:.4f})" for b in SERVE_BUCKETS))
+
+
+def multi_device_phase() -> None:
+    """Phase 8c: multi-device CNN inference, each stage and shard its own
+    entry of a device list, on its own generator's draws: on this card
+    repeated (its own stream, graph pool and copy of the parameters), and
+    over distinct cards where there are several; first the tick of an
+    empty schedule.  Each plan's kernel calls are held one by one at the
+    batch its stages or shards run it at, where no earlier phase holds
+    them."""
+    import torch
+
+    from repro_torch.configs import vgg16, yolov3
+    from repro_torch.core.netplan import TICK_OVERHEAD_S
+
+    torch.cuda.empty_cache()
+    rng_p = np.random.default_rng(SEED)
+    card = torch.device("cuda", 0)
+    ticks = sorted(pipeline_tick_ms(card) for _ in range(TICK_ROUNDS))
+    tick4 = pipeline_tick_ms(card, n_stages=4)
+    log(f"pipeline tick (empty stages, {TICK_MICRO} microbatches, "
+        f"{TICK_ROUNDS} rounds of {TICK_REPS} forwards): median "
+        f"{statistics.median(ticks):.4f} ms at {TICK_STAGES} stages (min "
+        f"{ticks[0]:.4f}, max {ticks[-1]:.4f}), {tick4:.4f} ms at 4; "
+        f"TICK_OVERHEAD_S = {TICK_OVERHEAD_S:g} s")
+    # Each (network, dtype, plan batch, batch) whose kernel calls an earlier
+    # phase held one by one: YOLOv3-tiny 416's buckets in the three types
+    # (phases 3, 7b and 8b), VGG-16 224 b1 (phase 3).
+    tiny, tiny_b8 = yolov3.TINY_MODEL, "yolov3-tiny 416 b8"
+    checks = (np.random.default_rng(SEED),
+              {(tiny.name, d, b, b) for d in ("float32", "bfloat16", "int8")
+               for b in SERVE_BUCKETS} | {(vgg16.MODEL.name, "float32", 1, 1)})
+    for dtype in ("float32", "bfloat16", "int8"):
+        multi_device_cell(tiny, 8, dtype, rng_p, f"{tiny_b8} {dtype} "
+                          f"pipeline 2", [card] * 2, stages=2, checks=checks)
+    multi_device_cell(vgg16.MODEL, 8, "float32", rng_p,
+                      "vgg16 224 b8 float32 pipeline 4", [card] * 4, stages=4,
+                      checks=checks)
+    for dtype in ("float32", "bfloat16"):
+        multi_device_cell(tiny, 8, dtype, rng_p, f"{tiny_b8} {dtype} shards 2",
+                          [card] * 2, checks=checks)
+    pipelined_serve_cell(tiny, rng_p, f"yolov3-tiny 416 float32 buckets "
+                         f"{SERVE_BUCKETS} pipeline 2", [card] * 2, checks)
+    if torch.cuda.device_count() > 1:
+        pair = [torch.device("cuda", i) for i in range(2)]
+        multi_device_cell(tiny, 8, "float32", rng_p, f"{tiny_b8} float32 "
+                          f"pipeline 2 over two cards", pair, stages=2,
+                          checks=checks)
+        multi_device_cell(tiny, 8, "float32", rng_p, f"{tiny_b8} float32 "
+                          f"shards 2 over two cards", pair, checks=checks)
+    else:
+        log("multi-card execution not run: one visible card (the stages "
+            "and shards above share it)")
+
+
 def main() -> int:
     import torch
 
@@ -2542,6 +2870,12 @@ def main() -> int:
     serve_faults(*fp32_served)
     del fp32_served
     log(f"phase 8b done at {time.perf_counter() - t_start:.1f} s")
+
+    # Phase 8c: multi-device CNN inference.
+    t8c = time.perf_counter()
+    multi_device_phase()
+    log(f"phase 8c done at {time.perf_counter() - t_start:.1f} s "
+        f"(its own {time.perf_counter() - t8c:.1f} s)")
 
     # Phase 9: the kernels line, then the last line.
     kernels = []

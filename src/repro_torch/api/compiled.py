@@ -9,15 +9,17 @@ transform; under int8, calibration and weight quantization) -> run.  An LM
 ``serve`` of a CNN returns the bucket-ladder engine
 (serving/cnn_engine.py), of an LM the decode engine (serving/engine.py).
 ``save`` writes a small JSON artifact: the model's identity, the option
-surface and, of a CNN, the whole-network plans of its planned batch
-sizes; ``load`` rebuilds the compiled model from it and re-tunes nothing,
-with or without a plan cache.
+surface and, of a CNN, the whole-network plans and stage partitions of its
+planned batch sizes; ``load`` rebuilds the compiled model from it and
+re-tunes and re-partitions nothing, with or without a plan cache.  The
+devices a CNN runs on (``compile(..., devices=)``: batch shards or
+pipeline stages) are a runtime resource and are not saved.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,13 +32,16 @@ SAVE_FORMAT = "repro_torch.api/1"
 
 def _save_payload(kind: str, model_desc: Dict[str, Any],
                   options: ExecutionOptions, path: Optional[str],
-                  networks: Optional[Dict[str, Any]] = None) -> str:
+                  networks: Optional[Dict[str, Any]] = None,
+                  pipelines: Optional[Dict[str, Any]] = None) -> str:
     """Write a ``save`` artifact; a ``path`` of None puts it beside the plan
     cache as ``<name>.compiled.json``, and raises without a cache."""
     payload = {"format": SAVE_FORMAT, "kind": kind, "model": model_desc,
                "options": options.to_json()}
     if networks is not None:
         payload["networks"] = networks
+    if pipelines:
+        payload["pipelines"] = pipelines
     if path is None:
         if not options.cache_path:
             raise ValueError("save() needs a path when options.cache_path "
@@ -53,15 +58,22 @@ def _save_payload(kind: str, model_desc: Dict[str, Any],
 
 
 class CompiledCNN:
-    """A CNN compiled end to end: a NetworkPlan and a NetworkExecutor per
-    batch size.  ``options.batch`` is planned and prepared eagerly; other
-    batch sizes on first use.  ``networks`` (a ``save`` artifact's
-    whole-network entries) go into the planner before anything is
-    planned, where it holds no entry of its own under their keys."""
+    """A CNN compiled end to end: a NetworkPlan and an executor per batch
+    size, a NetworkExecutor (batch-sharded over ``devices`` where more
+    than one is given and ``options.shard_batch``) or, under
+    ``options.pipeline_stages``, a PipelineExecutor over a cached stage
+    partition.  ``options.batch`` is planned and prepared eagerly; other
+    batch sizes on first use.  ``networks`` and ``pipelines`` (a ``save``
+    artifact's whole-network and stage-partition entries) go into the
+    planner before anything is planned, where it holds no entry of its
+    own under their keys.  ``devices`` (None: every visible card, or the
+    CPU of a CPU compile) is a runtime resource, not saved."""
 
     def __init__(self, model: CNNModel, params: Sequence[Dict],
                  options: ExecutionOptions, calibration: Optional[Any] = None,
-                 planner=None, networks: Optional[Dict[str, Any]] = None):
+                 planner=None, networks: Optional[Dict[str, Any]] = None,
+                 pipelines: Optional[Dict[str, Any]] = None,
+                 devices: Optional[Sequence[Any]] = None):
         from repro_torch.models.cnn import params_from_numpy
 
         self.model = model
@@ -79,13 +91,21 @@ class CompiledCNN:
         for key, entry in (networks or {}).items():
             if self.planner.network_entry(key) is None:
                 self.planner.put_network_entry(key, entry)
+        for key, entry in (pipelines or {}).items():
+            if self.planner.pipeline_entry(key) is None:
+                self.planner.put_pipeline_entry(key, entry)
+        self._devices = None if devices is None else list(devices)
         self._netplans: Dict[int, Any] = {}
         self._executors: Dict[int, Any] = {}
-        # One memory pool for the executors' CUDA graphs, as for
-        # CompiledLM's: they replay one at a time and clone their outputs.
+        self._pipeplans: Dict[int, Any] = {}
+        self._pipe_executors: Dict[int, Any] = {}
+        # One memory pool for the single-device executors' CUDA graphs, as
+        # for CompiledLM's: they replay one at a time and clone their
+        # outputs.  Shards and stages replay at the same time: each of
+        # their graphs has a pool of its own (graphs.DeviceCall).
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
-        self.executor(options.batch)
+        self._executor_for(options.batch)
 
     def save_plans(self) -> None:
         """Write the planner's cache file (``Planner.save``: only what came
@@ -98,21 +118,26 @@ class CompiledCNN:
         and a JSON artifact of the model's identity, the option surface
         and the whole-network entry of each planned batch size, whose
         path is returned.  ``load`` rebuilds it and re-tunes nothing."""
-        from repro_torch.core.netplan import network_key
+        from repro_torch.core.netplan import network_key, pipeline_key
 
         self.save_plans()
-        networks = {}
+        m = self.model
+        networks, pipelines = {}, {}
         for b in self._netplans:
-            key = network_key(self.model.layers, *self.model.input_hw,
-                              self.model.in_channels, b, self.planner,
-                              self.options.dtype)
+            key = network_key(m.layers, *m.input_hw, m.in_channels, b,
+                              self.planner, self.options.dtype)
             networks[key] = self.planner.network_entry(key)
+        for b in self._pipeplans:
+            key = pipeline_key(m.layers, *m.input_hw, m.in_channels, b,
+                               self.options.pipeline_stages, self.planner,
+                               self.options.dtype)
+            pipelines[key] = self.planner.pipeline_entry(key)
         return _save_payload("cnn", {
-            "name": self.model.name,
-            "digest": self.model.digest,
-            "input_hw": list(self.model.input_hw),
-            "in_channels": self.model.in_channels,
-        }, self.options, path, networks)
+            "name": m.name,
+            "digest": m.digest,
+            "input_hw": list(m.input_hw),
+            "in_channels": m.in_channels,
+        }, self.options, path, networks, pipelines)
 
     def network_plan(self, batch: Optional[int] = None):
         """The (cached) whole-network plan for one batch size."""
@@ -127,39 +152,109 @@ class CompiledCNN:
             )
         return self._netplans[b]
 
+    def devices(self) -> List[torch.device]:
+        """The devices this model runs on: ``compile``'s ``devices``, else
+        every visible card (the CPU of a CPU compile)."""
+        from repro_torch.launch.mesh import visible_devices
+
+        if self._devices is not None:
+            return [torch.device(d) for d in self._devices]
+        return visible_devices(self.device)
+
     def executor(self, batch: Optional[int] = None):
-        """The (cached) NetworkExecutor for one batch size."""
+        """The (cached) NetworkExecutor for one batch size: sharded over
+        ``devices()`` where ``options.shard_batch`` holds, there is more
+        than one and the batch divides their count, else on the first
+        (by default, on one visible card: the single graph in this
+        model's pool)."""
         from repro_torch.core.netplan import NetworkExecutor
 
         b = int(batch) if batch is not None else self.options.batch
         if b not in self._executors:
+            devices = self.devices()
+            if not self.options.shard_batch:
+                devices = devices[:1]
+            if len(devices) == 1 and self._devices is None:
+                devices = None          # the params' device: this model's
             self._executors[b] = NetworkExecutor(
                 self.network_plan(b), self.params,
                 pretransform=self.options.pretransform,
                 calibration=self.calibration, pool=self._pool,
+                devices=devices,
             )
             self.save_plans()
         return self._executors[b]
 
+    def pipeline_plan(self, batch: Optional[int] = None):
+        """The (cached) cost-balanced stage partition for one batch size
+        (``core/netplan.plan_pipeline``, through the plan cache:
+        ``planner.pipeline_hits`` counts the partitions taken from it).
+        Needs ``options.pipeline_stages >= 2``."""
+        from repro_torch.core.netplan import plan_pipeline
+
+        if self.options.pipeline_stages < 2:
+            raise ValueError(f"pipeline_plan() needs ExecutionOptions("
+                             f"pipeline_stages=...) >= 2, got "
+                             f"{self.options.pipeline_stages}")
+        b = int(batch) if batch is not None else self.options.batch
+        if b not in self._pipeplans:
+            self._pipeplans[b] = plan_pipeline(
+                self.model.layers, *self.model.input_hw, self.planner,
+                self.options.pipeline_stages,
+                in_channels=self.model.in_channels, batch=b,
+                dtype=self.options.dtype, netplan=self.network_plan(b))
+        return self._pipeplans[b]
+
+    def _n_micro(self, batch: int) -> int:
+        """The microbatch count the pipeline of ``batch`` runs."""
+        mb = self.options.microbatch
+        return self.pipeline_plan(batch).n_micro if mb == "auto" else int(mb)
+
+    def pipeline_executor(self, batch: Optional[int] = None):
+        """The (cached) PipelineExecutor for one batch size, its stages on
+        the first ``options.pipeline_stages`` of ``devices()``."""
+        from repro_torch.distributed.pipeline import PipelineExecutor
+
+        b = int(batch) if batch is not None else self.options.batch
+        if b not in self._pipe_executors:
+            self._pipe_executors[b] = PipelineExecutor(
+                self.network_plan(b), self.pipeline_plan(b), self.params,
+                devices=self.devices(),
+                pretransform=self.options.pretransform,
+                calibration=self.calibration, n_micro=self._n_micro(b))
+            self.save_plans()
+        return self._pipe_executors[b]
+
+    def _executor_for(self, batch: Optional[int] = None):
+        """The executor ``run()`` and serving use: the pipeline's when
+        ``options.pipeline_stages`` is set, the (maybe sharded)
+        NetworkExecutor's otherwise."""
+        if self.options.pipeline_stages >= 2:
+            return self.pipeline_executor(batch)
+        return self.executor(batch)
+
     def run(self, x) -> torch.Tensor:
         """Whole-network inference on a (B, H, W, C) batch (tensor or
         array), cast to ``options.input_dtype``, on ``options.device``: on
-        the card a replay of the batch's CUDA graph (``NetworkExecutor``);
-        ``executor(b).eager(x)`` runs the same forward eagerly."""
+        the card a replay of the batch's CUDA graph (``NetworkExecutor``;
+        each shard's or stage's graph under ``shard_batch`` or
+        ``pipeline_stages``); ``executor(b).eager(x)`` runs the same
+        forward eagerly."""
         x = torch.as_tensor(x, device=self.device).to(
             getattr(torch, self.options.input_dtype))
         if x.ndim != 4:
             raise ValueError(
                 f"run() expects (B, H, W, C), got shape {tuple(x.shape)}"
             )
-        return self.executor(int(x.shape[0]))(x.contiguous())
+        return self._executor_for(int(x.shape[0]))(x.contiguous())
 
     def __call__(self, x) -> torch.Tensor:
         return self.run(x)
 
     def serve(self, buckets: Optional[Sequence[int]] = None, **kw):
         """A ``CNNServingEngine`` on this compilation: one executor (on the
-        card one CUDA graph) per bucket of ``buckets`` (None:
+        card one CUDA graph; a pipeline of them under ``pipeline_stages``)
+        per bucket of ``buckets`` (None:
         ``options.buckets``), each planned and captured now; admission,
         deadlines and retries from the options.  ``clock=`` and
         ``faults=`` pass through."""
@@ -168,7 +263,12 @@ class CompiledCNN:
         return CNNServingEngine.from_compiled(self, buckets=buckets, **kw)
 
     def plan_report(self, batch: Optional[int] = None) -> Dict[str, Any]:
-        """The resolved per-layer decisions, machine-readable."""
+        """The resolved per-layer decisions, machine-readable.  Under
+        ``pipeline_stages`` every row gains a ``stage`` column and the
+        report a ``pipeline`` block: the stage bounds, each stage's
+        predicted seconds, the microbatch count the executor runs, the
+        modeled bubble fraction and latency at it, and
+        ``pipeline_hits``."""
         netplan = self.network_plan(batch)
         rows = [
             {
@@ -190,7 +290,7 @@ class CompiledCNN:
             for s in netplan.steps if s.layer.kind == "conv"
         ]
         predicted = [r["predicted_s"] for r in rows]
-        return {
+        report = {
             "model": self.model.name,
             "kind": "cnn",
             "batch": netplan.batch,
@@ -207,6 +307,23 @@ class CompiledCNN:
             "hits": self.planner.stats["hits"],
             "network_hits": self.planner.network_hits,
         }
+        if self.options.pipeline_stages >= 2:
+            pipe = self.pipeline_plan(netplan.batch)
+            n_micro = self._n_micro(netplan.batch)
+            for row in rows:
+                row["stage"] = next(s for s, (a, z)
+                                    in enumerate(pipe.stage_bounds)
+                                    if a <= row["index"] < z)
+            report["pipeline"] = {
+                "n_stages": pipe.n_stages,
+                "stage_bounds": [list(b) for b in pipe.stage_bounds],
+                "stage_seconds": list(pipe.stage_seconds),
+                "n_micro": n_micro,
+                "bubble_fraction": pipe.bubble_fraction(n_micro),
+                "modeled_latency_s": pipe.modeled_latency_s(n_micro),
+                "pipeline_hits": self.planner.pipeline_hits,
+            }
+        return report
 
 
 class CompiledLM:
@@ -312,6 +429,7 @@ def compile(  # noqa: A001 - deliberate: mirrors repro.compile
     options: Optional[ExecutionOptions] = None,
     calibration: Optional[Any] = None,
     planner=None,
+    devices: Optional[Sequence[Any]] = None,
 ):
     """Plan, prepare and return a runnable model.
 
@@ -327,20 +445,29 @@ def compile(  # noqa: A001 - deliberate: mirrors repro.compile
     ``options`` defaults to ``ExecutionOptions()``: the CUDA kernels on the
     card.  ``planner`` is a runtime resource, not saved: a Planner shared
     by several compilations pools their plans (and keeps its own cache
-    file's persistence); None, a planner of ``options``.
+    file's persistence); None, a planner of ``options``.  So is
+    ``devices``, a CNN's batch shards or pipeline stages
+    (``options.shard_batch``, ``options.pipeline_stages``): a list of
+    devices, where one may repeat; None, every visible card.
     """
     opts = options if options is not None else ExecutionOptions()
     if is_lm_config(model):
+        if devices is not None:
+            raise ValueError("devices= shards or pipelines a CNN; an LM "
+                             "runs on options.device")
         return CompiledLM(model, params, opts)
     return CompiledCNN(model, params, opts, calibration=calibration,
-                       planner=planner)
+                       planner=planner, devices=devices)
 
 
 def load(path: str, model: Any, params: Any, planner=None,
-         calibration: Optional[Any] = None):
+         calibration: Optional[Any] = None,
+         devices: Optional[Sequence[Any]] = None):
     """Rebuild a compiled model from a ``save`` artifact: a CNN's saved
-    whole-network plans go into its planner (``planner``, or one of the
-    saved options), so it re-tunes nothing, with or without a plan cache.
+    whole-network plans and stage partitions go into its planner
+    (``planner``, or one of the saved options), so it re-tunes and
+    re-partitions nothing, with or without a plan cache; ``devices`` as
+    ``compile``'s.
     Raises ``ValueError`` when ``model`` is not the one saved (the layer
     table's digest and the input geometry of a CNN, the config's name of
     an LM)."""
@@ -373,4 +500,5 @@ def load(path: str, model: Any, params: Any, planner=None,
     else:
         raise ValueError(f"{path}: unknown kind {data.get('kind')!r}")
     return CompiledCNN(model, params, opts, calibration=calibration,
-                       planner=planner, networks=data.get("networks"))
+                       planner=planner, networks=data.get("networks"),
+                       pipelines=data.get("pipelines"), devices=devices)

@@ -1,10 +1,11 @@
 """ExecutionOptions: the option surface of the ``repro_torch`` facade.
 
 The port of ``repro/api/options.py``, cut to what the port runs: no
-``shard_batch``, ``pipeline_stages`` or ``microbatch`` (multi-GPU,
-ROADMAP.md queue 1 item 5), no ``validate`` (item 6), and no ``fallback``:
-the port's serving engines have one rung, the kernels, and a batch that
-fails on them after its retries fails its requests.
+``validate`` (static verification, ROADMAP.md queue 1 item 6), and no
+``fallback``: the port's serving engines have one rung, the kernels, and
+a batch that fails on them after its retries fails its requests.  The
+devices a compiled model runs on are a runtime resource, not an option
+(``compile(..., devices=)``).
 """
 from __future__ import annotations
 
@@ -85,6 +86,25 @@ class ExecutionOptions:
                     request gets a ``DeadlineExceeded`` result.
       retries       calls of a failed batch again on the same kernels
                     (>= 0) before its requests fail with ``RequestFailed``.
+      shard_batch   True (default): shard a batch over the compiled
+                    model's devices (``compile(..., devices=)``, default
+                    every visible card) when there is more than one and
+                    the batch divides their count; False: the first device
+                    only.
+      pipeline_stages
+                    layer-pipelined execution over that many of the
+                    devices (0, the default: off; else at least 2): the
+                    network is cut into contiguous stages balanced on
+                    each step's predicted seconds
+                    (core/netplan.partition_network), cached in the plan
+                    cache, and run by GPipe's schedule
+                    (distributed/pipeline.py), each stage's params on its
+                    device only.
+      microbatch    the pipeline's microbatch count: 'auto' (default, the
+                    count of least modeled latency,
+                    core/netplan.choose_n_micro) or a positive int that
+                    must divide the batch.  Unused while
+                    ``pipeline_stages`` is 0.
     """
 
     impl: str = "cuda"
@@ -99,6 +119,9 @@ class ExecutionOptions:
     max_queue: Optional[int] = None
     default_deadline_s: Optional[float] = None
     retries: int = 1
+    shard_batch: bool = True
+    pipeline_stages: int = 0
+    microbatch: Any = "auto"            # 'auto' | positive int
 
     def __post_init__(self) -> None:
         if self.impl not in _IMPLS:
@@ -122,6 +145,15 @@ class ExecutionOptions:
             raise ValueError(
                 f"default_deadline_s must be None or > 0, got "
                 f"{self.default_deadline_s}")
+        if self.pipeline_stages < 0 or self.pipeline_stages == 1:
+            raise ValueError(
+                f"pipeline_stages must be 0 (off) or >= 2, got "
+                f"{self.pipeline_stages}")
+        if self.microbatch != "auto" and (
+                not isinstance(self.microbatch, int) or self.microbatch < 1):
+            raise ValueError(
+                f"microbatch must be 'auto' or a positive int, got "
+                f"{self.microbatch!r}")
         dev = torch.device(self.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

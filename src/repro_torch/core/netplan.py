@@ -1,6 +1,6 @@
 """Network-level inference planning and execution.
 
-The port of ``repro/core/netplan.py`` (single device, no jit):
+The port of ``repro/core/netplan.py`` (no jit):
 
   Layout        the physical channel layout an NHWC activation carries
                 relative to its logical shape (trailing zero channels the
@@ -13,7 +13,12 @@ The port of ``repro/core/netplan.py`` (single device, no jit):
   NetworkExecutor  runs a NetworkPlan: offline parameter preparation
                 (batchnorm folding, channel padding, Winograd weight
                 pre-transform, and for int8 steps calibration and weight
-                quantization), then ``run_network`` per call.
+                quantization), then ``run_network`` per call, on one
+                device or batch-sharded over several.
+  PipelinePlan  the network cut into contiguous stages balanced on each
+                step's predicted seconds (``partition_network``, cached by
+                ``plan_pipeline``); ``run_network(start=, stop=)`` runs
+                one stage (distributed/pipeline.py runs them all).
 
 Elision is legal exactly when the padded region stays zero: the producer's
 weight/bias pads make its extra output channels act(0 + 0) = 0, maxpool and
@@ -124,15 +129,17 @@ class NetworkPlan:
                 counts[s.plan.algorithm] = counts.get(s.plan.algorithm, 0) + 1
         return counts
 
-    def kernel_launches(self) -> Dict[str, int]:
-        """Planned launches per CUDA kernel in one forward: one per conv
-        step (of the int8 kernel on an int8 step), and one of each of the
-        three kernels per 3-pass Winograd step (kernel names as
-        ``kernels.conv_ops.plan_kernels``)."""
+    def kernel_launches(self, start: int = 0,
+                        stop: Optional[int] = None) -> Dict[str, int]:
+        """Planned launches per CUDA kernel in one forward of
+        ``steps[start:stop]`` (default: the whole network; a slice is one
+        pipeline stage): one per conv step (of the int8 kernel on an int8
+        step), and one of each of the three kernels per 3-pass Winograd
+        step (kernel names as ``kernels.conv_ops.plan_kernels``)."""
         from repro_torch.kernels.conv_ops import plan_kernels
 
         counts: Dict[str, int] = {}
-        for s in self.steps:
+        for s in self.steps[start:stop]:
             if s.layer.kind == "conv":
                 for name in plan_kernels(s.plan):
                     counts[name] = counts.get(name, 0) + 1
@@ -401,6 +408,355 @@ def _netplan_from_entry(layers: Tuple[Any, ...],
 
 
 # ---------------------------------------------------------------------------
+# Pipeline partitioning (layer-pipelined multi-device execution)
+#
+# The multi-device analogue of the per-layer co-design: the partition is
+# planned from each step's predicted seconds (``step_seconds``), not
+# guessed from layer counts.  A stage is a contiguous ``steps[start:stop]``
+# slice; cuts fall only where the boundary activation is logically laid
+# out (a trivial ``out_layout`` under the port's own channel steps, so no
+# padded channels cross a device) and no route or shortcut reaches back
+# over the cut.
+
+#: Modeled fixed seconds of one tick of the pipeline schedule: the term
+#: that keeps ``choose_n_micro`` from picking as many microbatches as it
+#: can.  The reference's 2e-6 was sized for its TPU schedule.  This is the
+#: H100's own: a tick of 2 stages that do no work (each a graph replay, its
+#: stream waits and the boundary copy, distributed/pipeline.py), 8
+#: microbatches, as chip_smoke.py's phase 8c times it: the median of 7
+#: rounds, 0.2622 ms (rounds 0.1961-0.2910) on an NVIDIA H100 80GB HBM3 at
+#: 700 W, where the host's enqueueing bounds it.  ``pipeline_key`` holds
+#: it: a partition cached under another tick is made anew, since the
+#: microbatch count depends on it.
+TICK_OVERHEAD_S = 2.622e-4
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelinePlan:
+    """A NetworkPlan split into contiguous, cost-balanced pipeline stages.
+
+    ``stage_bounds[s] = (start, stop)``: stage s runs ``steps[start:stop]``.
+    ``stage_seconds[s]`` is the stage's predicted seconds at the plan's
+    full batch (the sum of its steps' ``step_seconds``).  ``n_micro`` is
+    the microbatch count the chooser resolved (the executor may override
+    it).
+    """
+
+    stage_bounds: Tuple[Tuple[int, int], ...]
+    stage_seconds: Tuple[float, ...]
+    n_micro: int
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.stage_bounds)
+
+    def bubble_fraction(self, n_micro: Optional[int] = None) -> float:
+        """GPipe's fill and drain bubble: (S-1)/(m+S-1) of the schedule's
+        ticks run fewer than S active stages."""
+        m = self.n_micro if n_micro is None else n_micro
+        s = self.n_stages
+        return (s - 1) / (m + s - 1)
+
+    def modeled_latency_s(self, n_micro: Optional[int] = None,
+                          tick_overhead_s: float = TICK_OVERHEAD_S) -> float:
+        """Modeled seconds for one full batch through the pipeline
+        (``modeled_pipeline_latency``)."""
+        m = self.n_micro if n_micro is None else n_micro
+        return modeled_pipeline_latency(self.stage_seconds, m,
+                                        tick_overhead_s)
+
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "stage_bounds": [list(b) for b in self.stage_bounds],
+            "stage_seconds": list(self.stage_seconds),
+            "n_micro": self.n_micro,
+        }
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "PipelinePlan":
+        return cls(
+            stage_bounds=tuple((int(b[0]), int(b[1]))
+                               for b in d["stage_bounds"]),
+            stage_seconds=tuple(float(t) for t in d["stage_seconds"]),
+            n_micro=int(d["n_micro"]),
+        )
+
+
+def step_seconds(netplan: NetworkPlan) -> Tuple[float, ...]:
+    """Per-step predicted seconds at the plan's batch.
+
+    Unlike the reference's, which reads ``plan.predicted_s`` alone: a
+    cost-mode plan carries no predicted time in the port (its rule
+    compares ratios, core/cost_rule.py), so read as it is every step of
+    the default mode would weigh 0 s and the partition would be
+    arbitrary.  A conv step takes ``plan.predicted_s`` where the plan has
+    one (model mode, measure mode, model mode's int8 gate), else the
+    card's cost model, ``codesign.predict_conv_time``, for the plan's own
+    algorithm, Winograd realization and operand width at the step's shape
+    and the plan's batch.  Every other step weighs 0.0 s, as in the
+    reference (pools, routes and the fc head are noise beside the convs).
+    """
+    from repro_torch.core.codesign import predict_conv_time
+
+    out = []
+    for s in netplan.steps:
+        if s.plan is None:
+            out.append(0.0)
+        elif s.plan.predicted_s is not None:
+            out.append(float(s.plan.predicted_s))
+        else:
+            width = (1 if s.plan.dtype == "int8"
+                     else 2 if s.plan.dtype in HALF_DTYPES else 4)
+            out.append(predict_conv_time(
+                s.spec, *s.in_hw, s.plan.algorithm, dtype_bytes=width,
+                batch=netplan.batch, winograd_fused=s.plan.winograd_fused))
+    return tuple(out)
+
+
+def legal_cut_points(netplan: NetworkPlan) -> List[int]:
+    """Boundary indices b where the network may be cut into stages
+    (between ``steps[b-1]`` and ``steps[b]``).
+
+    A cut at b is legal iff (1) ``steps[b-1].out_layout`` is trivial: the
+    boundary activation is logically laid out, so no elision chain spans
+    the device edge (the port's layouts, padded to its kernels' channel
+    steps, not the reference's 128 lanes); and (2) no layer j >= b
+    references a layer r < b via ``from_layers``.
+    """
+    from repro_torch.models.cnn import layer_ref_spans
+
+    n = len(netplan.steps)
+    spans = layer_ref_spans([s.layer for s in netplan.steps])
+    return [b for b in range(1, n)
+            if netplan.steps[b - 1].out_layout.trivial
+            and not any(r < b <= j for r, j in spans)]
+
+
+def _bounds_seconds(per_step: Sequence[float],
+                    bounds: Sequence[Tuple[int, int]]) -> Tuple[float, ...]:
+    return tuple(float(sum(per_step[a:z])) for a, z in bounds)
+
+
+#: Exact-search budget: partition candidates up to this count are scored
+#: directly on the modeled latency; past it the min-max DP takes over.
+_EXACT_SEARCH_LIMIT = 200_000
+
+
+def partition_network(netplan: NetworkPlan, n_stages: int,
+                      n_micro: Optional[int] = None,
+                      tick_overhead_s: float = TICK_OVERHEAD_S
+                      ) -> PipelinePlan:
+    """Cost-balanced contiguous partition into ``n_stages`` stages.
+
+    Minimizes ``modeled_pipeline_latency`` over the legal cut set, each
+    candidate at its own best microbatch count (or at ``n_micro``), with
+    ties broken on the largest stage; past ``_EXACT_SEARCH_LIMIT``
+    candidates the min-max linear-partition DP, which optimizes the
+    steady-state term only.  The reference's search, on the port's
+    ``step_seconds`` and ``tick_overhead_s``.  Raises ValueError when
+    fewer than ``n_stages - 1`` legal cuts exist.
+    """
+    import itertools
+    import math
+
+    n = len(netplan.steps)
+    if not 1 <= n_stages <= n:
+        raise ValueError(f"n_stages={n_stages} for a {n}-step network")
+    per_step = step_seconds(netplan)
+    cuts = legal_cut_points(netplan)
+    if len(cuts) < n_stages - 1:
+        raise ValueError(
+            f"only {len(cuts)} legal cut points for n_stages={n_stages} "
+            f"(elision chains / route spans forbid the rest)")
+
+    def finish(bounds: Tuple[Tuple[int, int], ...]) -> PipelinePlan:
+        seconds = _bounds_seconds(per_step, bounds)
+        m = (choose_n_micro(seconds, netplan.batch, tick_overhead_s)
+             if n_micro is None else n_micro)
+        return PipelinePlan(stage_bounds=bounds, stage_seconds=seconds,
+                            n_micro=m)
+
+    if math.comb(len(cuts), n_stages - 1) <= _EXACT_SEARCH_LIMIT:
+        best_plan: Optional[PipelinePlan] = None
+        best_key = (float("inf"), float("inf"))
+        for combo in itertools.combinations(cuts, n_stages - 1):
+            edges = (0,) + combo + (n,)
+            plan = finish(tuple(zip(edges[:-1], edges[1:])))
+            # At n_micro=1 the tick sum does not depend on the partition
+            # (one active stage a tick): the balanced profile breaks ties.
+            key = (plan.modeled_latency_s(tick_overhead_s=tick_overhead_s),
+                   max(plan.stage_seconds))
+            if key < best_key:
+                best_plan, best_key = plan, key
+        return best_plan
+
+    # DP: the smallest largest stage.  best[(k, e)] = (max seconds, prev).
+    prefix = [0.0]
+    for t in per_step:
+        prefix.append(prefix[-1] + t)
+    ends = cuts + [n]
+    best: Dict[Tuple[int, int], Tuple[float, int]] = {(0, 0): (0.0, -1)}
+    for k in range(1, n_stages + 1):
+        for e in (ends if k < n_stages else [n]):
+            cand: Optional[Tuple[float, int]] = None
+            for (pk, pe), (pmax, _) in best.items():
+                if pk != k - 1 or pe >= e:
+                    continue
+                m = max(pmax, prefix[e] - prefix[pe])
+                if cand is None or m < cand[0]:
+                    cand = (m, pe)
+            if cand is not None:
+                best[(k, e)] = cand
+    if (n_stages, n) not in best:
+        raise ValueError(f"no legal {n_stages}-stage partition (cut set "
+                         f"{cuts})")
+    bounds_rev, e = [], n
+    for k in range(n_stages, 0, -1):
+        _, pe = best[(k, e)]
+        bounds_rev.append((pe, e))
+        e = pe
+    return finish(tuple(reversed(bounds_rev)))
+
+
+def equal_count_partition(netplan: NetworkPlan, n_stages: int,
+                          n_micro: Optional[int] = None,
+                          tick_overhead_s: float = TICK_OVERHEAD_S
+                          ) -> PipelinePlan:
+    """The strawman the balanced partition must beat: equal layer-count
+    stages, each cut at ``round(s * n / n_stages)`` snapped to the nearest
+    legal cut; costs are never consulted."""
+    n = len(netplan.steps)
+    if not 1 <= n_stages <= n:
+        raise ValueError(f"n_stages={n_stages} for a {n}-step network")
+    legal = legal_cut_points(netplan)
+    if len(legal) < n_stages - 1:
+        raise ValueError(f"only {len(legal)} legal cut points for "
+                         f"n_stages={n_stages}")
+    cuts: List[int] = []
+    for s in range(1, n_stages):
+        target = round(s * n / n_stages)
+        avail = [b for b in legal if b > (cuts[-1] if cuts else 0)]
+        # Keep room for the remaining cuts to stay increasing.
+        remaining = n_stages - 1 - s
+        avail = avail[:len(avail) - remaining] if remaining else avail
+        if not avail:
+            raise ValueError("cannot place equal-count cuts legally")
+        cuts.append(min(avail, key=lambda b: (abs(b - target), b)))
+    edges = [0] + cuts + [n]
+    bounds = tuple(zip(edges[:-1], edges[1:]))
+    seconds = _bounds_seconds(step_seconds(netplan), bounds)
+    if n_micro is None:
+        n_micro = choose_n_micro(seconds, netplan.batch, tick_overhead_s)
+    return PipelinePlan(stage_bounds=bounds, stage_seconds=seconds,
+                        n_micro=n_micro)
+
+
+def modeled_pipeline_latency(stage_seconds: Sequence[float], n_micro: int,
+                             tick_overhead_s: float = TICK_OVERHEAD_S
+                             ) -> float:
+    """Modeled seconds for one batch through the GPipe schedule.
+
+    Each of the ``n_micro + n_stages - 1`` ticks lasts as long as the
+    slowest active stage's share of one microbatch (stage seconds are at
+    the full batch and scale down linearly with the split), plus the
+    fixed tick overhead:
+
+        latency(m) = sum_t max{T_s / m : stage s active at tick t}
+                     + (m + S - 1) * overhead
+    """
+    s = len(stage_seconds)
+    per_mb = [t / n_micro for t in stage_seconds]
+    total = 0.0
+    for t in range(n_micro + s - 1):
+        active = [per_mb[i] for i in range(s) if t >= i and t - i < n_micro]
+        if active:
+            total += max(active)
+    return total + (n_micro + s - 1) * tick_overhead_s
+
+
+def choose_n_micro(stage_seconds: Sequence[float], batch: int,
+                   tick_overhead_s: float = TICK_OVERHEAD_S) -> int:
+    """The microbatch count, among the divisors of ``batch``, with the
+    least modeled latency; a tie goes to the smaller count."""
+    if batch < 1:
+        raise ValueError(f"batch={batch}")
+    best_m, best_t = 1, float("inf")
+    for m in range(1, batch + 1):
+        if batch % m:
+            continue
+        t = modeled_pipeline_latency(stage_seconds, m, tick_overhead_s)
+        if t < best_t:
+            best_m, best_t = m, t
+    return best_m
+
+
+def pipeline_key(layers: Sequence[Any], h: int, w: int, in_channels: int,
+                 batch: int, n_stages: int, planner: Planner,
+                 dtype: str = "float32") -> str:
+    """The cache key of a stage-partition entry: the network's key plus
+    the stage count and the tick overhead the partition was chosen
+    under."""
+    return (network_key(layers, h, w, in_channels, batch, planner, dtype)
+            + f"|stages{n_stages}|tick{TICK_OVERHEAD_S!r}")
+
+
+def plan_pipeline(layers: Sequence[Any], h: int, w: int, planner: Planner,
+                  n_stages: int, in_channels: int = 3, batch: int = 1,
+                  dtype: str = "float32",
+                  netplan: Optional[NetworkPlan] = None) -> PipelinePlan:
+    """The PipelinePlan of a network through ``planner``'s cache.
+
+    Cold: partitions the (possibly freshly planned) NetworkPlan and stores
+    the record as a "pipelines" entry (``pipeline_key``).  Warm: rebuilds
+    the PipelinePlan from the entry, re-partitioning nothing
+    (``planner.pipeline_hits`` counts it).  An entry that does not
+    validate (not a contiguous cover of the steps, a cut that is not
+    legal) re-partitions.
+    """
+    layers = tuple(layers)
+    if netplan is None:
+        netplan = plan_network(layers, h, w, planner, in_channels=in_channels,
+                               batch=batch, dtype=dtype)
+    key = pipeline_key(layers, h, w, in_channels, batch, n_stages, planner,
+                       dtype)
+    entry = planner.pipeline_entry(key)
+    if entry is not None:
+        try:
+            pipeplan = PipelinePlan.from_json(entry)
+            _validate_pipeline_bounds(pipeplan, len(netplan.steps), n_stages)
+            legal = set(legal_cut_points(netplan))
+            if any(a not in legal for a, _ in pipeplan.stage_bounds[1:]):
+                raise ValueError(f"illegal cut in {pipeplan.stage_bounds}")
+        except (KeyError, ValueError, TypeError, IndexError):
+            pass                            # a corrupt entry re-partitions
+        else:
+            planner.pipeline_hits += 1
+            return pipeplan
+    pipeplan = partition_network(netplan, n_stages)
+    planner.put_pipeline_entry(key, pipeplan.to_json())
+    return pipeplan
+
+
+def _validate_pipeline_bounds(pipeplan: PipelinePlan, n_steps: int,
+                              n_stages: int) -> None:
+    """Raise unless the bounds are a contiguous cover of [0, n_steps)."""
+    bounds = pipeplan.stage_bounds
+    if len(bounds) != n_stages:
+        raise ValueError(f"{len(bounds)} stages, wanted {n_stages}")
+    if bounds[0][0] != 0 or bounds[-1][1] != n_steps:
+        raise ValueError(f"bounds {bounds} do not cover [0, {n_steps})")
+    for (a0, z0), (a1, _) in zip(bounds, bounds[1:]):
+        if z0 != a1 or a0 >= z0:
+            raise ValueError(f"non-contiguous bounds {bounds}")
+    if bounds[-1][0] >= bounds[-1][1]:
+        raise ValueError(f"empty final stage in {bounds}")
+    if pipeplan.n_micro < 1:
+        raise ValueError(f"n_micro={pipeplan.n_micro}")
+    if len(pipeplan.stage_seconds) != n_stages:
+        raise ValueError("stage_seconds length mismatch")
+
+
+# ---------------------------------------------------------------------------
 # Parameter preparation (offline: folding, padding, weight pre-transform)
 
 
@@ -549,7 +905,8 @@ def run_step(
     pretransformed: bool = False,
 ) -> torch.Tensor:
     """One planned layer of ``run_network`` on its input ``cur``, with the
-    earlier steps' ``outputs`` (for route and shortcut) and the step's
+    earlier steps' ``outputs`` (for route and shortcut, indexed by
+    absolute layer index: a list from layer 0, or a dict) and the step's
     prepared params ``p``.
 
     A conv pads its input to its layout; an int8 conv (its params carry
@@ -613,6 +970,8 @@ def run_network(
     params: Sequence[Dict],
     x: torch.Tensor,
     pretransformed: Optional[Sequence[bool]] = None,
+    start: int = 0,
+    stop: Optional[int] = None,
 ) -> torch.Tensor:
     """The planned whole-network forward on prepared params: ``run_step``
     over every step.
@@ -622,19 +981,57 @@ def run_network(
     elided boundary; the last layer's output is logical.
     ``pretransformed`` is the per-step flag tuple from
     ``pretransform_flags`` (None: no weight carries the transform).
+
+    ``start``/``stop`` run the ``steps[start:stop]`` slice only: one
+    pipeline stage.  ``params`` is then the slice's own list
+    (``params[j - start]`` for layer j), while ``pretransformed`` stays
+    the whole network's, looked up by absolute index; routes and
+    shortcuts find their sources by absolute index too.  A slice begins at
+    a cut of ``legal_cut_points``: its input is logically laid out, and
+    no ``from_layers`` reference reaches back before ``start`` (ValueError
+    otherwise).  The reference crops at exit only in a slice that holds
+    the last step; the port's forward needs no exit crop (its last
+    layer's output is logical), so no slice crops.
     """
+    n_steps = len(netplan.steps)
+    stop = n_steps if stop is None else stop
+    if not 0 <= start <= stop <= n_steps:
+        raise ValueError(f"slice [{start}, {stop}) of a {n_steps}-step "
+                         f"network")
     flags = (tuple(pretransformed) if pretransformed is not None
-             else (False,) * len(netplan.steps))
-    outputs: List[torch.Tensor] = []
+             else (False,) * n_steps)
+    if start:
+        from repro_torch.models.cnn import layer_ref_spans
+
+        spans = layer_ref_spans([s.layer for s in netplan.steps[:stop]])
+        if any(r < start <= j for r, j in spans):
+            raise ValueError(f"a slice starting at step {start} cuts a "
+                             f"route or shortcut span ({spans})")
+    outputs: Dict[int, torch.Tensor] = {}     # by absolute layer index
     cur = x
-    for s in netplan.steps:
-        cur = run_step(s, params[s.index], cur, outputs, flags[s.index])
-        outputs.append(cur)
+    for s in netplan.steps[start:stop]:
+        cur = run_step(s, params[s.index - start], cur, outputs,
+                       flags[s.index])
+        outputs[s.index] = cur
     return cur
 
 
+def params_to(params: Sequence[Dict], device, copy: bool = True
+              ) -> List[Dict]:
+    """Prepared params on ``device``; with ``copy``, a copy even where they
+    already lie there: each stage or shard holds its own."""
+    def move(v):
+        if isinstance(v, dict):
+            return {k: move(x) for k, x in v.items()}
+        if isinstance(v, torch.Tensor):
+            return v.to(device, copy=copy)
+        return v
+
+    return [move(p) for p in params]
+
+
 class NetworkExecutor:
-    """Whole-network inference over a NetworkPlan on one device.
+    """Whole-network inference over a NetworkPlan.
 
     Prepares parameters offline (fold + pad + optional Winograd
     pre-transform; calibration and quantization of the int8 steps, from
@@ -646,6 +1043,18 @@ class NetworkExecutor:
     forward eagerly on either device, for comparison.  ``pool``: the
     graph's memory pool (``torch.cuda.graph_pool_handle()``, shared by a
     ``CompiledCNN``'s executors); None, a pool of its own.
+
+    ``devices``: the reference's rule, data parallel over the batch when
+    more than one device is given and the batch divides their count.
+    Each shard (``graphs.DeviceCall``) holds the prepared params on its
+    device (the first shard takes them as they are where they lie there,
+    every other a copy of its own; ``params`` is then None) and runs the full batch's plan at ``batch / n``
+    (the kernels take their split counts from the call's shapes) as a
+    CUDA graph of its own, in a pool of its own, on a stream of its own;
+    a call joins the shards' outputs in order on the input's device.  A
+    device may repeat.  Otherwise the forward runs on one device:
+    ``devices[0]`` where given, else the params' own (``pool`` serves
+    this case only).
     """
 
     def __init__(
@@ -655,14 +1064,42 @@ class NetworkExecutor:
         pretransform: bool = True,
         calibration=None,
         pool=None,
+        devices: Optional[Sequence[Any]] = None,
     ):
+        from repro_torch.graphs import DeviceCall
+
         self.netplan = netplan
-        self.params = prepare_net_params(netplan, params,
-                                         pretransform=pretransform,
-                                         calibration=calibration)
+        prepared = prepare_net_params(netplan, params,
+                                      pretransform=pretransform,
+                                      calibration=calibration)
+        self.params: Optional[List[Dict]] = None
         self.pretransformed = pretransform_flags(netplan, pretransform)
         self.graph = None
         self._pool = pool
+        devices = [torch.device(d) for d in (devices or ())]
+        self.shards: List[Any] = []
+        self.device: Optional[torch.device] = None
+        if len(devices) > 1 and netplan.batch % len(devices) == 0:
+            mb = netplan.batch // len(devices)
+            self.shards = [
+                DeviceCall(self._shard_forward(
+                    params_to(prepared, d, copy=i > 0)), d,
+                    f"batch shard {i} ({netplan.dtype}, batch {mb} of "
+                    f"{netplan.batch} at {netplan.input_hw[0]}x"
+                    f"{netplan.input_hw[1]}) on {d}")
+                for i, d in enumerate(devices)]
+        elif devices:
+            self.device = devices[0]
+            self.params = params_to(prepared, self.device, copy=False)
+        else:
+            self.params = prepared
+
+    def _shard_forward(self, params: List[Dict]):
+        def forward(x: torch.Tensor) -> torch.Tensor:
+            with torch.inference_mode():
+                return run_network(self.netplan, params, x,
+                                   pretransformed=self.pretransformed)
+        return forward
 
     def _check(self, x: torch.Tensor) -> None:
         b, h, w = x.shape[0], x.shape[1], x.shape[2]
@@ -674,30 +1111,74 @@ class NetworkExecutor:
 
     def eager(self, x: torch.Tensor) -> torch.Tensor:
         """The forward, run eagerly: ``run_network`` on the prepared
-        params, the input cast to ``netplan.input_dtype`` as ``run()``
-        casts it."""
+        params (each shard's on its own slice of the batch), the input
+        cast to ``netplan.input_dtype`` as ``run()`` casts it; the output
+        on the input's device."""
         self._check(x)
         x = x.to(getattr(torch, self.netplan.input_dtype))
+        if self.shards:
+            mb = x.shape[0] // len(self.shards)
+            return torch.cat([
+                sh.body(x[i * mb:(i + 1) * mb].to(sh.device)).to(x.device)
+                for i, sh in enumerate(self.shards)])
+        src = x.device
+        if self.device is not None:
+            x = x.to(self.device)
         with torch.inference_mode():
-            return run_network(self.netplan, self.params, x,
-                               pretransformed=self.pretransformed)
+            y = run_network(self.netplan, self.params, x,
+                            pretransformed=self.pretransformed)
+        return y.to(src)
 
     def capture(self, x: torch.Tensor) -> None:
-        """Capture the forward's CUDA graph on ``x`` (a batch on the card)
-        unless it is captured: the warm-up and capture that the first call
-        would make, without the call's replay."""
+        """Capture the forward's CUDA graph (each shard's) on ``x`` (a
+        batch on the card) unless it is captured: the warm-up and capture
+        that the first call would make, without the call's replay."""
         self._check(x)
-        if self.graph is None:
+        if self.shards:
+            mb = x.shape[0] // len(self.shards)
+            for sh in self.shards:
+                sh.capture(torch.zeros((mb, *x.shape[1:]), dtype=x.dtype,
+                                       device=sh.device))
+        elif self.graph is None:
             from repro_torch.graphs import CapturedCall
 
             p = self.netplan
-            self.graph = CapturedCall(
-                self.eager, (x,),
-                f"the planned forward ({p.dtype}, batch {p.batch} at "
-                f"{p.input_hw[0]}x{p.input_hw[1]})", pool=self._pool)
+            x = x if self.device is None else x.to(self.device)
+            with torch.cuda.device(x.device):
+                self.graph = CapturedCall(
+                    self.eager, (x,),
+                    f"the planned forward ({p.dtype}, batch {p.batch} at "
+                    f"{p.input_hw[0]}x{p.input_hw[1]})", pool=self._pool)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if x.device.type != "cuda":
             return self.eager(x)
         self.capture(x)
-        return self.graph(x)
+        if self.shards:
+            return self._sharded(x)
+        if self.device is None or x.device == self.device:
+            return self.graph(x)
+        with torch.cuda.device(self.device):
+            return self.graph(x.to(self.device)).to(x.device)
+
+    def _sharded(self, x: torch.Tensor) -> torch.Tensor:
+        """Each shard's slice of ``x`` to its device on its stream, its
+        replay, its output copied on its stream into the joined output on
+        ``x``'s device; the caller's stream waits for every shard (so the
+        allocator hands out ``x``'s and the output's memory again only
+        after their last reader and writer)."""
+        caller = torch.cuda.current_stream(x.device)
+        mb = x.shape[0] // len(self.shards)
+        out = None
+        for i, sh in enumerate(self.shards):
+            sh.stream.wait_stream(caller)
+            with torch.cuda.stream(sh.stream):
+                xi = x[i * mb:(i + 1) * mb].to(sh.device, non_blocking=True)
+            y = sh.run(xi)
+            if out is None:
+                out = torch.empty((x.shape[0], *y.shape[1:]), dtype=y.dtype,
+                                  device=x.device)
+            sh.emit(out[i * mb:(i + 1) * mb])
+        for sh in self.shards:
+            caller.wait_stream(sh.stream)
+        return out

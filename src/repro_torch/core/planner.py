@@ -63,7 +63,7 @@ mode's timings of the 16-bit candidates, model mode's prices of the
 **Persistence** (``cache_path``; None, the default, keeps plans in
 memory only).  The cache is one versioned JSON file: "plans" (per layer),
 "networks" (whole-network entries, core/netplan.py) and "pipelines"
-(read and written back untouched).  ``save`` merges with the file on disk
+(stage partitions, core/netplan.plan_pipeline).  ``save`` merges with the file on disk
 under a lock and replaces it atomically, so planners that save different
 keys converge to the union; a corrupt file is moved aside and what still
 parses is salvaged.  A modeled plan's key holds the digest of the
@@ -379,7 +379,8 @@ class Planner:
     network entries reach the file at the next ``save()``: one locked
     read-merge-write per planning burst, not one per miss.
     ``stats`` counts ``hits`` and ``tunes`` (misses that decided);
-    ``network_hits`` counts whole-network entries reused (core/netplan.py).
+    ``network_hits`` counts whole-network entries reused and
+    ``pipeline_hits`` stage partitions reused (core/netplan.py).
     """
 
     def __init__(self, impl: str = "cuda", mode: str = "cost",
@@ -404,6 +405,7 @@ class Planner:
         self._sections: Dict[str, Dict[str, Any]] = {"networks": {},
                                                      "pipelines": {}}
         self.network_hits = 0
+        self.pipeline_hits = 0
         self.stats = {"hits": 0, "tunes": 0}
         if cache_path and os.path.exists(cache_path):
             self._load()
@@ -476,6 +478,17 @@ class Planner:
     def put_network_entry(self, key: str, entry: Dict[str, Any]) -> None:
         """Store a whole-network record (plain JSON data)."""
         self._sections["networks"][key] = entry
+        self._dirty = True
+
+    def pipeline_entry(self, key: str) -> Optional[Dict[str, Any]]:
+        """The stored stage-partition record for ``key``, or None.
+        ``pipeline_hits`` is counted by the consumer
+        (core/netplan.plan_pipeline), once the entry has validated."""
+        return self._sections["pipelines"].get(key)
+
+    def put_pipeline_entry(self, key: str, entry: Dict[str, Any]) -> None:
+        """Store a stage-partition record (plain JSON data)."""
+        self._sections["pipelines"][key] = entry
         self._dirty = True
 
     def device_name(self) -> str:

@@ -157,3 +157,76 @@ class CapturedCall:
 
     def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
         return self.replay(*inputs).clone()
+
+
+class DeviceCall:
+    """``body(x) -> tensor`` at one input shape on one device, on a stream
+    of its own: one stage of a pipeline (distributed/pipeline.py) or one
+    shard of a batch (core/netplan.NetworkExecutor).  Two of them may
+    name the same device: each is still its own stage or shard.
+
+    On the card ``capture(example)`` captures ``body`` into a CUDA graph
+    (``CapturedCall``) under ``torch.cuda.device(device)``, in a memory
+    pool of the graph's own: calls on different streams replay at the
+    same time, which one shared pool does not allow (graphs that share a
+    pool may reuse each other's temporaries).  ``run(src, src_stream)``
+    copies ``src`` into the graph's static input on this call's stream
+    and replays the graph there; the result stays in ``output``, which
+    the next ``run`` overwrites, so a reader copies it out first
+    (``emit``).  On the CPU ``run`` calls ``body`` eagerly.
+    """
+
+    def __init__(self, body: Callable[[torch.Tensor], torch.Tensor],
+                 device, name: str):
+        self.body = body
+        self.device = torch.device(device)
+        self.name = name
+        self.graph: Optional[CapturedCall] = None
+        self.output: Optional[torch.Tensor] = None
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+
+    def capture(self, example: torch.Tensor) -> None:
+        """Capture ``body``'s graph on ``example`` (an input on this
+        call's card) unless it is captured; nothing on the CPU."""
+        if self.stream is not None and self.graph is None:
+            with torch.cuda.device(self.device):
+                self.graph = CapturedCall(self.body, (example,), self.name)
+
+    def run(self, src: torch.Tensor,
+            src_stream: Optional["torch.cuda.Stream"] = None) -> torch.Tensor:
+        """``body`` on ``src``, made by the work queued on ``src_stream``
+        (None: this call's own stream); returns ``output``.
+
+        On the card the copy of ``src`` into the static input waits for
+        ``src_stream``'s queued work, and ``src_stream``'s later work waits
+        for the copy: the producer may overwrite ``src`` (its own static
+        output) only once it is copied.  On one device the copy runs on
+        this call's stream; between two cards it is a peer copy, which
+        PyTorch runs on the source device's current stream (set here to
+        ``src_stream``) behind a wait for this call's stream.
+        """
+        if self.stream is None:
+            self.output = self.body(src.to(self.device))
+            return self.output
+        if self.graph is None:
+            raise RuntimeError(f"{self.name}: run before its graph was "
+                               f"captured")
+        src_stream = self.stream if src_stream is None else src_stream
+        static = self.graph.inputs[0]
+        self.stream.wait_stream(src_stream)
+        with torch.cuda.stream(src_stream), torch.cuda.stream(self.stream):
+            static.copy_(src, non_blocking=True)
+        src_stream.wait_stream(self.stream)
+        with torch.cuda.stream(self.stream):
+            self.output = self.graph.replay(static)
+        return self.output
+
+    def emit(self, dst: torch.Tensor) -> None:
+        """Copy ``output`` into ``dst`` on this call's stream, before its
+        next replay; the reader of ``dst`` waits for this stream."""
+        if self.stream is None:
+            dst.copy_(self.output)
+            return
+        with torch.cuda.stream(self.stream):
+            dst.copy_(self.output, non_blocking=True)

@@ -172,11 +172,13 @@ def check(err: int, what: str) -> None:
 def require_cuda_operands(what: str, *tensors,
                           dtype: torch.dtype = torch.float32) -> None:
     """Raise unless every given tensor (None skipped) is a contiguous
-    tensor of ``dtype`` on the first card — what the C entries take (an
+    tensor of ``dtype`` on the current card — what the C entries take (an
     int8 entry checks its int8 operands and its fp32 ones in two calls).
 
-    The libraries link the CUDA runtime statically and launch on its
-    current device, which is device 0; a CPU tensor is refused, never
+    The libraries link the CUDA runtime statically and launch on the
+    current device, the one ``torch.cuda.device(...)`` sets (the
+    executors of a stage or shard on another card run under it); a
+    tensor on another card is refused, and a CPU tensor is refused, never
     computed with the plain version instead.
     """
     for t in tensors:
@@ -187,8 +189,11 @@ def require_cuda_operands(what: str, *tensors,
                 f"{what}: impl='cuda' needs CUDA tensors, got one on "
                 f"{t.device} (ask for impl='torch' to run the plain version)"
             )
-        if t.device.index not in (None, 0):
-            raise ValueError(f"{what}: the kernels launch on cuda:0, got {t.device}")
+        current = torch.cuda.current_device()
+        if t.device.index not in (None, current):
+            raise ValueError(f"{what}: the kernels launch on the current "
+                             f"device cuda:{current}, got a tensor on "
+                             f"{t.device} (run under torch.cuda.device)")
         if t.dtype != dtype:
             raise ValueError(f"{what}: needs {str(dtype).split('.')[-1]} "
                              f"tensors, got {t.dtype}")

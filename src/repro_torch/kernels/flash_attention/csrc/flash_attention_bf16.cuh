@@ -70,6 +70,7 @@
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "per_device.cuh"
 
 // Internal linkage, as every kernel source here: a template's function-local
 // static (launch's `configured`) would otherwise be one object shared by
@@ -285,13 +286,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int Sk, int H, int KV, int causal, int window, float cap,
            cudaStream_t stream) {
   using C = Cfg<HD>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_bf16_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  static bool configured[per_device::MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = per_device::current(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(flash_attention_bf16_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured[dev] = true;
   }
   fc::Launch lp;
   if (!fc::make_launch(B, H, S, C::BQ, HD, cap, lp))

@@ -69,6 +69,7 @@
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "per_device.cuh"
 #include "sgemm_3xtf32.cuh"
 
 namespace {
@@ -301,13 +302,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int Sk, int H, int KV, int causal, int window, float cap,
            cudaStream_t stream) {
   using C = Cfg<HD>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_fp32_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  static bool configured[per_device::MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = per_device::current(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(flash_attention_fp32_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured[dev] = true;
   }
   fc::Launch lp;
   if (!fc::make_launch(B, H, S, C::BQ, HD, cap, lp))

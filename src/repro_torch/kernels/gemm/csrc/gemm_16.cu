@@ -50,6 +50,7 @@
 
 #include "hmma16.cuh"
 #include "hopper_async.cuh"
+#include "per_device.cuh"
 #include "wgmma16.cuh"
 
 namespace {
@@ -199,17 +200,24 @@ template <class T>
 int launch(const CUtensorMap& a_map, const CUtensorMap& b_map,
            const float* bias, T* C, int M, int N, int K, int act, int splits,
            cudaStream_t stream) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaFuncSetAttribute(
-        hgemm16_bias_act_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes(MAX_STAGES, 1));
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // The SM count of each device, 0 until its first launch there has
+  // raised the kernel's shared memory limit on it.
+  static int sms[per_device::MAX_DEVICES] = {};
+  int dev = 0;
+  {
+    cudaError_t err = per_device::current(&dev);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (sms[dev] == 0) {
+      err = cudaFuncSetAttribute(hgemm16_bias_act_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem_bytes(MAX_STAGES, 1));
+      int count = 0;
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      sms[dev] = count;
+    }
   }
   const int smem = smem_bytes(stages_for(K, splits), splits);
   const long tiles = (long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
@@ -220,7 +228,7 @@ int launch(const CUtensorMap& a_map, const CUtensorMap& b_map,
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, hgemm16_bias_act_kernel<T>, THREADS, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
+    const long slots = (long)sms[dev] * (per_sm > 0 ? per_sm : 1);
     blocks = tiles < slots ? tiles : slots;
   }
   const dim3 grid(static_cast<unsigned>(blocks), 1, 1);

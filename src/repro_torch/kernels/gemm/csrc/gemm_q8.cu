@@ -66,6 +66,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
 #include "s8_mma.cuh"
 
 namespace {
@@ -332,13 +333,16 @@ cudaError_t launch(const int8_t* A, const int8_t* B, const float* scale,
                    const float* bias, float* C, int* ws, int M, int N, int K,
                    int act, int splits, cudaStream_t stream) {
   using T = Tile<WM>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_q8_bias_act_kernel<WM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  static bool smem_set[per_device::MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = per_device::current(&dev);
+  if (err != cudaSuccess) return err;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(gemm_q8_bias_act_kernel<WM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::SMEM);
     if (err != cudaSuccess) return err;
-    smem_set = true;
+    smem_set[dev] = true;
   }
   const dim3 grid((M + T::BM - 1) / T::BM, (N + T::BN - 1) / T::BN, splits);
   if (grid.y > 65535) return cudaErrorInvalidValue;

@@ -71,6 +71,7 @@
 
 #include "hmma16.cuh"
 #include "hopper_async.cuh"
+#include "per_device.cuh"
 #include "wgmma16.cuh"
 
 namespace {
@@ -361,16 +362,24 @@ im2col16_conv_kernel(const __grid_constant__ CUtensorMap x_map,
 template <class T>
 int launch(const CUtensorMap& x_map, const CUtensorMap& w_map,
            const float* bias, T* out, const Geom& g, cudaStream_t stream) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaFuncSetAttribute(
-        im2col16_conv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MAX_SMEM);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // The SM count of each device, 0 until its first launch there has
+  // raised the kernel's shared memory limit on it.
+  static int sms[per_device::MAX_DEVICES] = {};
+  int dev = 0;
+  {
+    cudaError_t err = per_device::current(&dev);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (sms[dev] == 0) {
+      err = cudaFuncSetAttribute(im2col16_conv_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 MAX_SMEM);
+      int count = 0;
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      sms[dev] = count;
+    }
   }
   long blocks = (long)g.tiles * g.splits;
   if (g.splits == 1) {
@@ -379,7 +388,7 @@ int launch(const CUtensorMap& x_map, const CUtensorMap& w_map,
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, im2col16_conv_kernel<T>, THREADS, g.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
+    const long slots = (long)sms[dev] * (per_sm > 0 ? per_sm : 1);
     blocks = g.tiles < slots ? g.tiles : slots;
   }
   return static_cast<int>(hopper::launch_clustered(

@@ -67,6 +67,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
 #include "s8_mma.cuh"
 
 namespace {
@@ -361,13 +362,17 @@ extern "C" int repro_im2col_conv_q8(const int8_t* x, const int8_t* w,
   const int win_px = ((toh - 1) * sh + kh) * ((tow - 1) * sw + kw);
   const size_t smem = 2 * (size_t)(win_px + kh * kw * BO) * ROW;
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  static size_t smem_limit = 48 * 1024;
-  if (smem > smem_limit) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        im2col_conv_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  // The limit raised on each device so far (0: the default 48 KB).
+  static size_t smem_limit[per_device::MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = per_device::current(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024 && smem > smem_limit[dev]) {
+    err = cudaFuncSetAttribute(im2col_conv_q8_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_limit = smem;
+    smem_limit[dev] = smem;
   }
   const int row_tiles = (OH + toh - 1) / toh;
   const int col_tiles = (OW + tow - 1) / tow;
@@ -375,7 +380,7 @@ extern "C" int repro_im2col_conv_q8(const int8_t* x, const int8_t* w,
   im2col_conv_q8_kernel<<<grid, THREADS, smem, stream>>>(
       x, w, scale, bias, out, ws, B, H, W, C, O, OH, OW, kh, kw, sh, sw, ph,
       pw, toh, tow, col_tiles, act, splits);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t n = (size_t)B * OH * OW * O;
   if (O % 4 == 0) {

@@ -55,6 +55,7 @@
 
 #include "hmma16.cuh"
 #include "hopper_async.cuh"
+#include "per_device.cuh"
 #include "wgmma16.cuh"
 #include "winograd16_transforms.cuh"
 
@@ -306,28 +307,30 @@ int tm_launch(const CUtensorMap& v_map, const CUtensorMap& u_map,
               const CUtensorMap& m_map, const float* inv_scale, int T_, int C,
               int O, cudaStream_t stream) {
   using Tile = TmTile<N>;
-  static bool smem_set = false;
-  static int sms = 0;
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        winograd16_tuple_multiply_kernel<T, N>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
-    if (err == cudaSuccess) {
-      int dev = 0;
-      err = cudaGetDevice(&dev);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-    }
+  // The SM count of each device, 0 until its first launch there has
+  // raised the kernel's shared memory limit on it.
+  static int sms[per_device::MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = per_device::current(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (sms[dev] == 0) {
+    err = cudaFuncSetAttribute(winograd16_tuple_multiply_kernel<T, N>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Tile::SMEM);
+    int count = 0;
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                   dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
+    sms[dev] = count;
   }
   const long items =
       64L * ((T_ + TM_BM - 1) / TM_BM) * ((O + N - 1) / N);
 #ifndef TM16_PERSISTENT
 #define TM16_PERSISTENT 1
 #endif
-  const long slots = TM16_PERSISTENT ? (long)sms * Tile::RESIDENT : items;
+  const long slots =
+      TM16_PERSISTENT ? (long)sms[dev] * Tile::RESIDENT : items;
   const unsigned grid = static_cast<unsigned>(items < slots ? items : slots);
   winograd16_tuple_multiply_kernel<T, N><<<grid, TM_THREADS, Tile::SMEM,
                                            stream>>>(v_map, u_map, m_map,

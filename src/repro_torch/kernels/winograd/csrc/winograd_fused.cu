@@ -55,6 +55,7 @@
 // have fewer blocks than SMs.
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
 #include "sgemm_3xtf32.cuh"
 #include "winograd_transforms.cuh"
 
@@ -340,13 +341,16 @@ extern "C" int repro_winograd_fused(const float* tiles, const float* U,
   if (C % BC != 0 || C < BC || bt != BT || bo != BO)
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = SMEM_FLOATS * sizeof(float);
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        winograd_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  static bool smem_set[per_device::MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = per_device::current(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(winograd_fused_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
+    smem_set[dev] = true;
   }
   const dim3 grid((T + BT - 1) / BT, (O + BO - 1) / BO);
   winograd_fused_kernel<<<grid, THREADS, smem, stream>>>(tiles, U, bias, out,

@@ -85,6 +85,7 @@
 
 #include "hmma16.cuh"
 #include "hopper_async.cuh"
+#include "per_device.cuh"
 #include "winograd16_transforms.cuh"
 
 namespace {
@@ -397,18 +398,21 @@ template <class T>
 int launch(const CUtensorMap& u_map, const T* tiles, const float* inv_scale,
            const float* bias, T* out, float* ws, int T_, int C, int O,
            int act, int splits, cudaStream_t stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        winograd16_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BYTES);
+  static bool smem_set[per_device::MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = per_device::current(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(winograd16_fused_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
+    smem_set[dev] = true;
   }
   const dim3 grid((T_ + BT - 1) / BT, (O + BO - 1) / BO, splits);
   winograd16_fused_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
       u_map, tiles, inv_scale, bias, out, ws, T_, C, O, act, splits);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t n = (size_t)T_ * 36 * O;
   if (O % 4 == 0) {

@@ -42,6 +42,20 @@ def _conv_spec(layer: CNNLayer, in_ch: int) -> ConvSpec:
     )
 
 
+def layer_ref_spans(layers: Sequence[CNNLayer]) -> Tuple[Tuple[int, int], ...]:
+    """Every (source, consumer) ``from_layers`` dependency span.
+
+    A route/shortcut at index j consuming layer r needs r's output resident
+    wherever j runs; a pipeline-stage cut between them (r < cut <= j) is
+    illegal.  Returned sorted by consumer for stable downstream iteration.
+    """
+    return tuple(
+        (r, j)
+        for j, l in enumerate(layers)
+        for r in getattr(l, "from_layers", ())
+    )
+
+
 def fold_batchnorm(params: Sequence[Dict], layers: Sequence[CNNLayer],
                    eps: float = 1e-5) -> List[Dict]:
     """Fold inference-mode batchnorm into conv weights + bias.

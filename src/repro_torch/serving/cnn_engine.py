@@ -7,12 +7,16 @@ crossover and the kernels' splits move with it).  The engine batches
 requests into a small ladder of batch sizes:
 
   buckets      (``ExecutionOptions.buckets``, by default 1/4/8).  Each
-               bucket is one ``CompiledCNN.executor(b)``: its own network
-               plan and, on the card, its own CUDA graph, all graphs in
-               the compiled model's one memory pool.  Every bucket is
-               planned, warmed up and captured when the engine is made, so
-               the first request pays no capture; no other batch size is
-               ever planned.
+               bucket is the executor ``CompiledCNN.run`` takes for its
+               batch: its own network plan and, on the card, its own CUDA
+               graph, all graphs in the compiled model's one memory pool;
+               under ``pipeline_stages`` its own pipeline (its own stage
+               partition and microbatch count, bucket 1 at one
+               microbatch, a graph and a pool for each stage), and under
+               ``shard_batch`` over several devices its own shards.  Every
+               bucket is planned, warmed up and captured when the engine
+               is made, so the first request pays no capture; no other
+               batch size is ever planned.
   dispatch     ``submit`` enqueues; ``step`` serves the largest bucket the
                queue fills completely, else the smallest bucket that covers
                what is pending, padded with zero images whose rows are
@@ -74,7 +78,8 @@ class CNNServingEngine(ResilientEngine):
                         else normalize_buckets(buckets))
         self.device = compiled.device
         self.input_dtype = getattr(torch, compiled.options.input_dtype)
-        self._executors = {b: compiled.executor(b) for b in self.buckets}
+        self._executors = {b: compiled._executor_for(b)
+                           for b in self.buckets}
         if self.device.type == "cuda":
             for b, ex in self._executors.items():
                 ex.capture(torch.zeros((b, *self.input_hw, self.in_channels),
@@ -212,7 +217,8 @@ class CNNServingEngine(ResilientEngine):
 
     def _forward(self, bucket: int, batch: np.ndarray) -> torch.Tensor:
         """The bucket's forward on a host batch: cast, moved to the
-        device, the executor (on the card, its graph's replay)."""
+        device, the executor (on the card, its graph's replay, or its
+        pipeline's or shards' replays)."""
         x = torch.from_numpy(batch).to(device=self.device,
                                        dtype=self.input_dtype)
         return self._executors[bucket](x)

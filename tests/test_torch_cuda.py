@@ -696,3 +696,79 @@ def test_capture_refuses_a_body_that_synchronizes(cuda_device):
         CapturedCall(body, (x,), "a synchronizing body")
     assert len(calls) == 2          # the warm-up and the refused capture
     assert float((x * 2).sum()) == 16.0
+
+
+def _tiny64_multi(device, dtype, **options):
+    """YOLOv3-tiny at 64x64, batch 4: the single-device compilation, one
+    over ``[card, card]`` with ``options``, and two inputs."""
+    from repro_torch.configs import yolov3
+
+    model = repro_torch.CNNModel(yolov3.TINY_LAYERS, (64, 64),
+                                 name="yolov3-tiny 64")
+    rng = np.random.default_rng(2)
+    params = random_batchnorm(init_cnn(rng, model.layers), rng)
+    x, x2 = (torch.tensor(rng.standard_normal((4, 64, 64, 3)).astype(
+        np.float32), device=device) for _ in range(2))
+    card = torch.device("cuda", torch.cuda.current_device())
+    single = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
+        batch=4, dtype=dtype), calibration=x)
+    multi = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
+        batch=4, dtype=dtype, **options), calibration=x,
+        devices=[card, card])
+    return single, multi, x, x2
+
+
+def _same_forward(got, ref, dtype):
+    from repro_torch.core.quant import sqnr_db
+
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert torch.isfinite(got.float()).all()
+    if dtype == "int8":
+        assert sqnr_db(ref, got) >= 40.0
+    else:
+        tol = 1e-3 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(
+            got.float(), ref.float(), rtol=tol,
+            atol=tol * max(1.0, float(ref.float().abs().max())))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_pipeline_on_one_card(cuda_device, dtype):
+    """Two stages on one repeated card, two microbatches: each stage its
+    own stream, graph and pool.  Against the single-device replay; each
+    stage's graph launches its slice's plan, and per call each stage
+    replays once a microbatch; an output the caller holds survives the
+    next call (the boundary copies wait for their readers)."""
+    single, multi, x, x2 = _tiny64_multi(cuda_device, dtype,
+                                         pipeline_stages=2, microbatch=2)
+    ex = multi.pipeline_executor(4)
+    y = multi.run(x)
+    pools = {st.graph.graph.pool() for st in ex.stages}
+    assert len(pools) == len(ex.stages) == 2
+    np_ = multi.network_plan(4)
+    for st, (a, z) in zip(ex.stages, ex.pipeplan.stage_bounds):
+        assert st.graph.launches == np_.kernel_launches(a, z)
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    y2 = multi.run(x2)
+    launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    assert launches == {k: 2 * n for k, n in np_.kernel_launches().items()}
+    _same_forward(y, single.run(x), dtype)
+    _same_forward(y2, single.run(x2), dtype)
+    assert not torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batch_sharding_on_one_card(cuda_device, dtype):
+    """Two shards of 2 on one repeated card against the single-device
+    replay of the batch of 4; each shard's graph launches the plan."""
+    single, multi, x, x2 = _tiny64_multi(cuda_device, dtype)
+    ex = multi.executor(4)
+    assert len(ex.shards) == 2 and ex.graph is None
+    y, y2 = multi.run(x), multi.run(x2)
+    for sh in ex.shards:
+        assert sh.graph.launches == multi.network_plan(4).kernel_launches()
+    _same_forward(y, single.run(x), dtype)
+    _same_forward(y2, single.run(x2), dtype)

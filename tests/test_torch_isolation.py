@@ -53,11 +53,14 @@ def test_port_sources_import_no_jax_or_reference():
 
 @pytest.mark.parametrize("module", [
     "core/cost_rule.py", "serving/cnn_engine.py", "serving/faults.py",
-    "serving/resilience.py", "serving/engine.py"])
+    "serving/resilience.py", "serving/engine.py", "distributed/pipeline.py",
+    "launch/mesh.py", "core/netplan.py", "graphs.py"])
 def test_the_planner_rule_and_serving_modules_are_walked(module):
-    """The cost rule and the serving modules, which copy the reference's
-    logic, are among the walked sources and import neither JAX nor the
-    reference (the rule's crossovers are constants of its own)."""
+    """The cost rule, the serving modules and the multi-device modules
+    (the pipeline partition in core/netplan.py, the schedule, the device
+    lists), which copy the reference's logic, are among the walked sources
+    and import neither JAX nor the reference (the rule's crossovers and
+    the pipeline's tick overhead are constants of their own)."""
     path = PORT / module
     assert path in _port_files()
     assert not [m for m in _imported_modules(path)
