@@ -222,6 +222,25 @@ Phases, each on its own printed lines:
    forward, ``health()`` counters 0, ms per step beside the bucket's
    ``run``); the same pipeline and shards over two cards where two are
    visible, else a line that says multi-card execution was not run;
+8d. static plan verification (``repro_torch/analysis``): every cell
+   phases 3 to 8c run, at full width, compiled again with
+   ``validate="full"`` (YOLOv3-tiny 416 b1 in fp32, int8 and bf16, in cost
+   and model mode, and b4; MODEL_20 608 b1 in fp32, int8 and bf16; VGG-16
+   224 b1 in fp32, int8 and bf16, in cost and model mode; VGG-16 224 b8
+   with ``winograd_fused=False`` in fp32 and bf16 in cost mode and in fp32
+   in model mode): each executor's gate records one forward on the card
+   and runs every pass, and its report must be clean; the pipelines of
+   phase 8c (YOLOv3-tiny 416 b8 over 2 stages in fp32, bf16 and int8,
+   VGG-16 224 b8 over 4) through ``verify_pipeline`` at the kernel rung,
+   each stage recorded at microbatch size; then every distinct launch
+   recorded there against its library's ``describe`` entry (the
+   launcher's own planning function, run without launching): grid,
+   cluster, threads, ring stages and dynamic and static shared memory
+   equal, the dynamic part within the function's limit and both within
+   the device's opt-in shared memory a block, a persistent launch's tile
+   map walked again at the card's grid; one line a kernel with the
+   descriptor's shared memory beside ``describe``'s, ptxas' and
+   ``cudaFuncGetAttributes``' figures; a finding fails the run;
 9. one JSON line with every kernel's numbers — its launches in the forward
    its ``cell`` names (YOLOv3-tiny 416 b1 for the GEMM, im2col and fused
    Winograd kernels, VGG-16 224 b8 with ``winograd_fused=False`` for the
@@ -2523,6 +2542,114 @@ def multi_device_phase() -> None:
             "and shards above share it)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8d: static plan verification
+
+
+def ptxas_usage(library: str, function: str) -> str:
+    """ptxas' register and shared-memory line(s) of ``function``'s
+    instances in ``library``'s build log (phase 2's)."""
+    from repro_torch.kernels import _build
+
+    entry, found = "", set()
+    for line in _build.build_logs.get(library, "").splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif "Used" in line and "registers" in line and function in entry:
+            found.add(line.split(":", 1)[1].strip())
+    return "; ".join(sorted(found)) or "not in this run's build log"
+
+
+def verify_phase() -> None:
+    """Phase 8d: every cell of phases 3 to 8c compiled with
+    ``validate="full"`` at full width (its pipelines gated at the kernel
+    rung), each gate's report clean; then every distinct launch the gates
+    recorded against its library's ``describe`` entry.  A finding
+    raises."""
+    import torch
+
+    import repro_torch
+    from repro_torch.analysis import VerifyReport, record_launches
+    from repro_torch.analysis.passes import describe_pass
+    from repro_torch.configs import vgg16, yolov3
+    from repro_torch.models.cnn import init_cnn, random_batchnorm
+
+    rng = np.random.default_rng(SEED)
+    tiny, m20, vgg = yolov3.TINY_MODEL, yolov3.MODEL_20, vgg16.MODEL
+    params = {m.name: random_batchnorm(init_cnn(rng, m.layers), rng)
+              for m in (tiny, m20, vgg)}
+    card = torch.device("cuda", 0)
+    three = {"winograd_fused": False}
+    cells = (
+        [(f"yolov3-tiny 416 b1 {d} mode={mode}", tiny, 1, dict(
+            dtype=d, mode=mode), None)
+         for d in ("float32", "int8", "bfloat16")
+         for mode in ("cost", "model")]
+        + [("yolov3-tiny 416 b4 float32", tiny, 4, {}, None)]
+        + [(f"yolov3-20 608 b1 {d}", m20, 1, dict(dtype=d), None)
+           for d in ("float32", "int8", "bfloat16")]
+        + [(f"vgg16 224 b1 {d} mode={mode}", vgg, 1, dict(
+            dtype=d, mode=mode), None)
+           for d in ("float32", "int8", "bfloat16")
+           for mode in ("cost", "model")]
+        + [(f"vgg16 224 b8 winograd_fused=False {d} mode={mode}", vgg, 8,
+            dict(dtype=d, mode=mode, **three), None)
+           for d, mode in (("float32", "cost"), ("bfloat16", "cost"),
+                           ("float32", "model"))]
+        + [(f"yolov3-tiny 416 b8 {d} pipeline 2", tiny, 8, dict(
+            dtype=d, pipeline_stages=2), [card] * 2)
+           for d in ("float32", "bfloat16", "int8")]
+        + [("vgg16 224 b8 float32 pipeline 4", vgg, 8,
+            dict(pipeline_stages=4), [card] * 4)])
+    recorded = []
+    for name, model, batch, opts, devices in cells:
+        t0 = time.perf_counter()
+        with record_launches() as launches:
+            compiled = repro_torch.compile(
+                model, params[model.name], repro_torch.ExecutionOptions(
+                    batch=batch, validate="full", **opts), devices=devices)
+        if not compiled.reports:
+            raise AssertionError(f"verify {name}: no gate ran")
+        for key, report in compiled.reports.items():
+            rows = report.kernels
+            log(f"verify {name} {key}: {report.summary()}; passes "
+                f"{','.join(report.passes_run)}; launches {len(rows)}, "
+                f"splits {sum(r['splits'] > 1 for r in rows)}, smem at most "
+                f"{max(r['smem_bytes'] for r in rows)} B, traffic "
+                f"{sum(r['traffic_bytes'] for r in rows)} B "
+                f"({time.perf_counter() - t0:.2f} s)")
+            if not report.clean:
+                raise AssertionError(f"verify {name} {key}:\n"
+                                     + report.summary())
+        recorded += launches
+        del compiled
+        torch.cuda.empty_cache()
+    report = VerifyReport(level="kernel",
+                          network={"name": "launch descriptors vs describe"})
+    rows = describe_pass(report, recorded)
+    by_function = {}
+    for row in rows:
+        by_function.setdefault((row["descriptor"]["library"],
+                                row["function"]), []).append(row)
+    for (library, function), group in sorted(by_function.items()):
+        card_row = group[0]["card"]
+        smem = sorted({r["descriptor"]["dynamic_smem_bytes"]
+                       + r["descriptor"]["static_smem_bytes"] for r in group})
+        log(f"describe {function}: {len(group)} distinct launches equal "
+            f"their descriptors; descriptor smem {smem[0]}-{smem[-1]} B; "
+            f"cudaFuncGetAttributes static {card_row['static_smem_bytes']} B"
+            f", {card_row['registers']} registers, local "
+            f"{card_row['local_bytes']} B, dynamic limit "
+            f"{max(r['card']['max_dynamic_smem_bytes'] for r in group)} B "
+            f"(device opt-in {card_row['smem_optin_bytes']} B); ptxas "
+            f"{ptxas_usage(library, function)}")
+    log(f"describe: {len(rows)} distinct launches of "
+        f"{len(by_function)} kernels on {card_row['sm_count']} SMs, "
+        f"{len(report.findings)} finding(s)")
+    if not report.clean:
+        raise AssertionError(report.summary())
+
+
 def main() -> int:
     import torch
 
@@ -2876,6 +3003,12 @@ def main() -> int:
     multi_device_phase()
     log(f"phase 8c done at {time.perf_counter() - t_start:.1f} s "
         f"(its own {time.perf_counter() - t8c:.1f} s)")
+
+    # Phase 8d: static plan verification of every cell above.
+    t8d = time.perf_counter()
+    verify_phase()
+    log(f"phase 8d done at {time.perf_counter() - t_start:.1f} s "
+        f"(its own {time.perf_counter() - t8d:.1f} s)")
 
     # Phase 9: the kernels line, then the last line.
     kernels = []

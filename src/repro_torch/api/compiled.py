@@ -67,7 +67,12 @@ class CompiledCNN:
     artifact's whole-network and stage-partition entries) go into the
     planner before anything is planned, where it holds no entry of its
     own under their keys.  ``devices`` (None: every visible card, or the
-    CPU of a CPU compile) is a runtime resource, not saved."""
+    CPU of a CPU compile) is a runtime resource, not saved.
+    ``options.validate`` gates every executor on ``verify_report`` (a
+    pipeline on ``verify_pipeline``): an error finding raises
+    ``PlanVerificationError`` and the executor is not kept; ``reports``
+    keeps each gate's report (by batch, a pipeline's by ("pipeline",
+    batch))."""
 
     def __init__(self, model: CNNModel, params: Sequence[Dict],
                  options: ExecutionOptions, calibration: Optional[Any] = None,
@@ -99,6 +104,9 @@ class CompiledCNN:
         self._executors: Dict[int, Any] = {}
         self._pipeplans: Dict[int, Any] = {}
         self._pipe_executors: Dict[int, Any] = {}
+        # The gate's report of each executor built under options.validate:
+        # by batch, and by ("pipeline", batch) for a pipeline's.
+        self.reports: Dict[Any, Any] = {}
         # One memory pool for the single-device executors' CUDA graphs, as
         # for CompiledLM's: they replay one at a time and clone their
         # outputs.  Shards and stages replay at the same time: each of
@@ -182,6 +190,15 @@ class CompiledCNN:
                 calibration=self.calibration, pool=self._pool,
                 devices=devices,
             )
+            if self.options.validate != "off":
+                from repro_torch.analysis import PlanVerificationError
+
+                report = self.verify_report(batch=b,
+                                            level=self.options.validate)
+                self.reports[b] = report
+                if not report.ok:
+                    del self._executors[b]
+                    raise PlanVerificationError(report)
             self.save_plans()
         return self._executors[b]
 
@@ -217,6 +234,8 @@ class CompiledCNN:
 
         b = int(batch) if batch is not None else self.options.batch
         if b not in self._pipe_executors:
+            if self.options.validate != "off":
+                self._verify_pipeline_gate(b)
             self._pipe_executors[b] = PipelineExecutor(
                 self.network_plan(b), self.pipeline_plan(b), self.params,
                 devices=self.devices(),
@@ -224,6 +243,72 @@ class CompiledCNN:
                 calibration=self.calibration, n_micro=self._n_micro(b))
             self.save_plans()
         return self._pipe_executors[b]
+
+    def _prepared(self, batch: int):
+        """(prepared params, pretransform flags) of the plan at ``batch``:
+        the executor's own where it holds them on one device, else prepared
+        here on ``options.device`` as an executor prepares them."""
+        from repro_torch.core.netplan import (
+            prepare_net_params,
+            pretransform_flags,
+        )
+
+        netplan = self.network_plan(batch)
+        ex = self._executors.get(batch)
+        if ex is not None and ex.params is not None:
+            return ex.params, ex.pretransformed
+        prepared = prepare_net_params(netplan, self.params,
+                                      pretransform=self.options.pretransform,
+                                      calibration=self.calibration)
+        return prepared, pretransform_flags(netplan,
+                                            self.options.pretransform)
+
+    def verify_report(self, batch: Optional[int] = None,
+                      level: Optional[str] = None):
+        """Statically verify this compilation (repro_torch/analysis).
+
+        Runs the plan verifier over the plan of ``batch`` and, beyond
+        ``level='plan'``, over one forward recorded on zeros with the
+        prepared params the executor runs (on ``options.device``: on the
+        card the kernels launch, on the CPU their plain versions run), and
+        returns the ``VerifyReport``.  ``level`` defaults to 'full'.
+        Independent of ``options.validate``: that option makes every
+        executor gate on this report; this method only produces it.
+        """
+        from repro_torch.analysis import verify_network
+
+        lvl = level if level not in (None, "off") else "full"
+        b = int(batch) if batch is not None else self.options.batch
+        netplan = self.network_plan(b)
+        if lvl == "plan":
+            return verify_network(netplan, level="plan",
+                                  name=self.model.name)
+        params, flags = self._prepared(b)
+        return verify_network(netplan, params, pretransformed=flags,
+                              level=lvl, name=self.model.name)
+
+    def _verify_pipeline_gate(self, batch: int) -> None:
+        """The pipeline executor's gate: ``verify_pipeline`` of the stage
+        partition the executor runs (its microbatch count), at 'kernel'
+        under ``validate`` 'kernel' or 'full' (each stage's forward
+        recorded at microbatch size), else at 'plan'."""
+        import dataclasses
+
+        from repro_torch.analysis import PlanVerificationError, verify_pipeline
+
+        pipeplan = dataclasses.replace(self.pipeline_plan(batch),
+                                       n_micro=self._n_micro(batch))
+        kw = {}
+        lvl = ("kernel" if self.options.validate in ("kernel", "full")
+               else "plan")
+        if lvl == "kernel":
+            params, flags = self._prepared(batch)
+            kw = dict(params=params, pretransformed=flags)
+        report = verify_pipeline(self.network_plan(batch), pipeplan,
+                                 name=self.model.name, level=lvl, **kw)
+        self.reports[("pipeline", batch)] = report
+        if not report.ok:
+            raise PlanVerificationError(report)
 
     def _executor_for(self, batch: Optional[int] = None):
         """The executor ``run()`` and serving use: the pipeline's when

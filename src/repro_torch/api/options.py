@@ -1,11 +1,13 @@
 """ExecutionOptions: the option surface of the ``repro_torch`` facade.
 
 The port of ``repro/api/options.py``, cut to what the port runs: no
-``validate`` (static verification, ROADMAP.md queue 1 item 6), and no
-``fallback``: the port's serving engines have one rung, the kernels, and
-a batch that fails on them after its retries fails its requests.  The
-devices a compiled model runs on are a runtime resource, not an option
-(``compile(..., devices=)``).
+``fallback`` (the port's serving engines have one rung, the kernels, and
+a batch that fails on them after its retries fails its requests), and no
+VMEM budget (the verifier's shared-memory budget is the card's,
+``hw.H100.smem_per_block_bytes``).  ``validate`` gates every executor on
+the port's plan verifier (repro_torch/analysis).  The devices a compiled
+model runs on are a runtime resource, not an option (``compile(...,
+devices=)``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 _IMPLS = ("cuda", "torch")
 _MODES = ("cost", "measure", "model")
 _DTYPES = ("float32", "bfloat16", "float16", "int8")
+_VALIDATE = ("off", "plan", "kernel", "full")
 
 
 def normalize_buckets(buckets) -> Tuple[int, ...]:
@@ -105,6 +108,21 @@ class ExecutionOptions:
                     core/netplan.choose_n_micro) or a positive int that
                     must divide the batch.  Unused while
                     ``pipeline_stages`` is 0.
+      validate      static plan verification (repro_torch/analysis) that
+                    gates every executor ``compile`` builds, serving
+                    buckets and pipelines included: 'off' (default: no
+                    verification; every forward runs as without the
+                    option), 'plan' (each planned launch's shared memory
+                    against the card's budget and the cost model's figure,
+                    and the layout decisions; no forward), 'kernel' (one
+                    forward recorded on zeros: its launches against the
+                    plan's, each output element written once, read windows
+                    inside their operands, split partials summed once in
+                    order, int8 sums within int32), or 'full' (everything:
+                    also shared memory, traffic, the channel census and
+                    the precisions of the recorded launches).  A report
+                    with an error raises ``PlanVerificationError`` and the
+                    executor is not kept.
     """
 
     impl: str = "cuda"
@@ -122,8 +140,13 @@ class ExecutionOptions:
     shard_batch: bool = True
     pipeline_stages: int = 0
     microbatch: Any = "auto"            # 'auto' | positive int
+    validate: str = "off"
 
     def __post_init__(self) -> None:
+        if self.validate not in _VALIDATE:
+            raise ValueError(
+                f"validate must be one of {_VALIDATE}, got {self.validate!r}"
+            )
         if self.impl not in _IMPLS:
             raise ValueError(f"impl must be one of {_IMPLS}, got {self.impl!r}")
         if self.mode not in _MODES:

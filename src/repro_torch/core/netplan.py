@@ -1016,6 +1016,41 @@ def run_network(
     return cur
 
 
+def expected_channel_ops(netplan: NetworkPlan) -> List[Dict[str, Any]]:
+    """The channel-axis pads, crops and concatenations ``run_network``
+    makes between kernels, predicted from the plan: what the verifier's
+    channel census (``analysis/record.py``) must find.
+
+    The port's layout rule, not the reference's: every kernel emits exactly
+    its weights' out channels, padded offline to the next conv's multiple
+    (``build_network_plan``), so no crop runs between kernels and none at
+    the network's exit.  What remains: a conv whose input carries fewer
+    channels than its layout pads them (``_align_channels``: the network's
+    entry, and a conv after a logical consumer), and a route over more
+    than one source (``torch.cat`` on the channel axis).  The reference's
+    ``expected_channel_ops`` also predicts the kernel wrappers' crops to
+    the TPU's 128-lane blocks and the exit crop; the port has neither.
+    """
+    ops: List[Dict[str, Any]] = []
+    outputs_phys: List[int] = []
+    cur = netplan.in_channels
+    for s in netplan.steps:
+        l = s.layer
+        if l.kind == "conv":
+            if cur < s.in_layout.phys_c:
+                ops.append({"step": s.index, "kind": "pad"})
+            cur = s.out_layout.phys_c
+        elif l.kind == "route":
+            sources = [outputs_phys[j] for j in l.from_layers]
+            if len(sources) > 1:
+                ops.append({"step": s.index, "kind": "cat"})
+            cur = sum(sources)
+        elif l.kind == "fc":
+            cur = l.out_channels
+        outputs_phys.append(cur)
+    return ops
+
+
 def params_to(params: Sequence[Dict], device, copy: bool = True
               ) -> List[Dict]:
     """Prepared params on ``device``; with ``copy``, a copy even where they

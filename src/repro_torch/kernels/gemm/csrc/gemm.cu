@@ -36,6 +36,7 @@
 // in flight, and a split call also on the reduce launch.
 #include <cuda_runtime.h>
 
+#include "describe.cuh"
 #include "sgemm_3xtf32.cuh"
 
 namespace {
@@ -107,6 +108,23 @@ gemm_splitk_reduce_kernel(const float* __restrict__ ws,
         activate(s[e] + (bias != nullptr ? __ldg(bias + col + e) : 0.f), act);
 }
 
+// The GEMM kernel's launch for an M x N product cut into `splits`.
+describe::Launch plan_gemm(int M, int N, int splits) {
+  describe::Launch l;
+  l.grid = dim3((M + tc::BM - 1) / tc::BM, (N + tc::BN - 1) / tc::BN, splits);
+  l.threads = tc::THREADS;
+  l.stages = tc::STAGES;
+  l.func = (const void*)&gemm_bias_act_kernel;
+  return l;
+}
+
+// The reduce's launch over the M x N output.
+describe::Launch plan_reduce(int M, int N) {
+  return describe::reduce((size_t)M * N, N,
+                          (const void*)&gemm_splitk_reduce_kernel<4>,
+                          (const void*)&gemm_splitk_reduce_kernel<1>);
+}
+
 }  // namespace
 
 // C = act(A @ B + bias); bias may be null.  1 <= splits <= max(1,
@@ -121,21 +139,30 @@ extern "C" int repro_gemm_bias_act(const float* A, const float* B,
       splits > (chunks > 1 ? chunks : 1) || (splits > 1 && ws == nullptr) ||
       (N + tc::BN - 1) / tc::BN > 65535 || splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + tc::BM - 1) / tc::BM, (N + tc::BN - 1) / tc::BN,
-                  splits);
-  gemm_bias_act_kernel<<<grid, tc::THREADS, 0, stream>>>(A, B, bias, C, ws, M,
-                                                         N, K, act, splits);
+  const describe::Launch kern = plan_gemm(M, N, splits);
+  gemm_bias_act_kernel<<<kern.grid, kern.threads, 0, stream>>>(
+      A, B, bias, C, ws, M, N, K, act, splits);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t n = (size_t)M * N;
-  if (N % 4 == 0) {
-    const unsigned blocks = static_cast<unsigned>((n / 4 + 255) / 256);
-    gemm_splitk_reduce_kernel<4><<<blocks, 256, 0, stream>>>(ws, bias, C, n, N,
-                                                             splits, act);
-  } else {
-    const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
-    gemm_splitk_reduce_kernel<1><<<blocks, 256, 0, stream>>>(ws, bias, C, n, N,
-                                                             splits, act);
-  }
+  const describe::Launch red = plan_reduce(M, N);
+  if (N % 4 == 0)
+    gemm_splitk_reduce_kernel<4><<<red.grid, red.threads, 0, stream>>>(
+        ws, bias, C, n, N, splits, act);
+  else
+    gemm_splitk_reduce_kernel<1><<<red.grid, red.threads, 0, stream>>>(
+        ws, bias, C, n, N, splits, act);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What repro_gemm_bias_act launches for args = (M, N, K, splits): the GEMM
+// kernel (which 0) or the reduce (which 1), as describe.cuh lays it out.
+extern "C" int repro_gemm_describe(const int* args, int nargs, int which,
+                                   long long* out) {
+  if (nargs != 4 || which < 0 || which > 1 || args[0] < 1 || args[1] < 1 ||
+      args[3] < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return describe::write(which == 0 ? plan_gemm(args[0], args[1], args[3])
+                                    : plan_reduce(args[0], args[1]),
+                         out);
 }

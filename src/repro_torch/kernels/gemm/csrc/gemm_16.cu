@@ -48,6 +48,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "describe.cuh"
 #include "hmma16.cuh"
 #include "hopper_async.cuh"
 #include "per_device.cuh"
@@ -196,45 +197,62 @@ hgemm16_bias_act_kernel(const __grid_constant__ CUtensorMap a_map,
   }
 }
 
+// The kernel's launch for an M x N x K product cut into `splits`, after
+// its shared memory limit is raised on the current device (once): the
+// ring's stages and shared memory, and the grid, a block a tile and split,
+// or, unsplit, persistent blocks, as many as the SMs hold at once.
 template <class T>
-int launch(const CUtensorMap& a_map, const CUtensorMap& b_map,
-           const float* bias, T* C, int M, int N, int K, int act, int splits,
-           cudaStream_t stream) {
+cudaError_t plan16(int M, int N, int K, int splits, describe::Launch* l) {
   // The SM count of each device, 0 until its first launch there has
   // raised the kernel's shared memory limit on it.
   static int sms[per_device::MAX_DEVICES] = {};
   int dev = 0;
-  {
-    cudaError_t err = per_device::current(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (sms[dev] == 0) {
-      err = cudaFuncSetAttribute(hgemm16_bias_act_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem_bytes(MAX_STAGES, 1));
-      int count = 0;
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                     dev);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      sms[dev] = count;
-    }
+  cudaError_t err = per_device::current(&dev);
+  if (err != cudaSuccess) return err;
+  if (sms[dev] == 0) {
+    err = cudaFuncSetAttribute(hgemm16_bias_act_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes(MAX_STAGES, 1));
+    int count = 0;
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return err;
+    sms[dev] = count;
   }
   const int smem = smem_bytes(stages_for(K, splits), splits);
   const long tiles = (long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   long blocks = tiles * splits;
+  int resident = 0;
   if (splits == 1) {
     // Persistent: as many blocks as the SMs hold at once.
     int per_sm = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, hgemm16_bias_act_kernel<T>, THREADS, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long slots = (long)sms[dev] * (per_sm > 0 ? per_sm : 1);
+    if (err != cudaSuccess) return err;
+    resident = per_sm > 0 ? per_sm : 1;
+    const long slots = (long)sms[dev] * resident;
     blocks = tiles < slots ? tiles : slots;
   }
-  const dim3 grid(static_cast<unsigned>(blocks), 1, 1);
+  l->grid = dim3(static_cast<unsigned>(blocks), 1, 1);
+  l->cluster = dim3(static_cast<unsigned>(splits), 1, 1);
+  l->threads = THREADS;
+  l->smem = static_cast<size_t>(smem);
+  l->stages = stages_for(K, splits);
+  l->resident = resident;
+  l->func = (const void*)&hgemm16_bias_act_kernel<T>;
+  return cudaSuccess;
+}
+
+template <class T>
+int launch(const CUtensorMap& a_map, const CUtensorMap& b_map,
+           const float* bias, T* C, int M, int N, int K, int act, int splits,
+           cudaStream_t stream) {
+  describe::Launch l;
+  const cudaError_t err = plan16<T>(M, N, K, splits, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(hopper::launch_clustered(
-      hgemm16_bias_act_kernel<T>, grid, THREADS,
-      static_cast<size_t>(smem), stream,
+      hgemm16_bias_act_kernel<T>, l.grid, THREADS, l.smem, stream,
       static_cast<unsigned>(splits), a_map, b_map, bias, C, M, N, K, act,
       splits));
 }
@@ -276,4 +294,20 @@ extern "C" int repro_gemm16_bias_act(const void* A, const void* B,
                   K, act, splits, stream);
   return launch(a_map, b_map, bias, static_cast<__half*>(C), M, N, K, act,
                 splits, stream);
+}
+
+// What repro_gemm16_bias_act launches for args = (M, N, K, ldb, splits,
+// dtype), as describe.cuh lays it out (which 0: its one kernel).
+extern "C" int repro_gemm_16_describe(const int* args, int nargs, int which,
+                                      long long* out) {
+  if (nargs != 6 || which != 0 || args[0] < 1 || args[1] < 1 || args[2] < 8 ||
+      args[4] < 1 || args[4] > MAX_SPLITS || (args[5] != 0 && args[5] != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  describe::Launch l;
+  const cudaError_t err =
+      args[5] == 0
+          ? plan16<__nv_bfloat16>(args[0], args[1], args[2], args[4], &l)
+          : plan16<__half>(args[0], args[1], args[2], args[4], &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return describe::write(l, out);
 }

@@ -66,6 +66,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "describe.cuh"
 #include "per_device.cuh"
 #include "s8_mma.cuh"
 
@@ -328,10 +329,10 @@ gemm_q8_splitk_reduce_kernel(const int* __restrict__ ws,
   s8mma::splitk_reduce<V>(ws, scale, bias, C, n, N, splits, act);
 }
 
+// The kernel's launch at tile WM for an M x N product cut into `splits`,
+// after its shared memory limit is raised on the current device (once).
 template <int WM>
-cudaError_t launch(const int8_t* A, const int8_t* B, const float* scale,
-                   const float* bias, float* C, int* ws, int M, int N, int K,
-                   int act, int splits, cudaStream_t stream) {
+cudaError_t plan_q8(int M, int N, int splits, describe::Launch* l) {
   using T = Tile<WM>;
   static bool smem_set[per_device::MAX_DEVICES] = {};
   int dev = 0;
@@ -344,9 +345,29 @@ cudaError_t launch(const int8_t* A, const int8_t* B, const float* scale,
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
-  const dim3 grid((M + T::BM - 1) / T::BM, (N + T::BN - 1) / T::BN, splits);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  gemm_q8_bias_act_kernel<WM><<<grid, THREADS, T::SMEM, stream>>>(
+  l->grid = dim3((M + T::BM - 1) / T::BM, (N + T::BN - 1) / T::BN, splits);
+  l->threads = THREADS;
+  l->smem = T::SMEM;
+  l->stages = STAGES;
+  l->func = (const void*)&gemm_q8_bias_act_kernel<WM>;
+  return l->grid.y > 65535 ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+// The reduce's launch over the M x N output.
+describe::Launch plan_q8_reduce(int M, int N) {
+  return describe::reduce((size_t)M * N, N,
+                          (const void*)&gemm_q8_splitk_reduce_kernel<4>,
+                          (const void*)&gemm_q8_splitk_reduce_kernel<1>);
+}
+
+template <int WM>
+cudaError_t launch(const int8_t* A, const int8_t* B, const float* scale,
+                   const float* bias, float* C, int* ws, int M, int N, int K,
+                   int act, int splits, cudaStream_t stream) {
+  describe::Launch l;
+  const cudaError_t err = plan_q8<WM>(M, N, splits, &l);
+  if (err != cudaSuccess) return err;
+  gemm_q8_bias_act_kernel<WM><<<l.grid, l.threads, l.smem, stream>>>(
       A, B, scale, bias, C, ws, M, N, K, act, splits);
   return cudaGetLastError();
 }
@@ -376,14 +397,32 @@ extern "C" int repro_gemm_q8_bias_act(const int8_t* A, const int8_t* B,
                            stream);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t n = (size_t)M * N;
-  if (N % 4 == 0) {
-    const unsigned blocks = static_cast<unsigned>((n / 4 + 255) / 256);
-    gemm_q8_splitk_reduce_kernel<4><<<blocks, 256, 0, stream>>>(
+  const describe::Launch red = plan_q8_reduce(M, N);
+  if (N % 4 == 0)
+    gemm_q8_splitk_reduce_kernel<4><<<red.grid, red.threads, 0, stream>>>(
         ws, scale, bias, C, n, N, splits, act);
-  } else {
-    const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
-    gemm_q8_splitk_reduce_kernel<1><<<blocks, 256, 0, stream>>>(
+  else
+    gemm_q8_splitk_reduce_kernel<1><<<red.grid, red.threads, 0, stream>>>(
         ws, scale, bias, C, n, N, splits, act);
-  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// What repro_gemm_q8_bias_act launches for args = (M, N, K, bn, splits):
+// the GEMM kernel (which 0) or the reduce (which 1), as describe.cuh lays
+// it out.
+extern "C" int repro_gemm_q8_describe(const int* args, int nargs, int which,
+                                      long long* out) {
+  if (nargs != 5 || which < 0 || which > 1 || args[0] < 1 || args[1] < 1 ||
+      (args[3] != 32 && args[3] != 64) || args[4] < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  describe::Launch l;
+  if (which == 1) {
+    l = plan_q8_reduce(args[0], args[1]);
+  } else {
+    const cudaError_t err =
+        args[3] == 32 ? plan_q8<8>(args[0], args[1], args[4], &l)
+                      : plan_q8<4>(args[0], args[1], args[4], &l);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return describe::write(l, out);
 }

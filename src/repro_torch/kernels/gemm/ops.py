@@ -16,17 +16,33 @@ slots empty (``call_splits``, ``call_splits_q8``, ``call_splits_16``);
 the fp32 and int8 kernels sum the splits in a second kernel, the 16-bit
 one across a thread block cluster in the same launch.  One wrapper call
 is one product, whatever the number of CUDA kernels it launches.
+
+``gemm_launches`` gives the launch descriptors of one call
+(kernels/_launch.py) from its shapes alone; each wrapper builds them
+first and takes its split count and its output and workspace from them,
+and the verifier (repro_torch/analysis) builds the same from a plan.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.conv_spec import ACTIVATION_CODES
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import (
+    LaunchDescriptor,
+    Operand,
+    Read,
+    Write,
+    emit,
+    kernel_wrapper,
+    persistent_grid,
+    reduce_launch,
+    k_ranges,
+)
 from repro_torch.kernels._splitk import split_k
 from repro_torch.kernels.gemm.ref import matmul16_ref, matmul_q8_ref, matmul_ref
 from repro_torch.util import HALF_DTYPES
@@ -36,6 +52,13 @@ TILE: Tuple[int, int, int] = (64, 64, 16)
 #: Blocks of the fp32 kernel resident on one SM: its launch bounds'
 #: minimum, ``MIN_BLOCKS`` in csrc/sgemm_3xtf32.cuh.
 RESIDENT_BLOCKS = 4
+#: The fp32 kernel's threads (``sgemm_tc::THREADS``), its ring's stages
+#: (``STAGES``) and its static shared memory, ``sizeof(sgemm_tc::Smem)``:
+#: STAGES chunks of A (64 rows of 16 + 4 floats) and of B (16 rows of 64 +
+#: 8 floats).  The 3-pass tuple multiply runs the same core.
+THREADS = 128
+STAGES = 3
+SMEM_BYTES = STAGES * (64 * (16 + 4) + 16 * (64 + 8)) * 4
 
 #: The 16-bit kernel's compiled tile (csrc/gemm_16.cu, BM, BN, BK): 64x64
 #: outputs per block (one wgmma m64n64 warpgroup), K chunks of 64 (128-byte
@@ -61,6 +84,9 @@ MAX_STAGES_16 = 3
 #: The 16-bit kernel's fp32 partial tile: 64 rows of 64 + 8 floats
 #: (``wgmma16::RED_LD`` in csrc/wgmma16.cuh).
 RED_LD_16 = 72
+#: The 16-bit kernel's threads: one consumer warpgroup and the producer
+#: warp (``THREADS`` in csrc/gemm_16.cu).
+THREADS_16 = 160
 
 #: The int8 kernel's K multiple (A's rows go as 16-byte copies).
 K_MULTIPLE_Q8 = 16
@@ -72,6 +98,9 @@ TILES_Q8: Tuple[Tuple[int, int], ...] = ((64, 64), (128, 32))
 #: Blocks of the int8 kernel resident on one SM: its launch bounds'
 #: minimum, ``MIN_BLOCKS`` in csrc/gemm_q8.cu.
 RESIDENT_BLOCKS_Q8 = 2
+#: The int8 kernel's threads, its ring's stages of K lines of 128 bytes.
+THREADS_Q8 = 256
+STAGES_Q8, KS_Q8 = 3, 128
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ARGTYPES_Q8 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -164,6 +193,176 @@ def call_splits_q8(m: int, n: int, k: int) -> int:
                    RESIDENT_BLOCKS_Q8)
 
 
+def stages_16(k: int, splits: int = 1) -> int:
+    """The 16-bit kernel's ring stages (``stages_for`` in
+    csrc/gemm_16.cu): one a chunk of 64 of a split, at most
+    ``MAX_STAGES_16``."""
+    per_split = -(-(-(-k // TILE_16[2])) // splits)
+    return max(1, min(MAX_STAGES_16, per_split))
+
+
+def gemm_launches(m: int, n: int, k: int, dtype: str = "float32",
+                  bias: bool = True, ldb: Optional[int] = None
+                  ) -> List[LaunchDescriptor]:
+    """The launches of one (M, K) x (K, N) wrapper call in ``dtype``
+    ('float32', 'int8', 'bfloat16' or 'float16'): the kernel, with the
+    split count its wrapper takes (``call_splits``, ``call_splits_q8``,
+    ``call_splits_16``), and where the fp32 or int8 kernel splits K, the
+    reduce after it.  ``ldb``: the 16-bit B's row stride (``tma_rows16``'s,
+    N rounded up to 8, by default)."""
+    if dtype in HALF_DTYPES:
+        return [_gemm16_launch(m, n, k, dtype, bias, ldb)]
+    q8 = dtype == "int8"
+    if q8:
+        (bm, bn), bk = tile_q8(n), CHUNK_Q8
+        splits = call_splits_q8(m, n, k)
+    else:
+        bm, bn, bk = TILE
+        splits = call_splits(m, n, k)
+    chunks = max(1, -(-k // bk))
+    aux = ([Operand("scale", "in", (n,), "float32", data=False)] if q8
+           else []) + ([Operand("bias", "in", (n,), "float32", data=False)]
+                       if bias else [])
+    operands = [Operand("a", "in", (m, k), dtype),
+                Operand("b", "in", (k, n), dtype)]
+    if splits == 1:
+        operands += aux + [Operand("out", "out", (m, n), "float32")]
+    else:
+        operands.append(Operand("ws", "out", (splits, m, n),
+                                "int32" if q8 else "float32"))
+    name = "gemm_q8" if q8 else "gemm"
+    main = LaunchDescriptor(
+        kernel=name,
+        function="gemm_q8_bias_act_kernel" if q8 else "gemm_bias_act_kernel",
+        library=name, which=0,
+        args=(m, n, k, bn, splits) if q8 else (m, n, k, splits),
+        dtype=dtype, operands=tuple(operands),
+        threads=THREADS_Q8 if q8 else THREADS,
+        grid=(-(-m // bm), -(-n // bn), splits),
+        tile_map=_gemm_tiles, windows=_gemm_windows,
+        dynamic_smem_bytes=(STAGES_Q8 * (bm + bn) * KS_Q8 + bn * KS_Q8
+                            if q8 else 0),
+        static_smem_bytes=0 if q8 else SMEM_BYTES,
+        stages=STAGES_Q8 if q8 else STAGES, splits=splits, k_chunks=chunks,
+        k_ranges=k_ranges(chunks, splits),
+        sum_site="reduce" if splits > 1 else "none",
+        sum_order=tuple(range(splits)) if splits > 1 else (),
+        k_elems=k if q8 else None,
+        geometry=(("m", m), ("n", n), ("bm", bm), ("bn", bn), ("bk", bk)),
+        items=-(-m // bm) * -(-n // bn))
+    if splits == 1:
+        return [main]
+    return [main, reduce_launch(main, (m, n), "float32", aux)]
+
+
+def _gemm16_launch(m: int, n: int, k: int, dtype: str, bias: bool,
+                   ldb: Optional[int]) -> LaunchDescriptor:
+    bm, bn, bk = TILE_16
+    splits = call_splits_16(m, n, k)
+    chunks = -(-k // bk)
+    tiles = -(-m // bm) * -(-n // bn)
+    ldb = -(-n // 8) * 8 if ldb is None else ldb
+    return LaunchDescriptor(
+        kernel="gemm_16", function="hgemm16_bias_act_kernel",
+        library="gemm_16", which=0,
+        args=(m, n, k, ldb, splits, _build.DTYPE16_CODES[HALF_DTYPES[dtype]]),
+        dtype=dtype,
+        operands=(Operand("a", "in", (m, k), dtype, tma=True),
+                  Operand("b", "in", (k, n), dtype, (ldb, 1), tma=True),
+                  *([Operand("bias", "in", (n,), "float32", data=False)]
+                    if bias else []),
+                  Operand("out", "out", (m, n), dtype)),
+        threads=THREADS_16,
+        grid=(persistent_grid(tiles, RESIDENT_BLOCKS_16) if splits == 1
+              else (tiles * splits, 1, 1)),
+        tile_map=_gemm16_tiles, windows=_gemm16_windows,
+        cluster=(splits, 1, 1),
+        dynamic_smem_bytes=gemm16_smem_bytes(k, splits),
+        stages=stages_16(k, splits), splits=splits, k_chunks=chunks,
+        k_ranges=k_ranges(chunks, splits),
+        sum_site="cluster" if splits > 1 else "none",
+        sum_order=tuple(range(splits)) if splits > 1 else (),
+        persistent=splits == 1, items=tiles,
+        geometry=(("m", m), ("n", n), ("bm", bm), ("bn", bn), ("bk", bk)))
+
+
+def _gemm_tiles(d: LaunchDescriptor) -> Iterator[Write]:
+    """A block (x, y, s) writes the tile at rows 64 x, columns 64 y (bm x
+    bn) of C, or of split s's slice of the workspace."""
+    g = d.geom
+    gx, gy, _ = d.grid
+    for s in range(d.splits):
+        for y in range(gy):
+            for x in range(gx):
+                box = ((x * g["bm"], min(g["m"], (x + 1) * g["bm"])),
+                       (y * g["bn"], min(g["n"], (y + 1) * g["bn"])))
+                block = x + gx * (y + gy * s)
+                if d.splits == 1:
+                    yield Write(block, 0, "out", box)
+                else:
+                    yield Write(block, s, "ws", ((s, s + 1),) + box)
+
+
+def _gemm_windows(d: LaunchDescriptor) -> Iterator[Read]:
+    """A block reads its rows of A and columns of B over its split's K
+    chunks; the copies zero-fill the ragged M, N and K edges."""
+    g = d.geom
+    gx, gy, _ = d.grid
+    for s, (lo, hi) in enumerate(d.k_ranges):
+        k = (lo * g["bk"], hi * g["bk"])
+        for y in range(gy):
+            for x in range(gx):
+                block = x + gx * (y + gy * s)
+                yield Read(block, "a", ((x * g["bm"], (x + 1) * g["bm"]), k),
+                           (0, 1))
+                yield Read(block, "b", (k, (y * g["bn"], (y + 1) * g["bn"])),
+                           (0, 1))
+
+
+def _gemm16_tile(d: LaunchDescriptor, t: int) -> Tuple[int, int]:
+    n_tiles = -(-d.geom["n"] // d.geom["bn"])
+    return (t // n_tiles) * d.geom["bm"], (t % n_tiles) * d.geom["bn"]
+
+
+def _gemm16_tiles(d: LaunchDescriptor) -> Iterator[Write]:
+    """Unsplit, the persistent scheduler: block b takes tiles b, b + G,
+    b + 2G, ... of the ``items`` tiles (G the grid).  Split, block b is
+    rank b % splits of tile b / splits's cluster and stores rows [64 r /
+    splits, 64 (r + 1) / splits) of the tile's sum."""
+    g, s = d.geom, d.splits
+    m, n, bm, bn = g["m"], g["n"], g["bm"], g["bn"]
+    if s == 1:
+        step = d.grid[0]
+        for b in range(step):
+            for t in range(b, d.items, step):
+                m0, n0 = _gemm16_tile(d, t)
+                yield Write(b, 0, "out", ((m0, min(m, m0 + bm)),
+                                          (n0, min(n, n0 + bn))))
+        return
+    for b in range(d.grid[0]):
+        t, r = divmod(b, s)
+        m0, n0 = _gemm16_tile(d, t)
+        lo, hi = m0 + bm * r // s, min(m, m0 + bm * (r + 1) // s)
+        if lo < hi:
+            yield Write(b, r, "out", ((lo, hi), (n0, min(n, n0 + bn))))
+
+
+def _gemm16_windows(d: LaunchDescriptor) -> Iterator[Read]:
+    """The TMA boxes of A (64 x 64, K-major) and B (64 x 64) of a block's
+    tiles over its split's chunks; the copy engine fills what lies past M,
+    N or K with zeros."""
+    g, s = d.geom, d.splits
+    step = d.grid[0] // s
+    for b in range(d.grid[0]):
+        lo, hi = d.k_ranges[b % s]
+        k = (lo * g["bk"], hi * g["bk"])
+        for t in range(b // s, d.items, step):
+            m0, n0 = _gemm16_tile(d, t)
+            yield Read(b, "a", ((m0, m0 + g["bm"]), k))
+            yield Read(b, "b", (k, (n0, n0 + g["bn"])))
+
+
+@kernel_wrapper
 def matmul_bias_act(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -183,24 +382,27 @@ def matmul_bias_act(
         raise ValueError(f"gemm: shapes {tuple(a.shape)} x {tuple(b.shape)}"
                          f" with bias {None if bias is None else tuple(bias.shape)}")
     _build.require_dtype("gemm", torch.float32, a, b, bias)
+    descs = gemm_launches(m, n, k, bias=bias is not None) if m and n else []
     if impl == "torch":
+        emit(descs)
         return matmul_ref(a, b, bias, activation)
     if impl != "cuda":
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
     _build.require_cuda_operands("gemm", a, b, bias)
-    out = torch.empty((m, n), device=a.device, dtype=torch.float32)
-    if m and n:
-        fn = _build.load("gemm", "repro_gemm_bias_act", _ARGTYPES)
-        splits = call_splits(m, n, k)
-        ws = (torch.empty((splits, m, n), device=a.device, dtype=torch.float32)
-              if splits > 1 else None)
-        err = fn(a.data_ptr(), b.data_ptr(),
-                 bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
-                 m, n, k, ACTIVATION_CODES[activation], splits,
-                 _build.stream_handle(a))
-        _build.check(err, "gemm")
-        matmul_bias_act.launches += 1
+    if not descs:
+        return torch.empty((m, n), device=a.device, dtype=torch.float32)
+    out = descs[-1].alloc("out", a.device)
+    main = descs[0]
+    ws = main.alloc("ws", a.device) if main.splits > 1 else None
+    fn = _build.load("gemm", "repro_gemm_bias_act", _ARGTYPES)
+    err = fn(a.data_ptr(), b.data_ptr(),
+             bias.data_ptr() if bias is not None else None,
+             out.data_ptr(), ws.data_ptr() if ws is not None else None,
+             m, n, k, ACTIVATION_CODES[activation], main.splits,
+             _build.stream_handle(a))
+    _build.check(err, "gemm")
+    matmul_bias_act.launches += 1
+    emit(descs)
     return out
 
 
@@ -208,6 +410,7 @@ def matmul_bias_act(
 matmul_bias_act.launches = 0
 
 
+@kernel_wrapper
 def matmul16_bias_act(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -230,7 +433,10 @@ def matmul16_bias_act(
                          f" with bias {None if bias is None else tuple(bias.shape)}")
     dtype = _build.require_16bit("gemm_16", a, b)
     _build.require_dtype("gemm_16", torch.float32, bias)
+    name = str(dtype).split(".")[-1]
     if impl == "torch":
+        emit(gemm_launches(m, n, k, name, bias is not None) if m and n
+             else [])
         return matmul16_ref(a, b, bias, activation)
     if impl != "cuda":
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
@@ -242,16 +448,20 @@ def matmul16_bias_act(
     if k % K_MULTIPLE_16 or a.data_ptr() % 16:
         raise ValueError(f"gemm_16: K must be a multiple of {K_MULTIPLE_16} "
                          f"and A 16-byte aligned, got K = {k}")
-    out = torch.empty((m, n), device=a.device, dtype=dtype)
-    if m and n:
-        fn = _build.load("gemm_16", "repro_gemm16_bias_act", _ARGTYPES_16)
-        err = fn(a.data_ptr(), b.data_ptr(),
-                 bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), m, n, k, b.stride(0),
-                 ACTIVATION_CODES[activation], call_splits_16(m, n, k),
-                 _build.DTYPE16_CODES[dtype], _build.stream_handle(a))
-        _build.check(err, "gemm_16")
-        matmul16_bias_act.launches += 1
+    if not (m and n):
+        return torch.empty((m, n), device=a.device, dtype=dtype)
+    descs = gemm_launches(m, n, k, name, bias is not None, ldb=b.stride(0))
+    (main,) = descs
+    out = main.alloc("out", a.device)
+    fn = _build.load("gemm_16", "repro_gemm16_bias_act", _ARGTYPES_16)
+    err = fn(a.data_ptr(), b.data_ptr(),
+             bias.data_ptr() if bias is not None else None,
+             out.data_ptr(), m, n, k, b.stride(0),
+             ACTIVATION_CODES[activation], main.splits,
+             _build.DTYPE16_CODES[dtype], _build.stream_handle(a))
+    _build.check(err, "gemm_16")
+    matmul16_bias_act.launches += 1
+    emit(descs)
     return out
 
 
@@ -259,6 +469,7 @@ def matmul16_bias_act(
 matmul16_bias_act.launches = 0
 
 
+@kernel_wrapper
 def matmul_q8_bias_act(
     a_q: torch.Tensor,
     b_q: torch.Tensor,
@@ -283,7 +494,10 @@ def matmul_q8_bias_act(
             f"scale {tuple(scale.shape)} and bias "
             f"{None if bias is None else tuple(bias.shape)}")
     _build.require_int32_exact("gemm_q8", k)
+    descs = (gemm_launches(m, n, k, "int8", bias is not None) if m and n
+             else [])
     if impl == "torch":
+        emit(descs)
         return matmul_q8_ref(a_q, b_q, scale, bias, activation)
     if impl != "cuda":
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
@@ -292,19 +506,20 @@ def matmul_q8_bias_act(
     if k % K_MULTIPLE_Q8 or a_q.data_ptr() % 16:
         raise ValueError(f"gemm_q8: K must be a multiple of {K_MULTIPLE_Q8} "
                          f"and A 16-byte aligned, got K = {k}")
-    out = torch.empty((m, n), device=a_q.device, dtype=torch.float32)
-    if m and n:
-        fn = _build.load("gemm_q8", "repro_gemm_q8_bias_act", _ARGTYPES_Q8)
-        splits = call_splits_q8(m, n, k)
-        ws = (torch.empty((splits, m, n), device=a_q.device,
-                          dtype=torch.int32) if splits > 1 else None)
-        err = fn(a_q.data_ptr(), b_q.data_ptr(), scale.data_ptr(),
-                 bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
-                 m, n, k, ACTIVATION_CODES[activation], tile_q8(n)[1],
-                 splits, _build.stream_handle(a_q))
-        _build.check(err, "gemm_q8")
-        matmul_q8_bias_act.launches += 1
+    if not descs:
+        return torch.empty((m, n), device=a_q.device, dtype=torch.float32)
+    out = descs[-1].alloc("out", a_q.device)
+    main = descs[0]
+    ws = main.alloc("ws", a_q.device) if main.splits > 1 else None
+    fn = _build.load("gemm_q8", "repro_gemm_q8_bias_act", _ARGTYPES_Q8)
+    err = fn(a_q.data_ptr(), b_q.data_ptr(), scale.data_ptr(),
+             bias.data_ptr() if bias is not None else None,
+             out.data_ptr(), ws.data_ptr() if ws is not None else None,
+             m, n, k, ACTIVATION_CODES[activation], main.geom["bn"],
+             main.splits, _build.stream_handle(a_q))
+    _build.check(err, "gemm_q8")
+    matmul_q8_bias_act.launches += 1
+    emit(descs)
     return out
 
 

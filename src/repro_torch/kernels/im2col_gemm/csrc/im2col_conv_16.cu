@@ -69,6 +69,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "describe.cuh"
 #include "hmma16.cuh"
 #include "hopper_async.cuh"
 #include "per_device.cuh"
@@ -359,41 +360,58 @@ im2col16_conv_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
+// The kernel's launch for geometry g, after its shared memory limit is
+// raised on the current device (once): a block a work item and split, or,
+// unsplit, persistent blocks, as many as the SMs hold at once.
 template <class T>
-int launch(const CUtensorMap& x_map, const CUtensorMap& w_map,
-           const float* bias, T* out, const Geom& g, cudaStream_t stream) {
+cudaError_t plan16c(const Geom& g, describe::Launch* l) {
   // The SM count of each device, 0 until its first launch there has
   // raised the kernel's shared memory limit on it.
   static int sms[per_device::MAX_DEVICES] = {};
   int dev = 0;
-  {
-    cudaError_t err = per_device::current(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (sms[dev] == 0) {
-      err = cudaFuncSetAttribute(im2col16_conv_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 MAX_SMEM);
-      int count = 0;
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                     dev);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      sms[dev] = count;
-    }
+  cudaError_t err = per_device::current(&dev);
+  if (err != cudaSuccess) return err;
+  if (sms[dev] == 0) {
+    err = cudaFuncSetAttribute(im2col16_conv_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MAX_SMEM);
+    int count = 0;
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return err;
+    sms[dev] = count;
   }
   long blocks = (long)g.tiles * g.splits;
+  int resident = 0;
   if (g.splits == 1) {
     // Persistent: as many blocks as the SMs hold at once.
     int per_sm = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, im2col16_conv_kernel<T>, THREADS, g.smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long slots = (long)sms[dev] * (per_sm > 0 ? per_sm : 1);
+    if (err != cudaSuccess) return err;
+    resident = per_sm > 0 ? per_sm : 1;
+    const long slots = (long)sms[dev] * resident;
     blocks = g.tiles < slots ? g.tiles : slots;
   }
+  l->grid = dim3(static_cast<unsigned>(blocks), 1, 1);
+  l->cluster = dim3(static_cast<unsigned>(g.splits), 1, 1);
+  l->threads = THREADS;
+  l->smem = static_cast<size_t>(g.smem);
+  l->stages = g.stages;
+  l->resident = resident;
+  l->func = (const void*)&im2col16_conv_kernel<T>;
+  return cudaSuccess;
+}
+
+template <class T>
+int launch(const CUtensorMap& x_map, const CUtensorMap& w_map,
+           const float* bias, T* out, const Geom& g, cudaStream_t stream) {
+  describe::Launch l;
+  const cudaError_t err = plan16c<T>(g, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(hopper::launch_clustered(
-      im2col16_conv_kernel<T>, dim3(static_cast<unsigned>(blocks), 1, 1),
-      THREADS, static_cast<size_t>(g.smem), stream,
+      im2col16_conv_kernel<T>, l.grid, THREADS, l.smem, stream,
       static_cast<unsigned>(g.splits), x_map, w_map, bias, out, g));
 }
 
@@ -443,4 +461,28 @@ extern "C" int repro_im2col_conv16(const void* x, const void* w,
     return launch(x_map, w_map, bias, static_cast<__nv_bfloat16*>(out), g,
                   stream);
   return launch(x_map, w_map, bias, static_cast<__half*>(out), g, stream);
+}
+
+// What repro_im2col_conv16 launches for args = (B, H, W, C, O, ldw, OH,
+// OW, kh, kw, sh, sw, ph, pw, splits, dtype), as describe.cuh lays it out
+// (which 0: its one kernel).
+extern "C" int repro_im2col_conv_16_describe(const int* args, int nargs,
+                                             int which, long long* out) {
+  if (nargs != 16 || which != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geom g{args[0], args[1], args[2],  args[3],  args[4],  args[5],
+         args[6], args[7], args[8],  args[9],  args[10], args[11],
+         args[12], args[13], 0, args[14]};
+  const int dtype = args[15];
+  const int chunks = (g.C + CK - 1) / CK;
+  if (g.B < 1 || g.C < 8 || g.O < 1 || g.OH < 1 || g.OW < 1 || g.kh < 1 ||
+      g.kw < 1 || g.kh * g.kw > MAX_BOX || g.sh < 1 || g.sw < 1 ||
+      g.splits < 1 || g.splits > MAX_SPLITS || g.splits > chunks ||
+      (dtype != 0 && dtype != 1) || !geom_for(g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  describe::Launch l;
+  const cudaError_t err = dtype == 0 ? plan16c<__nv_bfloat16>(g, &l)
+                                     : plan16c<__half>(g, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return describe::write(l, out);
 }

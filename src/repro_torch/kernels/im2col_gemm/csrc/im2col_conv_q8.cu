@@ -67,6 +67,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "describe.cuh"
 #include "per_device.cuh"
 #include "s8_mma.cuh"
 
@@ -341,6 +342,46 @@ im2col_conv_q8_splitk_reduce_kernel(const int* __restrict__ ws,
   s8mma::splitk_reduce<V>(ws, scale, bias, out, n, O, splits, act);
 }
 
+// The conv kernel's launch: its window and weight rows double-buffered in
+// dynamic shared memory (the limit raised on the current device where it
+// passes 48 KB), one block a (row tile, column tile) x 64 out channels x
+// image x split.  cudaErrorInvalidValue where the buffers pass MAX_SMEM.
+cudaError_t plan_conv_q8(int B, int O, int OH, int OW, int kh, int kw,
+                         int sh, int sw, int toh, int tow, int splits,
+                         describe::Launch* l) {
+  const int win_px = ((toh - 1) * sh + kh) * ((tow - 1) * sw + kw);
+  const size_t smem = 2 * (size_t)(win_px + kh * kw * BO) * ROW;
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  // The limit raised on each device so far (0: the default 48 KB).
+  static size_t smem_limit[per_device::MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = per_device::current(&dev);
+  if (err != cudaSuccess) return err;
+  if (smem > 48 * 1024 && smem > smem_limit[dev]) {
+    err = cudaFuncSetAttribute(im2col_conv_q8_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    smem_limit[dev] = smem;
+  }
+  const int row_tiles = (OH + toh - 1) / toh;
+  const int col_tiles = (OW + tow - 1) / tow;
+  l->grid = dim3(row_tiles * col_tiles, (O + BO - 1) / BO, B * splits);
+  l->threads = THREADS;
+  l->smem = smem;
+  l->stages = 2;
+  l->func = (const void*)&im2col_conv_q8_kernel;
+  return cudaSuccess;
+}
+
+// The reduce's launch over the B x OH x OW x O output.
+describe::Launch plan_conv_q8_reduce(int B, int O, int OH, int OW) {
+  return describe::reduce(
+      (size_t)B * OH * OW * O, O,
+      (const void*)&im2col_conv_q8_splitk_reduce_kernel<4>,
+      (const void*)&im2col_conv_q8_splitk_reduce_kernel<1>);
+}
+
 }  // namespace
 
 // out (B, OH, OW, O) = act(float(conv(x_q, w_q)) * scale + bias), x_q
@@ -359,38 +400,49 @@ extern "C" int repro_im2col_conv_q8(const int8_t* x, const int8_t* w,
   if (C % 16 != 0 || toh * tow > PIX || toh < 1 || tow < 1 || splits < 1 ||
       splits > chunks || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int win_px = ((toh - 1) * sh + kh) * ((tow - 1) * sw + kw);
-  const size_t smem = 2 * (size_t)(win_px + kh * kw * BO) * ROW;
-  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  // The limit raised on each device so far (0: the default 48 KB).
-  static size_t smem_limit[per_device::MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = per_device::current(&dev);
+  describe::Launch l;
+  cudaError_t err =
+      plan_conv_q8(B, O, OH, OW, kh, kw, sh, sw, toh, tow, splits, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > 48 * 1024 && smem > smem_limit[dev]) {
-    err = cudaFuncSetAttribute(im2col_conv_q8_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_limit[dev] = smem;
-  }
-  const int row_tiles = (OH + toh - 1) / toh;
   const int col_tiles = (OW + tow - 1) / tow;
-  const dim3 grid(row_tiles * col_tiles, (O + BO - 1) / BO, B * splits);
-  im2col_conv_q8_kernel<<<grid, THREADS, smem, stream>>>(
+  im2col_conv_q8_kernel<<<l.grid, l.threads, l.smem, stream>>>(
       x, w, scale, bias, out, ws, B, H, W, C, O, OH, OW, kh, kw, sh, sw, ph,
       pw, toh, tow, col_tiles, act, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t n = (size_t)B * OH * OW * O;
-  if (O % 4 == 0) {
-    const unsigned blocks = static_cast<unsigned>((n / 4 + 255) / 256);
-    im2col_conv_q8_splitk_reduce_kernel<4><<<blocks, 256, 0, stream>>>(
-        ws, scale, bias, out, n, O, splits, act);
-  } else {
-    const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
-    im2col_conv_q8_splitk_reduce_kernel<1><<<blocks, 256, 0, stream>>>(
-        ws, scale, bias, out, n, O, splits, act);
-  }
+  const describe::Launch red = plan_conv_q8_reduce(B, O, OH, OW);
+  if (O % 4 == 0)
+    im2col_conv_q8_splitk_reduce_kernel<4><<<red.grid, red.threads, 0,
+                                             stream>>>(ws, scale, bias, out,
+                                                       n, O, splits, act);
+  else
+    im2col_conv_q8_splitk_reduce_kernel<1><<<red.grid, red.threads, 0,
+                                             stream>>>(ws, scale, bias, out,
+                                                       n, O, splits, act);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What repro_im2col_conv_q8 launches for args = (B, H, W, C, O, OH, OW,
+// kh, kw, sh, sw, ph, pw, toh, tow, splits): the conv kernel (which 0) or
+// the reduce (which 1), as describe.cuh lays it out.
+extern "C" int repro_im2col_conv_q8_describe(const int* args, int nargs,
+                                             int which, long long* out) {
+  if (nargs != 16 || which < 0 || which > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int B = args[0], O = args[4], OH = args[5], OW = args[6];
+  const int toh = args[13], tow = args[14], splits = args[15];
+  if (B < 1 || O < 1 || OH < 1 || OW < 1 || toh < 1 || tow < 1 ||
+      toh * tow > PIX || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  describe::Launch l;
+  if (which == 1) {
+    l = plan_conv_q8_reduce(B, O, OH, OW);
+  } else {
+    const cudaError_t err = plan_conv_q8(B, O, OH, OW, args[7], args[8],
+                                         args[9], args[10], toh, tow, splits,
+                                         &l);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return describe::write(l, out);
 }

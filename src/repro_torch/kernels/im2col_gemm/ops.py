@@ -19,17 +19,32 @@ fp32 and int8 kernels sum the splits in a second kernel, the 16-bit one
 across a thread block cluster in the same launch.  One wrapper call is
 one conv, whatever the number of CUDA kernels it launches.
 ``impl='cuda'`` launches the kernel on CUDA tensors and raises on anything
-else; ``impl='torch'`` runs the plain version (ref.py).
+else; ``impl='torch'`` runs the plain version (ref.py).  ``im2col_launches``
+gives the launch descriptors of one call (kernels/_launch.py) from its
+shapes; each wrapper takes its split count and its output and workspace
+from them.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.conv_spec import ACTIVATION_CODES, ConvSpec
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import (
+    LaunchDescriptor,
+    Operand,
+    Read,
+    Write,
+    emit,
+    flat_boxes,
+    k_ranges,
+    kernel_wrapper,
+    persistent_grid,
+    reduce_launch,
+)
 from repro_torch.kernels._splitk import split_k, split_ranges  # noqa: F401
 from repro_torch.kernels.gemm.ops import tma_rows16
 from repro_torch.kernels.im2col_gemm.ref import (
@@ -51,6 +66,10 @@ BO = 64         # out channels per block
 PIXELS = 64     # output pixels per block: toh * tow <= PIXELS
 #: Blocks of the fp32 kernel resident on one SM (its launch bounds).
 RESIDENT_BLOCKS = 2
+#: Threads of the fp32 and int8 kernels' blocks, and of the 16-bit one's
+#: (two consumer warpgroups and the producer warp).
+THREADS = 256
+THREADS_16 = 288
 #: Blocks of the int8 kernel resident on one SM (its launch bounds'
 #: MIN_BLOCKS).
 RESIDENT_BLOCKS_Q8 = 2
@@ -205,6 +224,245 @@ def call_splits_q8(batch: int, oh: int, ow: int, c: int, o: int,
                    RESIDENT_BLOCKS_Q8)
 
 
+def im2col_launches(batch: int, h: int, w: int, c: int, o: int,
+                    spec: ConvSpec, toh: Optional[int] = None,
+                    dtype: str = "float32", bias: bool = True,
+                    ldw: Optional[int] = None,
+                    bo: int = BO) -> List[LaunchDescriptor]:
+    """The launches of one conv wrapper call on a (batch, h, w, c) input
+    and (kh, kw, c, o) weights in ``dtype``: the kernel, with the split
+    its wrapper takes (``call_splits``, ``call_splits_q8``,
+    ``call_splits_16``), and where the fp32 or int8 kernel splits, the
+    reduce after it.  ``toh``: the fp32 or int8 row tile (``pick_blocks``'s
+    by default); ``ldw``: the 16-bit weights' row stride (O rounded up to
+    8, as ``gemm.ops.tma_rows16`` lays them out, by default); ``bo``: the
+    fp32 or int8 block's out channels, the compiled ``BO`` unless a plan
+    declares another (which the wrapper refuses, and the verifier
+    prices)."""
+    oh, ow = spec.out_hw(h, w)
+    (sh, sw), (ph, pw), (kh, kw) = spec.stride, spec.padding, spec.kernel_size
+    if dtype in HALF_DTYPES:
+        return [_conv16_launch(batch, h, w, c, o, oh, ow, spec, dtype, bias,
+                               ldw)]
+    q8 = dtype == "int8"
+    toh = pick_blocks(oh, ow)[0] if toh is None else toh
+    tow = tile_width(toh, ow)
+    if q8:
+        chunk, chunks = CHUNK_Q8, -(-c // CHUNK_Q8)
+        splits = call_splits_q8(batch, oh, ow, c, o, toh)
+    else:
+        chunk, chunks = BC, c // BC
+        splits = call_splits(batch, oh, ow, c, o, toh)
+    win_px = ((toh - 1) * sh + kh) * ((tow - 1) * sw + kw)
+    smem = (2 * (win_px + kh * kw * bo) * CHUNK_Q8 if q8
+            else 2 * (win_px * BC + kh * kw * BC * bo) * 4)
+    aux = ([Operand("scale", "in", (o,), "float32", data=False)] if q8
+           else []) + ([Operand("bias", "in", (o,), "float32", data=False)]
+                       if bias else [])
+    operands = [Operand("x", "in", (batch, h, w, c), dtype),
+                Operand("w", "in", (kh, kw, c, o), dtype)]
+    if splits == 1:
+        operands += aux + [Operand("out", "out", (batch, oh, ow, o),
+                                   "float32")]
+    else:
+        operands.append(Operand("ws", "out", (splits, batch, oh, ow, o),
+                                "int32" if q8 else "float32"))
+    name = "im2col_conv_q8" if q8 else "im2col_conv"
+    row_tiles, col_tiles = -(-oh // toh), -(-ow // tow)
+    main = LaunchDescriptor(
+        kernel=name, function=name + "_kernel", library=name, which=0,
+        args=(batch, h, w, c, o, oh, ow, kh, kw, sh, sw, ph, pw, toh, tow,
+              splits),
+        dtype=dtype, operands=tuple(operands), threads=THREADS,
+        grid=(row_tiles * col_tiles, -(-o // bo), batch * splits),
+        tile_map=_conv_tiles, windows=_conv_windows,
+        dynamic_smem_bytes=smem, stages=2, splits=splits, k_chunks=chunks,
+        k_ranges=k_ranges(chunks, splits),
+        sum_site="reduce" if splits > 1 else "none",
+        sum_order=tuple(range(splits)) if splits > 1 else (),
+        k_elems=kh * kw * c if q8 else None,
+        geometry=(("oh", oh), ("ow", ow), ("o", o), ("c", c), ("toh", toh),
+                  ("tow", tow), ("col_tiles", col_tiles), ("kh", kh),
+                  ("kw", kw), ("sh", sh), ("sw", sw), ("ph", ph),
+                  ("pw", pw), ("chunk", chunk), ("bo", bo)),
+        items=row_tiles * col_tiles * -(-o // bo) * batch)
+    if splits == 1:
+        return [main]
+    return [main, reduce_launch(main, (batch, oh, ow, o), "float32", aux)]
+
+
+def _conv16_launch(batch: int, h: int, w: int, c: int, o: int, oh: int,
+                   ow: int, spec: ConvSpec, dtype: str, bias: bool,
+                   ldw: Optional[int]) -> LaunchDescriptor:
+    (sh, sw), (ph, pw), (kh, kw) = spec.stride, spec.padding, spec.kernel_size
+    splits = call_splits_16(batch, oh, ow, c, o)
+    geom = conv16_geometry(c, o, oh, ow, kh, kw, sh, sw, splits)
+    chunks = -(-c // CHUNK_16)
+    items = batch * geom["o_blocks"] * geom["tiles_img"]
+    ldw = -(-o // 8) * 8 if ldw is None else ldw
+    return LaunchDescriptor(
+        kernel="im2col_conv_16", function="im2col16_conv_kernel",
+        library="im2col_conv_16", which=0,
+        args=(batch, h, w, c, o, ldw, oh, ow, kh, kw, sh, sw, ph, pw, splits,
+              _build.DTYPE16_CODES[HALF_DTYPES[dtype]]),
+        dtype=dtype,
+        operands=(Operand("x", "in", (batch, h, w, c), dtype, tma=True),
+                  Operand("w", "in", (kh, kw, c, o), dtype,
+                          (kw * c * ldw, c * ldw, ldw, 1), tma=True),
+                  *([Operand("bias", "in", (o,), "float32", data=False)]
+                    if bias else []),
+                  Operand("out", "out", (batch, oh, ow, o), dtype)),
+        threads=THREADS_16,
+        grid=(persistent_grid(items, RESIDENT_BLOCKS_16) if splits == 1
+              else (items * splits, 1, 1)),
+        tile_map=_conv16_tiles, windows=_conv16_windows,
+        cluster=(splits, 1, 1), dynamic_smem_bytes=geom["smem"],
+        stages=geom["stages"], splits=splits, k_chunks=chunks,
+        k_ranges=k_ranges(chunks, splits),
+        sum_site="cluster" if splits > 1 else "none",
+        sum_order=tuple(range(splits)) if splits > 1 else (),
+        persistent=splits == 1, items=items,
+        geometry=(("oh", oh), ("ow", ow), ("o", o), ("kh", kh), ("kw", kw),
+                  ("sh", sh), ("sw", sw), ("ph", ph), ("pw", pw),
+                  ("raster", geom["raster"]),
+                  ("tiles_img", geom["tiles_img"]),
+                  ("o_blocks", geom["o_blocks"]), ("seg_h", geom["seg_h"]),
+                  ("win_w", geom["win_w"])))
+
+
+def _conv_block(d: LaunchDescriptor, x: int, y: int, z: int):
+    g = d.geom
+    oh0 = (x // g["col_tiles"]) * g["toh"]
+    ow0 = (x % g["col_tiles"]) * g["tow"]
+    return z // d.splits, z % d.splits, oh0, ow0, y * g["bo"]
+
+
+def _conv_tiles(d: LaunchDescriptor) -> Iterator[Write]:
+    """A block (x, y, z) writes a toh x tow tile of output pixels (row tile
+    x / col_tiles, column tile x % col_tiles) by 64 out channels (y) of
+    image z / splits, or of split z % splits's slice of the workspace."""
+    g = d.geom
+    gx, gy, gz = d.grid
+    for z in range(gz):
+        for y in range(gy):
+            for x in range(gx):
+                b, s, oh0, ow0, o0 = _conv_block(d, x, y, z)
+                box = ((b, b + 1), (oh0, min(g["oh"], oh0 + g["toh"])),
+                       (ow0, min(g["ow"], ow0 + g["tow"])),
+                       (o0, min(g["o"], o0 + g["bo"])))
+                block = x + gx * (y + gy * z)
+                if d.splits == 1:
+                    yield Write(block, 0, "out", box)
+                else:
+                    yield Write(block, s, "ws", ((s, s + 1),) + box)
+
+
+def _conv_windows(d: LaunchDescriptor) -> Iterator[Read]:
+    """A block stages, chunk by chunk of its split, the input window of its
+    tile ((toh - 1) sh + kh rows, (tow - 1) sw + kw columns from the
+    tile's top-left pixel less the padding), which the copies zero-fill
+    where it leaves the image, and its chunks' weight rows for 64 out
+    channels (masked at O)."""
+    g = d.geom
+    gx, gy, gz = d.grid
+    win_h = (g["toh"] - 1) * g["sh"] + g["kh"]
+    win_w = (g["tow"] - 1) * g["sw"] + g["kw"]
+    for z in range(gz):
+        for y in range(gy):
+            for x in range(gx):
+                b, s, oh0, ow0, o0 = _conv_block(d, x, y, z)
+                lo, hi = d.k_ranges[s]
+                ch = (lo * g["chunk"], min(g["c"], hi * g["chunk"]))
+                ih0, iw0 = oh0 * g["sh"] - g["ph"], ow0 * g["sw"] - g["pw"]
+                block = x + gx * (y + gy * z)
+                yield Read(block, "x", ((b, b + 1), (ih0, ih0 + win_h),
+                                        (iw0, iw0 + win_w), ch), (1, 2))
+                yield Read(block, "w", ((0, g["kh"]), (0, g["kw"]), ch,
+                                        (o0, o0 + g["bo"])), (3,))
+
+
+def _conv16_item(d: LaunchDescriptor, t: int):
+    """Work item t's image, first out channel and pixel runs (row, first
+    column, pixels), as csrc/im2col_conv_16.cu's ``tile_of`` lays them
+    out: raster tiles of ``PIXELS_16`` consecutive pixels, else two runs of
+    ``RUN_16`` pixels of a row (a run past the map has none)."""
+    g = d.geom
+    pt, rest = t % g["tiles_img"], t // g["tiles_img"]
+    o0, b = (rest % g["o_blocks"]) * BO_16, rest // g["o_blocks"]
+    if g["raster"]:
+        return b, o0, pt * PIXELS_16, ()
+    rpr = -(-g["ow"] // RUN_16)
+    runs = []
+    for j in range(2):
+        r = 2 * pt + j
+        row, c0 = r // rpr, (r % rpr) * RUN_16
+        runs.append((row, c0, min(RUN_16, g["ow"] - c0)
+                     if row < g["oh"] else 0))
+    return b, o0, pt * PIXELS_16, tuple(runs)
+
+
+def _conv16_rows(d: LaunchDescriptor, t: int, lo: int, hi: int):
+    """Output boxes of rows [lo, hi) of work item t's tile."""
+    g = d.geom
+    b, o0, p0, runs = _conv16_item(d, t)
+    oc = (o0, min(g["o"], o0 + BO_16))
+    if g["raster"]:
+        end = min(p0 + hi, g["oh"] * g["ow"])
+        for pix in flat_boxes(p0 + lo, end, (g["oh"], g["ow"])):
+            yield ((b, b + 1),) + pix + (oc,)
+        return
+    for j, (row, c0, n) in enumerate(runs):
+        k0, k1 = max(lo, RUN_16 * j) - RUN_16 * j, min(hi, RUN_16 * (j + 1)) \
+            - RUN_16 * j
+        k1 = min(k1, n)
+        if k0 < k1:
+            yield ((b, b + 1), (row, row + 1), (c0 + k0, c0 + k1), oc)
+
+
+def _conv16_tiles(d: LaunchDescriptor) -> Iterator[Write]:
+    """Unsplit, the persistent scheduler: block b takes work items b,
+    b + G, ... (G the grid).  Split, block b is rank b % splits of item b /
+    splits's cluster and stores rows [128 r / splits, 128 (r + 1) /
+    splits) of the item's sum."""
+    s = d.splits
+    if s == 1:
+        step = d.grid[0]
+        for b in range(step):
+            for t in range(b, d.items, step):
+                for box in _conv16_rows(d, t, 0, PIXELS_16):
+                    yield Write(b, 0, "out", box)
+        return
+    for b in range(d.grid[0]):
+        t, r = divmod(b, s)
+        for box in _conv16_rows(d, t, PIXELS_16 * r // s,
+                                PIXELS_16 * (r + 1) // s):
+            yield Write(b, r, "out", box)
+
+
+def _conv16_windows(d: LaunchDescriptor) -> Iterator[Read]:
+    """The TMA boxes of a work item's window segments (from the top-left
+    input pixel less the padding, ``seg_h`` rows of ``win_w`` columns) and
+    of its weights, over its split's chunks of 32 channels: the copy engine
+    fills what lies outside the input with zeros (the conv's padding, and
+    the empty run past the map)."""
+    g, s = d.geom, d.splits
+    step = d.grid[0] // s
+    for bl in range(d.grid[0]):
+        lo, hi = d.k_ranges[bl % s]
+        ch = (lo * CHUNK_16, hi * CHUNK_16)
+        for t in range(bl // s, d.items, step):
+            b, o0, p0, runs = _conv16_item(d, t)
+            starts = ([(p0 // g["ow"], 0)] if g["raster"]
+                      else [(row, c0) for row, c0, _ in runs])
+            for row, c0 in starts:
+                ih0 = row * g["sh"] - g["ph"]
+                iw0 = c0 * g["sw"] - g["pw"]
+                yield Read(bl, "x", ((b, b + 1), (ih0, ih0 + g["seg_h"]),
+                                     (iw0, iw0 + g["win_w"]), ch))
+            yield Read(bl, "w", ((0, g["kh"]), (0, g["kw"]), ch,
+                                 (o0, o0 + BO_16)))
+
+
 def _conv_geometry(what: str, x: torch.Tensor, w: torch.Tensor,
                    spec: ConvSpec, blocks: Optional[Tuple[int, int, int]],
                    bc: int, half: bool = False) -> Tuple[int, int, int]:
@@ -230,6 +488,7 @@ def _conv_geometry(what: str, x: torch.Tensor, w: torch.Tensor,
     return oh, ow, toh
 
 
+@kernel_wrapper
 def im2col_conv(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -248,30 +507,35 @@ def im2col_conv(
     """
     oh, ow, toh = _conv_geometry("im2col_conv", x, w, spec, blocks, BC)
     _build.require_dtype("im2col_conv", torch.float32, x, w, bias)
+    b, h, ww, c = x.shape
+    kh, kw, _, o = w.shape
+    descs = (im2col_launches(b, h, ww, c, o, spec, toh, "float32",
+                             bias is not None) if b * oh * ow * o else [])
     if impl == "torch":
+        emit(descs)
         return im2col_conv_ref(x, w, spec, bias, activation)
     if impl != "cuda":
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
     _build.require_cuda_operands("im2col_conv", x, w, bias)
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("im2col_conv: x and w must be 16-byte aligned")
-    b, h, ww, c = x.shape
-    kh, kw, _, o = w.shape
-    out = torch.empty((b, oh, ow, o), device=x.device, dtype=torch.float32)
-    if out.numel():
-        fn = _build.load("im2col_conv", "repro_im2col_conv", _ARGTYPES)
-        (sh, sw), (ph, pw) = spec.stride, spec.padding
-        splits = call_splits(b, oh, ow, c, o, toh)
-        ws = (torch.empty((splits, b * oh * ow, o), device=x.device,
-                          dtype=torch.float32) if splits > 1 else None)
-        err = fn(x.data_ptr(), w.data_ptr(),
-                 bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
-                 b, h, ww, c, o, oh, ow, kh, kw, sh, sw, ph, pw, toh,
-                 tile_width(toh, ow), ACTIVATION_CODES[activation], splits,
-                 _build.stream_handle(x))
-        _build.check(err, "im2col_conv")
-        im2col_conv.launches += 1
+    if not descs:
+        return torch.empty((b, oh, ow, o), device=x.device,
+                           dtype=torch.float32)
+    out = descs[-1].alloc("out", x.device)
+    main = descs[0]
+    ws = main.alloc("ws", x.device) if main.splits > 1 else None
+    fn = _build.load("im2col_conv", "repro_im2col_conv", _ARGTYPES)
+    (sh, sw), (ph, pw) = spec.stride, spec.padding
+    err = fn(x.data_ptr(), w.data_ptr(),
+             bias.data_ptr() if bias is not None else None,
+             out.data_ptr(), ws.data_ptr() if ws is not None else None,
+             b, h, ww, c, o, oh, ow, kh, kw, sh, sw, ph, pw, toh,
+             main.geom["tow"], ACTIVATION_CODES[activation], main.splits,
+             _build.stream_handle(x))
+    _build.check(err, "im2col_conv")
+    im2col_conv.launches += 1
+    emit(descs)
     return out
 
 
@@ -279,6 +543,7 @@ def im2col_conv(
 im2col_conv.launches = 0
 
 
+@kernel_wrapper
 def im2col_conv16(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -303,7 +568,13 @@ def im2col_conv16(
                                  half=True)
     dtype = _build.require_16bit("im2col_conv_16", x, w)
     _build.require_dtype("im2col_conv_16", torch.float32, bias)
+    name = str(dtype).split(".")[-1]
+    b, h, ww, c = x.shape
+    kh, kw, _, o = w.shape
     if impl == "torch":
+        emit(im2col_launches(b, h, ww, c, o, spec, dtype=name,
+                             bias=bias is not None) if b * oh * ow * o
+             else [])
         return im2col_conv16_ref(x, w, spec, bias, activation)
     if impl != "cuda":
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
@@ -312,22 +583,24 @@ def im2col_conv16(
     if w.device != x.device:
         raise ValueError("im2col_conv_16: w must lie on x's card")
     w = tma_rows16(w)
-    b, h, ww, c = x.shape
-    kh, kw, _, o = w.shape
     if x.data_ptr() % 16:
         raise ValueError("im2col_conv_16: x must be 16-byte aligned")
-    out = torch.empty((b, oh, ow, o), device=x.device, dtype=dtype)
-    if out.numel():
-        fn = _build.load("im2col_conv_16", "repro_im2col_conv16", _ARGTYPES_16)
-        (sh, sw), (ph, pw) = spec.stride, spec.padding
-        err = fn(x.data_ptr(), w.data_ptr(),
-                 bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), b, h, ww, c, o, w.stride(2), oh, ow, kh, kw,
-                 sh, sw, ph, pw, ACTIVATION_CODES[activation],
-                 call_splits_16(b, oh, ow, c, o), _build.DTYPE16_CODES[dtype],
-                 _build.stream_handle(x))
-        _build.check(err, "im2col_conv_16")
-        im2col_conv16.launches += 1
+    if not b * oh * ow * o:
+        return torch.empty((b, oh, ow, o), device=x.device, dtype=dtype)
+    descs = im2col_launches(b, h, ww, c, o, spec, dtype=name,
+                            bias=bias is not None, ldw=w.stride(2))
+    (main,) = descs
+    out = main.alloc("out", x.device)
+    fn = _build.load("im2col_conv_16", "repro_im2col_conv16", _ARGTYPES_16)
+    (sh, sw), (ph, pw) = spec.stride, spec.padding
+    err = fn(x.data_ptr(), w.data_ptr(),
+             bias.data_ptr() if bias is not None else None,
+             out.data_ptr(), b, h, ww, c, o, w.stride(2), oh, ow, kh, kw,
+             sh, sw, ph, pw, ACTIVATION_CODES[activation], main.splits,
+             _build.DTYPE16_CODES[dtype], _build.stream_handle(x))
+    _build.check(err, "im2col_conv_16")
+    im2col_conv16.launches += 1
+    emit(descs)
     return out
 
 
@@ -335,6 +608,7 @@ def im2col_conv16(
 im2col_conv16.launches = 0
 
 
+@kernel_wrapper
 def im2col_conv_q8(
     x_q: torch.Tensor,
     w_q: torch.Tensor,
@@ -363,7 +637,10 @@ def im2col_conv_q8(
                          f"{None if bias is None else tuple(bias.shape)} for "
                          f"{o} out channels")
     _build.require_int32_exact("im2col_conv_q8", kh * kw * c)
+    descs = (im2col_launches(b, h, ww, c, o, spec, toh, "int8",
+                             bias is not None) if b * oh * ow * o else [])
     if impl == "torch":
+        emit(descs)
         return im2col_conv_q8_ref(x_q, w_q, spec, scale, bias, activation)
     if impl != "cuda":
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
@@ -371,22 +648,23 @@ def im2col_conv_q8(
     _build.require_cuda_operands("im2col_conv_q8", scale, bias)
     if x_q.data_ptr() % 16:
         raise ValueError("im2col_conv_q8: x must be 16-byte aligned")
-    out = torch.empty((b, oh, ow, o), device=x_q.device, dtype=torch.float32)
-    if out.numel():
-        fn = _build.load("im2col_conv_q8", "repro_im2col_conv_q8",
-                         _ARGTYPES_Q8)
-        (sh, sw), (ph, pw) = spec.stride, spec.padding
-        splits = call_splits_q8(b, oh, ow, c, o, toh)
-        ws = (torch.empty((splits, b * oh * ow, o), device=x_q.device,
-                          dtype=torch.int32) if splits > 1 else None)
-        err = fn(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                 bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
-                 b, h, ww, c, o, oh, ow, kh, kw, sh, sw, ph, pw, toh,
-                 tile_width(toh, ow), ACTIVATION_CODES[activation], splits,
-                 _build.stream_handle(x_q))
-        _build.check(err, "im2col_conv_q8")
-        im2col_conv_q8.launches += 1
+    if not descs:
+        return torch.empty((b, oh, ow, o), device=x_q.device,
+                           dtype=torch.float32)
+    out = descs[-1].alloc("out", x_q.device)
+    main = descs[0]
+    ws = main.alloc("ws", x_q.device) if main.splits > 1 else None
+    fn = _build.load("im2col_conv_q8", "repro_im2col_conv_q8", _ARGTYPES_Q8)
+    (sh, sw), (ph, pw) = spec.stride, spec.padding
+    err = fn(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+             bias.data_ptr() if bias is not None else None,
+             out.data_ptr(), ws.data_ptr() if ws is not None else None,
+             b, h, ww, c, o, oh, ow, kh, kw, sh, sw, ph, pw, toh,
+             main.geom["tow"], ACTIVATION_CODES[activation], main.splits,
+             _build.stream_handle(x_q))
+    _build.check(err, "im2col_conv_q8")
+    im2col_conv_q8.launches += 1
+    emit(descs)
     return out
 
 

@@ -46,6 +46,7 @@
 //    coalesced).  Bound by bytes: 1344 FLOPs against 400 bytes per pair.
 #include <cuda_runtime.h>
 
+#include "describe.cuh"
 #include "sgemm_3xtf32.cuh"
 #include "winograd_transforms.cuh"
 
@@ -126,6 +127,36 @@ unsigned int blocks_for(size_t n) {
   return static_cast<unsigned int>((n + THREADS - 1) / THREADS);
 }
 
+// The three kernels' launches: a thread a (tile, channel) pair for the
+// input transform, a 64 x 64 tile of one position's product a block for
+// the tuple multiply, a thread a (tile, out channel) pair for the output
+// transform.
+describe::Launch plan_input(int T, int C) {
+  describe::Launch l;
+  l.grid = dim3(blocks_for((size_t)T * C), 1, 1);
+  l.threads = THREADS;
+  l.func = (const void*)&winograd_input_transform_kernel;
+  return l;
+}
+
+describe::Launch plan_tuple(int T, int O) {
+  describe::Launch l;
+  l.grid = dim3((T + sgemm_tc::BM - 1) / sgemm_tc::BM,
+                (O + sgemm_tc::BN - 1) / sgemm_tc::BN, 64);
+  l.threads = sgemm_tc::THREADS;
+  l.stages = sgemm_tc::STAGES;
+  l.func = (const void*)&winograd_tuple_multiply_kernel;
+  return l;
+}
+
+describe::Launch plan_output(int T, int O) {
+  describe::Launch l;
+  l.grid = dim3(blocks_for((size_t)T * O), 1, 1);
+  l.threads = THREADS;
+  l.func = (const void*)&winograd_output_transform_kernel;
+  return l;
+}
+
 }  // namespace
 
 // V (8, 8, T, C) = B^T d B for tiles (T, 8, 8, C).  Returns
@@ -134,8 +165,9 @@ extern "C" int repro_winograd_input_transform(const float* tiles, float* V,
                                               int T, int C,
                                               cudaStream_t stream) {
   if (T < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  winograd_input_transform_kernel<<<blocks_for((size_t)T * C), THREADS, 0,
-                                    stream>>>(tiles, V, T, C);
+  const describe::Launch l = plan_input(T, C);
+  winograd_input_transform_kernel<<<l.grid, l.threads, 0, stream>>>(tiles, V,
+                                                                    T, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -144,12 +176,11 @@ extern "C" int repro_winograd_input_transform(const float* tiles, float* V,
 extern "C" int repro_winograd_tuple_multiply(const float* V, const float* U,
                                              float* M, int T, int C, int O,
                                              cudaStream_t stream) {
-  using sgemm_tc::BM;
   using sgemm_tc::BN;
   if (T < 1 || C < 1 || O < 1 || (O + BN - 1) / BN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((T + BM - 1) / BM, (O + BN - 1) / BN, 64);
-  winograd_tuple_multiply_kernel<<<grid, sgemm_tc::THREADS, 0, stream>>>(
+  const describe::Launch l = plan_tuple(T, O);
+  winograd_tuple_multiply_kernel<<<l.grid, l.threads, 0, stream>>>(
       V, U, M, T, C, O);
   return static_cast<int>(cudaGetLastError());
 }
@@ -161,7 +192,23 @@ extern "C" int repro_winograd_output_transform(const float* M,
                                                int T, int O, int act,
                                                cudaStream_t stream) {
   if (T < 1 || O < 1) return static_cast<int>(cudaErrorInvalidValue);
-  winograd_output_transform_kernel<<<blocks_for((size_t)T * O), THREADS, 0,
-                                     stream>>>(M, bias, Y, T, O, act);
+  const describe::Launch l = plan_output(T, O);
+  winograd_output_transform_kernel<<<l.grid, l.threads, 0, stream>>>(
+      M, bias, Y, T, O, act);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the three entries launch, as describe.cuh lays it out: the input
+// transform (which 0, args = (T, C)), the tuple multiply (which 1, args =
+// (T, C, O)) or the output transform (which 2, args = (T, O)).
+extern "C" int repro_winograd_3pass_describe(const int* args, int nargs,
+                                             int which, long long* out) {
+  const int want = which == 1 ? 3 : 2;
+  if (which < 0 || which > 2 || nargs != want || args[0] < 1 ||
+      args[nargs - 1] < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const describe::Launch l = which == 0   ? plan_input(args[0], args[1])
+                             : which == 1 ? plan_tuple(args[0], args[2])
+                                          : plan_output(args[0], args[1]);
+  return describe::write(l, out);
 }

@@ -53,6 +53,7 @@
 //    writes the 6x6 outputs rounded to T.  Bound by bytes.
 #include <cuda_runtime.h>
 
+#include "describe.cuh"
 #include "hmma16.cuh"
 #include "hopper_async.cuh"
 #include "per_device.cuh"
@@ -302,17 +303,18 @@ bool bad_dtype(int dtype) { return dtype != 0 && dtype != 1; }
 // The tuple multiply's N for O out channels: all of O up to 256.
 int tm_width(int O) { return O <= 64 ? 64 : O <= 128 ? 128 : 256; }
 
+// The tuple multiply's launch at item width N, after its shared memory
+// limit is raised on the current device (once): persistent blocks, as many
+// as the SMs hold (Tile::RESIDENT a SM), or one an item.
 template <class T, int N>
-int tm_launch(const CUtensorMap& v_map, const CUtensorMap& u_map,
-              const CUtensorMap& m_map, const float* inv_scale, int T_, int C,
-              int O, cudaStream_t stream) {
+cudaError_t plan_tm(int T_, int O, describe::Launch* l) {
   using Tile = TmTile<N>;
   // The SM count of each device, 0 until its first launch there has
   // raised the kernel's shared memory limit on it.
   static int sms[per_device::MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = per_device::current(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   if (sms[dev] == 0) {
     err = cudaFuncSetAttribute(winograd16_tuple_multiply_kernel<T, N>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -321,7 +323,7 @@ int tm_launch(const CUtensorMap& v_map, const CUtensorMap& u_map,
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
                                    dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
     sms[dev] = count;
   }
   const long items =
@@ -331,11 +333,59 @@ int tm_launch(const CUtensorMap& v_map, const CUtensorMap& u_map,
 #endif
   const long slots =
       TM16_PERSISTENT ? (long)sms[dev] * Tile::RESIDENT : items;
-  const unsigned grid = static_cast<unsigned>(items < slots ? items : slots);
-  winograd16_tuple_multiply_kernel<T, N><<<grid, TM_THREADS, Tile::SMEM,
+  l->grid = dim3(static_cast<unsigned>(items < slots ? items : slots), 1, 1);
+  l->threads = TM_THREADS;
+  l->smem = Tile::SMEM;
+  l->stages = Tile::STAGES;
+  l->resident = TM16_PERSISTENT ? Tile::RESIDENT : 0;
+  l->func = (const void*)&winograd16_tuple_multiply_kernel<T, N>;
+  return cudaSuccess;
+}
+
+template <class T, int N>
+int tm_launch(const CUtensorMap& v_map, const CUtensorMap& u_map,
+              const CUtensorMap& m_map, const float* inv_scale, int T_, int C,
+              int O, cudaStream_t stream) {
+  describe::Launch l;
+  const cudaError_t err = plan_tm<T, N>(T_, O, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  winograd16_tuple_multiply_kernel<T, N><<<l.grid, l.threads, l.smem,
                                            stream>>>(v_map, u_map, m_map,
                                                      inv_scale, T_, C, O);
   return static_cast<int>(cudaGetLastError());
+}
+
+// plan_tm at the width tm_width(O) takes.
+template <class T>
+cudaError_t plan_tm_for(int T_, int O, describe::Launch* l) {
+  switch (tm_width(O)) {
+    case 64:
+      return plan_tm<T, 64>(T_, O, l);
+    case 128:
+      return plan_tm<T, 128>(T_, O, l);
+    default:
+      return plan_tm<T, 256>(T_, O, l);
+  }
+}
+
+// The transforms' launches: a thread a (tile, channel) pair, a thread a
+// (tile, out channel) pair.
+template <class T>
+describe::Launch plan_input16(int T_, int C) {
+  describe::Launch l;
+  l.grid = dim3(blocks_for((size_t)T_ * C), 1, 1);
+  l.threads = THREADS;
+  l.func = (const void*)&winograd16_input_transform_kernel<T>;
+  return l;
+}
+
+template <class T>
+describe::Launch plan_output16(int T_, int O) {
+  describe::Launch l;
+  l.grid = dim3(blocks_for((size_t)T_ * O), 1, 1);
+  l.threads = THREADS;
+  l.func = (const void*)&winograd16_output_transform_kernel<T>;
+  return l;
 }
 
 template <class T>
@@ -431,4 +481,31 @@ extern "C" int repro_winograd16_output_transform(const void* M,
         static_cast<const __half*>(M), bias, static_cast<__half*>(Y), T, O,
         act);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the three entries launch, as describe.cuh lays it out: the input
+// transform (which 0, args = (T, C, dtype)), the tuple multiply (which 1,
+// args = (T, C, O, dtype)) or the output transform (which 2, args = (T, O,
+// dtype)).
+extern "C" int repro_winograd_3pass_16_describe(const int* args, int nargs,
+                                                int which, long long* out) {
+  const int want = which == 1 ? 4 : 3;
+  if (which < 0 || which > 2 || nargs != want || args[0] < 1 ||
+      args[nargs - 2] < 1 || bad_dtype(args[nargs - 1]))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool bf16 = args[nargs - 1] == 0;
+  describe::Launch l;
+  if (which == 0) {
+    l = bf16 ? plan_input16<__nv_bfloat16>(args[0], args[1])
+             : plan_input16<__half>(args[0], args[1]);
+  } else if (which == 2) {
+    l = bf16 ? plan_output16<__nv_bfloat16>(args[0], args[1])
+             : plan_output16<__half>(args[0], args[1]);
+  } else {
+    const cudaError_t err =
+        bf16 ? plan_tm_for<__nv_bfloat16>(args[0], args[2], &l)
+             : plan_tm_for<__half>(args[0], args[2], &l);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return describe::write(l, out);
 }

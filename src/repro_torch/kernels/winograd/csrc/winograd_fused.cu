@@ -55,6 +55,7 @@
 // have fewer blocks than SMs.
 #include <cuda_runtime.h>
 
+#include "describe.cuh"
 #include "per_device.cuh"
 #include "sgemm_3xtf32.cuh"
 #include "winograd_transforms.cuh"
@@ -328,6 +329,29 @@ winograd_fused_kernel(const float* __restrict__ tiles,
   }
 }
 
+// The kernel's launch, after its shared memory limit is raised on the
+// current device (once): a block a 16 tiles x 32 out channels.
+cudaError_t plan_fused(int T, int O, describe::Launch* l) {
+  constexpr size_t smem = SMEM_FLOATS * sizeof(float);
+  static bool smem_set[per_device::MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = per_device::current(&dev);
+  if (err != cudaSuccess) return err;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(winograd_fused_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = true;
+  }
+  l->grid = dim3((T + BT - 1) / BT, (O + BO - 1) / BO);
+  l->threads = THREADS;
+  l->smem = smem;
+  l->stages = 2;
+  l->func = (const void*)&winograd_fused_kernel;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Y (T, 6, 6, O) = act(A^T [sum_c (B^T d B) U] A + bias) for tiles
@@ -340,20 +364,22 @@ extern "C" int repro_winograd_fused(const float* tiles, const float* U,
                                     cudaStream_t stream) {
   if (C % BC != 0 || C < BC || bt != BT || bo != BO)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t smem = SMEM_FLOATS * sizeof(float);
-  static bool smem_set[per_device::MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = per_device::current(&dev);
+  describe::Launch l;
+  const cudaError_t err = plan_fused(T, O, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(winograd_fused_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set[dev] = true;
-  }
-  const dim3 grid((T + BT - 1) / BT, (O + BO - 1) / BO);
-  winograd_fused_kernel<<<grid, THREADS, smem, stream>>>(tiles, U, bias, out,
-                                                         T, C, O, act);
+  winograd_fused_kernel<<<l.grid, l.threads, l.smem, stream>>>(
+      tiles, U, bias, out, T, C, O, act);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What repro_winograd_fused launches for args = (T, C, O), as describe.cuh
+// lays it out (which 0: its one kernel).
+extern "C" int repro_winograd_fused_describe(const int* args, int nargs,
+                                             int which, long long* out) {
+  if (nargs != 3 || which != 0 || args[0] < 1 || args[2] < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  describe::Launch l;
+  const cudaError_t err = plan_fused(args[0], args[2], &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return describe::write(l, out);
 }

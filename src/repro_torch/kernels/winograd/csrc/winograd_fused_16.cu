@@ -83,6 +83,7 @@
 // the split fills the SMs a small grid leaves idle.
 #include <cuda_runtime.h>
 
+#include "describe.cuh"
 #include "hmma16.cuh"
 #include "hopper_async.cuh"
 #include "per_device.cuh"
@@ -394,36 +395,59 @@ winograd16_split_reduce_kernel(const float* __restrict__ ws,
   hm::splitk_reduce<T, V>(ws, bias, out, n, O, splits, act);
 }
 
+// The kernel's launch, after its shared memory limit is raised on the
+// current device (once): a block a 16 tiles x 32 out channels x split.
 template <class T>
-int launch(const CUtensorMap& u_map, const T* tiles, const float* inv_scale,
-           const float* bias, T* out, float* ws, int T_, int C, int O,
-           int act, int splits, cudaStream_t stream) {
+cudaError_t plan_fused16(int T_, int O, int splits, describe::Launch* l) {
   static bool smem_set[per_device::MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = per_device::current(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   if (!smem_set[dev]) {
     err = cudaFuncSetAttribute(winograd16_fused_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM_BYTES);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
-  const dim3 grid((T_ + BT - 1) / BT, (O + BO - 1) / BO, splits);
-  winograd16_fused_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
+  l->grid = dim3((T_ + BT - 1) / BT, (O + BO - 1) / BO, splits);
+  l->threads = THREADS;
+  l->smem = SMEM_BYTES;
+  l->stages = STAGES;
+  l->func = (const void*)&winograd16_fused_kernel<T>;
+  return cudaSuccess;
+}
+
+// The reduce's launch over the T x 36 x O output.
+template <class T>
+describe::Launch plan_fused16_reduce(int T_, int O) {
+  return describe::reduce(
+      (size_t)T_ * 36 * O, O,
+      (const void*)&winograd16_split_reduce_kernel<T, 4>,
+      (const void*)&winograd16_split_reduce_kernel<T, 1>);
+}
+
+template <class T>
+int launch(const CUtensorMap& u_map, const T* tiles, const float* inv_scale,
+           const float* bias, T* out, float* ws, int T_, int C, int O,
+           int act, int splits, cudaStream_t stream) {
+  describe::Launch l;
+  cudaError_t err = plan_fused16<T>(T_, O, splits, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  winograd16_fused_kernel<T><<<l.grid, l.threads, l.smem, stream>>>(
       u_map, tiles, inv_scale, bias, out, ws, T_, C, O, act, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t n = (size_t)T_ * 36 * O;
-  if (O % 4 == 0) {
-    const unsigned blocks = static_cast<unsigned>((n / 4 + 255) / 256);
-    winograd16_split_reduce_kernel<T, 4><<<blocks, 256, 0, stream>>>(
-        ws, bias, out, n, O, splits, act);
-  } else {
-    const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
-    winograd16_split_reduce_kernel<T, 1><<<blocks, 256, 0, stream>>>(
-        ws, bias, out, n, O, splits, act);
-  }
+  const describe::Launch red = plan_fused16_reduce<T>(T_, O);
+  if (O % 4 == 0)
+    winograd16_split_reduce_kernel<T, 4><<<red.grid, red.threads, 0,
+                                           stream>>>(ws, bias, out, n, O,
+                                                     splits, act);
+  else
+    winograd16_split_reduce_kernel<T, 1><<<red.grid, red.threads, 0,
+                                           stream>>>(ws, bias, out, n, O,
+                                                     splits, act);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -468,4 +492,26 @@ extern "C" int repro_winograd16_fused(const void* tiles, const void* U,
                   splits, stream);
   return launch(u_map, static_cast<const __half*>(tiles), inv_scale, bias,
                 static_cast<__half*>(out), ws, T, C, O, act, splits, stream);
+}
+
+// What repro_winograd16_fused launches for args = (T, C, O, splits,
+// dtype): the fused kernel (which 0) or the reduce (which 1), as
+// describe.cuh lays it out.
+extern "C" int repro_winograd_fused_16_describe(const int* args, int nargs,
+                                                int which, long long* out) {
+  if (nargs != 5 || which < 0 || which > 1 || args[0] < 1 || args[2] < 1 ||
+      args[3] < 1 || (args[4] != 0 && args[4] != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int T_ = args[0], O = args[2], splits = args[3];
+  describe::Launch l;
+  if (which == 1) {
+    l = args[4] == 0 ? plan_fused16_reduce<__nv_bfloat16>(T_, O)
+                     : plan_fused16_reduce<__half>(T_, O);
+  } else {
+    const cudaError_t err =
+        args[4] == 0 ? plan_fused16<__nv_bfloat16>(T_, O, splits, &l)
+                     : plan_fused16<__half>(T_, O, splits, &l);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return describe::write(l, out);
 }

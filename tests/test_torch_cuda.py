@@ -772,3 +772,103 @@ def test_batch_sharding_on_one_card(cuda_device, dtype):
         assert sh.graph.launches == multi.network_plan(4).kernel_launches()
     _same_forward(y, single.run(x), dtype)
     _same_forward(y2, single.run(x2), dtype)
+
+
+# One shape per kernel family, each through its wrapper on the card: (the
+# family, the call).  Shapes where the fp32 and int8 kernels split (and
+# launch their reduce), the 16-bit GEMM sums its splits in a cluster, and
+# the 16-bit conv runs persistent blocks.
+def _family_calls(device):
+    from repro_torch.kernels.gemm.ops import matmul16_bias_act
+    from repro_torch.kernels.im2col_gemm.ops import im2col_conv16
+    from repro_torch.kernels.winograd.ops import (
+        fused_winograd16,
+        input_transform16,
+        output_transform16,
+        tuple_multiply16,
+    )
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device=device, dtype=dtype)
+
+    def q(*shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8).to(device)
+
+    bf = torch.bfloat16
+    spec = ConvSpec(64, 96, (3, 3), (1, 1), (1, 1))
+    spec16 = ConvSpec(32, 64, (3, 3), (2, 2), (1, 1))
+    return {
+        "gemm": lambda: matmul_bias_act(r(169, 512), r(512, 256), r(256)),
+        "gemm_q8": lambda: matmul_q8_bias_act(q(169, 512), q(512, 256),
+                                              r(256), r(256)),
+        "gemm_16": lambda: matmul16_bias_act(r(169, 512, dtype=bf),
+                                             r(512, 255, dtype=bf), r(255)),
+        "im2col_conv": lambda: im2col_conv(r(1, 26, 26, 64), r(3, 3, 64, 96),
+                                           spec, bias=r(96)),
+        "im2col_conv_q8": lambda: im2col_conv_q8(
+            q(1, 26, 26, 64), q(3, 3, 64, 96), spec, r(96), bias=r(96)),
+        "im2col_conv_16": lambda: im2col_conv16(
+            r(1, 160, 160, 32, dtype=bf), r(3, 3, 32, 64, dtype=bf), spec16,
+            bias=r(64)),
+        "winograd_fused": lambda: fused_winograd(r(50, 8, 8, 64),
+                                                 r(8, 8, 64, 96), bias=r(96)),
+        "winograd_fused_16": lambda: fused_winograd16(
+            r(17, 8, 8, 64, dtype=bf), r(2, 8, 8, 64, 255, dtype=bf), r(64),
+            bias=r(255)),
+        "winograd_3pass": lambda: output_transform(tuple_multiply(
+            input_transform(r(50, 8, 8, 64)).reshape(64, 50, 64),
+            r(64, 64, 96)).reshape(8, 8, 50, 96), r(96)),
+        "winograd_3pass_16": lambda: output_transform16(tuple_multiply16(
+            input_transform16(r(50, 8, 8, 64, dtype=bf)).reshape(64, 50, 64),
+            r(2, 64, 64, 96, dtype=bf), r(64)).reshape(8, 8, 50, 96), r(96)),
+    }
+
+
+@pytest.mark.parametrize("family", [
+    "gemm", "gemm_q8", "gemm_16", "im2col_conv", "im2col_conv_q8",
+    "im2col_conv_16", "winograd_fused", "winograd_fused_16",
+    "winograd_3pass", "winograd_3pass_16"])
+def test_describe_equals_the_launch_descriptor(cuda_device, family):
+    """Each launch a wrapper records on the card is what its library's
+    launcher computes for the same shapes (``describe``): grid, cluster,
+    threads, stages and shared memory, a persistent grid at the card's
+    resident blocks; its shared memory within the function's limit and
+    the device's opt-in."""
+    from repro_torch.analysis import VerifyReport, record_launches
+    from repro_torch.analysis.passes import describe_pass
+
+    with record_launches() as launches:
+        _family_calls(cuda_device)[family]()
+    torch.cuda.synchronize()
+    assert launches and {d.library for d in launches} == {family}
+    report = VerifyReport(level="kernel")
+    rows = describe_pass(report, launches)
+    assert report.clean, report.summary()
+    assert len(rows) == len(launches)
+    if family in ("gemm", "gemm_q8", "im2col_conv", "im2col_conv_q8",
+                  "winograd_fused_16"):
+        assert launches[0].splits > 1 and launches[1].kernel.endswith(
+            "_reduce")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_validate_full_is_clean_on_card(cuda_device, dtype):
+    """A plan compiled with validate='full' on the card: its executor's
+    gate records a forward of the CUDA kernels and every pass comes out
+    clean; the executor then runs."""
+    from repro_torch.configs import yolov3
+
+    model = repro_torch.CNNModel(yolov3.TINY_LAYERS, (64, 64),
+                                 name="yolov3-tiny 64")
+    rng = np.random.default_rng(3)
+    params = random_batchnorm(init_cnn(rng, model.layers), rng)
+    cu = repro_torch.compile(model, params, repro_torch.ExecutionOptions(
+        batch=2, dtype=dtype, validate="full"))
+    report = cu.reports[2]
+    assert report.clean and report.level == "full", report.summary()
+    assert len(report.kernels) == report.network["expected_launches"]
+    y = cu.run(torch.zeros((2, 64, 64, 3), device=cuda_device))
+    assert torch.isfinite(y.float()).all()

@@ -145,7 +145,8 @@ def test_source_matches_the_wrapper():
     assert re.search(r"bn == 32 \? launch<8>\(", text)
     assert {(16 * wm, 32 * (8 // wm)) for wm in (4, 8)} == set(TILES_Q8)
     assert _build.included_headers(SOURCE) == sorted(
-        [HEADER, HEADER.parent / "per_device.cuh"])
+        [HEADER, HEADER.parent / "describe.cuh",
+         HEADER.parent / "per_device.cuh"])
     code = text + HEADER.read_text()
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in code
     assert "__dp4a" not in code
