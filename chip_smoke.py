@@ -11,8 +11,9 @@ Phases, each on its own printed lines:
    and the card's reported properties beside ``repro_torch.hw.H100``;
 2. build every CUDA kernel of the port with nvcc (one process per source,
    all at once) and print the build seconds and ptxas' register, spill
-   and shared-memory counts (and the 16-bit Winograd kernels' dynamic
-   shared memory);
+   and shared-memory counts, one line of registers and spills for each
+   flash instance (body and head dim), and the 16-bit Winograd kernels'
+   dynamic shared memory;
 3. each kernel against its plain PyTorch version at every shape the model
    cells below give it (YOLOv3-tiny at 416x416, batch 1 and 4; MODEL_20 at
    608x608, batch 1; VGG-16 at 224x224, batch 1 with the fused Winograd
@@ -161,30 +162,32 @@ Phases, each on its own printed lines:
    global Gemma2 case again with q scaled by 8, so the scores reach the
    softcap's bend (untimed; the plain version without the cap must fail
    the row gate there); then
-   Llama-3.2-1B prefill at full width (16 layers, B 1, S 4096, bf16):
-   ``impl='cuda'`` against ``impl='torch'`` in fp32 (within 1e-3 of
-   max(1, max|ref|)) and in bf16 on the same weights (the bf16 logits'
-   relative distance from the fp32 forward at most 1.25 times the plain
-   bf16 forward's), exactly 16 flash launches per forward, the bf16
-   forward's replay equal to its eager forward bit for bit, ms per
-   forward and tokens/s of both, timed in turns, and a profile of each
-   with the kernel's share (the plain reference forwards run eagerly);
-   then a second shape (S 2048) captured into the same graph pool, both
-   shapes' replays equal to their eager forwards, with the reserved
-   memory the second capture added beside what the same graph adds in a
-   pool of its own (printed);
-   Gemma2-27B at full width cut to 2 layers (local, attn), B 1, S 8192:
-   the same checks with 2 launches; Llama-3.2-1B serving
-   (``.serve(batch_size=4, capacity=128)``, 6 requests of 8 prompt
-   tokens and 12 new ones, greedy; the decode step a CUDA graph captured
-   with the engine): the engine's tokens against a greedy ``decode_step``
-   loop and against the same engine with its step run eagerly
-   (``EagerServingEngine``), tokens/s of both; one decode step's replay
-   beside the eager step, timed in turns and profiled (no port kernel in
-   either trace), and a greedy step through the engine's guarded call
-   beside the replay with an argmax and its copy; ``prefill_with_cache`` (the kernel) then one decode step against
-   token-by-token decode (fp32 within 1e-3 of max(1, max|ref|); bf16
-   printed), tokens/s; each LM cell prints its peak device memory;
+   Llama-3.2-1B prefill at full width (16 layers, B 1, S 4096, bf16),
+   through ``lm_prefill_cell`` as every LM cell: the bf16 forward's
+   replay with exactly 16 flash launches and its eager forward equal bit
+   for bit, timed in turns beside the eager forward and profiled, with
+   the kernel's share; a second shape (S 2048) captured into the same
+   graph pool, both shapes' replays equal to their eager forwards, with
+   the reserved memory the second capture added beside what the same
+   graph adds in a pool of its own (printed); the plain forward (run
+   eagerly); then the weights cast to fp32 in place and the plain fp32
+   forward, from which the kernel's bf16 logits lie at most 1.25 times
+   as far as the plain bf16 logits (relative norm); the fp32 forward
+   through the kernel within 1e-3 of max(1, max|ref|) of the plain one;
+   ``prefill_with_cache`` (the kernel) over the prompt against the
+   forward's last logits and one decode step from its cache against the
+   plain forward one token longer (fp32 within 1e-3 of max(1, max|ref|);
+   bf16 printed); Gemma2-27B at full width cut to 2 layers (local, attn),
+   B 1, S 8192: the same forward checks with 2 launches, its replay
+   profiled once; Llama-3.2-1B serving (``.serve(batch_size=4,
+   capacity=128)``, 6 requests of 8 prompt tokens and 12 new ones,
+   greedy; the decode step a CUDA graph captured with the engine): the
+   engine's tokens against a greedy ``decode_step`` loop and against the
+   same engine with its step run eagerly (``EagerServingEngine``),
+   tokens/s of both; one decode step's replay beside the eager step,
+   timed in turns and profiled (no port kernel in either trace), and a
+   greedy step through the engine's guarded call beside the replay with
+   an argmax and its copy; each LM cell prints its peak device memory;
 8b. CNN serving (``CompiledCNN.serve()``): YOLOv3-tiny at 416x416 at full
    width, buckets 1, 4 and 8 (one CUDA graph each, captured when the
    engine is made), in fp32, bf16 and int8: every kernel call of each
@@ -241,6 +244,27 @@ Phases, each on its own printed lines:
    map walked again at the card's grid; one line a kernel with the
    descriptor's shared memory beside ``describe``'s, ptxas' and
    ``cudaFuncGetAttributes``' figures; a finding fails the run;
+8e. the MoE, recurrent and frontend LM families at full width (phase 8a
+   holds the flash kernel at their head dims, 256 with recurrentgemma-9b's
+   2048 window and MQA at S 4096, 80 non-causal at hubert-xlarge's S 1000,
+   beside SDPA, a masked one for the window): granite-moe-1b-a400m (24
+   layers, S 4096), arctic-480b (1 of 35 layers, S 2048, bf16 only),
+   recurrentgemma-9b (38 layers, S 4096; fp32 at 3 layers), xlstm-125m (12
+   layers, S 4096), hubert-xlarge (48 layers, frames (1, 1000, 512)) and
+   internvl2-2b (24 layers, 256 patches before 768 tokens), each on seeded
+   weights through the same ``lm_prefill_cell`` as Llama's and Gemma2's
+   (replay, profile, the bf16 and fp32 gates, ``prefill_with_cache``
+   over the cell's input, an mLSTM in its chunked form), the four
+   decoding cells served as Llama is.  On MoE cells each logit gate holds
+   on the tokens routed alike in every layer by the two forwards it
+   compares, at least ``MOE_MIN_AGREE`` of them, and the routing is gated
+   too: in bf16 the kernel's (layer, token) decisions that differ from the
+   plain fp32 forward's at most ``LM_BF16_SPREAD`` times the plain bf16
+   forward's, in fp32 at most ``MOE_FP32_FLIPS`` of them; the decode step
+   after ``prefill_with_cache`` is printed, not gated (the prompt's last
+   token may meet a capacity a step's one token does not).  Each cell
+   prints its replay ms, its first call's seconds (the capture), busy ms,
+   idle share and flash launches, and the phase its seconds;
 9. one JSON line with every kernel's numbers — its launches in the forward
    its ``cell`` names (YOLOv3-tiny 416 b1 for the GEMM, im2col and fused
    Winograd kernels, VGG-16 224 b8 with ``winograd_fused=False`` for the
@@ -258,9 +282,12 @@ port when run outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -327,6 +354,16 @@ FLASH_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # from fp32 (each layer's rounding is carried by the later layers), so
 # bf16 against bf16 gives no tighter bound.
 LM_BF16_SPREAD = 1.25
+# MoE cells.  Two forwards that round apart can route a token near a
+# top-k tie to other experts, and its logits then move far, so a logit
+# gate holds on the tokens routed alike in every layer, at least this
+# share of them (near-uniform routers of random weights leave granite's
+# bf16 gate 1,281 of 4,096 tokens).  In fp32 the kernel's forward may
+# route at most this share of the (layer, token) decisions otherwise than
+# the plain one (granite's fp32 forward reads 0 of its 98,304; the limit,
+# 9 of them, leaves room for a few near-ties).
+MOE_MIN_AGREE = 1 / 8
+MOE_FP32_FLIPS = 1e-4
 LM_REPS = 5               # timed forwards of the LM prefill cells
 # Replays after which a captured forward's launch counts must be this
 # many times the plan's (the first is the call that captures).
@@ -1643,6 +1680,7 @@ def check_flash(hw, cells, saturated=()):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_mask
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     out = {}
@@ -1687,14 +1725,19 @@ def check_flash(hw, cells, saturated=()):
             if cap > 0:
                 library_ms, why = None, "no PyTorch call computes the tanh softcap"
             else:
-                # No window on these cases: the causal flag or nothing.
+                # The causal flag, or a boolean mask for a window.
+                mask = (attention_mask(s, sk, causal, window, "cuda")
+                        if window > 0 else None)
+
                 def sdpa(q, k, v):
                     return F.scaled_dot_product_attention(
                         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        is_causal=causal, enable_gqa=True)
+                        attn_mask=mask, is_causal=causal and mask is None,
+                        enable_gqa=True)
 
                 library_ms = cuda_ms(sdpa, (q, k, v), rounds=3)
-                why = "F.scaled_dot_product_attention"
+                why = ("F.scaled_dot_product_attention"
+                       + (", its window as a boolean mask" if window > 0 else ""))
                 if dtype == torch.float32:
                     if torch.backends.cuda.matmul.allow_tf32:
                         raise AssertionError("SDPA in fp32 must run with TF32 off")
@@ -1739,106 +1782,287 @@ def compare_logits(y, ref, chunk: int = 1024):
     return (diff2 / ref2) ** 0.5, err, scale
 
 
-def lm_prefill_cell(cfg, seq, name, profile=False, keep=False):
-    """Phase 8b: one LM prefill cell at full width, on seeded weights and
-    tokens: ``impl='cuda'`` against ``impl='torch'`` in fp32 (within
-    ``NET_RTOL`` of max(1, max|ref|)) and, on the same weights, in
-    ``cfg.dtype`` (bf16: the kernel's logits no further from the fp32
-    forward than the plain version's, in relative norm, within
-    ``LM_BF16_SPREAD``); the flash kernel launched once per layer and
-    nothing else; ms per forward and tokens/s in ``cfg.dtype``.  Returns
-    the launch counts and, with ``keep``, the weights in both dtypes."""
+def lm_inputs(cfg, seq, g):
+    """A cell's model input on the card, S positions in all: audio frames,
+    patches before tokens, or tokens."""
+    import torch
+
+    if cfg.frontend == "audio_frames":
+        return {"frames": torch.randn(1, seq, cfg.frontend_dim, generator=g,
+                                      device="cuda")}
+    toks = torch.randint(0, cfg.vocab_size, (1, seq - cfg.num_patches),
+                         generator=g, device="cuda")
+    if cfg.frontend == "vision_patches":
+        return {"tokens": toks, "patch_embeds": torch.randn(
+            1, cfg.num_patches, cfg.frontend_dim, generator=g, device="cuda")}
+    return toks
+
+
+def flash_want(cfg):
+    """The launches of one forward: one flash call an attention layer."""
+    n = sum(bt in ("attn", "local") for bt in cfg.pattern_layers)
+    return {"flash_attention": n} if n else {}
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every MoE layer's expert indices (T, k), in call order, of the
+    eager forwards run inside: ``moe.route`` wrapped for the duration."""
+    from repro_torch.models import moe
+
+    routes, route = [], moe.route
+
+    def recording(params, tokens, top_k):
+        out = route(params, tokens, top_k)
+        routes.append(out[3].clone())
+        return out
+
+    moe.route = recording
+    try:
+        yield routes
+    finally:
+        moe.route = route
+
+
+def routing_agreement(a, b, seq):
+    """(the (layer, token) routing decisions that differ between two
+    forwards' routes, the (S,) mask of the tokens routed alike in every
+    layer).  A decision is the set of a token's k experts: their order
+    changes no output (a token's copies go to k different experts, so no
+    other copy's rank in an expert moves), only the load-balance aux."""
+    import torch
+
+    same = torch.stack([(x.sort(-1).values == y.sort(-1).values).all(-1)
+                        for x, y in zip(a, b)])
+    return int((~same).sum()), same.all(0).reshape(-1, seq)[0]
+
+
+def routed_alike(cfg, seq, label, routes, ref_routes, limit=None):
+    """On an MoE cell, the tokens a logit gate holds on: those routed alike
+    in every layer by the forward under test and its reference, at least
+    ``MOE_MIN_AGREE`` of them, the (layer, token) decisions that differ
+    at most ``limit`` (None: not bounded here).  Returns (the mask, a note
+    for the cell's line); every token on a dense cell."""
+    if not cfg.num_experts:
+        return slice(None), ""
+    flips, mask = routing_agreement(routes, ref_routes, seq)
+    agree = int(mask.sum())
+    note = (f"; routing flips cuda vs plain {flips} of {len(routes) * seq} "
+            f"(layer, token) decisions"
+            + ("" if limit is None else f" (limit {limit:.4g})")
+            + f", gated on the {agree} of {seq} tokens that agree in every "
+            f"layer (at least {MOE_MIN_AGREE * seq:.0f})")
+    if (limit is not None and flips > limit) or agree < MOE_MIN_AGREE * seq:
+        raise AssertionError(f"{label}: routing gate fails{note}")
+    return mask, note
+
+
+def to_float32_in_place(tree) -> None:
+    """Cast every bf16 leaf of a parameter tree to fp32, one leaf at a
+    time (the bf16 copy is freed as its fp32 copy is made, so the peak is
+    the fp32 tree plus one leaf)."""
+    import torch
+
+    for k in list(tree.keys() if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[k], (dict, list)):
+            to_float32_in_place(tree[k])
+        elif tree[k].dtype == torch.bfloat16:
+            tree[k] = tree[k].float()
+
+
+def lm_kernel_forward(cfg, params, inputs, name, main, profile=False):
+    """``compile(cfg, params).run(inputs)`` on the card.  The first call
+    captures (its seconds) and launches the flash kernel once an attention
+    layer and nothing else; ``GRAPH_REPLAYS`` calls multiply the counts.
+    ``main`` (the cell's dtype): ``LM_REPS`` replays timed and one
+    profiled (busy time, idle share, the planned flash launches only);
+    with ``profile``, the replay timed in turns beside the eager forward
+    and a second shape captured into the same pool instead; else two
+    replays timed.  Then, the graph freed, the eager forward of the same
+    weights must equal the replay bit for bit: the MoE routes it records
+    are the replay's.  Returns (logits, routes, launches, ms per forward)."""
     import torch
 
     import repro_torch
+
+    want = flash_want(cfg)
+    seq = lm_positions(inputs)
+    cu = repro_torch.compile(cfg, params)
+    reset_counts()
+    t0 = time.perf_counter()
+    y = cu.run(inputs)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts} != {want}")
+    check_replays(lambda: cu.run(inputs), counts, name)
+    kernels = {CUDA_NAMES[k]: n for k, n in want.items()}
+    line = ""
+    if main and profile:
+        ms = graph_vs_eager(name, lambda: cu.run(inputs),
+                            lambda: cu.eager(inputs), LM_REPS, per_call=seq,
+                            unit="tokens", want=kernels, detail=True,
+                            profile_reps=3, warmup=1)["graph_ms"]
+        check_shared_pool(cu, inputs, name)
+    elif main:
+        ms = forward_ms(lambda: cu.run(inputs), LM_REPS, warmup=1)
+        busy, _ = profile_forward(lambda: cu.run(inputs), ms, f"{name} graph",
+                                  reps=1, want=kernels, detail=True)
+        line = (f" device busy {busy:.3f} ms, idle share "
+                f"{max(0.0, 1.0 - busy / ms):.3f};")
+    else:
+        ms = forward_ms(lambda: cu.run(inputs), 2, warmup=1)
+    del cu
+    gc.collect()
+    torch.cuda.empty_cache()
+    with recorded_routes() as routes:
+        y_eager = repro_torch.compile(cfg, params).eager(inputs)
+    if not torch.equal(y, y_eager):
+        rel, err, _ = compare_logits(y, y_eager)
+        raise AssertionError(f"{name}: the replayed forward differs from the "
+                             f"eager forward: rel {rel:.3g} max_abs_err "
+                             f"{err:.3g}")
+    del y_eager
+    log(f"model {name}: first call (capture) {first_s:.2f} s; replay "
+        f"ms_per_forward={ms:.3f} tokens_per_s={seq * 1e3 / ms:.1f};{line} "
+        f"launches={counts}; equal to the eager forward")
+    return y, routes, counts, ms
+
+
+def lm_plain_forward(cfg, params, inputs, name):
+    """The plain forward (``impl='torch'``), run eagerly (a graph of it
+    would hold a second forward's activations and logits in its pool),
+    its ms printed: (logits, its MoE routes)."""
+    import torch
+
+    import repro_torch
+
+    plain = repro_torch.compile(cfg, params, repro_torch.ExecutionOptions(
+        impl="torch"))
+    t0 = time.perf_counter()
+    with recorded_routes() as routes:
+        y = plain.eager(inputs)
+    torch.cuda.synchronize()
+    log(f"model {name}: plain eager forward "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    return y, routes
+
+
+def lm_positions(inputs) -> int:
+    """S of a model input: tokens, frames, or patches and tokens."""
+    if not isinstance(inputs, dict):
+        return inputs.shape[1]
+    return sum(v.shape[1] for v in inputs.values())
+
+
+def lm_prefill_cell(cfg, seq, name, profile=False, fp32_layers=None,
+                    serve=False):
+    """Phases 8 and 8e: one LM cell at full width (depth as ``cfg``), on
+    seeded weights and input, S ``seq``.  In ``cfg.dtype``: the replayed
+    kernel forward (``lm_kernel_forward``) and the plain one; with
+    ``serve``, ``prefill_with_cache`` against that forward and the
+    engines (``lm_serving_cell``).  The weights are then cast to fp32 in
+    place, and the kernel's bf16 logits must lie no further from the
+    plain fp32 forward of the same weights than ``LM_BF16_SPREAD`` times
+    the plain bf16 logits (relative norm).  At ``fp32_layers`` of depth
+    (None: all; 0: none) the fp32 forward through the kernel within
+    ``NET_RTOL`` of max(1, max|ref|) of the plain one, and, with
+    ``serve``, ``prefill_with_cache`` gated against it.  On MoE cells both
+    logit gates hold on the tokens routed alike by the two forwards
+    compared, after the routing gates of ``routed_alike``: bf16, the
+    kernel's flips against the plain fp32 routes at most
+    ``LM_BF16_SPREAD`` times the plain bf16 forward's; fp32, at most
+    ``MOE_FP32_FLIPS`` of the decisions.  Returns the launches of one
+    forward in ``cfg.dtype``."""
+    import torch
+
     from repro_torch.models import transformer as tf
 
+    t_cell = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tf.init_params(cfg, g)
-    toks = torch.randint(0, cfg.vocab_size, (1, seq), generator=g, device="cuda")
+    inputs = lm_inputs(cfg, seq, g)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    plain_opts = repro_torch.ExecutionOptions(impl="torch")
-    want = {"flash_attention": cfg.num_layers}
-    result, ref32 = {}, None
-    for dname in ("float32", cfg.dtype):
-        c = dataclasses.replace(cfg, dtype=dname)
-        p = params if dname == cfg.dtype else tf.tree_map(lambda t: t.float(), params)
-        cu, plain = repro_torch.compile(c, p), repro_torch.compile(c, p, plain_opts)
-        reset_counts()
-        y = cu.run(toks)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        if counts != want:
-            raise AssertionError(f"{name} {dname}: launches {counts} != {want}")
-        is_main = dname == cfg.dtype
-        if profile and is_main:
-            check_replays(lambda: cu.run(toks), counts, f"{name} {dname}")
-            y_eager = cu.eager(toks)
-            if not torch.equal(y, y_eager):
-                rel_e, err_e, _ = compare_logits(y, y_eager)
-                raise AssertionError(
-                    f"{name} {dname}: the replayed forward differs from the "
-                    f"eager forward: rel {rel_e:.3g} max_abs_err {err_e:.3g}")
-            del y_eager
-        # The plain forward runs eagerly (asked for): a graph of it would
-        # hold a second forward's activations and logits in its pool.
-        y_ref = plain.eager(toks)
-        rel, err, scale = compare_logits(y, y_ref)
-        ok = (bool(torch.isfinite(y).all()) and y.shape == y_ref.shape
-              == (1, seq, cfg.vocab_size) and y.dtype == tf.torch_dtype(dname))
-        if dname == "float32":
-            ref32 = y_ref
-            tol = NET_RTOL * max(1.0, scale)
-            gate = f"max_abs_err <= {tol:.3g}"
-            ok = ok and err <= tol
-        else:
-            # Two bf16 forwards that round at other places land at
-            # comparable distances from the fp32 forward of the same
-            # weights; the kernel's must not land further than
-            # LM_BF16_SPREAD times the plain version's.
-            rel_plain = compare_logits(y_ref, ref32)[0]
-            rel_cuda = compare_logits(y, ref32)[0]
-            gate = (f"vs plain float32: cuda rel {rel_cuda:.3g} <= "
-                    f"{LM_BF16_SPREAD} x plain rel {rel_plain:.3g}")
-            ok = ok and rel_cuda <= LM_BF16_SPREAD * rel_plain
-            ref32 = None
-        if not ok:
-            raise AssertionError(f"{name} {dname}: cuda vs torch rel {rel:.3g} "
-                                 f"max_abs_err {err:.3g} (max|ref| {scale:.3g}; "
-                                 f"gate {gate})")
-        del y, y_ref
-        # Each compilation has run once; the cell's dtype is timed in full
-        # and beside its plain forward, and, profiled, the replayed forward
-        # beside the eager one.
-        if profile and is_main:
-            ms = graph_vs_eager(
-                f"{name} {dname}", lambda: cu.run(toks), lambda: cu.eager(toks),
-                LM_REPS, per_call=seq, unit="tokens",
-                want={CUDA_NAMES["flash_attention"]: cfg.num_layers},
-                detail=True, profile_reps=3, warmup=1)["graph_ms"]
-        else:
-            ms = forward_ms(lambda: cu.run(toks), LM_REPS if is_main else 2,
-                            warmup=1)
-        plain_part = (f"plain_ms_per_forward="
-                      f"{forward_ms(lambda: plain.eager(toks), 2, warmup=0):.3f}"
-                      if is_main else "")
-        log(f"model {name} {dname}: logits (1, {seq}, {cfg.vocab_size}) "
-            f"rel={rel:.3g} max_abs_err={err:.3g} max|ref|={scale:.3g} ({gate}) "
-            f"launches={counts} init_s={init_s:.2f} ms_per_forward={ms:.3f} "
-            f"tokens_per_s={seq * 1e3 / ms:.1f} {plain_part}".rstrip())
-        if profile and is_main:
-            check_shared_pool(cu, toks, f"{name} {dname}")
-        if keep:
-            result[dname] = p
-        result["launches"] = counts
-        del cu, plain, p
-        torch.cuda.empty_cache()
+    shape = (1, seq, cfg.vocab_size)
+
+    dn = cfg.dtype
+    y16, routes16, launches, _ = lm_kernel_forward(
+        cfg, params, inputs, f"{name} {dn}", main=True, profile=profile)
+    y16_ref, routes16_ref = lm_plain_forward(cfg, params, inputs,
+                                             f"{name} {dn}")
+    if serve:
+        lm_prefill_check(cfg, params, inputs, y16, f"{name} {dn}")
+        lm_serving_cell(cfg, params, name)
+    to_float32_in_place(params)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    y32_ref, routes32 = lm_plain_forward(c32, params, inputs,
+                                         f"{name} float32")
+    agree, note = routed_alike(cfg, seq, f"{name} {dn}", routes16,
+                               routes16_ref)
+    if cfg.num_experts:
+        # Each bf16 forward's flips against the plain fp32 routes: the
+        # kernel's at most LM_BF16_SPREAD times the plain forward's.
+        flips = routing_agreement(routes16, routes32, seq)[0]
+        plain_flips = routing_agreement(routes16_ref, routes32, seq)[0]
+        note += (f"; flips against plain float32: cuda {flips} <= "
+                 f"{LM_BF16_SPREAD} x plain {plain_flips}")
+        if flips > LM_BF16_SPREAD * plain_flips:
+            raise AssertionError(f"{name} {dn}: routing gate fails{note}")
+    rel16, err16, scale16 = compare_logits(y16, y16_ref)
+    rel_plain = compare_logits(y16_ref[:, agree], y32_ref[:, agree])[0]
+    rel_cuda = compare_logits(y16[:, agree], y32_ref[:, agree])[0]
+    gate = (f"vs plain float32: cuda rel {rel_cuda:.3g} <= {LM_BF16_SPREAD} "
+            f"x plain rel {rel_plain:.3g}")
+    if cfg.num_experts:
+        note += (f"; over all tokens (not gated) cuda rel "
+                 f"{compare_logits(y16, y32_ref)[0]:.3g}, plain rel "
+                 f"{compare_logits(y16_ref, y32_ref)[0]:.3g}")
+    log(f"model {name} {dn}: logits {shape} cuda vs plain rel={rel16:.3g} "
+        f"max_abs_err={err16:.3g} max|ref|={scale16:.3g} ({gate}){note}; "
+        f"init_s={init_s:.2f}")
+    if not (bool(torch.isfinite(y16).all()) and y16.shape == shape
+            and y16.dtype == tf.torch_dtype(dn)
+            and rel_cuda <= LM_BF16_SPREAD * rel_plain):
+        raise AssertionError(f"{name} {dn}: {gate} fails, or the logits are "
+                             f"not finite {dn} of shape {shape}")
+    del y16, y16_ref
+
+    layers = cfg.num_layers if fp32_layers is None else fp32_layers
+    if layers:
+        full = layers == cfg.num_layers
+        c = dataclasses.replace(c32, num_layers=layers)
+        p = params if full else dict(params, layers=params["layers"][:layers])
+        label = f"{name} float32" + ("" if full else f" ({layers} layers)")
+        y, routes, _, _ = lm_kernel_forward(c, p, inputs, label, main=False)
+        ref, ref_routes = ((y32_ref, routes32) if full
+                           else lm_plain_forward(c, p, inputs, label))
+        agree, note = routed_alike(c, seq, label, routes, ref_routes,
+                                   MOE_FP32_FLIPS * len(routes) * seq)
+        rel, err, scale = compare_logits(y[:, agree], ref[:, agree])
+        tol = NET_RTOL * max(1.0, scale)
+        log(f"model {label}: logits {tuple(y.shape)} cuda vs plain "
+            f"rel={rel:.3g} max_abs_err={err:.3g} max|ref|={scale:.3g} "
+            f"(max_abs_err <= {tol:.3g}){note}")
+        if not (bool(torch.isfinite(y).all()) and y.shape == shape
+                and y.dtype == torch.float32 and err <= tol):
+            raise AssertionError(f"{label}: max_abs_err {err:.3g} > {tol:.3g},"
+                                 f" or the logits are not finite float32 of "
+                                 f"shape {shape}")
+        del ref
+        if serve:
+            lm_prefill_check(c, p, inputs, y, label)
+        del y, p
+    del params, y32_ref
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"model {name}: peak device memory allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return result
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; cell "
+        f"{time.perf_counter() - t_cell:.1f} s")
+    return launches
 
 
 def check_shared_pool(cu, toks, name) -> None:
@@ -1884,22 +2108,73 @@ def check_shared_pool(cu, toks, name) -> None:
         f" not gated)")
 
 
-def lm_serving_cell(cfg, params, params32, name):
-    """Phase 8c: ``.serve(batch_size=4, capacity=128)`` answers 6 requests
-    (8 prompt tokens, 12 new, greedy); its tokens against a greedy
-    ``decode_step`` loop on the card (the request in row 0 of a batch of
-    4, the other rows fed token 0); then ``prefill_with_cache`` (through
-    the kernel) against token-by-token decode, and one decode step from
-    each cache."""
+def lm_prefill_check(cfg, params, inputs, y, name) -> None:
+    """``prefill_with_cache`` through the kernel over the cell's input (an
+    mLSTM layer in its chunked form, a recurrent layer returning its
+    state), capacity S + 128 so that every window fits, launching the
+    flash kernel once an attention layer: its last logits against the
+    kernel forward's ``y``; then one ``decode_step`` from its cache
+    against the plain forward one token longer.  Gated in fp32 (within
+    ``NET_RTOL`` of max(1, max|ref|)), printed in 16 bits; the decode
+    step is printed, not gated, on MoE cells, where the prompt's last
+    token may meet a capacity that a step's one token does not."""
     import torch
 
     import repro_torch
     from repro_torch.models import transformer as tf
 
+    seq = lm_positions(inputs)
+    reset_counts()
+    with torch.no_grad():
+        last, cache = tf.prefill_with_cache(cfg, params, inputs, seq + 128)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        nxt = torch.ones((1, 1), dtype=torch.int64, device="cuda")
+        step, _ = tf.decode_step(cfg, params, cache, nxt, seq)
+    if counts != flash_want(cfg):
+        raise AssertionError(f"{name} prefill_with_cache: launches {counts}")
+    if isinstance(inputs, dict):
+        ext = dict(inputs, tokens=torch.cat([inputs["tokens"], nxt], dim=1))
+    else:
+        ext = torch.cat([inputs, nxt], dim=1)
+    plain = repro_torch.compile(cfg, params, repro_torch.ExecutionOptions(
+        impl="torch"))
+    ref_step = plain.eager(ext)[:, -1]
+    fp32 = cfg.dtype == "float32"
+    line, ok = [], True
+    for what, a, ref, gated in (
+            ("prefill vs the kernel forward", last, y[:, -1], fp32),
+            ("next step vs the plain forward", step, ref_step,
+             fp32 and not cfg.num_experts)):
+        rel, err, scale = compare_logits(a[:, None], ref[:, None])
+        tol = NET_RTOL * max(1.0, scale)
+        line.append(f"{what} rel={rel:.3g} max_abs_err={err:.3g} max|ref|="
+                    f"{scale:.3g} (tol {tol:.3g}"
+                    f"{'' if gated else ', printed, not gated'})")
+        ok = ok and bool(torch.isfinite(a).all()) and (err <= tol or not gated)
+    log(f"prefill {name}: launches {counts}; " + "; ".join(line))
+    if not ok:
+        raise AssertionError(f"prefill {name}: " + "; ".join(line))
+    del cache, plain
+
+
+def lm_serving_cell(cfg, params, name):
+    """``.serve(batch_size=4, capacity=128)`` answers 6 requests (8 prompt
+    tokens, 12 new, greedy) through the engine's captured decode step:
+    its tokens equal to the same engine with its step run eagerly
+    (``EagerServingEngine``) and to a greedy ``decode_step`` loop on the
+    card (the requests 4 at a time in rows of their own, at one position,
+    the rows of a short chunk fed token 0 and not live); one decode step's
+    replay beside the eager step, timed in turns and profiled (no port
+    kernel in either trace); a greedy step through the engine's guarded
+    call beside the replay with an argmax and its copy."""
+    import torch
+
+    import repro_torch
+    from repro_torch.models import transformer as tf
     from repro_torch.serving import EagerServingEngine
 
     batch, capacity, n_req, prompt_len, new = 4, 128, 6, 8, 12
-    torch.cuda.reset_peak_memory_stats()
     compiled = repro_torch.compile(cfg, params)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab_size, size=prompt_len)
@@ -1907,9 +2182,12 @@ def lm_serving_cell(cfg, params, params32, name):
     # The graph engine captures its decode step when it is made: the
     # capture's warm-up loads the decode path's kernels before either run
     # is timed.
+    t0 = time.perf_counter()
+    graph_engine = compiled.serve(batch_size=batch, capacity=capacity)
+    capture_s = time.perf_counter() - t0
     engines = {"eager": EagerServingEngine.from_compiled(
                    compiled, batch_size=batch, capacity=capacity),
-               "graph": compiled.serve(batch_size=batch, capacity=capacity)}
+               "graph": graph_engine}
     answers, seconds = {}, {}
     for kind, eng in engines.items():
         uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
@@ -1919,42 +2197,45 @@ def lm_serving_cell(cfg, params, params32, name):
         torch.cuda.synchronize()
         seconds[kind] = time.perf_counter() - t0
         answers[kind] = [res[u] for u in uids]
-    engine, results = engines["graph"], answers["graph"]
+    results = answers["graph"]
     if results != answers["eager"]:
         raise AssertionError(f"{name}: the graph engine's tokens {results} "
                              f"differ from the eager engine's {answers['eager']}")
     dt = seconds["graph"]
     total = sum(len(v) for v in results)
 
-    def greedy(prompt):
+    def greedy(chunk):
         cache = tf.init_cache(cfg, batch, capacity, "cuda")
-        toks, out = list(prompt), []
-        live = torch.tensor([True] + [False] * (batch - 1), device="cuda")
+        toks = np.zeros((batch, prompt_len + new), np.int64)
+        toks[:len(chunk), :prompt_len] = chunk
+        live = torch.arange(batch, device="cuda") < len(chunk)
         with torch.no_grad():
-            for pos in range(len(prompt) + new - 1):
-                t = torch.zeros((batch, 1), dtype=torch.int64, device="cuda")
-                t[0, 0] = int(toks[pos])
+            for pos in range(prompt_len + new - 1):
                 logits, cache = tf.decode_step(
-                    cfg, params, cache, t,
+                    cfg, params, cache,
+                    torch.from_numpy(toks[:, pos:pos + 1]).to("cuda"),
                     torch.full((batch,), pos, dtype=torch.int64, device="cuda"),
                     live=live)
-                if pos >= len(prompt) - 1:
-                    out.append(int(logits[0].argmax()))
-                    toks.append(out[-1])
-        return out
+                if pos >= prompt_len - 1:
+                    toks[:len(chunk), pos + 1] = (
+                        logits.argmax(dim=-1).cpu().numpy()[:len(chunk)])
+        return [list(map(int, row[prompt_len:])) for row in toks[:len(chunk)]]
 
-    for i, p in enumerate(prompts):
-        want = greedy(p)
-        if results[i] != want:
-            raise AssertionError(f"{name}: request {i + 1} got {results[i]}, "
-                                 f"a greedy decode_step loop gives {want}")
+    want = [out for i in range(0, n_req, batch)
+            for out in greedy(prompts[i:i + batch])]
+    for i, (got, w) in enumerate(zip(results, want)):
+        if got != w:
+            raise AssertionError(f"{name}: request {i + 1} got {got}, a "
+                                 f"greedy decode_step loop gives {w}")
     log(f"serve {name}: {n_req} requests, {total} tokens in {dt:.3f} s "
         f"({total / dt:.1f} tokens/s; the eager engine {seconds['eager']:.3f}"
-        f" s, {total / seconds['eager']:.1f} tokens/s) batch={batch} "
-        f"capacity={capacity}; tokens equal a greedy decode_step loop and "
-        f"the eager engine's; first request {results[0]}")
+        f" s, {total / seconds['eager']:.1f} tokens/s; decode step captured "
+        f"in {capture_s:.2f} s) batch={batch} capacity={capacity}; tokens "
+        f"equal a greedy decode_step loop and the eager engine's; first "
+        f"request {results[0]}")
     # Where a decode step's time goes: one batched step of the engine, its
     # graph's replay beside the same step run eagerly.
+    engine = graph_engine
     engine.pos[:] = np.arange(batch)
     tokens, live = np.zeros((batch, 1), np.int64), np.ones(batch, bool)
     step_args = (torch.zeros((batch, 1), dtype=torch.int64, device="cuda"),
@@ -1979,42 +2260,33 @@ def lm_serving_cell(cfg, params, params32, name):
         f"argmax and copy {bare:.4f} ms, through the guarded call "
         f"{guarded:.4f} ms ({guarded - bare:+.4f} ms; best of two runs of "
         f"20)")
+    del engines, engine, graph_engine, compiled
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
-                         device="cuda")
-    nxt = torch.ones((batch, 1), dtype=torch.int64, device="cuda")
-    for dname, p in ((cfg.dtype, params), ("float32", params32)):
-        c = dataclasses.replace(cfg, dtype=dname)
-        reset_counts()
-        with torch.no_grad():
-            logits_pf, cache_pf = tf.prefill_with_cache(c, p, toks, capacity)
-            torch.cuda.synchronize()
-            counts = read_counts()
-            cache = tf.init_cache(c, batch, capacity, "cuda")
-            for t in range(prompt_len):
-                logits_dec, cache = tf.decode_step(c, p, cache, toks[:, t:t + 1], t)
-            l1, _ = tf.decode_step(c, p, cache_pf, nxt, prompt_len)
-            l2, _ = tf.decode_step(c, p, cache, nxt, prompt_len)
-        if counts != {"flash_attention": cfg.num_layers}:
-            raise AssertionError(f"{name} prefill_with_cache: launches {counts}")
-        line = []
-        for what, a, ref in (("prefill", logits_pf, logits_dec),
-                             ("next step", l1, l2)):
-            rel, err, scale = compare_logits(a[:, None], ref[:, None])
-            line.append(f"{what} rel={rel:.3g} max_abs_err={err:.3g} "
-                        f"max|ref|={scale:.3g}")
-            if dname == "float32" and not (
-                    bool(torch.isfinite(a).all())
-                    and err <= NET_RTOL * max(1.0, scale)):
-                raise AssertionError(f"{name} {dname}: {what} logits differ "
-                                     f"from token-by-token decode: {line[-1]}")
-        log(f"prefill vs decode {name} {dname}: " + "; ".join(line)
-            + (" (gated: within 1e-3 of max(1, max|ref|))" if dname == "float32"
-               else " (printed, not gated)"))
-    log(f"serve {name}: peak device memory allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (both weight "
-        f"copies included)")
+
+# ---------------------------------------------------------------------------
+# Phase 8e: the MoE, recurrent and frontend LM families
+
+
+def family_phase(lm_configs) -> None:
+    """Phase 8e: the six MoE, recurrent and frontend configs through
+    ``lm_prefill_cell``, one at a time, each freed before the next."""
+    cells = [
+        ("granite-moe-1b-a400m", {}, 4096, None, True),
+        # Its 128 experts are 26.8 GB a layer in bf16 (53.6 in fp32).
+        ("arctic-480b", {"num_layers": 1}, 2048, 0, False),
+        ("recurrentgemma-9b", {}, 4096, 3, True),
+        ("xlstm-125m", {}, 4096, None, True),
+        ("hubert-xlarge", {}, 1000, None, False),
+        ("internvl2-2b", {}, 1024, None, True),
+    ]
+    for arch, cut, seq, fp32_layers, serve in cells:
+        cfg = dataclasses.replace(lm_configs.get_config(arch), **cut)
+        name = (f"{arch}" + (f" ({cfg.num_layers} layers)" if cut else "")
+                + f" S{seq} b1")
+        lm_prefill_cell(cfg, seq, name, fp32_layers=fp32_layers,
+                        serve=serve and cfg.supports_decode)
 
 
 # ---------------------------------------------------------------------------
@@ -2560,6 +2832,25 @@ def ptxas_usage(library: str, function: str) -> str:
     return "; ".join(sorted(found)) or "not in this run's build log"
 
 
+def flash_ptxas() -> list:
+    """One line per flash kernel instance of phase 2's build log: its body
+    and head dim, ptxas' registers and spill bytes."""
+    from repro_torch.kernels import _build
+
+    lines, head = [], None
+    for line in _build.build_logs.get("flash_attention", "").splitlines():
+        m = re.search(r"flash_(bf16|fp32)\w*_kernelILi(\d+)E", line)
+        if "Compiling entry function" in line:
+            head = f"flash {m.group(1)} hd {m.group(2)}" if m else None
+        elif head and "spill stores" in line:
+            spill = line.split(",", 1)[1].strip()
+        elif head and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            lines.append(f"{head}: {regs} registers, {spill}")
+            head = None
+    return lines
+
+
 def verify_phase() -> None:
     """Phase 8d: every cell of phases 3 to 8c compiled with
     ``validate="full"`` at full width (its pipelines gated at the kernel
@@ -2691,6 +2982,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    for line in flash_ptxas():
+        log(f"  ptxas {line}")
     # ptxas counts static shared memory only; the 16-bit Winograd kernels'
     # is dynamic, as the model and its tests read it from their sources.
     log(f"  shared memory (dynamic) winograd16_fused_kernel "
@@ -2962,14 +3255,15 @@ def main() -> int:
         "gemma2-27b attn S8192": (1, 8192, 8192, 32, 16, 128, True, 0, 50.0),
         saturated: (1, 8192, 8192, 32, 16, 128, True, 0, 50.0),
         "non-causal ragged Sk": (2, 1000, 777, 32, 8, 64, False, 0, 0.0),
+        # Phase 8e's head dims: recurrentgemma-9b's local layers (MQA, hd
+        # 256, window 2048) and hubert-xlarge's (hd 80, non-causal).
+        "recurrentgemma-9b local S4096": (1, 4096, 4096, 16, 1, 256, True,
+                                          2048, 0.0),
+        "hubert-xlarge S1000": (1, 1000, 1000, 16, 16, 80, False, 0, 0.0),
     }, saturated=(saturated,))
     log(f"phase 8a done at {time.perf_counter() - t_start:.1f} s")
-    llama_run = lm_prefill_cell(llama, 4096, llama_cell, profile=True, keep=True)
-    launches[llama_cell] = llama_run["launches"]
-    lm_serving_cell(llama, llama_run[llama.dtype], llama_run["float32"],
-                    "llama3.2-1b")
-    del llama_run
-    torch.cuda.empty_cache()
+    launches[llama_cell] = lm_prefill_cell(llama, 4096, llama_cell,
+                                           profile=True, serve=True)
     lm_prefill_cell(gemma, 8192, gemma_cell)
     n = launches[llama_cell]["flash_attention"]
     f = flash[llama_cell, llama.dtype]
@@ -3009,6 +3303,12 @@ def main() -> int:
     verify_phase()
     log(f"phase 8d done at {time.perf_counter() - t_start:.1f} s "
         f"(its own {time.perf_counter() - t8d:.1f} s)")
+
+    # Phase 8e: the MoE, recurrent and frontend LM families.
+    t8e = time.perf_counter()
+    family_phase(lm_configs)
+    log(f"phase 8e done at {time.perf_counter() - t_start:.1f} s "
+        f"(its own {time.perf_counter() - t8e:.1f} s)")
 
     # Phase 9: the kernels line, then the last line.
     kernels = []

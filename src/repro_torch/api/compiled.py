@@ -419,8 +419,9 @@ class CompiledLM:
     model computes in ``cfg.dtype``.
 
     On the card ``run`` replays a CUDA graph of the forward
-    (``graphs.CapturedCall``), one per (B, S) token shape, captured at the
-    shape's first call, as ``jax.jit`` keeps one trace per shape.  The
+    (``graphs.CapturedCall``), one per input signature (the (B, S) token
+    shape, or the keys and shapes of a model-input dict), captured at its
+    first call, as ``jax.jit`` keeps one trace per shape.  The
     graphs share one memory pool: they replay one at a time and each call
     clones its logits, so a later capture reuses the activations of the
     earlier ones, and the pool holds about the largest shape's forward
@@ -430,7 +431,6 @@ class CompiledLM:
     def __init__(self, cfg, params, options: ExecutionOptions):
         from repro_torch.models import transformer as tf
 
-        tf.check_supported(cfg)
         if options.dtype != "float32":
             raise ValueError(f"dtype={options.dtype!r} applies to CNNs; an LM "
                              f"computes in its config's dtype ({cfg.dtype})")
@@ -439,49 +439,64 @@ class CompiledLM:
         self.device = torch.device(options.device)
         self._tf = tf
         self.params = tf.tree_map(lambda t: t.to(self.device), params)
-        self._graphs: Dict[Tuple[int, ...], Any] = {}
+        self._graphs: Dict[Tuple[Any, ...], Any] = {}
         self._pool = None
 
-    def _tokens(self, tokens) -> torch.Tensor:
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        if tokens.ndim != 2:
-            raise ValueError(f"run() expects (B, S) tokens, got shape "
-                             f"{tuple(tokens.shape)}")
-        return tokens
+    def _inputs(self, inputs) -> Dict[str, torch.Tensor]:
+        """The model-input dict on the device: (B, S) tokens (a tensor or
+        an array) become ``{"tokens"}``; a dict's ``tokens`` are int64,
+        its ``frames`` and ``patch_embeds`` kept in their float type."""
+        if not isinstance(inputs, dict):
+            tokens = torch.as_tensor(inputs, device=self.device).long()
+            if tokens.ndim != 2:
+                raise ValueError(f"run() expects (B, S) tokens, got shape "
+                                 f"{tuple(tokens.shape)}")
+            return {"tokens": tokens}
+        batch = {}
+        for k, v in sorted(inputs.items()):
+            t = torch.as_tensor(v, device=self.device)
+            batch[k] = t.long() if k == "tokens" else t
+        return batch
 
-    def eager(self, tokens) -> torch.Tensor:
+    def eager(self, inputs) -> torch.Tensor:
         """The full-sequence forward, run eagerly."""
-        tokens = self._tokens(tokens)
+        batch = self._inputs(inputs)
         with torch.inference_mode():
-            return self._tf.forward(self.model, self.params, tokens,
+            return self._tf.forward(self.model, self.params, batch,
                                     impl=self.options.impl)
 
-    def run(self, tokens) -> torch.Tensor:
-        """Full-sequence logits: (B, S) int tokens (tensor or array) ->
-        (B, S, V) in ``cfg.dtype``, on ``options.device``."""
-        tokens = self._tokens(tokens)
+    def run(self, inputs) -> torch.Tensor:
+        """Full-sequence logits: (B, S) int tokens (tensor or array), or a
+        model-input dict for the frontend archs (``{"frames"}``,
+        ``{"tokens", "patch_embeds"}``) -> (B, S, V) in ``cfg.dtype``, on
+        ``options.device``."""
+        batch = self._inputs(inputs)
         if self.device.type != "cuda":
-            return self.eager(tokens)
-        shape = tuple(tokens.shape)
-        if shape not in self._graphs:
+            return self.eager(batch)
+        keys = tuple(batch)
+        sig = tuple((k, tuple(t.shape), t.dtype) for k, t in batch.items())
+        if sig not in self._graphs:
             from repro_torch.graphs import CapturedCall
 
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            self._graphs[shape] = CapturedCall(
-                self.eager, (tokens,),
-                f"the {self.model.name} forward at (B, S) = {shape}",
+            self._graphs[sig] = CapturedCall(
+                lambda *ts: self.eager(dict(zip(keys, ts))),
+                tuple(batch.values()),
+                f"the {self.model.name} forward at "
+                + ", ".join(f"{k} {tuple(t.shape)}" for k, t in batch.items()),
                 pool=self._pool)
-        return self._graphs[shape](tokens)
+        return self._graphs[sig](*batch.values())
 
-    def __call__(self, tokens) -> torch.Tensor:
-        return self.run(tokens)
+    def __call__(self, inputs) -> torch.Tensor:
+        return self.run(inputs)
 
     def serve(self, batch_size: Optional[int] = None, capacity: int = 256,
               **engine_opts):
         """A continuous-batching ServingEngine for this model;
         ``batch_size`` defaults to ``options.batch``, admission, deadlines
-        and retries come from the options (``engine_opts`` win)."""
+        and retries come from the options (``engine_opts`` win).  An
+        encoder-only model has no decode step: ValueError."""
         from repro_torch.serving.engine import ServingEngine
 
         return ServingEngine.from_compiled(

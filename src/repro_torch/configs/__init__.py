@@ -1,12 +1,10 @@
 """Model configurations as plain data: the paper's CNN layer tables
-(``yolov3``, ``vgg16``) and the LM configs of the dense, attention-only
-text archs.
+(``yolov3``, ``vgg16``) and the ten LM configs of the reference (dense,
+MoE, recurrent, audio and vision).
 
 ``get_config(name)`` returns an LM arch's full-size config and
 ``smoke_config(name)`` its reduced variant for CPU tests, the same
-reduction as ``repro/configs/__init__.py``.  The other archs of the
-reference (MoE, recurrent, audio and vision) are not ported yet: asking
-for one raises ``NotImplementedError`` naming ROADMAP.md.
+reduction as ``repro/configs/__init__.py``.
 """
 from __future__ import annotations
 
@@ -15,32 +13,24 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-#: The LM archs the port runs, and their modules.
+#: The LM archs, in the reference's order, and their modules.
 _MODULES = {
+    "hubert-xlarge": "hubert_xlarge",
     "granite-34b": "granite_34b",
     "qwen1.5-0.5b": "qwen15_05b",
     "llama3.2-1b": "llama32_1b",
     "gemma2-27b": "gemma2_27b",
+    "arctic-480b": "arctic_480b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "internvl2-2b": "internvl2_2b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "xlstm-125m": "xlstm_125m",
 }
 ARCHS = tuple(_MODULES)
-
-#: The reference's other archs, a later slice of the port.
-UNPORTED_ARCHS = (
-    "hubert-xlarge",
-    "arctic-480b",
-    "granite-moe-1b-a400m",
-    "internvl2-2b",
-    "recurrentgemma-9b",
-    "xlstm-125m",
-)
 
 
 def get_config(name: str) -> ModelConfig:
     """The full-size config of LM arch ``name``."""
-    if name in UNPORTED_ARCHS:
-        raise NotImplementedError(
-            f"{name} (MoE, recurrent or frontend blocks) is not ported yet; "
-            f"the port runs {ARCHS} (ROADMAP.md, queue 1, item 7)")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; the port runs {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}").CONFIG
@@ -76,5 +66,4 @@ def smoke_config(name: str, seq_len: int = 32) -> ModelConfig:
     )
 
 
-__all__ = ["ARCHS", "UNPORTED_ARCHS", "ModelConfig", "get_config",
-           "smoke_config"]
+__all__ = ["ARCHS", "ModelConfig", "get_config", "smoke_config"]

@@ -38,7 +38,8 @@
 
 // o (B, S, H, hd) = attention(q (B, S, H, hd), k, v (B, Sk, KV, hd)).
 // dtype 0: float (3xTF32 tensor cores), 1: bfloat16 (bf16 tensor cores);
-// q, k and v 16-byte aligned.  hd in {16, 32, 64, 128}; H % KV == 0;
+// q, k and v 16-byte aligned.  hd in {16, 32, 64, 80, 128, 256};
+// H % KV == 0;
 // window <= 0: no window; cap <= 0: no softcap.  Returns
 // cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k,
@@ -60,7 +61,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)
     REPRO_FLASH_CASE(64)
+    REPRO_FLASH_CASE(80)
     REPRO_FLASH_CASE(128)
+    REPRO_FLASH_CASE(256)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_FLASH_CASE

@@ -27,17 +27,24 @@
 // registers a thread, so two blocks an SM; each K and V tile is copied
 // once for twice the rows, and it times level with 4 warps and 64 rows at
 // Llama-3.2-1B's shape, scripts/flash_bf16_variants.py), 4 warps and 64
-// rows at hd 128 (Q, S and O fragments take 211 registers).  Each
-// warp loads its Q fragments once with ldmatrix and keeps them in
-// registers for the whole kv loop.  Query head h reads KV head
-// h / (H / KV) in place: no K/V head is copied.
+// rows at hd 80 and 128 (Q, S and O fragments take 211 registers at 128).
+// Up to hd 128 each warp loads its Q fragments once with ldmatrix and
+// keeps them in registers for the whole kv loop.  At hd 256 the O
+// accumulator alone is 128 registers a thread, and Q's 16 k-steps would
+// be 64 more: there Q stays in shared memory and each k-step's fragment
+// is loaded again with ldmatrix where it is used, and kv tiles are 32
+// keys (16 score registers, not 32), so a thread fits in 255 registers
+// and two blocks of 101,376 bytes share an SM (Cfg<256>).  Query head h
+// reads KV head h / (H / KV) in place: no K/V head is copied.
 //
-// K and V tiles of 64 keys are copied from (B, Sk, KV, hd) into shared
-// memory as bf16 by cp.async (16 bytes a thread, zero-filled past Sk) in
-// a 2-stage ring: tile j+1 is in flight while tile j is computed, and one
-// barrier per tile orders both.  Rows are padded by 16 bytes, so the 8
-// row addresses of every ldmatrix (K as the B operand of Q.K^T, V with
-// .trans as the B operand of P.V) fall in 8 distinct 16-byte bank groups.
+// K and V tiles of BK keys (64; 32 at hd 256) are copied from (B, Sk,
+// KV, hd) into shared memory as bf16 by cp.async (16 bytes a thread,
+// zero-filled past Sk) in a 2-stage ring: tile j+1 is in flight while
+// tile j is computed, and one barrier per tile orders both.  Rows are
+// padded by 16 bytes (hd + 8 elements, an odd number of 16-byte groups
+// at every hd), so the 8 row addresses of every ldmatrix (Q and K, V
+// with .trans as the B operand of P.V) fall in 8 distinct 16-byte bank
+// groups.
 //
 // S = Q.K^T lands in fp32 accumulator fragments; each thread holds two
 // rows (g and g + 8 of its warp's 16) and reduces their max over the 4
@@ -80,13 +87,15 @@ namespace flash_bf16 {
 
 namespace fc = flash_common;
 
-constexpr int BK = 64;                        // keys per kv tile
-
 template <int HD>
 struct Cfg {
   static constexpr int NW = HD <= 64 ? 8 : 4;  // warps per block
   static constexpr int THREADS = 32 * NW;
   static constexpr int BQ = 16 * NW;           // query rows per block
+  static constexpr int BK = HD <= 128 ? 64 : 32;  // keys per kv tile
+  // Q fragments held in registers for the kv loop (else reloaded from
+  // shared memory at each k-step).
+  static constexpr bool Q_IN_REGS = HD <= 128;
   static constexpr int LD = HD + 8;            // smem row stride (bf16)
   static constexpr int CHUNKS = HD / 8;        // 16-byte chunks per row
   // Q, then two stages of a K and a V tile.
@@ -149,7 +158,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             int H, int KV, int causal, int window,
                             float x_scale, float cap_out) {
   using C = Cfg<HD>;
-  constexpr int BQ = C::BQ, LD = C::LD, CH = C::CHUNKS;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, CH = C::CHUNKS;
   constexpr int NT = BK / 8;    // score n-tiles of a kv tile
   constexpr int KS = HD / 16;   // k-steps of Q.K^T
   constexpr int DT = HD / 8;    // output n-tiles
@@ -194,13 +203,16 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_wait_all();
   __syncthreads();
 
-  // This warp's Q fragments: a0..a3 of each 16-wide k-step.
+  // This warp's Q fragments: a0..a3 of each 16-wide k-step, loaded here
+  // once (Q_IN_REGS) or at each use.
   const int w_first = q0 + warp * 16;
-  uint32_t qf[KS][4];
+  uint32_t qf[C::Q_IN_REGS ? KS : 1][4];
+  if constexpr (C::Q_IN_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int r = warp * 16 + lane % 8 + ((lane / 8) % 2) * 8;
-    ldsm_x4(qf[kk], smem_addr(Qs + r * LD + kk * 16 + (lane / 16) * 8));
+    for (int kk = 0; kk < KS; ++kk) {
+      const int r = warp * 16 + lane % 8 + ((lane / 8) % 2) * 8;
+      ldsm_x4(qf[kk], smem_addr(Qs + r * LD + kk * 16 + (lane / 16) * 8));
+    }
   }
 
   const int row0 = w_first + g, row1 = row0 + 8;
@@ -235,13 +247,18 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      const int qi = C::Q_IN_REGS ? kk : 0;
+      if constexpr (!C::Q_IN_REGS) {
+        const int r = warp * 16 + lane % 8 + ((lane / 8) % 2) * 8;
+        ldsm_x4(qf[0], smem_addr(Qs + r * LD + kk * 16 + (lane / 16) * 8));
+      }
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
         uint32_t bf[4];
         const int r = j * 8 + lane % 8 + (lane / 16) * 8;
         ldsm_x4(bf, smem_addr(Ks + r * LD + kk * 16 + ((lane / 8) % 2) * 8));
-        mma_bf16(s[j], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[j + 1], qf[kk], bf[2], bf[3]);
+        mma_bf16(s[j], qf[qi], bf[0], bf[1]);
+        mma_bf16(s[j + 1], qf[qi], bf[2], bf[3]);
       }
     }
 

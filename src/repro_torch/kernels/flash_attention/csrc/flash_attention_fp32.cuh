@@ -27,20 +27,23 @@
 //
 // Blocks and warps.  One block owns BQ = 128 query rows of one (batch,
 // head): 4 warps of 32 rows, two m16 tiles (MT) each, so every K and V
-// value a warp loads and splits feeds the products of both.  Query head h
+// value a warp loads and splits feeds the products of both.  At hd 256
+// two m-tiles' O would be 256 registers a thread: there 8 warps of one
+// m16 tile each (128 O registers), one block an SM (Cfg<256>::WIDE).  Query head h
 // reads KV head h / (H / KV) in place.  The Q tile is staged in shared
 // memory once and each warp reads and splits its Q fragments there at
 // each use: held in registers as hi and lo they would take MT hd
 // registers beside MT (BK / 2) of S and MT (hd / 2) of O, and spill.
 //
-// K and V tiles of BK keys (32 at hd <= 64, 16 at hd 128) are copied from
+// K and V tiles of BK keys (32 at hd <= 64, 16 above) are copied from
 // (B, Sk, KV, hd) into shared memory as fp32 by cp.async (16 bytes a
 // thread, zero-filled past Sk) in a 2-stage ring, one barrier a tile, as
 // in the bf16 kernel.  Rows are hd + 4 floats apart, which is 4 (mod 32)
-// at hd >= 32 (20 at hd 16), so the fragment loads below fall on 32
-// distinct banks: Q's and K's (row g, dim t4), V's (key 2 t4, dim g).
-// Shared memory: (BQ + 4 BK) (hd + 4) floats, 69,632 bytes at hd 64 and
-// 101,376 at hd 128; two blocks an SM (up to 255 registers a thread: at
+// at hd 32, 64, 128 and 256 (20 at hd 16 and 80), so the fragment loads
+// below fall on 32 distinct banks: Q's and K's (row g, dim t4), V's (key
+// 2 t4, dim g).  Shared memory: (BQ + 4 BK) (hd + 4) floats, 69,632 bytes
+// at hd 64, 64,512 at hd 80, 101,376 at hd 128 and 199,680 at hd 256;
+// two blocks an SM below hd 256 (up to 255 registers a thread: at
 // three, 168, ptxas spills).  Each warp splits the values it loads (5
 // integer and float instructions a value); a split at staging, once for
 // the block into hi and lo planes, doubles the K/V shared memory and
@@ -80,12 +83,13 @@ namespace tc = sgemm_tc;
 
 template <int HD>
 struct Cfg {
-  static constexpr int NW = 4;                    // warps per block
-  static constexpr int MT = 2;                    // m16 tiles a warp
+  static constexpr bool WIDE = HD > 128;          // O of 2 m-tiles spills
+  static constexpr int NW = WIDE ? 8 : 4;         // warps per block
+  static constexpr int MT = WIDE ? 1 : 2;         // m16 tiles a warp
   static constexpr int THREADS = 32 * NW;
   static constexpr int BQ = 16 * MT * NW;         // query rows per block
   static constexpr int BK = HD <= 64 ? 32 : 16;   // keys per kv tile
-  static constexpr int MIN_BLOCKS = 2;            // resident blocks an SM
+  static constexpr int MIN_BLOCKS = WIDE ? 1 : 2;  // resident blocks an SM
   static constexpr int JC = 2;                    // k8 steps a P.V partial
   static constexpr int LD = HD + 4;               // smem row stride, floats
   static constexpr int CHUNKS = HD / 4;           // 16-byte chunks per row

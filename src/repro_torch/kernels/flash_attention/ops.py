@@ -20,7 +20,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 #: Head dims the kernel is compiled for.
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 #: Input types the kernel is compiled for, with the entry's type code.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

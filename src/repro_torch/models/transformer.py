@@ -1,28 +1,38 @@
-"""The LM assembly for dense attention stacks: the port of
-``repro/models/transformer.py``, its ``attn``/``local`` subset.
+"""The model assembly: the port of ``repro/models/transformer.py``, every
+block type and frontend of its ten configs.
 
-A model is a cycled ``layer_pattern`` of attention blocks ('attn' global,
-'local' sliding window), each followed by an MLP, with optional post-norms
-(gemma2) and a sqrt(d) embed scale.  Parameters are plain dicts of tensors:
-``{"embed": {"table"}, "layers": [one dict per layer, in order],
-"final_norm"}`` (plus ``"head"`` when embeddings are untied).  The
-reference stacks full periods of the pattern for ``jax.lax.scan``; here the
-layers are a plain list run by a Python loop, and ``params_from_numpy``
-unstacks the reference's tree into it.  Caches are a list too, one
-``{"k", "v", "slot_pos"}`` ring per layer.
+A model is a cycled ``layer_pattern`` of mixer blocks ('attn' global,
+'local' sliding window, 'rglru', 'mlstm', 'slstm'), each followed by an
+MLP, or an MoE (with arctic's parallel dense MLP) when the config has
+experts, with optional post-norms (gemma2) and a sqrt(d) embed scale.
+Inputs are (B, S) tokens, or the reference's model-input dict:
+``{"frames"}`` (audio: projected, no embedding, untied head) or
+``{"tokens", "patch_embeds"}`` (vision: projected patches prepended to
+the token embeddings, positions over the whole sequence).
 
-MoE, rglru, mLSTM/sLSTM and the audio and vision frontends are not ported
-yet: a config that needs one raises ``NotImplementedError`` (ROADMAP.md).
+Parameters are plain dicts of tensors: ``{"embed": {"table"}, "layers":
+[one dict per layer, in order], "final_norm"}`` (plus ``"head"`` when
+embeddings are untied, ``"frontend_proj"`` with a frontend).  The
+reference stacks full periods of the pattern for ``jax.lax.scan``; here
+the layers are a plain list run by a Python loop, and
+``params_from_numpy`` unstacks the reference's tree into it.  Caches are
+a list too, one dict per layer: a ``{"k", "v", "slot_pos"}`` ring for
+attention, the recurrent state for the others.  Decode updates every
+cache in place, so a CUDA graph of the step replays against fixed
+addresses.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (
     apply_mlp,
     embed,
@@ -37,23 +47,11 @@ from repro_torch.models.layers import (
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
+#: (B, S) tokens, or a model-input dict ({"frames"} or {"tokens",
+#: "patch_embeds"}).
+Inputs = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
-#: Block types the port runs.
-PORTED_BLOCKS = ("attn", "local")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config that needs an unported block."""
-    missing = sorted(set(cfg.pattern_layers) - set(PORTED_BLOCKS))
-    if cfg.num_experts:
-        missing.append("moe")
-    if cfg.frontend != "none":
-        missing.append(cfg.frontend)
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; the port runs "
-            f"dense {'/'.join(PORTED_BLOCKS)} stacks (ROADMAP.md, queue 1, "
-            f"item 7)")
+AUX_KEYS = ("load_balance", "router_z", "dropped_frac")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -72,17 +70,86 @@ def _init_layer(cfg: ModelConfig, generator: torch.Generator, btype: str,
         return torch.zeros((d,), dtype=torch.float32, device=device)
 
     p: Params = {"norm1": norm()}
-    p["mixer"] = attn_lib.init_attention(
-        generator, d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
-        cfg.qkv_bias, dt, device)
+    if btype in ("attn", "local"):
+        p["mixer"] = attn_lib.init_attention(
+            generator, d, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.qkv_bias, dt, device)
+    elif btype == "rglru":
+        p["mixer"] = rglru_lib.init_rglru_block(
+            generator, d, cfg.resolved_d_rnn, cfg.conv_width, dt, device)
+    elif btype == "mlstm":
+        p["mixer"] = xlstm_lib.init_mlstm_block(generator, d, cfg.num_heads,
+                                                dt, device)
+    elif btype == "slstm":
+        p["mixer"] = xlstm_lib.init_slstm_block(generator, d, cfg.num_heads,
+                                                dt, device)
+    else:
+        raise ValueError(f"unknown block type {btype}")
     if cfg.use_post_norm:
         p["post_norm1"] = norm()
-    if cfg.d_ff > 0 and cfg.mlp_type != "none":
+
+    if cfg.num_experts:
+        p["norm2"] = norm()
+        p["moe"] = moe_lib.init_moe(generator, d, cfg.d_ff, cfg.num_experts,
+                                    dt, device)
+        if cfg.moe_dense_ff:
+            p["dense_mlp"] = init_mlp(generator, d, cfg.moe_dense_ff,
+                                      "swiglu", dt, device)
+        if cfg.use_post_norm:
+            p["post_norm2"] = norm()
+    elif cfg.d_ff > 0 and cfg.mlp_type != "none":
         p["norm2"] = norm()
         p["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.mlp_type, dt, device)
         if cfg.use_post_norm:
             p["post_norm2"] = norm()
     return p
+
+
+def _write_state(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+                 live: Optional[torch.Tensor]) -> None:
+    """Write a recurrent block's new state into ``cache`` in place; rows
+    where ``live`` is False keep their old state (the reference's
+    ``_mask_state_update``: a slot-local admission step must not fold its
+    garbage tokens into the other rows' state)."""
+    for name, old in cache.items():
+        t = new[name]
+        if live is not None:
+            t = torch.where(live.reshape((-1,) + (1,) * (t.ndim - 1)), t, old)
+        old.copy_(t)
+
+
+def _apply_mixer(cfg: ModelConfig, p: Params, h: torch.Tensor, btype: str,
+                 cache, cache_pos, fill_capacity, live, impl):
+    fill = fill_capacity is not None
+    if btype in ("attn", "local"):
+        return attn_lib.attention_block(
+            p, h,
+            num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim,
+            causal=cfg.causal and not cfg.encoder_only,
+            window=cfg.local_window if btype == "local" else 0,
+            logit_cap=cfg.attn_logit_softcap,
+            rope_theta=cfg.rope_theta,
+            cache=cache,
+            cache_pos=cache_pos,
+            fill_capacity=fill_capacity,
+            live=live,
+            impl=impl,
+        )
+    if btype == "rglru":
+        out, new = rglru_lib.apply_rglru_block(p, h, cache=cache,
+                                               fill_state=fill)
+    elif btype == "mlstm":
+        out, new = xlstm_lib.apply_mlstm_block(p, h, cfg.num_heads,
+                                               cache=cache, fill_state=fill)
+    else:
+        out, new = xlstm_lib.apply_slstm_block(p, h, cfg.num_heads,
+                                               cache=cache, fill_state=fill)
+    if cache is not None:
+        _write_state(cache, new, live)
+        new = cache
+    return out, new
 
 
 def _apply_layer(
@@ -95,33 +162,34 @@ def _apply_layer(
     fill_capacity: Optional[int] = None,
     live: Optional[torch.Tensor] = None,
     impl: str = "cuda",
-) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]],
+           Dict[str, torch.Tensor]]:
+    """One block: (x, its cache (updated in place in decode, new in a
+    filling prefill), its MoE aux losses)."""
+    aux: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    out, new_cache = attn_lib.attention_block(
-        p["mixer"], h,
-        num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.resolved_head_dim,
-        causal=cfg.causal and not cfg.encoder_only,
-        window=cfg.local_window if btype == "local" else 0,
-        logit_cap=cfg.attn_logit_softcap,
-        rope_theta=cfg.rope_theta,
-        cache=cache,
-        cache_pos=cache_pos,
-        fill_capacity=fill_capacity,
-        live=live,
-        impl=impl,
-    )
+    out, new_cache = _apply_mixer(cfg, p["mixer"], h, btype, cache,
+                                  cache_pos, fill_capacity, live, impl)
     if cfg.use_post_norm:
         out = rms_norm(out, p["post_norm1"], cfg.norm_eps)
     x = x + out
-    if "mlp" in p:
+    if "moe" in p:
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        out2, aux = moe_lib.apply_moe(
+            p["moe"], h2, cfg.top_k, cfg.capacity_factor,
+            sharded_dispatch=cfg.moe_sharded_dispatch)
+        if "dense_mlp" in p:
+            out2 = out2 + apply_mlp(p["dense_mlp"], h2, "swiglu")
+        if cfg.use_post_norm:
+            out2 = rms_norm(out2, p["post_norm2"], cfg.norm_eps)
+        x = x + out2
+    elif "mlp" in p:
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
         out2 = apply_mlp(p["mlp"], h2, cfg.mlp_type)
         if cfg.use_post_norm:
             out2 = rms_norm(out2, p["post_norm2"], cfg.norm_eps)
         x = x + out2
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -132,14 +200,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Params:
     """Random parameters from ``generator`` (drawn on its device), placed
     on ``device`` (the generator's by default)."""
-    check_supported(cfg)
     device = generator.device if device is None else device
     dt = _dtype(cfg)
-    params: Params = {"embed": init_embedding(generator, cfg.vocab_size,
-                                              cfg.d_model, dt, device)}
-    if not cfg.tie_embeddings:
-        params["head"] = normal_init(generator, (cfg.d_model, cfg.vocab_size),
-                                     dtype=dt, device=device)
+
+    def w(*shape):
+        return normal_init(generator, shape, dtype=dt, device=device)
+
+    params: Params = {}
+    if cfg.frontend == "audio_frames":
+        params["frontend_proj"] = w(cfg.frontend_dim, cfg.d_model)
+        params["head"] = w(cfg.d_model, cfg.vocab_size)
+    else:
+        params["embed"] = init_embedding(generator, cfg.vocab_size,
+                                         cfg.d_model, dt, device)
+        if cfg.frontend == "vision_patches":
+            params["frontend_proj"] = w(cfg.frontend_dim, cfg.d_model)
+        if not cfg.tie_embeddings:
+            params["head"] = w(cfg.d_model, cfg.vocab_size)
     params["layers"] = [_init_layer(cfg, generator, bt, device)
                         for bt in cfg.pattern_layers]
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
@@ -194,10 +271,10 @@ def params_from_numpy(cfg: ModelConfig, tree: Params, device=None) -> Params:
     """The reference's parameter tree as numpy arrays (the output of
     ``jax.tree_util.tree_map(np.asarray, tf.init_params(cfg, key))``) as
     the port's parameters on ``device``, dtypes kept, layers unstacked in
-    layer order."""
-    check_supported(cfg)
+    layer order: every leaf is carried across."""
     params: Params = {k: tree_map(lambda a: _tensor(a, device), tree[k])
-                      for k in ("embed", "head", "final_norm") if k in tree}
+                      for k in ("embed", "frontend_proj", "head",
+                                "final_norm") if k in tree}
     params["layers"] = [tree_map(lambda a: _tensor(a, device), layer)
                         for layer in layers_from_tree(cfg, tree)]
     return params
@@ -207,18 +284,36 @@ def params_from_numpy(cfg: ModelConfig, tree: Params, device=None) -> Params:
 # Full-sequence forward (prefill)
 
 
-def _embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    x = embed(params["embed"], tokens, scale_by_dim=cfg.embed_scale)
-    return x.to(_dtype(cfg))
+def _embed_inputs(cfg: ModelConfig, params: Params, inputs: Inputs
+                  ) -> torch.Tensor:
+    """(B, S, d) in ``cfg.dtype``: embedded tokens, projected audio
+    frames, or projected vision patches before the embedded tokens."""
+    dt = _dtype(cfg)
+    batch = inputs if isinstance(inputs, dict) else {"tokens": inputs}
+    if cfg.frontend == "audio_frames":
+        x = batch["frames"].to(dt) @ params["frontend_proj"]
+    else:
+        x = embed(params["embed"], batch["tokens"], scale_by_dim=cfg.embed_scale)
+        if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
+            patches = batch["patch_embeds"].to(dt) @ params["frontend_proj"]
+            x = torch.cat([patches, x], dim=1)
+    return x.to(dt)
 
 
-def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                   impl: str = "cuda") -> torch.Tensor:
-    """Trunk forward: final-norm hidden states (B, S, d)."""
-    x = _embed_tokens(cfg, params, tokens)
+def forward_hidden(cfg: ModelConfig, params: Params, inputs: Inputs,
+                   impl: str = "cuda"
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Trunk forward: (final-norm hidden states (B, S, d), the MoE aux
+    losses summed over layers: load_balance, router_z, dropped_frac; 0
+    without experts)."""
+    x = _embed_inputs(cfg, params, inputs)
+    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+           for k in AUX_KEYS}
     for p, bt in zip(params["layers"], cfg.pattern_layers):
-        x, _ = _apply_layer(cfg, p, x, bt, impl=impl)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, _, a = _apply_layer(cfg, p, x, bt, impl=impl)
+        for k, v in a.items():
+            aux[k] = aux[k] + v
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def apply_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -229,22 +324,25 @@ def apply_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tenso
     return softcap(logits, cfg.final_logit_softcap)
 
 
-def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+def forward(cfg: ModelConfig, params: Params, inputs: Inputs,
             impl: str = "cuda") -> torch.Tensor:
-    """Full-sequence forward (prefill): (B, S) tokens -> (B, S, V) logits
-    in ``cfg.dtype``.  Every attention runs ``flash_attention`` with
-    ``impl``."""
-    return apply_head(cfg, params, forward_hidden(cfg, params, tokens, impl))
+    """Full-sequence forward (prefill): (B, S) tokens or a model-input
+    dict -> (B, S, V) logits in ``cfg.dtype``.  Every attention runs
+    ``flash_attention`` with ``impl``."""
+    return apply_head(cfg, params, forward_hidden(cfg, params, inputs, impl)[0])
 
 
-def prefill_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+def prefill_with_cache(cfg: ModelConfig, params: Params, inputs: Inputs,
                        capacity: int, impl: str = "cuda") -> Tuple[torch.Tensor, Cache]:
     """Forward over the prompt, returning (last-token logits (B, V), a
-    decode-ready cache of the given capacity)."""
-    x = _embed_tokens(cfg, params, tokens)
+    decode-ready cache of the given capacity: each attention layer's ring
+    filled with the prompt's K/V, each recurrent layer's end-of-prompt
+    state)."""
+    x = _embed_inputs(cfg, params, inputs)
     cache: Cache = []
     for p, bt in zip(params["layers"], cfg.pattern_layers):
-        x, c = _apply_layer(cfg, p, x, bt, fill_capacity=capacity, impl=impl)
+        x, c, _ = _apply_layer(cfg, p, x, bt, fill_capacity=capacity,
+                               impl=impl)
         cache.append(c)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return apply_head(cfg, params, x[:, -1:, :])[:, 0, :], cache
@@ -254,23 +352,38 @@ def prefill_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 # Decode
 
 
-def init_cache(cfg: ModelConfig, batch: int, capacity: int, device=None) -> Cache:
-    """Empty ring caches, one per layer (a local layer's holds its window)."""
-    check_supported(cfg)
-    return [
-        attn_lib.init_kv_cache(
+def _init_layer_cache(cfg: ModelConfig, btype: str, batch: int, capacity: int,
+                      device) -> Dict[str, torch.Tensor]:
+    dt = _dtype(cfg)
+    if btype in ("attn", "local"):
+        return attn_lib.init_kv_cache(
             batch,
             attn_lib.ring_capacity(capacity,
-                                   cfg.local_window if bt == "local" else 0),
-            cfg.num_kv_heads, cfg.resolved_head_dim, _dtype(cfg), device)
-        for bt in cfg.pattern_layers
-    ]
+                                   cfg.local_window if btype == "local" else 0),
+            cfg.num_kv_heads, cfg.resolved_head_dim, dt, device)
+    if btype == "rglru":
+        return rglru_lib.init_rglru_cache(batch, cfg.resolved_d_rnn,
+                                          cfg.conv_width, dt, device)
+    hd = cfg.d_model // cfg.num_heads
+    if btype == "mlstm":
+        return xlstm_lib.init_mlstm_cache(batch, cfg.num_heads, hd,
+                                          device=device)
+    return xlstm_lib.init_slstm_cache(batch, cfg.num_heads, hd, device=device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, device=None) -> Cache:
+    """Empty caches, one per layer: an attention layer's ring (a local
+    layer's holds its window), a recurrent layer's initial state."""
+    return [_init_layer_cache(cfg, bt, batch, capacity, device)
+            for bt in cfg.pattern_layers]
 
 
 def reset_cache_rows(cache: Cache, fresh: Cache, row) -> None:
     """Reinitialize batch row(s) ``row`` of ``cache`` from row 0 of
     ``fresh`` (a batch-1 cache from ``init_cache``), in place (the
-    reference returns a new cache)."""
+    reference returns a new cache).  A recurrent state is read whole at
+    every step, so a freshly admitted request must not inherit the last
+    occupant's: every leaf of every layer is reset."""
     for layer, init in zip(cache, fresh):
         for k, t in layer.items():
             t[row] = init[k][0]
@@ -283,11 +396,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     absolute position of the new token, a scalar or (B,) (per row, for
     continuous batching); ``live`` (B,) bool: the rows whose state may
     advance (None: every row).  Returns (logits (B, V), ``cache``), the
-    cache updated in place (``attention_block``; the reference returns a
-    new one): one ring slot a live row changes, at the same addresses, so
-    a CUDA graph of the step replays against it."""
-    x = _embed_tokens(cfg, params, tokens)
+    cache updated in place (the reference returns a new one): one ring
+    slot a live row, and each recurrent state where it lies, so a CUDA
+    graph of the step replays against it."""
+    x = embed(params["embed"], tokens, scale_by_dim=cfg.embed_scale)
+    x = x.to(_dtype(cfg))
     for p, bt, c in zip(params["layers"], cfg.pattern_layers, cache):
-        x, _ = _apply_layer(cfg, p, x, bt, cache=c, cache_pos=pos, live=live)
+        x, _, _ = _apply_layer(cfg, p, x, bt, cache=c, cache_pos=pos, live=live)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return apply_head(cfg, params, x)[:, 0, :], cache

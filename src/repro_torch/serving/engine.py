@@ -7,7 +7,9 @@ prompt through slot-local decode steps (only the admitted slot is live;
 every other row's cache is masked out of the update), as the reference
 does, so serving runs ``transformer.decode_step`` only: its attention is
 plain PyTorch against the ring caches, and the flash-attention kernel,
-which runs in prefill, is not reached.  Greedy sampling at
+which runs in prefill, is not reached.  A recurrent layer's state
+(rglru, mLSTM, sLSTM) passes through the same live mask, and a freed
+slot's state is reset with its ring.  Greedy sampling at
 ``temperature=0``; otherwise a ``torch.Generator`` seeded from ``seed``.
 
 On the card the decode step is one CUDA graph per engine
@@ -100,7 +102,6 @@ class ServingEngine(ResilientEngine):
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} is encoder-only: it has no decode "
                              f"step to serve")
-        tf.check_supported(cfg)
         self.device = params["final_norm"].device
         if impl == "cuda" and self.device.type != "cuda":
             raise ValueError(

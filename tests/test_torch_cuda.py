@@ -496,6 +496,35 @@ def test_flash_attention_fp32_edges_on_card(cuda_device, b, s, sk, h, kv, hd,
     assert torch.equal(got, flash_attention(q, k, v, causal, window, cap))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,sk,h,kv,hd,causal,window", [
+    (1, 1000, 1000, 4, 4, 80, False, 0),    # hubert-xlarge's hd, ragged
+    (2, 131, 197, 4, 2, 80, False, 0),      # Sk off every tile
+    (1, 333, 333, 8, 2, 80, True, 0),       # causal, ragged S
+    (1, 600, 600, 4, 1, 256, True, 256),    # recurrentgemma: MQA, window
+    (1, 200, 200, 4, 1, 256, True, 0),      # causal
+    (2, 131, 97, 4, 2, 256, False, 0),      # non-causal, ragged Sk
+])
+def test_flash_attention_head_dims_80_and_256_on_card(cuda_device, dtype, b,
+                                                      s, sk, h, kv, hd,
+                                                      causal, window):
+    """The head dims of hubert-xlarge (1280 / 16 = 80) and
+    recurrentgemma-9b (256), in both kernels: hd 80 on the templates'
+    tiles (5 k-steps, 10 output n-tiles), hd 256 on its own configuration
+    (Q reloaded from shared memory and 32-key tiles in bf16; 8 warps of
+    one m16 tile in fp32), each against attention_ref at the kernel
+    gates; two calls give the same bits."""
+    q, k, v = (t.to(dtype) for t in _randn(
+        cuda_device, 26, (b, s, h, hd), (b, sk, kv, hd), (b, sk, kv, hd)))
+    got = flash_attention(q, k, v, causal, window)
+    ref = flash_attention(q, k, v, causal, window, impl="torch")
+    assert got.dtype == dtype
+    fp32 = dtype == torch.float32
+    _close(got.float(), ref.float(), 2e-4 if fp32 else 3e-2)
+    assert _row_err(got, ref) <= (1e-4 if fp32 else 1e-2)
+    assert torch.equal(got, flash_attention(q, k, v, causal, window))
+
+
 def test_flash_attention_fp32_refuses_misaligned_operands(cuda_device):
     """The fp32 kernel copies q, k and v 16 bytes at a time, as the bf16
     one does: a contiguous view off a 16-byte boundary is refused."""
@@ -678,6 +707,44 @@ def test_captured_lm_shapes_share_one_pool(cuda_device):
     assert torch.equal(first, lm.eager(toks))
     assert torch.equal(lm.run(toks), lm.eager(toks))
     assert torch.equal(second, lm.eager(toks[:, :12]))
+
+
+def test_moe_forward_and_decode_are_captured_on_card(cuda_device):
+    """granite-moe's smoke config: the MoE dispatch has static shapes, so
+    the forward replays as one CUDA graph (equal to the eager forward bit
+    for bit, within 1e-3 of impl='torch', one flash launch a layer) and
+    the engine's decode step as another (its tokens equal the eager
+    engine's)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import EagerServingEngine
+
+    cfg = configs.smoke_config("granite-moe-1b-a400m")
+    params = tf.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    params = tf.tree_map(lambda t: t * 8 if t.ndim >= 2 else t, params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(1))
+    lm = repro_torch.compile(cfg, params)
+    flash_attention.launches = 0
+    got = lm.run(toks)
+    assert len(lm._graphs) == 1
+    assert flash_attention.launches == cfg.num_layers      # one replay
+    assert torch.equal(lm.run(toks), lm.eager(toks))
+    ref = repro_torch.compile(cfg, params, repro_torch.ExecutionOptions(
+        impl="torch")).eager(toks)
+    _close(got, ref, 1e-3)
+    engines = [lm.serve(batch_size=2, capacity=24),
+               EagerServingEngine.from_compiled(lm, batch_size=2, capacity=24)]
+    assert engines[0]._graph is not None
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(m))
+               for m in rng.integers(2, 9, 4)]
+    results = []
+    for engine in engines:
+        for p in prompts:
+            engine.submit(p, max_new_tokens=6)
+        results.append(engine.run())
+    assert results[0] == results[1]
 
 
 def test_capture_refuses_a_body_that_synchronizes(cuda_device):

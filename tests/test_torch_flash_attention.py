@@ -152,6 +152,53 @@ def test_softcap_saturated_matches_reference_kernel(dtype):
             got, _ref_oracle(q, k, v, True, 0, 50.0), rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("hd,h,kv,causal,window", [
+    (80, 4, 4, True, 0),        # hubert-xlarge's head dim (its model is
+    (80, 4, 2, True, 24),       # non-causal: see the ragged case above)
+    (256, 4, 1, True, 16),      # recurrentgemma-9b: MQA, hd 256, window
+    (256, 2, 1, True, 0),
+])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_head_dims_80_and_256_match_reference_kernel(hd, h, kv, causal,
+                                                     window, dtype):
+    """The head dims the kernel gains for hubert-xlarge (80) and
+    recurrentgemma-9b (256): the plain version against the reference's
+    kernel in interpret mode (K/V heads broadcast for it) and its oracle,
+    on tiny S; causal or windowed, where the reference's wrapper pads
+    nothing it does not mask.  fp32 at 2e-4; bf16 per element and per
+    row as above."""
+    b, s = 1, 40
+    q, k, v = _inputs(b, s, s, h, kv, hd, 7)
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    got = _ours(q, k, v, tdtype, causal=causal, window=window)
+    g = h // kv
+    kb, vb = np.repeat(k, g, axis=2), np.repeat(v, g, axis=2)
+    ref = np.asarray(j_flash_attention(
+        *(jnp.asarray(a, dtype) for a in (q, kb, vb)), causal=causal,
+        window=window, bq=16, bk=16, interpret=True).astype(jnp.float32))
+    if dtype == jnp.float32:
+        np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(
+            got, _ref_oracle(q, k, v, causal, window, 0.0), rtol=2e-4,
+            atol=2e-4)
+    else:
+        tol = BF16_TOL * max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+        assert _row_err(got, ref) <= BF16_ROW_RTOL
+
+
+def test_head_dims_are_the_kernels():
+    """The wrapper's head dims are the C entry's switch cases."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+
+    src = (_build._KERNELS_DIR / _build.SOURCES["flash_attention"]).read_text()
+    cases = tuple(int(n) for n in re.findall(r"REPRO_FLASH_CASE\((\d+)\)", src))
+    assert cases == ops.HEAD_DIMS == (16, 32, 64, 80, 128, 256)
+
+
 def test_output_dtype_and_refusals():
     q = torch.zeros(1, 8, 4, 16, dtype=torch.bfloat16)
     k = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)

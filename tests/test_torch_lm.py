@@ -123,9 +123,12 @@ def test_lm_facade_refuses_what_it_does_not_run():
     with pytest.raises(ValueError, match="applies to CNNs"):
         repro_torch.compile(cfg, params, repro_torch.ExecutionOptions(
             impl="torch", device="cpu", dtype="int8"))
+    # An MoE config, once refused, now compiles and runs.
     moe = dataclasses.replace(cfg, num_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        repro_torch.compile(moe, params, CPU)
+    moe_params = tf.init_params(moe, torch.Generator().manual_seed(0))
+    logits = repro_torch.compile(moe, moe_params, CPU).run(_tokens(moe, 1, 8))
+    assert logits.shape == (1, 8, moe.vocab_size)
+    assert bool(torch.isfinite(logits).all())
     report = repro_torch.compile(cfg, params, CPU).plan_report()
     assert report["kind"] == "lm" and report["impl"] == "torch"
 

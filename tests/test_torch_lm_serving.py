@@ -102,12 +102,16 @@ def test_engine_refuses_what_it_does_not_serve():
         ServingEngine(encoder, params, batch_size=1, capacity=16, impl="torch")
     with pytest.raises(ValueError, match="impl='cuda'"):
         ServingEngine(cfg, params, batch_size=1, capacity=16)  # CPU params
-    for arch in configs.UNPORTED_ARCHS:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            configs.get_config(arch)
+    # Every reference arch has a config now, and a recurrent pattern,
+    # once refused, is served.
+    for arch in configs.ARCHS:
+        assert configs.get_config(arch).name == arch
     recurrent = dataclasses.replace(cfg, layer_pattern=("rglru", "attn"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServingEngine(recurrent, params, batch_size=1, capacity=16, impl="torch")
+    engine = ServingEngine(recurrent, tf.init_params(
+        recurrent, torch.Generator().manual_seed(0)), batch_size=1,
+        capacity=16, impl="torch")
+    uid = engine.submit([1, 2, 3], max_new_tokens=3)
+    assert len(engine.run()[uid]) == 3
 
 
 def test_serve_launcher_on_cpu(capsys):

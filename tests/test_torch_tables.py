@@ -133,4 +133,5 @@ def test_lm_configs_equal_reference(arch):
 
 
 def test_unported_lm_archs_are_the_reference_rest():
-    assert sorted(configs.ARCHS + configs.UNPORTED_ARCHS) == sorted(j_configs.ARCHS)
+    """No arch is left unported: the port's archs are the reference's."""
+    assert sorted(configs.ARCHS) == sorted(j_configs.ARCHS)
