@@ -12,7 +12,8 @@ Phases, each on its own printed lines:
 2. build every CUDA kernel of the port with nvcc (one process per source,
    all at once) and print the build seconds and ptxas' register, spill
    and shared-memory counts, one line of registers and spills for each
-   flash instance (body and head dim), and the 16-bit Winograd kernels'
+   flash instance (body, head dim, and ``lse`` for the instances that
+   write the backward's row statistic), and the 16-bit Winograd kernels'
    dynamic shared memory;
 3. each kernel against its plain PyTorch version at every shape the model
    cells below give it (YOLOv3-tiny at 416x416, batch 1 and 4; MODEL_20 at
@@ -265,6 +266,30 @@ Phases, each on its own printed lines:
    token may meet a capacity a step's one token does not).  Each cell
    prints its replay ms, its first call's seconds (the capture), busy ms,
    idle share and flash launches, and the phase its seconds;
+8f. LM training (``repro_torch.train``): the flash backward kernel
+   (``flash_attention_bwd.cu``; ptxas lines a kernel instance) against
+   ``attention_bwd_ref`` from the kernel forward's own output and lse, in
+   bf16 and fp32, at each trained config's attention shape (Llama-3.2-1B's
+   microbatch B 2 S 4096, Gemma2-27B local S 8192 and global S 4096 with
+   the softcap, and its saturated case with q x 8, recurrentgemma-9b hd 256
+   window 2048 MQA, hubert-xlarge hd 80 non-causal S 1000, internvl2-2b hd
+   128), per element and per row (``FLASH_BWD_TOL``, ``FLASH_BWD_ROW_RTOL``,
+   sized by ``scripts/flash_bwd_replay.py``), timed beside the plain
+   version and SDPA's backward with its bound; then Llama-3.2-1B at full
+   width in bf16 through ``train``: S 4096, a batch of 4 in 2
+   microbatches, remat "full", fp32 moments, ``warmup_cosine``, the first
+   step's gradients gated per leaf against impl='torch' (within
+   ``LM_BF16_SPREAD`` times the plain bf16 gradient's distance from the
+   plain fp32 one), ``TRAIN_STEPS`` steps with exact flash launch counts
+   (forward, recompute, backward) and a falling loss, ms per step,
+   tokens/s, peak memory, one step profiled (idle share; flash forward,
+   flash backward, cuBLAS, glue), ``train`` started again from its
+   checkpoint (the state restored bit for bit at the saved step), one
+   step with int8 moments; then one training step of every other config
+   but arctic at full width, cut to one period of its pattern (two
+   layers, two periods, where a period is one layer), its gradients
+   gated the same way
+   (MoE: the routing gated as in phase 8e) and its launches counted;
 9. one JSON line with every kernel's numbers — its launches in the forward
    its ``cell`` names (YOLOv3-tiny 416 b1 for the GEMM, im2col and fused
    Winograd kernels, VGG-16 224 b8 with ``winograd_fused=False`` for the
@@ -272,7 +297,8 @@ Phases, each on its own printed lines:
    kernels, the Llama-3.2-1B prefill for flash attention, YOLOv3-tiny 416
    b1 bfloat16 for the 16-bit GEMM, im2col and fused Winograd kernels,
    VGG-16 224 b8 with ``winograd_fused=False`` in bfloat16 for the three
-   16-bit 3-pass kernels), and its times,
+   16-bit 3-pass kernels, the Llama-3.2-1B training run of phase 8f for
+   the flash backward), and its times,
    errors and bounds summed over the calls of that forward — then the
    last line ``{"ok": true, "device": ...}``.
 
@@ -364,6 +390,34 @@ LM_BF16_SPREAD = 1.25
 # 9 of them, leaves room for a few near-ties).
 MOE_MIN_AGREE = 1 / 8
 MOE_FP32_FLIPS = 1e-4
+# The flash backward kernel against attention_bwd_ref from the same (out,
+# lse, dout), two gates as the forward's.  Per element, of max(1,
+# max|ref|); per row of dq, dk or dv (hd values), of the row's norm
+# floored at 1e-2 of the largest row's: a row whose gradient cancels (the
+# first causal rows' dq, where p (dp - D) sums to ~0; dp and D are two fp32
+# sums of hd products in other orders, so their difference keeps ~1e-7 of
+# |dp|) is held at the others' scale, not at its own (in fp32 such a row
+# read 2.1e-4 of its norm at a floor of 1e-3, at Llama's microbatch on
+# the card).  fp32: the forward's gates (both sum the same fp32 products
+# in other orders).
+# bf16: the kernel computes in fp32 from the bf16 inputs and rounds each
+# result once to bf16, as the plain version does, so the two differ by
+# the sums' order and one bf16 rounding each: at most 1.2e-3 per element
+# and 1.7e-3 per row in scripts/flash_bwd_replay.py (a CPU replay of the
+# kernel's tile loops at Llama-3.2-1B's grouping, Gemma2-27B's window,
+# softcap and saturated softcap, hd 256 and a ragged non-causal case);
+# 1e-2 keeps a margin of about 6 over it.
+FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+FLASH_BWD_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+FLASH_BWD_ROW_FLOOR = 1e-2
+# A bf16 training step's gradients against impl='torch' on the same
+# weights and batch, per leaf: the relative norm of the kernel's bf16
+# gradient from the plain fp32 gradient (the weights cast) at most
+# LM_BF16_SPREAD times the plain bf16 gradient's, as the logit gates
+# above.  Two bf16 backwards of random weights lie about as far from each
+# other as from fp32 (Llama-3.2-1B at full width: 5 % per leaf either
+# way, so no fixed bound tighter than bf16's own spread holds).
+TRAIN_STEPS = 3           # steps of the Llama-3.2-1B training cell
 LM_REPS = 5               # timed forwards of the LM prefill cells
 # Replays after which a captured forward's launch counts must be this
 # many times the plan's (the first is the call that captures).
@@ -385,6 +439,12 @@ REPLACES = {
     "input_transform_16": "src/repro/kernels/winograd/kernel.py:195",
     "tuple_multiply_16": "src/repro/kernels/winograd/kernel.py:216",
     "output_transform_16": "src/repro/kernels/winograd/kernel.py:244",
+    # No TPU kernel has a backward: the reference trains through plain XLA
+    # attention differentiated by jax.value_and_grad.
+    "flash_attention_bwd": ("none: the backward of "
+                            "src/repro/kernels/flash_attention/kernel.py:69, "
+                            "in place of jax.value_and_grad through "
+                            "src/repro/models/attention.py:81"),
 }
 SOURCE = {"gemm": "gemm", "im2col_conv": "im2col_conv",
           "gemm_q8": "gemm_q8", "im2col_conv_q8": "im2col_conv_q8",
@@ -397,7 +457,8 @@ SOURCE = {"gemm": "gemm", "im2col_conv": "im2col_conv",
           "winograd_fused_16": "winograd_fused_16",
           "input_transform_16": "winograd_3pass_16",
           "tuple_multiply_16": "winograd_3pass_16",
-          "output_transform_16": "winograd_3pass_16"}
+          "output_transform_16": "winograd_3pass_16",
+          "flash_attention_bwd": "flash_attention_bwd"}
 # The CUDA function of each kernel, as the profiler names it (a substring
 # of it: flash attention has an fp32 and a bf16 kernel).
 CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
@@ -414,7 +475,9 @@ CUDA_NAMES = {"gemm": "gemm_bias_act_kernel",
               "winograd_fused_16": "winograd16_fused_kernel",
               "input_transform_16": "winograd16_input_transform_kernel",
               "tuple_multiply_16": "winograd16_tuple_multiply_kernel",
-              "output_transform_16": "winograd16_output_transform_kernel"}
+              "output_transform_16": "winograd16_output_transform_kernel",
+              # Its three kernels: the row dot, dk/dv, dq.
+              "flash_attention_bwd": "flash_bwd_"}
 # The second kernels of the fp32, 16-bit and int8 im2col convs and GEMMs,
 # launched by the calls that split K.  No name here or in CUDA_NAMES holds
 # another as a substring.
@@ -462,20 +525,24 @@ def cuda_ms(fn, args, rounds: int = ROUNDS) -> float:
     return statistics.median(device_ms(calls) for _ in range(rounds))
 
 
-def reset_counts() -> None:
+def counters():
+    """Every kernel wrapper by kernel name: the inference kernels' (those a
+    CUDA graph may capture) and the flash backward's."""
     from repro_torch.graphs import launch_counters
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
 
-    for fn in launch_counters().values():
+    return {**launch_counters(), "flash_attention_bwd": flash_attention_bwd}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
         fn.launches = 0
 
 
 def read_counts():
     """Launches per kernel since the last reset, kernels never launched
     left out."""
-    from repro_torch.graphs import launch_counters
-
-    return {k: fn.launches for k, fn in launch_counters().items()
-            if fn.launches}
+    return {k: fn.launches for k, fn in counters().items() if fn.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2290,6 +2357,522 @@ def family_phase(lm_configs) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8f: LM training
+
+
+def flash_bwd_errors(got, ref, dname):
+    """(max |got - ref|, its gate, the largest per-row relative error with
+    the row floor) of one gradient."""
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    tol = FLASH_BWD_TOL[dname] * max(1.0, float(ref.abs().max()))
+    norm = ref.norm(dim=-1)
+    row = float(((got - ref).norm(dim=-1)
+                 / norm.clamp_min(FLASH_BWD_ROW_FLOOR * float(norm.max()))).max())
+    return err, tol, row
+
+
+def flash_bwd_ptxas() -> list:
+    """One line per backward kernel instance of the build log: kernel, head
+    dim and type, ptxas' registers and spill bytes."""
+    from repro_torch.kernels import _build
+
+    lines, head, spill = [], None, ""
+    for line in _build.build_logs.get("flash_attention_bwd", "").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"flash_bwd_(dkdv|dq)_kernelILi(\d+)E(f|13__nv_bfloat16)", line)
+            d = re.search(r"flash_bwd_dot_kernelI(f|13__nv_bfloat16)", line)
+            head = (f"flash_bwd {m.group(1)} hd {m.group(2)} "
+                    f"{'fp32' if m.group(3) == 'f' else 'bf16'}" if m else
+                    f"flash_bwd dot {'fp32' if d.group(1) == 'f' else 'bf16'}"
+                    if d else None)
+        elif head and "spill stores" in line:
+            spill = line.split(",", 1)[1].strip()
+        elif head and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            lines.append(f"{head}: {regs} registers, {spill}")
+            head = None
+    return lines
+
+
+def check_flash_bwd(hw, cells, saturated=(), plain_timed=()):
+    """Phase 8f's kernel check: the flash backward kernel against its plain
+    version (attention_bwd_ref) at each trained config's attention shape,
+    in bf16 and fp32, from the kernel forward's own (out, lse) and one
+    seeded dout: dq, dk and dv per element and per row
+    (``FLASH_BWD_TOL``, ``FLASH_BWD_ROW_RTOL``), the forward's lse
+    against ``attention_ref_lse``'s, finite.  Timed (cold operands)
+    beside the plain version and SDPA's backward where one PyTorch call
+    computes the function (no softcap); the bound is the backward's five
+    products of 2 hd FLOPs per valid pair and head (s, dp, dv, dk, dq)
+    over the bf16 tensor-core peak, or in fp32 three TF32 products each
+    (3xTF32) over the TF32 peak with the CUDA-core bound beside, or the
+    bytes of q, k, v, o, dout, lse read and dq, dk, dv written, whichever
+    is larger.  ``saturated`` cells take q x 8 (the softcap's bend: ds
+    shrinks by 1 - tanh^2) and are not timed; the plain version is timed
+    at the ``plain_timed`` cells only (the kernels line's).  Returns each
+    timed case's numbers by (cell, dtype)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref,
+        attention_ref_lse,
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for cell, (b, s, sk, h, kv, hd, causal, window, cap) in cells.items():
+            q = torch.randn(b, s, h, hd, generator=g, device="cuda")
+            q = (q * 8 if cell in saturated else q).to(dtype)
+            k, v = (torch.randn(b, sk, kv, hd, generator=g, device="cuda")
+                    .to(dtype) for _ in range(2))
+            do = torch.randn(b, s, h, hd, generator=g, device="cuda").to(dtype)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = flash_attention(*leaves, causal, window, cap)
+            lse = o.grad_fn.saved_tensors[4]        # the forward's, (B, H, S)
+            grads = torch.autograd.grad(o, leaves, do)
+            o = o.detach()
+            del leaves
+            refs = attention_bwd_ref(q, k, v, o, do, lse, causal, window, cap)
+            lse_err = float((lse - attention_ref_lse(q, k, v, causal, window,
+                                                     cap)[1]).abs().max())
+            torch.cuda.synchronize()
+            label = (f"flash_attention_bwd {cell} {dname} B={b} S={s} Sk={sk} "
+                     f"H={h} KV={kv} hd={hd} causal={causal} window={window} "
+                     f"cap={cap}")
+            errs = [flash_bwd_errors(x, r, dname) for x, r in zip(grads, refs)]
+            row_tol = FLASH_BWD_ROW_RTOL[dname]
+            ok = (all(bool(torch.isfinite(x).all()) and x.dtype == dtype
+                      for x in grads) and lse_err <= 1e-4 * max(1.0, float(lse.abs().max()))
+                  and all(e <= t and r <= row_tol for e, t, r in errs))
+            text = " ".join(f"{n}: max_abs_err={e:.3g} (tol {t:.3g}) row_err="
+                            f"{r:.3g} (tol {row_tol:.3g})"
+                            for n, (e, t, r) in zip(("dq", "dk", "dv"), errs))
+            if not ok:
+                raise AssertionError(f"{label}: kernel disagrees with its plain "
+                                     f"version: {text}; lse err {lse_err:.3g}")
+            max_err = max(e for e, _, _ in errs)
+            del grads, refs
+            if cell in saturated:
+                log(f"kernel {label} (q x 8): {text}; lse err {lse_err:.3g}")
+                continue
+            args = (q, k, v, o, do, lse)
+            ms = cuda_ms(lambda *a: flash_attention_bwd(*a, causal, window, cap),
+                         args, rounds=3)
+            plain_ms = (cuda_ms(lambda *a: attention_bwd_ref(
+                *a, causal, window, cap), args, rounds=1)
+                if cell in plain_timed else None)
+            if cap > 0:
+                library_ms, why = None, "no PyTorch call computes the tanh softcap"
+            else:
+                mask = (attention_mask(s, sk, causal, window, "cuda")
+                        if window > 0 else None)
+                ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_()
+                              for t in (q, k, v))
+                y = F.scaled_dot_product_attention(
+                    ql, kl, vl, attn_mask=mask, is_causal=causal and mask is None,
+                    enable_gqa=True)
+                dy = do.transpose(1, 2)
+                library_ms = cuda_ms(lambda dy: torch.autograd.grad(
+                    y, (ql, kl, vl), dy, retain_graph=True), (dy,), rounds=3)
+                why = ("the backward of F.scaled_dot_product_attention"
+                       + (", its window as a boolean mask" if window > 0 else ""))
+                if dtype == torch.float32:
+                    why += ", TF32 off"
+                del y, ql, kl, vl
+            pairs = unmasked_pairs(s, sk, causal, window)
+            flops = 10 * b * h * hd * pairs
+            core_ms = flops / hw.peak_flops_fp32 * 1e3
+            t_ops = (flops / hw.peak_flops_bf16 * 1e3 if dtype == torch.bfloat16
+                     else 3 * flops / hw.peak_flops_tf32 * 1e3)
+            t_bytes = (nbytes(args) + nbytes((q, k, v))) / hw.hbm_bandwidth * 1e3
+            bound_ms = max(t_ops, t_bytes)
+            out[cell, dname] = dict(
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+            log(f"kernel {label}: {text}; lse err {lse_err:.3g}; ms={ms:.4f} "
+                + ("" if plain_ms is None else f"plain_ms={plain_ms:.4f} ")
+                + "library_ms="
+                + ("-" if library_ms is None else f"{library_ms:.4f}")
+                + f" ({why}) bound_ms={bound_ms:.5f} ({out[cell, dname]['bound_by']}"
+                + ("" if dtype == torch.bfloat16 else
+                   f"; 3xTF32; fp32 CUDA-core bound {core_ms:.5f}")
+                + f") pairs={pairs} share_of_bound={bound_ms / ms:.4f} "
+                f"tflops={flops / ms * 1e-9:.1f}"
+                + ("" if library_ms is None
+                   else f" ms/library_ms={ms / library_ms:.3f}"))
+    return out
+
+
+@contextlib.contextmanager
+def following_routes(routes):
+    """Every MoE layer routes its tokens to the experts ``routes`` holds for
+    it (by its router's storage), its gate weights its own probabilities
+    at those experts, renormalized: ``moe.route`` wrapped for the
+    duration, so forwards that round apart route alike."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def following(params, tokens, top_k):
+        logits, probs, _, _ = route(params, tokens, top_k)
+        idx = routes[params["router"].data_ptr()]
+        w = probs.gather(-1, idx)
+        return logits, probs, w / w.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+    moe.route = following
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def grad_spread_gate(cfg, params, batch, name):
+    """The first step's gradients (``value_and_grad`` of ``loss_fn``)
+    through the kernels against impl='torch' on the same weights and
+    batch: per leaf, the kernel's bf16 gradient within ``LM_BF16_SPREAD``
+    times the plain bf16 gradient's relative distance from the plain fp32
+    gradient of the weights cast.  MoE configs: the routing first, as
+    phase 8e gates it (``routed_alike``: the two bf16 forwards route at
+    least ``MOE_MIN_AGREE`` of the tokens alike in every layer; the
+    kernel's flips against the fp32 routes at most ``LM_BF16_SPREAD``
+    times the plain forward's); then the three gradients with every token
+    routed alike, each forward following the fp32 forward's routes
+    (``following_routes``): a token sent to other experts moves the
+    experts' and the router's gradients by far more than rounding (the
+    router's leaf read 1.32-1.55 x the plain distance on the card at
+    granite-moe's two layers, with the flips left in or with the flipped
+    tokens masked out of the loss).  Frees what it makes; returns the
+    worst leaf's ratio."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import value_and_grad
+
+    seq = next(iter(batch.values())).shape[1]
+    seq += cfg.num_patches if cfg.frontend == "vision_patches" else 0
+    p32 = tree_lib.tree_map(lambda t: t.float(), params)
+    sides = (("cuda", cfg, params), ("torch", cfg, params),
+             ("torch", dataclasses.replace(cfg, dtype="float32"), p32))
+    note, follow = "", contextlib.nullcontext()
+    if cfg.num_experts:
+        routes = []
+        with torch.no_grad():
+            for impl, c, p in sides:
+                with recorded_routes() as r:
+                    tf.forward_hidden(c, p, batch, impl)
+                routes.append(r)
+        r_cu, r_pl, r_32 = routes
+        _, note = routed_alike(cfg, seq, name, r_cu, r_pl)
+        flips = routing_agreement(r_cu, r_32, seq)[0]
+        plain_flips = routing_agreement(r_pl, r_32, seq)[0]
+        note += (f"; flips against plain float32: cuda {flips} <= "
+                 f"{LM_BF16_SPREAD} x plain {plain_flips}; gradients with "
+                 f"every forward on the fp32 routes")
+        if flips > LM_BF16_SPREAD * plain_flips:
+            raise AssertionError(f"{name}: routing gate fails{note}")
+        # The routers are fp32 in every copy of the weights: one storage
+        # each, in layer order.
+        follow = following_routes({
+            layer["moe"]["router"].data_ptr(): idx
+            for layer, idx in zip(params["layers"], r_32)})
+    with follow:
+        (loss_cu, _), g_cu = value_and_grad(sides[0][1], sides[0][2], batch, "cuda")
+        (loss_pl, _), g_pl = value_and_grad(sides[1][1], sides[1][2], batch, "torch")
+        (loss_32, _), g_32 = value_and_grad(sides[2][1], sides[2][2], batch, "torch")
+    del p32, sides
+    worst, bad, n = (0.0, ""), [], 0
+    for (path, a), b, c in zip(tree_lib.leaves_with_paths(g_cu),
+                               tree_lib.leaves(g_pl), tree_lib.leaves(g_32)):
+        ref = float(c.norm())
+        if ref == 0.0:
+            if float(a.float().norm()) or float(b.float().norm()):
+                bad.append(f"{path}: nonzero where fp32 is 0")
+            continue
+        r_cu_ = float((a.float() - c).norm()) / ref
+        r_pl_ = float((b.float() - c).norm()) / ref
+        ratio = r_cu_ / max(r_pl_, 1e-30)
+        n += 1
+        if ratio > worst[0]:
+            worst = (ratio, f"{path} (cuda {r_cu_:.3g}, plain {r_pl_:.3g})")
+        if not (torch.isfinite(a).all() and r_cu_ <= LM_BF16_SPREAD * r_pl_):
+            bad.append(f"{path}: cuda rel {r_cu_:.3g} > {LM_BF16_SPREAD} x "
+                       f"plain rel {r_pl_:.3g}")
+        if r_cu_ > 0.5:
+            bad.append(f"{path}: cuda rel {r_cu_:.3g} from fp32")
+    cu_pl = max(float((a.float() - b.float()).norm()) / max(float(b.float().norm()), 1e-30)
+                for a, b in zip(tree_lib.leaves(g_cu), tree_lib.leaves(g_pl)))
+    log(f"train {name}: first-step gradients, {n} leaves: each within "
+        f"{LM_BF16_SPREAD} x the plain bf16 gradient's distance from plain "
+        f"fp32 (worst ratio {worst[0]:.3f} at {worst[1]}); largest leaf "
+        f"distance cuda vs plain bf16 {cu_pl:.3g}; loss cuda {float(loss_cu):.5f}"
+        f" plain {float(loss_pl):.5f} fp32 {float(loss_32):.5f}{note}")
+    if bad or not torch.isfinite(loss_cu):
+        raise AssertionError(f"train {name}: gradient gate fails: {bad[:5]}")
+    del g_cu, g_pl, g_32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst[0]
+
+
+def step_breakdown(step, ms_per_step, name):
+    """One profiled call of ``step``: device busy ms and idle share, and
+    the busy time split into the flash kernels (forward, backward), cuBLAS
+    products and the rest (PyTorch's elementwise, reductions, copies:
+    the eager glue)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    groups = {"flash forward": 0.0, "flash backward": 0.0, "cuBLAS": 0.0,
+              "eager glue": 0.0}
+    for ms, _, key in rows:
+        if "flash_attention" in key:
+            groups["flash forward"] += ms
+        elif "flash_bwd_" in key:
+            groups["flash backward"] += ms
+        elif any(t in key for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
+            groups["cuBLAS"] += ms
+        else:
+            groups["eager glue"] += ms
+    busy = sum(groups.values())
+    log(f"profile {name}: device busy {busy:.2f} ms of {ms_per_step:.2f} ms per "
+        f"step, idle share {max(0.0, 1.0 - busy / ms_per_step):.3f}; "
+        + ", ".join(f"{k} {v:.2f} ms ({v / busy:.3f})" for k, v in groups.items())
+        + f" of busy; {sum(r[1] for r in rows)} kernel launches")
+    for ms, n, key in sorted(rows, reverse=True)[:10]:
+        log(f"  profile {ms:.3f} ms x{n} {key[:90]}")
+    return busy
+
+
+def train_llama(lm_configs, flash_bwd_ms):
+    """Llama-3.2-1B at full width in bf16 through ``train``: S 4096 (the
+    train_4k cell's length), a batch of 4 in 2 microbatches, remat
+    "full", fp32 moments, warmup_cosine; the first step's gradients gated
+    on its first row (``grad_spread_gate``); ``TRAIN_STEPS`` steps with
+    the launch counts exact (per microbatch each attention layer's
+    forward, its recompute, and one backward), the loss finite and
+    falling, ms per step, tokens/s and peak memory; one step profiled;
+    then ``train`` started again from its checkpoint (the state restored
+    bit for bit at the saved step) and one step with int8 moments.
+    Returns (the backward kernel's summary for the kernels line, its
+    launches)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import SHAPES, ShapeSpec
+    from repro_torch.data import batch_for
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import TrainRunConfig, train
+    from repro_torch.train.step import make_train_step
+
+    cfg = lm_configs.get_config("llama3.2-1b")
+    seq, batch, accum = SHAPES["train_4k"].seq_len, 4, 2
+    shape = ShapeSpec("train_4k b4", seq, batch, "train")
+    name = f"llama3.2-1b train S{seq} b{batch} accum {accum}"
+    opt = optim.AdamWConfig(lr=optim.warmup_cosine(3e-4, 2, 10))
+    out = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # The first step's weights and batch, as train draws them.
+        params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+        first = {k: v[:1] for k, v in batch_for(cfg, shape, 0, seed=SEED,
+                                                 device="cuda").items()}
+        grad_spread_gate(cfg, params, first, f"{name} (step 0, row 0)")
+        del params, first
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        run = TrainRunConfig(steps=TRAIN_STEPS, checkpoint_every=10 ** 6,
+                             log_every=1, seed=SEED, out_dir=out, grad_accum=accum)
+        torch.cuda.reset_peak_memory_stats()
+        state = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        last = train(cfg, shape, opt, run, device="cuda", state=state)
+        total_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_attn = cfg.num_layers
+        want = {"flash_attention": TRAIN_STEPS * accum * 2 * n_attn,
+                "flash_attention_bwd": TRAIN_STEPS * accum * n_attn}
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs]
+        step_s = [r["sec"] for r in recs[1:]]
+        ms = 1e3 * statistics.median(step_s)
+        log(f"train {name}: {TRAIN_STEPS} steps in {total_s:.1f} s (init, "
+            f"steps, checkpoint); loss {' '.join(f'{x:.4f}' for x in losses)}; "
+            f"ms per step {ms:.1f} (median of steps 1-{TRAIN_STEPS - 1}; step 0 "
+            f"{1e3 * recs[0]['sec']:.1f}); tokens/s {batch * seq * 1e3 / ms:.0f}; "
+            f"peak device memory allocated {peak:.2f} GiB; launches {counts} "
+            f"(want {want}); last {last}")
+        if not (counts == want and all(np.isfinite(losses))
+                and losses[-1] < losses[0] and len(recs) == TRAIN_STEPS):
+            raise AssertionError(f"train {name}: launches {counts} != {want}, or "
+                                 f"the loss is not finite and falling: {losses}")
+
+        # One more step, profiled (its result dropped).
+        step = make_train_step(cfg, opt, accum, "cuda")
+        b3 = batch_for(cfg, shape, TRAIN_STEPS, seed=SEED, device="cuda")
+        step(state["params"], state["opt_state"], b3)     # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state["params"], state["opt_state"], b3)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        step_breakdown(lambda: step(state["params"], state["opt_state"], b3),
+                       step_ms, f"{name} one step")
+        del b3
+
+        # Restart from the checkpoint the run wrote at its last step.
+        again = {}
+        t0 = time.perf_counter()
+        rest = train(cfg, shape, opt, run, device="cuda", state=again)
+        resume_s = time.perf_counter() - t0
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves([state["params"], state["opt_state"]]),
+            tree_lib.leaves([again["params"], again["opt_state"]])))
+        log(f"train {name}: restarted from its checkpoint in {resume_s:.1f} s: "
+            f"start step {again['start_step']} (saved at {TRAIN_STEPS}), params "
+            f"and moments bit-equal to the saved ones: {same}; {rest}")
+        if not (same and again["start_step"] == TRAIN_STEPS):
+            raise AssertionError(f"train {name}: resume is not at step "
+                                 f"{TRAIN_STEPS} with the saved state")
+        del state, again
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        int8 = optim.AdamWConfig(lr=opt.lr, moment_dtype="int8")
+        st8 = {}
+        m8 = train(cfg, shape, int8, dataclasses.replace(
+            run, steps=1, out_dir=os.path.join(out, "int8")), device="cuda",
+            state=st8)
+        moment = st8["opt_state"].m["layers"][0]["mixer"]["wq"]
+        log(f"train {name} int8 moments: one step {m8}; moment "
+            f"{type(moment).__name__} {tuple(moment.q.shape)} {moment.q.dtype}")
+        if not (np.isfinite(m8["loss"]) and isinstance(moment, optim.QTensor)):
+            raise AssertionError(f"train {name} int8: loss {m8}")
+        del st8
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    n = counts["flash_attention_bwd"]
+    f = flash_bwd_ms
+    summary = {"flash_attention_bwd": dict(
+        max_abs_err=f["max_abs_err"], ms=n * f["ms"], plain_ms=n * f["plain_ms"],
+        library_ms=None if f["library_ms"] is None else n * f["library_ms"],
+        bound_ms=n * f["bound_ms"],
+        ops_ms=n * f["bound_ms"] if f["bound_by"] == "operations" else 0.0,
+        bytes_ms=n * f["bound_ms"] if f["bound_by"] == "bytes" else 0.0)}
+    return name, summary, counts
+
+
+def train_families(lm_configs):
+    """One training step of every other config but arctic (its one layer's
+    experts alone need 107 GB of fp32 moments) at full width, cut to one
+    period of its pattern where a period is longer than one layer, else
+    to two layers (two periods), on one row: the first step's gradients
+    gated against impl='torch' (``grad_spread_gate``), then
+    ``make_train_step``'s step through the kernels, its loss finite and
+    its launch counts exact (one backward an attention layer; one
+    forward, and a second where the layer's period is checkpointed: two
+    periods or more, as the reference stacks and rematerializes them)."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import batch_for
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import make_train_step
+
+    seqs = {"qwen1.5-0.5b": 4096, "granite-34b": 4096, "gemma2-27b": 4096,
+            "granite-moe-1b-a400m": 4096, "recurrentgemma-9b": 4096,
+            # No attention: its three backwards through the 1,024 sLSTM
+            # steps hold no kernel, so a shorter row keeps the time.
+            "xlstm-125m": 1024, "hubert-xlarge": 1000, "internvl2-2b": 1024}
+    opt = optim.AdamWConfig(lr=optim.constant(1e-4))
+    for arch, seq in seqs.items():
+        t0 = time.perf_counter()
+        base = lm_configs.get_config(arch)
+        cfg = dataclasses.replace(base, num_layers=max(2, len(base.layer_pattern)))
+        name = f"{arch} ({cfg.num_layers} layers) train S{seq} b1"
+        params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+        batch = batch_for(cfg, ShapeSpec("t", seq, 1, "train"), 0, seed=SEED,
+                          device="cuda")
+        ratio = grad_spread_gate(cfg, params, batch, name)
+        # A layer inside a checkpointed period runs its forward twice.
+        n_periods, pat, _ = tf._period_split(cfg)
+        attn = ("attn", "local")
+        n_attn = sum(t in attn for t in cfg.pattern_layers)
+        again = (n_periods * sum(t in attn for t in pat)
+                 if cfg.remat != "none" else 0)
+        want = ({"flash_attention": n_attn + again,
+                 "flash_attention_bwd": n_attn} if n_attn else {})
+        reset_counts()
+        _, st, m = make_train_step(cfg, opt, 1, "cuda")(
+            params, optim.init(opt, params), batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"train {name}: one step {({k: round(float(v), 5) for k, v in m.items()})}"
+            f"; launches {counts} (want {want}); worst gradient ratio "
+            f"{ratio:.3f}; {time.perf_counter() - t0:.1f} s")
+        if counts != want or not torch.isfinite(m["loss"]) or int(st.step) != 1:
+            raise AssertionError(f"train {name}: launches {counts} != {want} or "
+                                 f"loss {m}")
+        del params, batch, st
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_phase(lm_configs):
+    """Phase 8f: the flash backward kernel at each trained config's
+    attention shape, Llama-3.2-1B trained at full width, and one step of
+    every other config but arctic.  Returns (the Llama cell's name, the
+    backward kernel's summary, the cell's launches)."""
+    from repro_torch.hw import H100
+
+    for line in flash_bwd_ptxas():
+        log(f"  ptxas {line}")
+    llama = "llama3.2-1b train microbatch S4096 b2"
+    flash = check_flash_bwd(H100, {
+        # Llama-3.2-1B's microbatch of the training cell.
+        llama: (2, 4096, 4096, 32, 8, 64, True, 0, 0.0),
+        # Its local layers' window bites beyond S 4096.
+        "gemma2-27b local S8192": (1, 8192, 8192, 32, 16, 128, True, 4096, 50.0),
+        "gemma2-27b attn S4096": (1, 4096, 4096, 32, 16, 128, True, 0, 50.0),
+        "gemma2-27b attn S4096 softcap saturated": (1, 4096, 4096, 32, 16, 128,
+                                                    True, 0, 50.0),
+        "recurrentgemma-9b local S4096": (1, 4096, 4096, 16, 1, 256, True,
+                                          2048, 0.0),
+        "hubert-xlarge S1000": (1, 1000, 1000, 16, 16, 80, False, 0, 0.0),
+        "internvl2-2b S1024": (1, 1024, 1024, 16, 8, 128, True, 0, 0.0),
+    }, saturated=("gemma2-27b attn S4096 softcap saturated",),
+        plain_timed=(llama,))
+    name, summary, counts = train_llama(lm_configs, flash[llama, "bfloat16"])
+    train_families(lm_configs)
+    return name, summary, counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 8b: CNN serving
 
 
@@ -2834,14 +3417,16 @@ def ptxas_usage(library: str, function: str) -> str:
 
 def flash_ptxas() -> list:
     """One line per flash kernel instance of phase 2's build log: its body
-    and head dim, ptxas' registers and spill bytes."""
+    and head dim, whether it writes the backward's lse (the instances the
+    serving calls take do not), ptxas' registers and spill bytes."""
     from repro_torch.kernels import _build
 
     lines, head = [], None
     for line in _build.build_logs.get("flash_attention", "").splitlines():
-        m = re.search(r"flash_(bf16|fp32)\w*_kernelILi(\d+)E", line)
+        m = re.search(r"flash_(bf16|fp32)\w*_kernelILi(\d+)ELb([01])E", line)
         if "Compiling entry function" in line:
-            head = f"flash {m.group(1)} hd {m.group(2)}" if m else None
+            head = (f"flash {m.group(1)} hd {m.group(2)}"
+                    + (" lse" if m.group(3) == "1" else "") if m else None)
         elif head and "spill stores" in line:
             spill = line.split(",", 1)[1].strip()
         elif head and "Used" in line and "registers" in line:
@@ -3309,6 +3894,13 @@ def main() -> int:
     family_phase(lm_configs)
     log(f"phase 8e done at {time.perf_counter() - t_start:.1f} s "
         f"(its own {time.perf_counter() - t8e:.1f} s)")
+
+    # Phase 8f: LM training.
+    t8f = time.perf_counter()
+    train_cell, summaries[train_cell], launches[train_cell] = train_phase(
+        lm_configs)
+    log(f"phase 8f done at {time.perf_counter() - t_start:.1f} s "
+        f"(its own {time.perf_counter() - t8f:.1f} s)")
 
     # Phase 9: the kernels line, then the last line.
     kernels = []

@@ -111,7 +111,7 @@ def call(fn, q, k, v, causal, window, cap):
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
              k.shape[1], h, k.shape[2], hd, DTYPES[q.dtype], int(causal),
-             window, cap, torch.cuda.current_stream().cuda_stream)
+             window, cap, torch.cuda.current_stream().cuda_stream, None)
     _build.check(err, "flash_attention variant")
     return out
 

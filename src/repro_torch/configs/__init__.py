@@ -4,14 +4,24 @@ MoE, recurrent, audio and vision).
 
 ``get_config(name)`` returns an LM arch's full-size config and
 ``smoke_config(name)`` its reduced variant for CPU tests, the same
-reduction as ``repro/configs/__init__.py``.
+reduction as ``repro/configs/__init__.py``; ``input_specs`` the inputs of
+an (arch, shape) cell as ``(shape, torch.dtype)`` pairs (the reference's
+``jax.ShapeDtypeStruct``s) and ``all_cells`` every cell's verdict.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Dict, Tuple
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import (
+    SHAPES,
+    ModelConfig,
+    ShapeSpec,
+    cell_is_runnable,
+)
 
 #: The LM archs, in the reference's order, and their modules.
 _MODULES = {
@@ -66,4 +76,41 @@ def smoke_config(name: str, seq_len: int = 32) -> ModelConfig:
     )
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "smoke_config"]
+def input_specs(cfg: ModelConfig, shape: ShapeSpec
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The inputs of one (arch x shape) cell, name -> (shape, dtype).
+
+    train/prefill: full-sequence inputs (tokens, frames or tokens after
+    patches; labels, or audio targets and mask, to train).  decode: one
+    new token (the cache is sized by ``init_cache``).
+    """
+    b, s = shape.global_batch, shape.seq_len
+    f32, i32 = torch.float32, torch.int32
+    if shape.kind == "decode":
+        return {"tokens": ((b, 1), i32)}
+    if cfg.frontend == "audio_frames":
+        specs = {"frames": ((b, s, cfg.frontend_dim), f32)}
+        if shape.kind == "train":
+            specs["targets"] = ((b, s), i32)
+            specs["mask"] = ((b, s), torch.bool)
+        return specs
+    s_text = s - cfg.num_patches if cfg.frontend == "vision_patches" else s
+    specs = {"tokens": ((b, s_text), i32)}
+    if cfg.frontend == "vision_patches":
+        specs["patch_embeds"] = ((b, cfg.num_patches, cfg.frontend_dim), f32)
+    if shape.kind == "train":
+        specs["labels"] = ((b, s_text), i32)
+    return specs
+
+
+def all_cells():
+    """Every (arch, shape name, runnable, reason)."""
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            ok, reason = cell_is_runnable(cfg, shape)
+            yield arch, shape.name, ok, reason
+
+
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeSpec", "all_cells",
+           "cell_is_runnable", "get_config", "input_specs", "smoke_config"]

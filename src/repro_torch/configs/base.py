@@ -1,6 +1,7 @@
 """LM configuration schema: the port's copy of ``repro/configs/base.py``'s
-``ModelConfig``, field for field (the JAX-free module is copied, not
-imported, so the port never loads the JAX package)."""
+``ModelConfig``, field for field, and its input-shape cells (``ShapeSpec``,
+``SHAPES``, ``cell_is_runnable``).  The JAX-free module is copied, not
+imported, so the port never loads the JAX package."""
 from __future__ import annotations
 
 import dataclasses
@@ -118,3 +119,30 @@ class ModelConfig:
         d, f = self.d_model, self.d_ff
         per_layer_unused = (self.num_experts - self.top_k) * 3 * d * f
         return self.param_count() - len(self.pattern_layers) * per_layer_unused
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+
+    name: str                        # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """The reference's skip rules, with its reasons."""
+    if shape.kind == "decode" and not cfg.supports_decode:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "full quadratic attention: 500k context infeasible"
+    return True, ""

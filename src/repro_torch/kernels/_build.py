@@ -39,6 +39,7 @@ SOURCES: Dict[str, str] = {
     "winograd_fused": "winograd/csrc/winograd_fused.cu",
     "winograd_3pass": "winograd/csrc/winograd_3pass.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "gemm_16": "gemm/csrc/gemm_16.cu",
     "im2col_conv_16": "im2col_gemm/csrc/im2col_conv_16.cu",
     "winograd_fused_16": "winograd/csrc/winograd_fused_16.cu",

@@ -1,4 +1,13 @@
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ops import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_bwd,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_ref,
+    attention_ref_lse,
+)
 
-__all__ = ["attention_ref", "flash_attention"]
+__all__ = ["FlashAttention", "attention_bwd_ref", "attention_ref",
+           "attention_ref_lse", "flash_attention", "flash_attention_bwd"]

@@ -40,23 +40,29 @@
 // dtype 0: float (3xTF32 tensor cores), 1: bfloat16 (bf16 tensor cores);
 // q, k and v 16-byte aligned.  hd in {16, 32, 64, 80, 128, 256};
 // H % KV == 0;
-// window <= 0: no window; cap <= 0: no softcap.  Returns
-// cudaGetLastError().
+// window <= 0: no window; cap <= 0: no softcap.  lse: null, or the
+// (B, H, S) fp32 row statistics that flash_attention_bwd.cu reads
+// (flash_common.cuh's store_lse: m + log2(l), base 2), written by each
+// body's own instance with LSE = true, so the instances the serving calls
+// take (lse null) compile as they did before the backward existed.  It
+// comes last, after the stream, so that the variants scripts can pass it
+// to an earlier build of this entry, which has no such argument and
+// ignores it.  Returns cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int S,
                                      int Sk, int H, int KV, int hd, int dtype,
                                      int causal, int window, float cap,
-                                     cudaStream_t stream) {
+                                     cudaStream_t stream, float* lse) {
   if (B < 1 || S < 1 || Sk < 1 || KV < 1 || H % KV != 0 || dtype < 0 ||
       dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_FLASH_CASE(HD)                                                  \
   case HD:                                                                    \
     return dtype == 0                                                         \
-               ? flash_fp32::launch<HD>(q, k, v, o, B, S, Sk, H, KV, causal,  \
-                                        window, cap, stream)                  \
-               : flash_bf16::launch<HD>(q, k, v, o, B, S, Sk, H, KV, causal,  \
-                                        window, cap, stream);
+               ? flash_fp32::launch<HD>(q, k, v, o, lse, B, S, Sk, H, KV,     \
+                                        causal, window, cap, stream)          \
+               : flash_bf16::launch<HD>(q, k, v, o, lse, B, S, Sk, H, KV,     \
+                                        causal, window, cap, stream);
   switch (hd) {
     REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)

@@ -149,14 +149,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(Cfg<HD>::THREADS, 2)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ o, int S, int Sk,
-                            int H, int KV, int causal, int window,
-                            float x_scale, float cap_out) {
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int S, int Sk, int H,
+                            int KV, int causal, int window, float x_scale,
+                            float cap_out) {
   using C = Cfg<HD>;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, CH = C::CHUNKS;
   constexpr int NT = BK / 8;    // score n-tiles of a kv tile
@@ -285,6 +286,11 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_wait_all();
 
+  if constexpr (LSE) {
+    float* lse_bh = lse + (size_t)blockIdx.x * S;
+    fc::store_lse(lse_bh, row0, S, m0, l0);
+    fc::store_lse(lse_bh, row1, S, m1, l1);
+  }
   const float inv0 = fc::row_inv(l0), inv1 = fc::row_inv(l1);
   __nv_bfloat16* ob = o + ((size_t)b * S * H + h) * HD + 2 * t4;
 #pragma unroll
@@ -299,16 +305,20 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int Sk, int H, int KV, int causal, int window, float cap,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Sk, int H, int KV, int causal, int window,
+           float cap, cudaStream_t stream) {
   using C = Cfg<HD>;
   static bool configured[per_device::MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = per_device::current(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(flash_attention_bf16_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_attention_bf16_kernel<HD, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(flash_attention_bf16_kernel<HD, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -317,10 +327,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   fc::Launch lp;
   if (!fc::make_launch(B, H, S, C::BQ, HD, cap, lp))
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_attention_bf16_kernel<HD><<<lp.grid, C::THREADS, C::SMEM, stream>>>(
+  // The instance that writes lse is its own, so the serving instances
+  // compile as they did before it existed.
+  auto kernel = lse != nullptr ? flash_attention_bf16_kernel<HD, true>
+                                : flash_attention_bf16_kernel<HD, false>;
+  kernel<<<lp.grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      Sk, H, KV, causal, window, lp.x_scale, lp.cap_out);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      S, Sk, H, KV, causal, window, lp.x_scale, lp.cap_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -115,13 +115,14 @@ __device__ __forceinline__ void b_frag(const float* p, int stride,
   tc::split_tf32(p[stride], bh[1], bl[1]);
 }
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(Cfg<HD>::THREADS, Cfg<HD>::MIN_BLOCKS)
 flash_attention_fp32_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v, float* __restrict__ o,
-                            int S, int Sk, int H, int KV, int causal,
-                            int window, float x_scale, float cap_out) {
+                            float* __restrict__ lse, int S, int Sk, int H,
+                            int KV, int causal, int window, float x_scale,
+                            float cap_out) {
   using C = Cfg<HD>;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, CH = C::CHUNKS;
   constexpr int MT = C::MT, JC = C::JC;
@@ -288,6 +289,11 @@ flash_attention_fp32_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int row0 = w_first + 16 * mt + g, row1 = row0 + 8;
+    if constexpr (LSE) {
+      float* lse_bh = lse + (size_t)blockIdx.x * S;
+      fc::store_lse(lse_bh, row0, S, m[mt][0], l[mt][0]);
+      fc::store_lse(lse_bh, row1, S, m[mt][1], l[mt][1]);
+    }
     const float inv0 = fc::row_inv(l[mt][0]), inv1 = fc::row_inv(l[mt][1]);
 #pragma unroll
     for (int d = 0; d < DT; ++d) {
@@ -302,16 +308,20 @@ flash_attention_fp32_kernel(const float* __restrict__ q,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int Sk, int H, int KV, int causal, int window, float cap,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Sk, int H, int KV, int causal, int window,
+           float cap, cudaStream_t stream) {
   using C = Cfg<HD>;
   static bool configured[per_device::MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = per_device::current(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(flash_attention_fp32_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_attention_fp32_kernel<HD, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(flash_attention_fp32_kernel<HD, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -320,9 +330,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   fc::Launch lp;
   if (!fc::make_launch(B, H, S, C::BQ, HD, cap, lp))
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_attention_fp32_kernel<HD><<<lp.grid, C::THREADS, C::SMEM, stream>>>(
+  // The instance that writes lse is its own, so the serving instances
+  // compile as they did before it existed.
+  auto kernel = lse != nullptr ? flash_attention_fp32_kernel<HD, true>
+                                : flash_attention_fp32_kernel<HD, false>;
+  kernel<<<lp.grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Sk, H, KV,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Sk, H, KV,
       causal, window, lp.x_scale, lp.cap_out);
   return static_cast<int>(cudaGetLastError());
 }

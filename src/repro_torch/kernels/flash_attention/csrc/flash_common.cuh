@@ -155,6 +155,18 @@ __device__ __forceinline__ float row_inv(float l) {
   return 1.f / fmaxf(quad_sum(l), 1e-37f);
 }
 
+// The backward's saved row statistic, written when the caller asks for
+// it (lse_bh, the (batch, head) row of the (B, H, S) fp32 LSE, is not
+// null; a uniform branch, so every lane of the quad takes part in the
+// sum): lse = m + log2(l), the log-sum-exp in base 2 of the x units above,
+// so the backward recomputes p = exp2(x - lse) = exp2(x - m) / l.  Rows at
+// or beyond S are not written.
+__device__ __forceinline__ void store_lse(float* lse_bh, int row, int S,
+                                          float m, float l) {
+  const float sum = quad_sum(l);
+  if (threadIdx.x % 4 == 0 && row < S) lse_bh[row] = m + log2f(sum);
+}
+
 // The launch: the two softmax constants of a head dim and a cap, and the
 // grid of (batch x head, q-blocks); false when S needs more q-blocks than
 // a grid's y can hold.

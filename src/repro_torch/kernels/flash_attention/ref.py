@@ -1,19 +1,24 @@
-"""Plain PyTorch version of the flash-attention kernel: the port of
-``repro/kernels/flash_attention/ref.py::attention_ref``.
+"""Plain PyTorch versions of the flash-attention kernels: the port of
+``repro/kernels/flash_attention/ref.py::attention_ref``, the same forward
+returning the row statistic the backward reads (``attention_ref_lse``),
+and the backward from it (``attention_bwd_ref``).
 
-A masked softmax in fp32 with the reference's casts: scores from fp32
-copies of q and k, divided by sqrt(hd), the tanh softcap, the finite
-``NEG_INF`` mask, the probabilities cast to v's type before the product
-with v, the output in q's type.  Layouts are the kernel's: q (B, S, H, hd),
-k and v (B, Sk, KV, hd), query head h on KV head h // (H // KV).
+The forward is a masked softmax in fp32 with the reference's casts: scores
+from fp32 copies of q and k, divided by sqrt(hd), the tanh softcap, the
+finite ``NEG_INF`` mask, the probabilities cast to v's type before the
+product with v, the output in q's type.  Layouts are the kernel's: q (B,
+S, H, hd), k and v (B, Sk, KV, hd), query head h on KV head h // (H //
+KV).
 """
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
 NEG_INF = -2.3819763e38
+LOG2E = 1.4426950408889634
 
 
 def attention_mask(s: int, sk: int, causal: bool, window: int,
@@ -29,10 +34,20 @@ def attention_mask(s: int, sk: int, causal: bool, window: int,
     return mask
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True, window: int = 0,
-                  logit_cap: float = 0.0) -> torch.Tensor:
-    """q (B, S, H, hd), k/v (B, Sk, KV, hd) -> (B, S, H, hd) in q's dtype.
+def _scaled(qg: torch.Tensor, kj: torch.Tensor, logit_cap: float):
+    """(the scaled score y = q.k / sqrt(hd), the softcapped score s~ of
+    each pair: y, or tanh(y / cap) * cap) in fp32."""
+    y = (qg @ kj.T) / math.sqrt(qg.shape[-1])
+    return y, (torch.tanh(y / logit_cap) * logit_cap if logit_cap > 0 else y)
+
+
+def attention_ref_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: int = 0,
+                      logit_cap: float = 0.0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (B, S, H, hd) in q's dtype, lse (B, H, S) fp32): the forward
+    and each row's log-sum-exp of its valid softcapped scores, in base 2
+    (the natural one times log2 e), as the kernel writes it.
 
     Runs one (batch, KV head) group at a time, so the fp32 scores it holds
     are (H // KV, S, Sk), not (B, H, S, Sk).
@@ -42,15 +57,57 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = h // kv
     mask = attention_mask(s, sk, causal, window, q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     for bi in range(b):
         for j in range(kv):
             qg = q[bi, :, j * g:(j + 1) * g].float().transpose(0, 1)  # (G, S, hd)
-            kj = k[bi, :, j].float()                                  # (Sk, hd)
-            scores = (qg @ kj.T) / math.sqrt(hd)
-            if logit_cap > 0:
-                scores = torch.tanh(scores / logit_cap) * logit_cap
+            _, scores = _scaled(qg, k[bi, :, j].float(), logit_cap)
             scores = torch.where(mask, scores, NEG_INF)
+            lse[bi, j * g:(j + 1) * g] = torch.logsumexp(scores, -1) * LOG2E
             probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
             o = probs @ v[bi, :, j].float()                           # (G, S, hd)
             out[bi, :, j * g:(j + 1) * g] = o.transpose(0, 1).to(q.dtype)
-    return out
+    return out, lse
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: int = 0,
+                  logit_cap: float = 0.0) -> torch.Tensor:
+    """q (B, S, H, hd), k/v (B, Sk, KV, hd) -> (B, S, H, hd) in q's dtype."""
+    return attention_ref_lse(q, k, v, causal, window, logit_cap)[0]
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                      causal: bool = True, window: int = 0,
+                      logit_cap: float = 0.0
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the inputs' dtypes, step by step as the backward
+    kernel computes them, in fp32, one (batch, KV head) group at a time:
+    p = exp2(s~ log2 e - lse) on a valid pair (else 0); D = rowsum(dout o
+    out); dv = p^T dout; dp = dout v^T; ds = p (dp - D) / sqrt(hd) times
+    1 - tanh^2(y / cap) with a softcap; dq = ds k; dk = ds^T q, dk and dv
+    summed over the group's query heads."""
+    b, s, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    mask = attention_mask(s, sk, causal, window, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for bi in range(b):
+        for j in range(kv):
+            heads = slice(j * g, (j + 1) * g)
+            qg = q[bi, :, heads].float().transpose(0, 1)            # (G, S, hd)
+            og = out[bi, :, heads].float().transpose(0, 1)
+            dog = dout[bi, :, heads].float().transpose(0, 1)
+            kj, vj = k[bi, :, j].float(), v[bi, :, j].float()       # (Sk, hd)
+            y, scores = _scaled(qg, kj, logit_cap)
+            p = torch.where(mask, torch.exp2(scores * LOG2E
+                                             - lse[bi, heads, :, None]), 0.0)
+            rowdot = (dog * og).sum(-1, keepdim=True)               # (G, S, 1)
+            dv[bi, :, j] = torch.einsum("gqk,gqd->kd", p, dog).to(v.dtype)
+            ds = p * (dog @ vj.T - rowdot) / math.sqrt(hd)
+            if logit_cap > 0:
+                ds = ds * (1 - torch.tanh(y / logit_cap).square())
+            dq[bi, :, heads] = (ds @ kj).transpose(0, 1).to(q.dtype)
+            dk[bi, :, j] = torch.einsum("gqk,gqd->kd", ds, qg).to(k.dtype)
+    return dq, dk, dv

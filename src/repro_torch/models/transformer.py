@@ -23,6 +23,7 @@ addresses.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -44,6 +45,7 @@ from repro_torch.models.layers import (
     torch_dtype,
     unembed,
 )
+from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
@@ -235,15 +237,6 @@ def _period_split(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...], Tuple[str, ..
     return n_periods, pat, cfg.pattern_layers[n_periods * len(pat):]
 
 
-def tree_map(fn, tree):
-    """``fn`` on every leaf of nested dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def layers_from_tree(cfg: ModelConfig, tree: Params) -> List[Any]:
     """The per-layer subtrees of a reference parameter or cache tree, in
     layer order: ``tree["period"]["j:btype"]`` leaves are stacked
@@ -300,20 +293,75 @@ def _embed_inputs(cfg: ModelConfig, params: Params, inputs: Inputs
     return x.to(dt)
 
 
+def _save_2d_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of 2-D matrix products (every
+    projection and MLP matmul), recompute the rest, batched products (the
+    MoE experts' bmm) included: ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``'s counterpart."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(cfg: ModelConfig, fn):
+    """``fn`` under the config's rematerialization (the reference's
+    ``_remat_wrap``): "none" as is, "full" keeps only its inputs and
+    recomputes the rest in the backward, "dots" keeps the 2-D products'
+    outputs too.  Only memory differs between the three, not numbers.
+    Applied only where a backward can follow (grad enabled), so the
+    inference and serving paths run as before."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+
+    kwargs = {}
+    if cfg.remat == "dots":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_2d_products)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat must be none, full or dots, got {cfg.remat!r}")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, inputs: Inputs,
                    impl: str = "cuda"
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Trunk forward: (final-norm hidden states (B, S, d), the MoE aux
     losses summed over layers: load_balance, router_z, dropped_frac; 0
-    without experts)."""
+    without experts).
+
+    As the reference scans full periods of the layer pattern under its
+    remat policy and runs the tail plainly, each period of
+    ``len(cfg.layer_pattern)`` layers here is one ``_remat_wrap``ped call
+    (where the reference stacks periods, ``_period_split``), the tail
+    layers are not wrapped."""
     x = _embed_inputs(cfg, params, inputs)
-    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
-           for k in AUX_KEYS}
-    for p, bt in zip(params["layers"], cfg.pattern_layers):
-        x, _, a = _apply_layer(cfg, p, x, bt, impl=impl)
-        for k, v in a.items():
-            aux[k] = aux[k] + v
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = tuple(zero for _ in AUX_KEYS)
+    layers, types = params["layers"], cfg.pattern_layers
+    n_periods, pat, _ = _period_split(cfg)
+
+    def run(first, count):
+        def fn(x, *aux):
+            aux = list(aux)
+            for i in range(first, first + count):
+                x, _, a = _apply_layer(cfg, layers[i], x, types[i], impl=impl)
+                for j, k in enumerate(AUX_KEYS):
+                    if k in a:
+                        aux[j] = aux[j] + a[k]
+            return (x, *aux)
+        return fn
+
+    for i in range(n_periods):
+        x, *aux = _remat_wrap(cfg, run(i * len(pat), len(pat)))(x, *aux)
+    x, *aux = run(n_periods * len(pat), len(types) - n_periods * len(pat))(x, *aux)
+    return (rms_norm(x, params["final_norm"], cfg.norm_eps),
+            dict(zip(AUX_KEYS, aux)))
 
 
 def apply_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -939,3 +939,121 @@ def test_validate_full_is_clean_on_card(cuda_device, dtype):
     assert len(report.kernels) == report.network["expected_launches"]
     y = cu.run(torch.zeros((2, 64, 64, 3), device=cuda_device))
     assert torch.isfinite(y.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# LM training: the flash backward kernel, the train step, the optimizer.
+
+
+def _grad_row_err(got, ref, floor=1e-2):
+    """The largest per-row relative error of a gradient, each row's norm
+    floored at ``floor`` of the largest row's: a row whose gradient
+    cancels to ~0 (the first causal rows' dq: p (dp - D) sums to ~0) is
+    held at the scale of the others (chip_smoke.py's
+    ``FLASH_BWD_ROW_FLOOR``)."""
+    got, ref = got.float(), ref.float()
+    norm = ref.norm(dim=-1)
+    return float(((got - ref).norm(dim=-1)
+                  / norm.clamp_min(floor * float(norm.max()))).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,sk,h,kv,hd,causal,window,cap", [
+    (2, 200, 200, 8, 2, 64, True, 0, 0.0),       # Llama grouping, ragged S
+    (1, 300, 300, 4, 2, 128, True, 100, 50.0),   # gemma2: window + softcap
+    (1, 50, 37, 4, 2, 64, False, 0, 0.0),        # non-causal, ragged Sk
+    (1, 130, 130, 4, 4, 80, False, 0, 0.0),      # hubert's head dim
+    (1, 257, 257, 4, 1, 256, True, 64, 0.0),     # MQA, hd 256, window
+    (1, 33, 33, 8, 8, 16, True, 0, 0.0),
+    (1, 65, 65, 2, 1, 32, False, 17, 5.0),
+])
+def test_flash_attention_backward_on_card(cuda_device, dtype, b, s, sk, h, kv,
+                                          hd, causal, window, cap):
+    """flash_attention under grad (the FlashAttention Function: the forward
+    writes lse, the backward kernel runs) against attention_bwd_ref from
+    the same (out, lse, dout), and lse against attention_ref_lse's:
+    gradients per element within 2e-4 (fp32) or 3e-2 (bf16) of max(1,
+    max|ref|), per row within 1e-4 or 1e-2 of the row's norm."""
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref,
+        attention_ref_lse,
+        flash_attention_bwd,
+    )
+
+    q, k, v, do = (t.to(dtype) for t in _randn(
+        cuda_device, 30, (b, s, h, hd), (b, sk, kv, hd), (b, sk, kv, hd),
+        (b, s, h, hd)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    launches, bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(*leaves, causal, window, cap)
+    lse = out.grad_fn.saved_tensors[4]          # the forward's, (B, H, S)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert flash_attention.launches == launches + 1
+    assert flash_attention_bwd.launches == bwd + 1
+    _, lse_ref = attention_ref_lse(q, k, v, causal, window, cap)
+    _close(lse, lse_ref, 1e-4)
+    refs = attention_bwd_ref(q, k, v, out.detach(), do, lse, causal, window, cap)
+    tol, row_tol = (2e-4, 1e-4) if dtype == torch.float32 else (3e-2, 1e-2)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == dtype
+        _close(got.float(), ref.float(), tol)
+        assert _grad_row_err(got, ref) <= row_tol
+    # The instance that writes lse computes the same output as the serving one.
+    assert torch.equal(out.detach(), flash_attention(q, k, v, causal, window, cap))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-27b",
+                                  "granite-moe-1b-a400m", "hubert-xlarge"])
+def test_train_step_gradients_on_card(cuda_device, arch):
+    """A smoke config's loss and gradients through the kernels (forward and
+    backward) against the plain versions on the card, fp32: every leaf
+    within 1e-3 of its norm (the flash kernel's 3xTF32 products and the
+    backward's fp32 sums in other orders, compounded over the layers)."""
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import value_and_grad
+
+    cfg = configs.smoke_config(arch)
+    params = tf.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    batch = batch_for(cfg, ShapeSpec("t", 32, 4, "train"), 0, device=cuda_device)
+    bwd = flash_attention_bwd.launches
+    (loss, _), grads = value_and_grad(cfg, params, batch, "cuda")
+    n_attn = sum(t in ("attn", "local") for t in cfg.pattern_layers)
+    assert flash_attention_bwd.launches == bwd + n_attn
+    (ref_loss, _), ref = value_and_grad(cfg, params, batch, "torch")
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=1e-4)
+    for (path, g), r in zip(tree_lib.leaves_with_paths(grads), tree_lib.leaves(ref)):
+        assert float((g - r).norm()) <= 1e-3 * max(float(r.norm()), 1e-6), path
+
+
+def test_adamw_update_is_captured_by_a_cuda_graph(cuda_device):
+    """update reads nothing back to the host: it captures into a CUDA graph,
+    and the replay equals the eager update on the same inputs."""
+    from repro_torch import optim
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = {"w": torch.randn(64, 300, device=cuda_device, generator=g),
+              "n": torch.randn(300, device=cuda_device, generator=g)}
+    grads = {k: torch.randn(v.shape, device=cuda_device, generator=g)
+             for k, v in params.items()}
+    for md in ("float32", "int8"):
+        cfg = optim.AdamWConfig(lr=optim.warmup_cosine(1e-2, 2, 10), moment_dtype=md)
+        state = optim.init(cfg, params)
+        eager = optim.update(cfg, grads, state, params)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            optim.update(cfg, grads, state, params)          # warm-up
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = optim.update(cfg, grads, state, params)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured[0]["w"], eager[0]["w"])
+        assert torch.equal(captured[0]["n"], eager[0]["n"])
+        assert int(captured[1].step) == 1

@@ -47,7 +47,7 @@ def test_the_sources_that_set_attributes_are_found():
         "winograd_fused.cu", "winograd_fused_16.cu", "winograd_3pass_16.cu",
         "gemm_16.cu", "gemm_q8.cu", "im2col_conv.cu", "im2col_conv_q8.cu",
         "im2col_conv_16.cu", "flash_attention_bf16.cuh",
-        "flash_attention_fp32.cuh"}
+        "flash_attention_fp32.cuh", "flash_attention_bwd.cu"}
 
 
 @pytest.mark.parametrize("src", SOURCES, ids=[p.name for p in SOURCES])

@@ -1,0 +1,208 @@
+"""The flash-attention backward on the CPU: ``ref.py::attention_bwd_ref``
+(the plain version of csrc/flash_attention_bwd.cu, from the saved row
+statistic ``lse``) and the ``FlashAttention`` autograd.Function that
+``flash_attention`` is under grad, against ``torch.autograd`` through
+``attention_ref`` and against ``jax.vjp`` of the reference's training
+attention (``repro.models.attention.attention_naive``, the function the
+JAX package differentiates).
+
+The same numpy inputs go to every side.  fp32 within rtol = atol = 2e-4
+of max(1, max|ref|) (the flash suite's fp32 tolerance): the three compute
+the same sums in other orders.  The Function's wiring on the CPU is the
+card's: its forward saves ``lse``, its backward is the plain backward.
+"""
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.attention import attention_naive
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import (
+    FlashAttention,
+    attention_bwd_ref,
+    attention_ref,
+    attention_ref_lse,
+    flash_attention,
+    ops,
+)
+
+TOL = 2e-4
+# (B, S, Sk, H, KV, hd, causal, window, cap): causal, window, softcap,
+# GQA and MQA, non-causal ragged S and Sk, hd 80 and 256.
+CASES = {
+    "causal gqa": (2, 24, 24, 8, 2, 16, True, 0, 0.0),
+    "window": (1, 40, 40, 4, 2, 32, True, 7, 0.0),
+    "softcap": (2, 20, 20, 4, 4, 16, True, 0, 5.0),
+    "mqa window softcap": (1, 33, 33, 6, 1, 16, True, 9, 3.0),
+    "non-causal ragged": (2, 19, 13, 4, 2, 32, False, 0, 0.0),
+    "hd 80 non-causal": (1, 17, 17, 4, 4, 80, False, 0, 0.0),
+    "hd 256 mqa window": (1, 21, 21, 2, 1, 256, True, 6, 0.0),
+}
+
+
+def _inputs(b, s, sk, h, kv, hd, seed=0, q_scale=1.0):
+    rng = np.random.default_rng(seed)
+    q = (q_scale * rng.normal(size=(b, s, h, hd))).astype(np.float32)
+    k = rng.normal(size=(b, sk, kv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, sk, kv, hd)).astype(np.float32)
+    do = rng.normal(size=(b, s, h, hd)).astype(np.float32)
+    return q, k, v, do
+
+
+def _close(got, ref, tol=TOL):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    np.testing.assert_allclose(got, ref, rtol=tol,
+                               atol=tol * max(1.0, float(np.abs(ref).max())))
+
+
+def _autograd(fn, q, k, v, do):
+    t = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out = fn(*t)
+    return out.detach(), torch.autograd.grad(out, t, torch.tensor(do))
+
+
+def _jax_grads(q, k, v, do, causal, window, cap):
+    """The reference's attention_naive and its vjp, in the port's layout."""
+    b, s, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+
+    def fn(q, k, v):
+        out = attention_naive(q.reshape(b, s, kv, g, hd), k, v, jnp.arange(s),
+                              jnp.arange(sk), causal, window, cap)
+        return out.reshape(b, s, h, hd)
+
+    out, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return np.asarray(out), [np.asarray(x) for x in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_function_gradients_match_autograd_and_jax(case):
+    b, s, sk, h, kv, hd, causal, window, cap = CASES[case]
+    q, k, v, do = _inputs(b, s, sk, h, kv, hd)
+    out, grads = _autograd(lambda *t: flash_attention(
+        *t, causal, window, cap, impl="torch"), q, k, v, do)
+    auto_out, auto = _autograd(lambda *t: attention_ref(
+        *t, causal, window, cap), q, k, v, do)
+    j_out, j_grads = _jax_grads(q, k, v, do, causal, window, cap)
+    _close(out, auto_out)
+    _close(out, j_out)
+    for got, a, j in zip(grads, auto, j_grads):
+        _close(got, a)
+        _close(got, j)
+
+
+@pytest.mark.parametrize("case", ["causal gqa", "mqa window softcap",
+                                  "non-causal ragged"])
+def test_bwd_ref_from_saved_lse(case):
+    """attention_bwd_ref from the forward's (out, lse) equals autograd; the
+    lse is the natural log-sum-exp of the valid scaled scores times log2 e
+    (the kernels' base-2 units)."""
+    b, s, sk, h, kv, hd, causal, window, cap = CASES[case]
+    q, k, v, do = _inputs(b, s, sk, h, kv, hd, seed=1)
+    t = [torch.tensor(a) for a in (q, k, v)]
+    out, lse = attention_ref_lse(*t, causal, window, cap)
+    dq, dk, dv = attention_bwd_ref(*t, out, torch.tensor(do), lse, causal,
+                                   window, cap)
+    _, auto = _autograd(lambda *x: attention_ref(*x, causal, window, cap),
+                        q, k, v, do)
+    for got, ref in zip((dq, dk, dv), auto):
+        _close(got, ref)
+    # lse by hand for one (batch, head): query head h on KV head h // G.
+    scale = 1 / np.sqrt(hd)
+    scores = np.einsum("sd,kd->sk", q[0, :, h - 1], k[0, :, (h - 1) // (h // kv)])
+    y = scores * scale
+    y = np.tanh(y / cap) * cap if cap > 0 else y
+    qp, kp = np.arange(s)[:, None], np.arange(sk)[None, :]
+    valid = np.ones((s, sk), bool)
+    if causal:
+        valid &= kp <= qp
+    if window > 0:
+        valid &= kp > qp - window
+    y = np.where(valid, y, -np.inf)
+    want = np.log(np.exp(y - y.max(1, keepdims=True)).sum(1)) + y.max(1)
+    np.testing.assert_allclose(lse[0, h - 1].numpy(), want * np.log2(np.e),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_saturated_softcap_gradient_shrinks():
+    """Gemma2's global case with q x 8: the scaled scores pass the cap's
+    bend (the factor 1 - tanh^2 on ds is below 0.05 for most pairs), and
+    the gradients stay finite and equal to jax's."""
+    b, s, sk, h, kv, hd, causal, window, cap = 1, 32, 32, 4, 2, 32, True, 0, 2.0
+    q, k, v, do = _inputs(b, s, sk, h, kv, hd, seed=2, q_scale=8.0)
+    _, grads = _autograd(lambda *t: flash_attention(
+        *t, causal, window, cap, impl="torch"), q, k, v, do)
+    _, j_grads = _jax_grads(q, k, v, do, causal, window, cap)
+    for got, j in zip(grads, j_grads):
+        assert torch.isfinite(got).all()
+        _close(got, j)
+    y = np.einsum("bshd,bkhd->bhsk", q, np.repeat(k, h // kv, axis=2)) / np.sqrt(hd)
+    factor = (1 - np.tanh(y / cap) ** 2)[:, :, np.tril(np.ones((s, sk), bool))]
+    assert np.median(factor) < 0.05
+
+
+def test_bf16_function_keeps_dtypes_and_tracks_fp32():
+    """In bf16 the Function's gradients come in bf16 and track the fp32
+    ones within bf16's rounding of p and the outputs: 3e-2 of max(1,
+    max|ref|), the flash suite's bf16 tolerance."""
+    b, s, sk, h, kv, hd, causal, window, cap = CASES["mqa window softcap"]
+    q, k, v, do = _inputs(b, s, sk, h, kv, hd, seed=3)
+    t = [torch.tensor(a).to(torch.bfloat16).requires_grad_() for a in (q, k, v)]
+    out = flash_attention(*t, causal, window, cap, impl="torch")
+    grads = torch.autograd.grad(out, t, torch.tensor(do).to(torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    f32 = [a.detach().float().numpy() for a in t]
+    _, ref = _autograd(lambda *x: attention_ref(*x, causal, window, cap),
+                       *f32, torch.tensor(do).to(torch.bfloat16).float().numpy())
+    for got, r in zip(grads, ref):
+        _close(got.float(), r, tol=3e-2)
+
+
+def test_function_is_used_only_under_grad():
+    """Without grad (or with no input requiring it) the forward is the
+    inference path: no graph node, no lse; under grad the node is
+    FlashAttention's."""
+    q, k, v, _ = _inputs(1, 8, 8, 4, 2, 16)
+    t = [torch.tensor(a) for a in (q, k, v)]
+    assert flash_attention(*t, impl="torch").grad_fn is None
+    req = [x.clone().requires_grad_() for x in t]
+    with torch.no_grad():
+        assert flash_attention(*req, impl="torch").grad_fn is None
+    with torch.inference_mode():
+        assert flash_attention(*t, impl="torch").grad_fn is None
+    out = flash_attention(*req, impl="torch")
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    assert FlashAttention.__name__ == "FlashAttention"
+
+
+def test_cuda_impl_refuses_cpu_tensors_under_grad():
+    q, k, v, do = _inputs(1, 8, 8, 4, 2, 16)
+    t = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash_attention(*t)
+    plain = [x.detach() for x in t]
+    out, lse = attention_ref_lse(*plain)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.flash_attention_bwd(*plain, out, torch.tensor(do), lse)
+
+
+def test_backward_entry_head_dims_are_the_forward_s():
+    """The backward's C entry is compiled for the forward's head dims, and
+    the wrapper's argument list matches the entry's parameters."""
+    src = (_build._KERNELS_DIR / _build.SOURCES["flash_attention_bwd"]).read_text()
+    cases = tuple(int(n) for n in re.findall(r"REPRO_FLASH_BWD_CASE\((\d+)\)", src))
+    assert cases == ops.HEAD_DIMS
+    entry = src[src.index('extern "C" int repro_flash_attention_bwd('):]
+    params = entry[:entry.index(")")].split("(", 1)[1].split(",")
+    assert len(params) == len(ops._BWD_ARGTYPES)
+    fwd = (_build._KERNELS_DIR / _build.SOURCES["flash_attention"]).read_text()
+    fwd_entry = fwd[fwd.index('extern "C" int repro_flash_attention('):]
+    fwd_params = fwd_entry[:fwd_entry.index(")")].split("(", 1)[1].split(",")
+    assert len(fwd_params) == len(ops._ARGTYPES)
+    assert fwd_params[-1].strip() == "float* lse"

@@ -210,7 +210,8 @@ def test_tf32x3_replay_matches_tuple_multiply_pallas():
     ("winograd/csrc/winograd_transforms.cuh", {"winograd_fused", "winograd_3pass"}),
     ("flash_attention/csrc/flash_attention_bf16.cuh", {"flash_attention"}),
     ("flash_attention/csrc/flash_attention_fp32.cuh", {"flash_attention"}),
-    ("flash_attention/csrc/flash_common.cuh", {"flash_attention"}),
+    ("flash_attention/csrc/flash_common.cuh", {"flash_attention",
+                                               "flash_attention_bwd"}),
     ("csrc/s8_mma.cuh", {"gemm_q8", "im2col_conv_q8"}),
 ])
 def test_library_path_follows_every_included_header(tmp_path, monkeypatch,
