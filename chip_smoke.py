@@ -274,8 +274,10 @@ Phases, each on its own printed lines:
    the softcap, and its saturated case with q x 8, recurrentgemma-9b hd 256
    window 2048 MQA, hubert-xlarge hd 80 non-causal S 1000, internvl2-2b hd
    128), per element and per row (``FLASH_BWD_TOL``, ``FLASH_BWD_ROW_RTOL``,
-   sized by ``scripts/flash_bwd_replay.py``), timed beside the plain
-   version and SDPA's backward with its bound; then Llama-3.2-1B at full
+   sized by ``scripts/flash_bwd_replay.py``), two calls bit-equal at
+   Llama's microbatch and at recurrentgemma's hd 256 (the bf16 head
+   split), timed beside SDPA's backward with its bound and, at those two
+   shapes, the plain version; then Llama-3.2-1B at full
    width in bf16 through ``train``: S 4096, a batch of 4 in 2
    microbatches, remat "full", fp32 moments, ``warmup_cosine``, the first
    step's gradients gated per leaf against impl='torch' (within
@@ -400,13 +402,16 @@ MOE_FP32_FLIPS = 1e-4
 # read 2.1e-4 of its norm at a floor of 1e-3, at Llama's microbatch on
 # the card).  fp32: the forward's gates (both sum the same fp32 products
 # in other orders).
-# bf16: the kernel computes in fp32 from the bf16 inputs and rounds each
-# result once to bf16, as the plain version does, so the two differ by
-# the sums' order and one bf16 rounding each: at most 1.2e-3 per element
-# and 1.7e-3 per row in scripts/flash_bwd_replay.py (a CPU replay of the
-# kernel's tile loops at Llama-3.2-1B's grouping, Gemma2-27B's window,
-# softcap and saturated softcap, hd 256 and a ragged non-causal case);
-# 1e-2 keeps a margin of about 6 over it.
+# bf16: the kernel's tensor cores sum exact products of the bf16 inputs
+# in fp32 and it rounds p and ds to bf16 before the dv, dk and dq
+# products (as SDPA's backward does), where the plain version keeps them
+# in fp32; both round each result once to bf16.  So the two differ by
+# the rounding of p and ds, the sums' order and one bf16 rounding each:
+# at most 6.5e-3 per element and 5.4e-3 per row in
+# scripts/flash_bwd_replay.py (a CPU replay of the kernel's tiles,
+# roundings and head split at Llama-3.2-1B's grouping, Gemma2-27B's
+# window, softcap and saturated softcap, hd 256 MQA with the split and a
+# ragged non-causal case); 1e-2 keeps a margin of about 1.5-2 over it.
 FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
 FLASH_BWD_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 FLASH_BWD_ROW_FLOOR = 1e-2
@@ -2380,12 +2385,15 @@ def flash_bwd_ptxas() -> list:
     lines, head, spill = [], None, ""
     for line in _build.build_logs.get("flash_attention_bwd", "").splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"flash_bwd_(dkdv|dq)_kernelILi(\d+)E(f|13__nv_bfloat16)", line)
+            # The two bodies' kernels are in namespaces flash_bwd_fp32 and
+            # flash_bwd_bf16, templated on the head dim.
+            m = re.search(
+                r"flash_bwd_(fp32|bf16)\d+flash_bwd_(dkdv|dq)_kernelILi(\d+)E", line)
             d = re.search(r"flash_bwd_dot_kernelI(f|13__nv_bfloat16)", line)
-            head = (f"flash_bwd {m.group(1)} hd {m.group(2)} "
-                    f"{'fp32' if m.group(3) == 'f' else 'bf16'}" if m else
-                    f"flash_bwd dot {'fp32' if d.group(1) == 'f' else 'bf16'}"
-                    if d else None)
+            head = (f"flash_bwd {m.group(2)} hd {m.group(3)} {m.group(1)}" if m
+                    else f"flash_bwd dot {'fp32' if d.group(1) == 'f' else 'bf16'}"
+                    if d else "flash_bwd reduce bf16"
+                    if "flash_bwd_reduce_kernel" in line else None)
         elif head and "spill stores" in line:
             spill = line.split(",", 1)[1].strip()
         elif head and "Used" in line and "registers" in line:
@@ -2395,7 +2403,7 @@ def flash_bwd_ptxas() -> list:
     return lines
 
 
-def check_flash_bwd(hw, cells, saturated=(), plain_timed=()):
+def check_flash_bwd(hw, cells, saturated=(), plain_timed=(), bit_equal=()):
     """Phase 8f's kernel check: the flash backward kernel against its plain
     version (attention_bwd_ref) at each trained config's attention shape,
     in bf16 and fp32, from the kernel forward's own (out, lse) and one
@@ -2410,8 +2418,10 @@ def check_flash_bwd(hw, cells, saturated=(), plain_timed=()):
     bytes of q, k, v, o, dout, lse read and dq, dk, dv written, whichever
     is larger.  ``saturated`` cells take q x 8 (the softcap's bend: ds
     shrinks by 1 - tanh^2) and are not timed; the plain version is timed
-    at the ``plain_timed`` cells only (the kernels line's).  Returns each
-    timed case's numbers by (cell, dtype)."""
+    at the ``plain_timed`` cells only.  At the ``bit_equal`` cells a second
+    call on the same inputs must give the same bits (no atomics; the bf16
+    head split sums its groups in a fixed order).  Returns each timed
+    case's numbers by (cell, dtype)."""
     import torch
     import torch.nn.functional as F
 
@@ -2421,6 +2431,7 @@ def check_flash_bwd(hw, cells, saturated=(), plain_timed=()):
         flash_attention,
         flash_attention_bwd,
     )
+    from repro_torch.kernels.flash_attention.ops import bwd_head_split
     from repro_torch.kernels.flash_attention.ref import attention_mask
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2458,6 +2469,19 @@ def check_flash_bwd(hw, cells, saturated=(), plain_timed=()):
                 raise AssertionError(f"{label}: kernel disagrees with its plain "
                                      f"version: {text}; lse err {lse_err:.3g}")
             max_err = max(e for e, _, _ in errs)
+            split = (bwd_head_split(b, kv, sk, h // kv, hd,
+                                    torch.cuda.get_device_properties(0)
+                                    .multi_processor_count)
+                     if dtype == torch.bfloat16 else 1)
+            text += f"; head split {split}"
+            if cell in bit_equal:
+                again = flash_attention_bwd(q, k, v, o, do, lse, causal,
+                                            window, cap)
+                if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+                    raise AssertionError(f"{label}: two backward calls on the "
+                                         f"same inputs differ (split {split})")
+                text += ", two calls bit-equal"
+                del again
             del grads, refs
             if cell in saturated:
                 log(f"kernel {label} (q x 8): {text}; lse err {lse_err:.3g}")
@@ -2866,7 +2890,8 @@ def train_phase(lm_configs):
         "hubert-xlarge S1000": (1, 1000, 1000, 16, 16, 80, False, 0, 0.0),
         "internvl2-2b S1024": (1, 1024, 1024, 16, 8, 128, True, 0, 0.0),
     }, saturated=("gemma2-27b attn S4096 softcap saturated",),
-        plain_timed=(llama,))
+        plain_timed=(llama, "recurrentgemma-9b local S4096"),
+        bit_equal=(llama, "recurrentgemma-9b local S4096"))
     name, summary, counts = train_llama(lm_configs, flash[llama, "bfloat16"])
     train_families(lm_configs)
     return name, summary, counts

@@ -2,6 +2,9 @@
 // flash_attention_fp32.cuh): the block layout, the kv tiles a block and a
 // warp visit, the mask, and the online softmax in base 2 on the m16n8
 // accumulator fragments of mma.sync (the same layout at k16 and at k8).
+// The backward's bodies (flash_attention_bwd_bf16.cuh and _fp32.cuh) take
+// the tiles, the mask, fast_exp2 and the softcap's factor (bwd_x) from
+// here too.
 //
 // Blocks.  One block owns BQ query rows of one (batch, head), 16 rows a
 // warp; blockIdx.x is the (batch, head) and blockIdx.y walks the q-blocks
@@ -165,6 +168,35 @@ __device__ __forceinline__ void store_lse(float* lse_bh, int row, int S,
                                           float m, float l) {
   const float sum = quad_sum(l);
   if (threadIdx.x % 4 == 0 && row < S) lse_bh[row] = m + log2f(sum);
+}
+
+// The backward's constants (flash_attention_bwd.cu): x_scale and cap_out
+// as make_launch's below, and ds_scale = 1/sqrt(hd).
+struct BwdScale {
+  float x_scale, cap_out, ds_scale;
+};
+inline BwdScale bwd_scale(int hd, float cap) {
+  const float scale = static_cast<float>(1.0 / sqrt((double)hd));
+  return {cap > 0.f ? scale / cap : scale * LOG2E,
+          cap > 0.f ? cap * LOG2E : 0.f, scale};
+}
+
+// The backward's x of a score s (the forward's units, so p = exp2(x -
+// lse)), and in dfac the factor that turns p (dp - D) into ds: ds_scale,
+// times 1 - tanh^2 of the cap's argument y with a softcap.  tanh(y) is
+// fast_tanh's 1 - u with u = 2 / (exp2(2 y log2 e) + 1), and 1 - tanh^2 =
+// u (2 - u), which stays accurate where the cap saturates (u -> 0 or 2,
+// the factor -> 0, never 1 - 1 rounded up).
+__device__ __forceinline__ float bwd_x(float s, const BwdScale& sc,
+                                       float& dfac) {
+  float x = s * sc.x_scale, dcap = 1.f;
+  if (sc.cap_out > 0.f) {
+    const float u = 2.f / (fast_exp2(2.f * LOG2E * x) + 1.f);
+    dcap = u * (2.f - u);
+    x = (1.f - u) * sc.cap_out;
+  }
+  dfac = sc.ds_scale * dcap;
+  return x;
 }
 
 // The launch: the two softmax constants of a head dim and a cap, and the

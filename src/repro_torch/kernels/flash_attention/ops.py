@@ -1,7 +1,9 @@
 """Wrappers of the hand-written flash-attention kernels: the forward on the
 tensor cores (csrc/flash_attention.cu, one C entry: fp32 as 3xTF32 in
 csrc/flash_attention_fp32.cuh, bf16 in csrc/flash_attention_bf16.cuh) and
-its backward (csrc/flash_attention_bwd.cu).
+its backward (csrc/flash_attention_bwd.cu, one C entry: bf16 on the tensor
+cores in csrc/flash_attention_bwd_bf16.cuh, fp32 on the CUDA cores in
+csrc/flash_attention_bwd_fp32.cuh).
 
 ``flash_attention(q, k, v, causal, window, logit_cap)`` computes
 softmax-attention with q (B, S, H, hd) and k, v (B, Sk, KV, hd) read in
@@ -25,6 +27,15 @@ softcapped) score of a pair, x = s~ log2 e, ``lse = m + log2(l)`` for the
 row's running max m of x and sum l of exp2(x - m), so p = exp2(x - lse);
 it is the natural log-sum-exp of s~ times log2 e, which is how
 ``attention_ref_lse`` computes it.
+
+The bf16 backward's dk/dv launch has one block a (batch, KV head, key
+block), each looping over the G = H / KV query heads of its KV head.
+Where those blocks are too few for the card (MQA: recurrentgemma-9b's B 1,
+KV 1, G 16 at hd 256 gives 128 for 132 SMs), ``bwd_head_split`` splits the
+G heads into groups, each group's blocks write fp32 partial dk and dv to
+a workspace allocated here, and the kernel's reduce launch sums the groups
+in group order and rounds once, so the gradients do not depend on the
+split's timing.
 """
 from __future__ import annotations
 
@@ -47,7 +58,34 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 4 + [_I] * 9 + [_F] + [_P] + [_P]
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [_F] + [_P]
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [_F] + [_P] + [_I] + [_P]
+
+#: The bf16 backward's keys a dk/dv block at each head dim
+#: (csrc/flash_attention_bwd_bf16.cuh's ``Cfg<HD>::BK``).
+BWD_BLOCK_KEYS = {hd: 32 if hd == 256 else 64 for hd in HEAD_DIMS}
+#: dk/dv blocks an SM the head split aims for: two are resident at every
+#: head dim, so fewer leave an SM's second slot idle.
+BWD_BLOCKS_PER_SM = 2
+
+
+def bwd_head_split(b: int, kv: int, sk: int, g: int, hd: int,
+                   sms: int = 132) -> int:
+    """The groups that the bf16 backward's dk/dv launch splits the ``g``
+    query heads of a KV head into: the fewest, among the divisors of g,
+    that give ``b * kv * ceil(sk / BK)`` blocks times the groups at least
+    ``BWD_BLOCKS_PER_SM`` blocks on each of ``sms`` SMs, else g.  With 1
+    the blocks store dk and dv themselves; above 1 each group writes fp32
+    partials to a workspace of ``bwd_workspace_shape``."""
+    blocks = b * kv * -(-sk // BWD_BLOCK_KEYS[hd])
+    for split in range(1, g + 1):
+        if g % split == 0 and blocks * split >= BWD_BLOCKS_PER_SM * sms:
+            return split
+    return g
+
+
+def bwd_workspace_shape(split: int, b: int, sk: int, kv: int, hd: int):
+    """The fp32 partials of a split launch: dk's groups, then dv's."""
+    return (2, split, b, sk, kv, hd)
 
 
 def _check(q, k, v, window: int) -> None:
@@ -106,8 +144,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True,
                         window: int = 0, logit_cap: float = 0.0):
     """(dq, dk, dv) of ``flash_attention(q, k, v, ...)`` from its output
     ``out``, the output's gradient ``dout`` and the forward's ``lse``: one
-    call of the backward kernel's entry (its row-dot, dk/dv and dq
-    launches), on CUDA tensors only."""
+    call of the backward kernel's entry (its row-dot, dk/dv, in bf16 with a
+    head split its reduce, and dq launches), on CUDA tensors only."""
     _check(q, k, v, window)
     _check_cuda("flash_attention_bwd", q, k, v, out, dout)
     _build.require_cuda_operands("flash_attention_bwd", lse,
@@ -121,13 +159,21 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True,
                          f"{tuple(lse.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rowdot = torch.empty_like(lse)       # D = rowsum(dout * out), workspace
+    split = 1
+    if q.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        split = bwd_head_split(b, kv, sk, h // kv, hd, sms)
+    ws = (torch.empty(bwd_workspace_shape(split, b, sk, kv, hd),
+                      dtype=torch.float32, device=q.device)
+          if split > 1 else None)
     fn = _build.load("flash_attention_bwd", "repro_flash_attention_bwd",
                      _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              dout.data_ptr(), lse.data_ptr(), rowdot.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              b, s, sk, h, kv, hd, DTYPES[q.dtype], int(bool(causal)),
-             int(window), float(logit_cap), _build.stream_handle(q))
+             int(window), float(logit_cap), _build.stream_handle(q), split,
+             None if ws is None else ws.data_ptr())
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

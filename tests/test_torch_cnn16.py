@@ -420,7 +420,7 @@ def test_cost_plans16_equal_reference(cell, dtype):
 
 @pytest.mark.parametrize("header,users", [
     ("csrc/hmma16.cuh", {"gemm_16", "im2col_conv_16", "winograd_fused_16",
-                         "winograd_3pass_16"}),
+                         "winograd_3pass_16", "flash_attention_bwd"}),
     ("winograd/csrc/winograd16_transforms.cuh", {"winograd_fused_16",
                                                  "winograd_3pass_16"}),
     ("csrc/hopper_async.cuh", {"gemm_16", "im2col_conv_16",

@@ -966,6 +966,9 @@ def _grad_row_err(got, ref, floor=1e-2):
     (1, 257, 257, 4, 1, 256, True, 64, 0.0),     # MQA, hd 256, window
     (1, 33, 33, 8, 8, 16, True, 0, 0.0),
     (1, 65, 65, 2, 1, 32, False, 17, 5.0),
+    (1, 257, 257, 16, 1, 256, True, 64, 0.0),    # MQA: the head split
+    (1, 1, 17, 4, 2, 64, False, 0, 0.0),         # S 1: one row of 16
+    (1, 17, 17, 4, 1, 32, True, 0, 0.0),         # S 17: one past a fragment
 ])
 def test_flash_attention_backward_on_card(cuda_device, dtype, b, s, sk, h, kv,
                                           hd, causal, window, cap):
@@ -1000,6 +1003,31 @@ def test_flash_attention_backward_on_card(cuda_device, dtype, b, s, sk, h, kv,
         assert _grad_row_err(got, ref) <= row_tol
     # The instance that writes lse computes the same output as the serving one.
     assert torch.equal(out.detach(), flash_attention(q, k, v, causal, window, cap))
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window,split", [
+    (1, 257, 16, 1, 256, 64, True),    # MQA at hd 256: the heads split
+    (2, 200, 4, 4, 64, 0, False),      # G = 1: one group, stored in place
+])
+def test_flash_attention_backward_is_bit_equal_on_card(cuda_device, b, s, h,
+                                                       kv, hd, window, split):
+    """Two bf16 backward calls on the same inputs give the same bits, with
+    the head split (fp32 partials summed in group order by the reduce
+    launch) and without: no atomics, no order that depends on timing."""
+    from repro_torch.kernels.flash_attention import ops
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (ops.bwd_head_split(b, kv, s, h // kv, hd, sms) > 1) == split
+    q, k, v, do = (t.to(torch.bfloat16) for t in _randn(
+        cuda_device, 31, (b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd),
+        (b, s, h, hd)))
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=cuda_device)
+    out = ops._forward_cuda(q, k, v, True, window, 0.0, lse)
+    first = ops.flash_attention_bwd(q, k, v, out, do, lse, True, window)
+    second = ops.flash_attention_bwd(q, k, v, out, do, lse, True, window)
+    for a, c in zip(first, second):
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-27b",

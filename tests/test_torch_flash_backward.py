@@ -10,8 +10,16 @@ The same numpy inputs go to every side.  fp32 within rtol = atol = 2e-4
 of max(1, max|ref|) (the flash suite's fp32 tolerance): the three compute
 the same sums in other orders.  The Function's wiring on the CPU is the
 card's: its forward saves ``lse``, its backward is the plain backward.
+
+The bf16 kernel's arithmetic (p and ds rounded to bf16 before the dv, dk
+and dq products, its tiles and its head split's group order) is replayed
+by scripts/flash_bwd_replay.py and held here, on bf16 inputs, against
+``jax.vjp`` in fp32 and ``attention_bwd_ref`` at the card's bf16 gates;
+the kernel itself runs on the card (tests/test_torch_cuda.py).
 """
+import importlib.util
 import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +37,14 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     ops,
 )
+
+REPO = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location(
+    "flash_bwd_replay", REPO / "scripts" / "flash_bwd_replay.py")
+replay_mod = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(replay_mod)
+BF16_SOURCE = (_build._KERNELS_DIR / "flash_attention" / "csrc"
+               / "flash_attention_bwd_bf16.cuh")
 
 TOL = 2e-4
 # (B, S, Sk, H, KV, hd, causal, window, cap): causal, window, softcap,
@@ -206,3 +222,100 @@ def test_backward_entry_head_dims_are_the_forward_s():
     fwd_params = fwd_entry[:fwd_entry.index(")")].split("(", 1)[1].split(",")
     assert len(fwd_params) == len(ops._ARGTYPES)
     assert fwd_params[-1].strip() == "float* lse"
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's arithmetic (scripts/flash_bwd_replay.py) and its head
+# split.
+
+# chip_smoke.py's bf16 gates: FLASH_BWD_TOL and FLASH_BWD_ROW_RTOL, each
+# row's norm floored at 1e-2 of the largest row's.
+BF16_TOL = BF16_ROW_TOL = 1e-2
+REPLAY_CASES = {
+    "llama grouping": (1, 128, 128, 8, 2, 64, True, 0, 0.0),
+    "gemma2 window softcap": (1, 160, 160, 4, 2, 128, True, 48, 50.0),
+    "mqa hd 256 split": (1, 96, 96, 8, 1, 256, True, 40, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", REPLAY_CASES)
+def test_bf16_replay_holds_the_card_gates(case):
+    """The replay on bf16 q, k, v and dout against jax.vjp of
+    attention_naive in fp32 on the same (bf16-representable) values, and
+    against the plain backward: each element within 1e-2 of max(1,
+    max|ref|), each row within 1e-2 of its norm (floored).
+
+    jax's vjp uses the exact forward output, so against it the replay
+    takes the fp32 forward's out and lse; against the plain version it
+    takes the bf16 forward's, as the card does.  (The bf16 out moves D =
+    rowsum(dout out) by its rounding, and in the causal rows where dq
+    cancels that alone puts the plain bf16 backward 2.5e-2 per row from
+    jax: a property of the forward's output, not of this kernel.)"""
+    b, s, sk, h, kv, hd, causal, window, cap = REPLAY_CASES[case]
+    q, k, v, do = (torch.tensor(a).bfloat16()
+                   for a in _inputs(b, s, sk, h, kv, hd, seed=4))
+    _, j_grads = _jax_grads(*(t.float().numpy() for t in (q, k, v, do)),
+                            causal, window, cap)
+    out, lse = attention_ref_lse(*(t.float() for t in (q, k, v)), causal,
+                                 window, cap)
+    sides = [(replay_mod.replay(q, k, v, out, do, lse, causal, window, cap),
+              [torch.tensor(j) for j in j_grads])]
+    out, lse = attention_ref_lse(q, k, v, causal, window, cap)
+    sides.append((replay_mod.replay(q, k, v, out, do, lse, causal, window, cap),
+                  attention_bwd_ref(q, k, v, out, do, lse, causal, window, cap)))
+    for got, refs in sides:
+        for x, ref in zip(got, refs):
+            assert x.dtype == torch.bfloat16
+            elem, row = replay_mod.errors(x, ref)
+            assert elem <= BF16_TOL and row <= BF16_ROW_TOL, (elem, row)
+    if case == "mqa hd 256 split":
+        assert ops.bwd_head_split(b, kv, sk, h // kv, hd) > 1
+
+
+def test_bf16_replay_split_sums_the_groups_in_order():
+    """The head split changes only the order of dk's and dv's fp32 sums:
+    split and unsplit replays agree within one bf16 rounding."""
+    b, s, sk, h, kv, hd, causal, window, cap = REPLAY_CASES["mqa hd 256 split"]
+    q, k, v, do = (torch.tensor(a).bfloat16()
+                   for a in _inputs(b, s, sk, h, kv, hd, seed=5))
+    out, lse = attention_ref_lse(q, k, v, causal, window, cap)
+    one = replay_mod.replay(q, k, v, out, do, lse, causal, window, cap, split=1)
+    many = replay_mod.replay(q, k, v, out, do, lse, causal, window, cap, split=8)
+    assert torch.equal(one[0], many[0])       # dq does not depend on it
+    for a, c in zip(one[1:], many[1:]):
+        assert replay_mod.errors(a, c)[0] <= 2 ** -7
+
+
+def test_bwd_head_split_rule():
+    """Llama-3.2-1B's microbatch fills the card unsplit; recurrentgemma-9b's
+    MQA at hd 256 (128 dk/dv blocks for 132 SMs) splits its 16 heads into
+    groups that give every SM two blocks; G = 1 cannot split; the fp32
+    partials' workspace is (dk, dv) x groups x dk's shape."""
+    assert ops.bwd_head_split(2, 8, 4096, 4, 64) == 1
+    split = ops.bwd_head_split(1, 1, 4096, 16, 256)
+    assert split == 4 and 128 * split >= ops.BWD_BLOCKS_PER_SM * 132
+    assert ops.bwd_head_split(1, 1, 4096, 16, 256, sms=64) == 1
+    assert ops.bwd_head_split(1, 16, 1000, 1, 80) == 1
+    assert ops.bwd_head_split(1, 1, 96, 8, 256) == 8   # never more than G
+    assert (ops.bwd_workspace_shape(split, 1, 4096, 1, 256)
+            == (2, split, 1, 4096, 1, 256))
+
+
+def test_replay_tiles_and_split_keys_are_the_kernels():
+    """The replay's tiles and ops.BWD_BLOCK_KEYS are the bf16 kernel's
+    Cfg<HD>, read from its source."""
+    text = BF16_SOURCE.read_text()
+
+    def pick(name):
+        m = re.search(rf"int {name} = HD (<=|==) (\d+) \? (\d+) : (\d+);", text)
+        assert m, name
+        op, edge, yes, no = m.groups()
+        return lambda hd: int(yes) if (hd <= int(edge) if op == "<=" else
+                                       hd == int(edge)) else int(no)
+
+    bk, bq_t, bk_t = pick("BK"), pick("BQ_T"), pick("BK_T")
+    assert "static constexpr int NW = 4;" in text
+    assert "static constexpr int BQ = 16 * NW;" in text
+    for hd in ops.HEAD_DIMS:
+        assert replay_mod.tiles(hd) == (bk(hd), bq_t(hd), 64, bk_t(hd))
+        assert ops.BWD_BLOCK_KEYS[hd] == bk(hd)

@@ -212,6 +212,10 @@ def test_tf32x3_replay_matches_tuple_multiply_pallas():
     ("flash_attention/csrc/flash_attention_fp32.cuh", {"flash_attention"}),
     ("flash_attention/csrc/flash_common.cuh", {"flash_attention",
                                                "flash_attention_bwd"}),
+    ("flash_attention/csrc/flash_attention_bwd_bf16.cuh", {"flash_attention_bwd"}),
+    ("flash_attention/csrc/flash_attention_bwd_fp32.cuh", {"flash_attention_bwd"}),
+    ("csrc/hmma16.cuh", {"gemm_16", "im2col_conv_16", "winograd_fused_16",
+                         "winograd_3pass_16", "flash_attention_bwd"}),
     ("csrc/s8_mma.cuh", {"gemm_q8", "im2col_conv_q8"}),
 ])
 def test_library_path_follows_every_included_header(tmp_path, monkeypatch,

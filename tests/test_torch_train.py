@@ -28,10 +28,14 @@ from repro_torch.train import step as step_lib
 from torch_train_parity import cfgs, check, setup
 
 
-def test_loss_and_gradients_match_reference():
-    """Dense (llama3.2-1b): three periods of one attention layer, each
-    checkpointed under the default remat "full"."""
-    check("llama3.2-1b")
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-27b", "qwen1.5-0.5b",
+                                  "granite-34b"])
+def test_loss_and_gradients_match_reference(arch):
+    """The dense configs, each checkpointed under the default remat "full":
+    llama3.2-1b (three periods of one attention layer), gemma2-27b (the
+    logit and attention softcaps, local and global layers), qwen1.5-0.5b
+    (QKV biases) and granite-34b."""
+    check(arch)
 
 
 @pytest.mark.parametrize("remat", ["none", "dots"])
