@@ -275,8 +275,8 @@ Phases, each on its own printed lines:
    window 2048 MQA, hubert-xlarge hd 80 non-causal S 1000, internvl2-2b hd
    128), per element and per row (``FLASH_BWD_TOL``, ``FLASH_BWD_ROW_RTOL``,
    sized by ``scripts/flash_bwd_replay.py``), two calls bit-equal at
-   Llama's microbatch and at recurrentgemma's hd 256 (the bf16 head
-   split), timed beside SDPA's backward with its bound and, at those two
+   Llama's microbatch and at recurrentgemma's hd 256 (the head split, in
+   both types), timed beside SDPA's backward with its bound and, at those two
    shapes, the plain version; then Llama-3.2-1B at full
    width in bf16 through ``train``: S 4096, a batch of 4 in 2
    microbatches, remat "full", fp32 moments, ``warmup_cosine``, the first
@@ -412,6 +412,8 @@ MOE_FP32_FLIPS = 1e-4
 # roundings and head split at Llama-3.2-1B's grouping, Gemma2-27B's
 # window, softcap and saturated softcap, hd 256 MQA with the split and a
 # ragged non-causal case); 1e-2 keeps a margin of about 1.5-2 over it.
+# fp32: the kernel's 3xTF32 products against the plain fp32 ones, dv, dk
+# and dq summed a tile at a time: scripts/flash_bwd_replay.py --fp32.
 FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
 FLASH_BWD_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 FLASH_BWD_ROW_FLOOR = 1e-2
@@ -2379,9 +2381,15 @@ def flash_bwd_errors(got, ref, dname):
 
 def flash_bwd_ptxas() -> list:
     """One line per backward kernel instance of the build log: kernel, head
-    dim and type, ptxas' registers and spill bytes."""
+    dim and type, ptxas' registers and spill bytes, and for the dk/dv and
+    dq kernels the dynamic shared memory their launch asks for (the
+    library's repro_flash_attention_bwd_smem)."""
+    import ctypes
+
     from repro_torch.kernels import _build
 
+    smem = _build.load("flash_attention_bwd", "repro_flash_attention_bwd_smem",
+                       [ctypes.c_int] * 3)
     lines, head, spill = [], None, ""
     for line in _build.build_logs.get("flash_attention_bwd", "").splitlines():
         if "Compiling entry function" in line:
@@ -2390,15 +2398,20 @@ def flash_bwd_ptxas() -> list:
             m = re.search(
                 r"flash_bwd_(fp32|bf16)\d+flash_bwd_(dkdv|dq)_kernelILi(\d+)E", line)
             d = re.search(r"flash_bwd_dot_kernelI(f|13__nv_bfloat16)", line)
+            r = re.search(r"flash_bwd_(fp32|bf16)\d+flash_bwd_reduce_kernel", line)
             head = (f"flash_bwd {m.group(2)} hd {m.group(3)} {m.group(1)}" if m
                     else f"flash_bwd dot {'fp32' if d.group(1) == 'f' else 'bf16'}"
-                    if d else "flash_bwd reduce bf16"
-                    if "flash_bwd_reduce_kernel" in line else None)
+                    if d else f"flash_bwd reduce {r.group(1)}" if r else None)
+            shared = ""
+            if m:
+                n = smem(int(m.group(3)), int(m.group(1) == "bf16"),
+                         int(m.group(2) == "dq"))
+                shared = f", {n} bytes dynamic shared memory"
         elif head and "spill stores" in line:
             spill = line.split(",", 1)[1].strip()
         elif head and "Used" in line and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            lines.append(f"{head}: {regs} registers, {spill}")
+            lines.append(f"{head}: {regs} registers, {spill}{shared}")
             head = None
     return lines
 
@@ -2419,8 +2432,8 @@ def check_flash_bwd(hw, cells, saturated=(), plain_timed=(), bit_equal=()):
     is larger.  ``saturated`` cells take q x 8 (the softcap's bend: ds
     shrinks by 1 - tanh^2) and are not timed; the plain version is timed
     at the ``plain_timed`` cells only.  At the ``bit_equal`` cells a second
-    call on the same inputs must give the same bits (no atomics; the bf16
-    head split sums its groups in a fixed order).  Returns each timed
+    call on the same inputs must give the same bits (no atomics; the head
+    split sums its groups in a fixed order).  Returns each timed
     case's numbers by (cell, dtype)."""
     import torch
     import torch.nn.functional as F
@@ -2469,10 +2482,9 @@ def check_flash_bwd(hw, cells, saturated=(), plain_timed=(), bit_equal=()):
                 raise AssertionError(f"{label}: kernel disagrees with its plain "
                                      f"version: {text}; lse err {lse_err:.3g}")
             max_err = max(e for e, _, _ in errs)
-            split = (bwd_head_split(b, kv, sk, h // kv, hd,
-                                    torch.cuda.get_device_properties(0)
-                                    .multi_processor_count)
-                     if dtype == torch.bfloat16 else 1)
+            split = bwd_head_split(b, kv, sk, h // kv, hd,
+                                   torch.cuda.get_device_properties(0)
+                                   .multi_processor_count)
             text += f"; head split {split}"
             if cell in bit_equal:
                 again = flash_attention_bwd(q, k, v, o, do, lse, causal,

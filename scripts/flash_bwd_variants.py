@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time the flash-attention backward kernel (kernels/flash_attention/csrc/
-flash_attention_bwd.cu) as built against variants of its bf16 body and,
-with ``--parent DIR``, an earlier commit's, on one NVIDIA GPU.
+flash_attention_bwd.cu) as built against variants of its bf16 or fp32
+body and, with ``--parent DIR``, an earlier commit's, on one NVIDIA GPU.
 
 Each variant is a copy of ``kernels/flash_attention/csrc`` with a few
-lines of ``flash_attention_bwd_bf16.cuh`` replaced (``--variants``):
+lines of ``flash_attention_bwd_bf16.cuh`` (``--variants``) or of
+``flash_attention_bwd_fp32.cuh`` (``--variants --dtype fp32``) replaced.
+bf16:
 
   as built          4 warps a block in both kernels; dk/dv blocks of 64
                     keys (32 at hd 256) looping over query tiles of 64
@@ -19,12 +21,28 @@ lines of ``flash_attention_bwd_bf16.cuh`` replaced (``--variants``):
   dq 2 an SM        two dq blocks an SM at every head dim;
   dq 3 an SM        three dq blocks an SM at every head dim;
   dq 32 keys        dq key tiles of 32 at every head dim;
+fp32:
+  as built          the same blocks and warps as bf16's; dk/dv query
+                    tiles of 64 rows up to hd 64, 32 at hd 80 and 256, 16
+                    at hd 128; dq key tiles of 32 up to hd 80, 16 above;
+                    dv, dk and dq summed a tile at a time into a zeroed
+                    fragment, s and dp 4 k8 steps (2 at hd 16 and 80) at a
+                    time, each partial then added in fp32;
+  one accumulator   every product summed by the tensor cores straight into
+                    its accumulator (mma.sync truncates each sum, so the
+                    error grows with the length of the sum; gated the
+                    same);
+  16-row partials   dv, dk and dq partials of 2 k8 steps (16 rows or keys);
+  dk/dv 32 rows     dk/dv query tiles of 32 rows up to hd 64;
+  dq 64 keys, 2 an SM  dq key tiles of 64 up to hd 64, two blocks an SM;
+both:
   parent            with ``--parent DIR`` (the root of a checkout of an
                     earlier commit, e.g. ``git archive`` of the parent
                     unpacked into a git-ignored directory): that tree's
                     flash_attention_bwd.cu and its headers as they are;
                     its entry is called with this tree's arguments, and
-                    an entry without the head split ignores the two last.
+                    an entry without the head split ignores the two last
+                    (in fp32 it is given split 1, the parent's only one).
 
 Each is built by nvcc with the port's flags into its own library under
 ``build/flash_bwd_variants/`` (from the kernels directory, so ``-I csrc``
@@ -34,8 +52,8 @@ each backward kernel are printed.
 At each shape that ``chip_smoke.py``'s phase 8f times (the trained
 configs' attention: Llama-3.2-1B's microbatch, Gemma2-27B's local and
 global layers with the softcap, recurrentgemma-9b's MQA at hd 256,
-hubert-xlarge, internvl2-2b), in bf16 (and, with ``--fp32``, Llama's
-microbatch in fp32): the forward kernel's output and lse, then each
+hubert-xlarge, internvl2-2b), in ``--dtype`` (bf16 by default): the
+forward kernel's output and lse, then each
 build's dq, dk and dv held against the plain version (``attention_bwd_ref``
 on the same out and lse) at chip_smoke.py's gates (``FLASH_BWD_TOL``,
 ``FLASH_BWD_ROW_RTOL``), two calls of the as-built one compared bit for
@@ -47,7 +65,7 @@ call's device time by kernel (``torch.profiler``: the row dot, dk/dv,
 the split's reduce, dq).
 
     PYTHONPATH=src python scripts/flash_bwd_variants.py [--parent DIR] \
-        [--variants] [--profile] [--fp32]
+        [--variants] [--profile] [--dtype fp32]
 """
 from __future__ import annotations
 
@@ -71,6 +89,7 @@ REPO = Path(__file__).resolve().parents[1]
 SOURCE = _build._KERNELS_DIR / _build.SOURCES["flash_attention_bwd"]
 OUT = _build.BUILD_DIR.parent / "flash_bwd_variants"
 BF16 = "flash_attention_bwd_bf16.cuh"
+FP32 = "flash_attention_bwd_fp32.cuh"
 DKDV_BOUNDS = ("__launch_bounds__(Cfg<HD>::THREADS, 2)\n"
                "flash_bwd_dkdv_kernel(")
 DQ_BLOCKS = "int DQ_BLOCKS = HD <= 64 ? 3 : 2;"
@@ -87,6 +106,35 @@ VARIANTS = {
     "dq 32 keys": [(BF16, "int BK_T = HD <= 64 ? 64 : 32;",
                     "int BK_T = HD <= 64 ? 32 : 32;")],
 }
+FP32_VARIANTS = {
+    "as built": [],
+    "one accumulator": [
+        (FP32, "mma_3xtf32(part, ah[j], al[j], bh, bl);",
+         "mma_3xtf32(acc[d], ah[j], al[j], bh, bl);"),
+        (FP32, "for (int e = 0; e < 4; ++e) acc[d][e] += part[e];",
+         "for (int e = 0; e < 4; ++e) (void)part[e];"),
+        (FP32, "int JD_DKDV = HD % 32 == 0 ? 4 : 2;", "int JD_DKDV = KS;"),
+        (FP32, "int JD_DQ = 1;", "int JD_DQ = KS;"),
+    ],
+    "dq s/dp 4 k8 steps": [
+        (FP32, "int JD_DQ = 1;", "int JD_DQ = HD % 32 == 0 ? 4 : 2;"),
+    ],
+    "dk/dv s/dp one accumulator": [
+        (FP32, "int JD_DKDV = HD % 32 == 0 ? 4 : 2;", "int JD_DKDV = KS;"),
+    ],
+    "16-row partials": [
+        (FP32, "int JQ = BQ_T / 8;", "int JQ = 2;"),
+        (FP32, "int JK = BK_T / 8;", "int JK = 2;"),
+    ],
+    "dk/dv 32 rows": [
+        (FP32, "int BQ_T = HD <= 64 ? 64 :", "int BQ_T = HD <= 64 ? 32 :"),
+    ],
+    "dq 64 keys, 2 an SM": [
+        (FP32, "int BK_T = HD <= 80 ? 32 : 16;",
+         "int BK_T = HD <= 64 ? 64 : HD <= 80 ? 32 : 16;"),
+        (FP32, "int DQ_BLOCKS = HD <= 64 ? 3 :", "int DQ_BLOCKS = HD <= 64 ? 2 :"),
+    ],
+}
 # chip_smoke.py's FLASH_BWD_TOL and FLASH_BWD_ROW_RTOL, row floor 1e-2.
 TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (2e-4, 1e-4)}
 CASES = {
@@ -101,10 +149,12 @@ CASES = {
 }
 
 
-def build(variants: dict, parent: Path | None) -> dict:
+def build(variants: dict, parent: Path | None, body: str) -> dict:
     """name -> the C entry of each build: ``variants`` maps a name to its
     edits, (file in csrc, old text, new text), each old text found once;
-    ``parent`` adds "parent", that tree's sources as they are."""
+    ``parent`` adds "parent", that tree's sources as they are.  Prints
+    ptxas' registers and spills of the ``body`` ("bf16" or "fp32")
+    kernels of each build but the parent."""
     jobs = {name: (SOURCE, edits) for name, edits in variants.items()}
     if parent is not None:
         jobs["parent"] = (parent / SOURCE.relative_to(REPO), [])
@@ -133,7 +183,7 @@ def build(variants: dict, parent: Path | None) -> dict:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
-            elif (name != "parent" and "flash_bwd" in entry
+            elif (name != "parent" and f"flash_bwd_{body}" in entry
                   and ("registers" in line or "spill" in line)):
                 print(f"  ptxas {name} {entry}: {line.strip()}")
         fn = ctypes.CDLL(str(lib)).repro_flash_attention_bwd
@@ -142,14 +192,21 @@ def build(variants: dict, parent: Path | None) -> dict:
     return fns
 
 
-def call(fn, q, k, v, o, do, lse, causal, window, cap):
+def head_split(q, k, parent: bool = False) -> int:
+    """ops.flash_attention_bwd's head split; 1 for the parent in fp32."""
+    b, _, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if parent and q.dtype == torch.float32:
+        return 1
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return ops.bwd_head_split(b, kv, sk, h // kv, hd, sms)
+
+
+def call(fn, q, k, v, o, do, lse, causal, window, cap, parent=False):
     """One call of a build's entry, as ops.flash_attention_bwd makes it."""
     b, s, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    split = 1
-    if q.dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        split = ops.bwd_head_split(b, kv, sk, h // kv, hd, sms)
+    split = head_split(q, k, parent)
     ws = (torch.empty(ops.bwd_workspace_shape(split, b, sk, kv, hd),
                       dtype=torch.float32, device=q.device)
           if split > 1 else None)
@@ -216,7 +273,7 @@ def run_case(fns, name, dtype, shape, prof: bool) -> bool:
     ok = True
     text = []
     for bname, fn in fns.items():
-        grads = call(fn, *args, causal, window, cap)
+        grads = call(fn, *args, causal, window, cap, bname == "parent")
         errs = [errors(x, r) for x, r in zip(grads, refs)]
         good = all(e <= tol and r <= row_tol for e, r in errs)
         if bname == "as built":
@@ -233,10 +290,9 @@ def run_case(fns, name, dtype, shape, prof: bool) -> bool:
     times = {n: [] for n in fns}
     for bname in order:
         times[bname].append(cold_ms(
-            lambda *a, fn=fns[bname]: call(fn, *a, causal, window, cap), args))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    split = (ops.bwd_head_split(b, kv, sk, h // kv, hd, sms)
-             if dtype == torch.bfloat16 else 1)
+            lambda *a, fn=fns[bname], par=bname == "parent": call(
+                fn, *a, causal, window, cap, par), args))
+    split = head_split(q, k)
     dname = str(dtype).split(".")[-1]
     print(f"{name} {dname} split {split}: " + "; ".join(text), flush=True)
     print(f"  ms " + "; ".join(f"{n} {' '.join(f'{t:.4f}' for t in ts)}"
@@ -253,11 +309,11 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, default=None,
                     help="root of an earlier checkout whose kernel to time")
     ap.add_argument("--variants", action="store_true",
-                    help="also the variants of the bf16 body")
+                    help="also the variants of the --dtype body")
     ap.add_argument("--profile", action="store_true",
                     help="the as-built call's device time by kernel")
-    ap.add_argument("--fp32", action="store_true",
-                    help="also Llama-3.2-1B's microbatch in fp32")
+    ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16",
+                    help="the inputs' type, and so the body timed")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -265,14 +321,14 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    fns = build(VARIANTS if args.variants else {"as built": []}, args.parent)
+    fp32 = args.dtype == "fp32"
+    variants = FP32_VARIANTS if fp32 else VARIANTS
+    fns = build(variants if args.variants else {"as built": []}, args.parent,
+                args.dtype)
+    dtype = torch.float32 if fp32 else torch.bfloat16
     ok = True
     for name, shape in CASES.items():
-        ok = run_case(fns, name, torch.bfloat16, shape, args.profile) and ok
-    if args.fp32:
-        name = "llama3.2-1b microbatch"
-        fp32 = {n: f for n, f in fns.items() if n in ("as built", "parent")}
-        ok = run_case(fp32, name, torch.float32, CASES[name], args.profile) and ok
+        ok = run_case(fns, name, dtype, shape, args.profile) and ok
     print("all builds within the gates" if ok else "SOME BUILD FAILS")
     return 0 if ok else 1
 

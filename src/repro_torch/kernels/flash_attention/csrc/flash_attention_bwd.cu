@@ -3,8 +3,9 @@
 // gradient dO and the row statistic lse the forward wrote (flash_common.cuh's
 // store_lse), without writing the (S, Sk) probabilities to device memory.
 // One C entry, repro_flash_attention_bwd, dispatches by type: bf16 inputs
-// run flash_attention_bwd_bf16.cuh's kernels (mma.sync on the tensor
-// cores), fp32 inputs flash_attention_bwd_fp32.cuh's (the CUDA cores).
+// run flash_attention_bwd_bf16.cuh's kernels (mma.sync m16n8k16), fp32
+// inputs flash_attention_bwd_fp32.cuh's (3xTF32 on mma.sync m16n8k8), both
+// on the tensor cores and of one shape.
 //
 // It replaces no TPU kernel.  The JAX package trains through plain XLA
 // attention (repro/models/attention.py: attention_naive, attention_chunked)
@@ -33,16 +34,16 @@
 //   2. flash_bwd_dkdv_kernel: dk and dv, one block a (batch, KV head, key
 //      block), looping over the query heads of its KV head and the query
 //      tiles that hold a valid pair for its keys;
-//   3. bf16 with split > 1 only: flash_bwd_reduce_kernel, twice (dk, dv);
+//   3. with split > 1 only: flash_bwd_reduce_kernel, twice (dk, dv);
 //   4. flash_bwd_dq_kernel: dq, one block a (batch, head, query block),
 //      looping over the key tiles of its rows.
-// The bf16 dk/dv launch may split the G query heads of a KV head into
+// The dk/dv launch may split the G query heads of a KV head into
 // `split` groups (blockIdx.z), where B KV ceil(Sk / BK) blocks alone would
 // leave SMs idle (ops.py's bwd_head_split chooses it: MQA at hd 256 splits,
 // Llama's microbatch does not).  Each group then writes its fp32 partial
 // dk and dv to the workspace `ws`, and the reduce launch sums the groups
-// in group order and rounds once, so the result does not depend on the
-// split's timing and is bit-equal from call to call.
+// in group order (and in bf16 rounds once), so the result does not depend
+// on the split's timing and is bit-equal from call to call.
 //
 // What bounds it, and each body's design: the notes of the two headers.
 #include <cuda_bf16.h>
@@ -102,7 +103,8 @@ template <int HD>
 int launch_fp32(const void* q, const void* k, const void* v, const void* o,
                 const void* dO, const float* lse, float* D, void* dq,
                 void* dk, void* dv, int B, int S, int Sk, int H, int KV,
-                int causal, int window, float cap, cudaStream_t stream) {
+                int causal, int window, float cap, int split, float* ws,
+                cudaStream_t stream) {
   namespace f = flash_bwd_fp32;
   using C = f::Cfg<HD>;
   static bool configured[per_device::MAX_DEVICES] = {};
@@ -112,30 +114,40 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* o,
   if (!configured[dev]) {
     err = cudaFuncSetAttribute(f::flash_bwd_dkdv_kernel<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
+                               C::SMEM_DKDV);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaFuncSetAttribute(f::flash_bwd_dq_kernel<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
+                               C::SMEM_DQ);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured[dev] = true;
   }
   const int q_blocks = (S + C::BQ - 1) / C::BQ;
   const int k_blocks = (Sk + C::BK - 1) / C::BK;
-  if (q_blocks > 65535 || k_blocks > 65535)
+  if (q_blocks > 65535 || k_blocks > 65535 || split > 65535 ||
+      (split > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const fc::BwdScale sc = fc::bwd_scale(HD, cap);
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   const float* gt = static_cast<const float*>(dO);
+  float* dkt = static_cast<float*>(dk);
+  float* dvt = static_cast<float*>(dv);
   launch_dot<float>(o, dO, D, B, S, H, HD, stream);
   f::flash_bwd_dkdv_kernel<HD>
-      <<<dim3(B * KV, k_blocks), f::THREADS, C::SMEM, stream>>>(
-          qt, kt, vt, gt, lse, D, static_cast<float*>(dk),
-          static_cast<float*>(dv), S, Sk, H, KV, causal, window, sc);
+      <<<dim3(B * KV, k_blocks, split), C::THREADS, C::SMEM_DKDV, stream>>>(
+          qt, kt, vt, gt, lse, D, dkt, dvt, ws, S, Sk, H, KV, causal, window,
+          sc);
+  if (split > 1) {
+    const size_t n = (size_t)B * Sk * KV * HD;
+    const unsigned blocks = (unsigned)((n / 4 + 255) / 256);
+    f::flash_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(ws, dkt, n, split);
+    f::flash_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(ws + split * n,
+                                                           dvt, n, split);
+  }
   f::flash_bwd_dq_kernel<HD>
-      <<<dim3(B * H, q_blocks), f::THREADS, C::SMEM, stream>>>(
+      <<<dim3(B * H, q_blocks), C::THREADS, C::SMEM_DQ, stream>>>(
           qt, kt, vt, gt, lse, D, static_cast<float*>(dq), S, Sk, H, KV,
           causal, window, sc);
   return static_cast<int>(cudaGetLastError());
@@ -206,7 +218,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
 // D is a (B, H, S) fp32 workspace.  dtype 0: float, 1: bfloat16; hd in
 // {16, 32, 64, 80, 128, 256}; H % KV == 0; window <= 0: no window; cap <=
 // 0: no softcap.  split: the groups of the G = H / KV query heads of a KV
-// head that the bf16 dk/dv launch takes apart, dividing G (1 for fp32);
+// head that the dk/dv launch takes apart, dividing G;
 // with split > 1, ws is a (2, split, B, Sk, KV, hd) fp32 workspace (dk's
 // partials, then dv's).  They come last, after the stream, so that the
 // variants scripts can pass them to an earlier build of this entry, which
@@ -218,15 +230,14 @@ extern "C" int repro_flash_attention_bwd(
     int B, int S, int Sk, int H, int KV, int hd, int dtype, int causal,
     int window, float cap, cudaStream_t stream, int split, float* ws) {
   if (B < 1 || S < 1 || Sk < 1 || KV < 1 || H % KV != 0 || dtype < 0 ||
-      dtype > 1 || split < 1 || (H / KV) % split != 0 ||
-      (dtype == 0 && split != 1))
+      dtype > 1 || split < 1 || (H / KV) % split != 0)
     return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_FLASH_BWD_CASE(HD)                                              \
   case HD:                                                                    \
     return dtype == 0                                                         \
                ? flash_bwd::launch_fp32<HD>(q, k, v, o, dO, lse, D, dq, dk,   \
                                             dv, B, S, Sk, H, KV, causal,      \
-                                            window, cap, stream)              \
+                                            window, cap, split, ws, stream)   \
                : flash_bwd::launch_bf16<HD>(q, k, v, o, dO, lse, D, dq, dk,   \
                                             dv, B, S, Sk, H, KV, causal,      \
                                             window, cap, split, ws, stream);
@@ -240,4 +251,28 @@ extern "C" int repro_flash_attention_bwd(
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_FLASH_BWD_CASE
+}
+
+// The dynamic shared memory of one instance, in bytes: the dk/dv kernel's
+// (kernel 0) or the dq kernel's (1) at head dim hd and type dtype (as
+// above); 0 for anything not compiled.  chip_smoke.py prints it beside
+// ptxas' registers.
+extern "C" int repro_flash_attention_bwd_smem(int hd, int dtype, int kernel) {
+#define REPRO_FLASH_BWD_SMEM(HD)                                              \
+  case HD:                                                                    \
+    return dtype == 0 ? (kernel == 0 ? flash_bwd_fp32::Cfg<HD>::SMEM_DKDV     \
+                                     : flash_bwd_fp32::Cfg<HD>::SMEM_DQ)      \
+                      : (kernel == 0 ? flash_bwd_bf16::Cfg<HD>::SMEM_DKDV     \
+                                     : flash_bwd_bf16::Cfg<HD>::SMEM_DQ);
+  if (dtype < 0 || dtype > 1 || kernel < 0 || kernel > 1) return 0;
+  switch (hd) {
+    REPRO_FLASH_BWD_SMEM(16)
+    REPRO_FLASH_BWD_SMEM(32)
+    REPRO_FLASH_BWD_SMEM(64)
+    REPRO_FLASH_BWD_SMEM(80)
+    REPRO_FLASH_BWD_SMEM(128)
+    REPRO_FLASH_BWD_SMEM(256)
+    default: return 0;
+  }
+#undef REPRO_FLASH_BWD_SMEM
 }

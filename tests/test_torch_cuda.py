@@ -1005,20 +1005,23 @@ def test_flash_attention_backward_on_card(cuda_device, dtype, b, s, sk, h, kv,
     assert torch.equal(out.detach(), flash_attention(q, k, v, causal, window, cap))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,s,h,kv,hd,window,split", [
     (1, 257, 16, 1, 256, 64, True),    # MQA at hd 256: the heads split
     (2, 200, 4, 4, 64, 0, False),      # G = 1: one group, stored in place
 ])
-def test_flash_attention_backward_is_bit_equal_on_card(cuda_device, b, s, h,
-                                                       kv, hd, window, split):
-    """Two bf16 backward calls on the same inputs give the same bits, with
-    the head split (fp32 partials summed in group order by the reduce
-    launch) and without: no atomics, no order that depends on timing."""
+def test_flash_attention_backward_is_bit_equal_on_card(cuda_device, dtype, b,
+                                                       s, h, kv, hd, window,
+                                                       split):
+    """Two backward calls (bf16 or fp32) on the same inputs give the same
+    bits, with the head split (fp32 partials summed in group order by the
+    reduce launch) and without: no atomics, no order that depends on
+    timing."""
     from repro_torch.kernels.flash_attention import ops
 
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert (ops.bwd_head_split(b, kv, s, h // kv, hd, sms) > 1) == split
-    q, k, v, do = (t.to(torch.bfloat16) for t in _randn(
+    q, k, v, do = (t.to(dtype) for t in _randn(
         cuda_device, 31, (b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd),
         (b, s, h, hd)))
     lse = torch.empty((b, h, s), dtype=torch.float32, device=cuda_device)

@@ -15,7 +15,10 @@ The bf16 kernel's arithmetic (p and ds rounded to bf16 before the dv, dk
 and dq products, its tiles and its head split's group order) is replayed
 by scripts/flash_bwd_replay.py and held here, on bf16 inputs, against
 ``jax.vjp`` in fp32 and ``attention_bwd_ref`` at the card's bf16 gates;
-the kernel itself runs on the card (tests/test_torch_cuda.py).
+so is the fp32 kernel's (every product as 3xTF32, the permuted k8 steps,
+the partial sums, its tiles and its head split), on fp32 inputs, at the
+card's fp32 gates; the kernels themselves run on the card
+(tests/test_torch_cuda.py).
 """
 import importlib.util
 import re
@@ -37,6 +40,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     ops,
 )
+from repro_torch.kernels.flash_attention.ref import LOG2E, attention_mask
 
 REPO = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location(
@@ -45,6 +49,7 @@ replay_mod = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(replay_mod)
 BF16_SOURCE = (_build._KERNELS_DIR / "flash_attention" / "csrc"
                / "flash_attention_bwd_bf16.cuh")
+FP32_SOURCE = BF16_SOURCE.with_name("flash_attention_bwd_fp32.cuh")
 
 TOL = 2e-4
 # (B, S, Sk, H, KV, hd, causal, window, cap): causal, window, softcap,
@@ -319,3 +324,163 @@ def test_replay_tiles_and_split_keys_are_the_kernels():
     for hd in ops.HEAD_DIMS:
         assert replay_mod.tiles(hd) == (bk(hd), bq_t(hd), 64, bk_t(hd))
         assert ops.BWD_BLOCK_KEYS[hd] == bk(hd)
+
+
+# ---------------------------------------------------------------------------
+# The fp32 kernel's arithmetic (scripts/flash_bwd_replay.py's replay_fp32).
+
+# chip_smoke.py's fp32 gates: FLASH_BWD_TOL and FLASH_BWD_ROW_RTOL, each
+# row's norm floored at 1e-2 of the largest row's.
+FP32_TOL, FP32_ROW_TOL = 2e-4, 1e-4
+# (B, S, Sk, H, KV, hd, causal, window, cap, q scale): Llama-3.2-1B's
+# grouping, Gemma2's window with its softcap, the softcap saturated (q x
+# 8), ragged non-causal, hd 256 MQA with the head split.
+FP32_REPLAY_CASES = {
+    "llama grouping": (1, 128, 128, 8, 2, 64, True, 0, 0.0, 1.0),
+    "gemma2 window softcap": (1, 144, 144, 4, 2, 128, True, 48, 50.0, 1.0),
+    "softcap saturated": (1, 96, 96, 4, 2, 32, True, 0, 2.0, 8.0),
+    "non-causal ragged": (2, 70, 45, 4, 2, 64, False, 0, 0.0, 1.0),
+    "mqa hd 256 split": (1, 96, 96, 8, 1, 256, True, 40, 0.0, 1.0),
+}
+
+
+def _fp32_case(case, seed=6):
+    b, s, sk, h, kv, hd, causal, window, cap, qs = FP32_REPLAY_CASES[case]
+    q, k, v, do = _inputs(b, s, sk, h, kv, hd, seed=seed, q_scale=qs)
+    t = [torch.tensor(a) for a in (q, k, v, do)]
+    out, lse = attention_ref_lse(*t[:3], causal, window, cap)
+    return (q, k, v, do), t, out, lse, (causal, window, cap)
+
+
+def _plain_f64(q, k, v, out, dout, lse, causal, window, cap):
+    """dq of attention_bwd_ref's steps in float64 from the same (out, lse,
+    dout): p = exp2(s~ log2 e - lse), D = rowsum(dout o out), ds = p (dp -
+    D) / sqrt(hd) (times 1 - tanh^2 with a cap), dq = ds k."""
+    b, s, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    mask = attention_mask(s, sk, causal, window)
+    dq = torch.empty(q.shape, dtype=torch.float64)
+    for bi in range(b):
+        for j in range(kv):
+            heads = slice(j * g, (j + 1) * g)
+            qg, og, dog = (t[bi, :, heads].double().transpose(0, 1)
+                           for t in (q, out, dout))
+            kj, vj = k[bi, :, j].double(), v[bi, :, j].double()
+            y = qg @ kj.T / np.sqrt(hd)
+            sc = torch.tanh(y / cap) * cap if cap > 0 else y
+            p = torch.where(mask, torch.exp2(sc * LOG2E
+                                             - lse[bi, heads, :, None].double()),
+                            0.0)
+            ds = p * (dog @ vj.T - (dog * og).sum(-1, keepdim=True)) / np.sqrt(hd)
+            if cap > 0:
+                ds = ds * (1 - torch.tanh(y / cap).square())
+            dq[bi, :, heads] = (ds @ kj).transpose(0, 1)
+    return dq
+
+
+@pytest.mark.parametrize("case", FP32_REPLAY_CASES)
+def test_fp32_replay_holds_the_card_gates(case):
+    """The fp32 replay against jax.vjp of attention_naive and against the
+    plain backward, on the same numpy inputs and the plain forward's out
+    and lse: each element within 2e-4 of max(1, max|ref|), each row within
+    1e-4 of its norm (floored at 1e-2 of the largest row's).
+
+    At hd 256 the causal first row's dq, whose true value cancels to ~0
+    (one key: p = 1, dp = D), is held at the floor, and there the plain
+    version's own fp32 dq is 3.7e-5 to 1.2e-4 per row from its steps in
+    float64 over eight draws (its dp, a GEMM, and D, a row sum, round the
+    same dot product in two orders), the replay 2.2e-5 to 5.7e-5: the two
+    fp32 results differ by more than the gate (up to 1.9e-4) on six draws
+    of fourteen.  So at
+    hd 256 dq is held against jax (which takes D from p dp and cancels
+    that row exactly) and against the plain version's steps in float64
+    from the same (out, lse), at the same gates; dk and dv, and every other
+    case, against all three."""
+    b, s, sk, h, kv, hd, causal, window, cap, _ = FP32_REPLAY_CASES[case]
+    arrays, t, out, lse, mask = _fp32_case(case)
+    got = replay_mod.replay_fp32(t[0], t[1], t[2], out, t[3], lse, *mask)
+    _, j_grads = _jax_grads(*arrays, *mask)
+    plain = list(attention_bwd_ref(t[0], t[1], t[2], out, t[3], lse, *mask))
+    f64 = _plain_f64(t[0], t[1], t[2], out, t[3], lse, *mask)
+    if hd == 256:
+        plain[0] = f64
+    for refs in ([torch.tensor(j) for j in j_grads], plain, [f64]):
+        for x, ref in zip(got, refs):
+            assert x.dtype == torch.float32 and torch.isfinite(x).all()
+            elem, row = replay_mod.errors(x, ref)
+            assert elem <= FP32_TOL and row <= FP32_ROW_TOL, (elem, row)
+
+
+@pytest.mark.parametrize("terms", [2, 1])
+@pytest.mark.parametrize("case", ["llama grouping", "gemma2 window softcap",
+                                  "mqa hd 256 split"])
+def test_fp32_replay_without_a_correction_term_fails(case, terms):
+    """The margin: with the hi.lo term dropped (2), or as plain TF32 (1),
+    some gradient breaks the fp32 gates where the three terms pass."""
+    _, t, out, lse, mask = _fp32_case(case)
+    plain = attention_bwd_ref(t[0], t[1], t[2], out, t[3], lse, *mask)
+    got = replay_mod.replay_fp32(t[0], t[1], t[2], out, t[3], lse, *mask,
+                                 terms=terms)
+    worst = [replay_mod.errors(x, r) for x, r in zip(got, plain)]
+    assert any(e > FP32_TOL or r > FP32_ROW_TOL for e, r in worst), worst
+
+
+def test_fp32_replay_split_sums_the_groups_in_order():
+    """The head split changes only the order of dk's and dv's fp32 sums:
+    split and unsplit replays agree within fp32 rounding; dq does not
+    depend on it."""
+    _, t, out, lse, mask = _fp32_case("mqa hd 256 split", seed=7)
+    args = (t[0], t[1], t[2], out, t[3], lse, *mask)
+    one = replay_mod.replay_fp32(*args, split=1)
+    many = replay_mod.replay_fp32(*args, split=8)
+    assert torch.equal(one[0], many[0])
+    for a, c in zip(one[1:], many[1:]):
+        assert replay_mod.errors(a, c)[0] <= 1e-6
+
+
+def _c_int(expr: str, env: dict) -> int:
+    """An int constant expression of a Cfg<HD> line: right-nested ?:,
+    comparisons, + - * / %, names from ``env``."""
+    if "?" in expr:
+        cond, rest = expr.split("?", 1)
+        then, other = rest.split(":", 1)
+        return _c_int(then if _c_int(cond, env) else other, env)
+    return int(eval(expr.replace("/", "//"), {"__builtins__": {}}, env))
+
+
+def _cfg(text: str, hd: int) -> dict:
+    """Every ``static constexpr int`` of the source's Cfg<HD> at head dim
+    ``hd``, in order of definition."""
+    body = text[text.index("struct Cfg {"):]
+    body = body[:body.index("\n};")]
+    env = {"HD": hd}
+    for name, expr in re.findall(r"static constexpr int (\w+) =\s*([^;]+);",
+                                 body):
+        env[name] = _c_int(" ".join(expr.split()), env)
+    return env
+
+
+def test_fp32_replay_tiles_and_split_keys_are_the_kernels():
+    """The fp32 replay's tiles and partial lengths are the fp32 kernel's
+    Cfg<HD>, read from its source; its keys a dk/dv block equal the bf16
+    body's, so ops.BWD_BLOCK_KEYS and bwd_head_split hold for both types:
+    recurrentgemma-9b's MQA at hd 256 splits 4 ways in fp32 too."""
+    fp32, bf16 = FP32_SOURCE.read_text(), BF16_SOURCE.read_text()
+    for hd in ops.HEAD_DIMS:
+        c = _cfg(fp32, hd)
+        assert replay_mod.tiles_fp32(hd) == (
+            c["BK"], c["BQ_T"], c["JQ"], c["JD_DKDV"], c["BQ"], c["BK_T"],
+            c["JK"], c["JD_DQ"])
+        assert c["BK"] == _cfg(bf16, hd)["BK"] == ops.BWD_BLOCK_KEYS[hd]
+        assert c["THREADS"] == 128 and c["BQ"] == 64
+    assert ops.bwd_head_split(1, 1, 4096, 16, 256) == 4
+    assert ops.bwd_head_split(2, 8, 4096, 4, 64) == 1
+    # Every product on the shared 3xTF32 helpers: no CUDA-core FMA loop,
+    # no p or ds array in shared memory.
+    assert "tc::mma_tf32(c, al, bh);\n  tc::mma_tf32(c, ah, bl);\n" in fp32
+    assert not re.search(r"fmaf\(|\bP[sS]\b|\bdS[sS]\b", fp32)
+    header = _build._KERNELS_DIR / _build.SHARED_INCLUDE / "sgemm_3xtf32.cuh"
+    assert header in _build.included_headers(FP32_SOURCE)
+    assert "(dtype == 0 && split != 1)" not in (
+        _build._KERNELS_DIR / _build.SOURCES["flash_attention_bwd"]).read_text()

@@ -206,7 +206,7 @@ def test_tf32x3_replay_matches_tuple_multiply_pallas():
 
 @pytest.mark.parametrize("header,users", [
     ("csrc/sgemm_3xtf32.cuh", {"gemm", "winograd_3pass", "winograd_fused",
-                               "flash_attention"}),
+                               "flash_attention", "flash_attention_bwd"}),
     ("winograd/csrc/winograd_transforms.cuh", {"winograd_fused", "winograd_3pass"}),
     ("flash_attention/csrc/flash_attention_bf16.cuh", {"flash_attention"}),
     ("flash_attention/csrc/flash_attention_fp32.cuh", {"flash_attention"}),
