@@ -269,8 +269,9 @@ Phases, each on its own printed lines:
 8f. LM training (``repro_torch.train``): the flash backward kernel
    (``flash_attention_bwd.cu``; ptxas lines a kernel instance) against
    ``attention_bwd_ref`` from the kernel forward's own output and lse, in
-   bf16 and fp32, at each trained config's attention shape (Llama-3.2-1B's
-   microbatch B 2 S 4096, Gemma2-27B local S 8192 and global S 4096 with
+   bf16 and fp32 (fp32 against its steps in float64), at each trained
+   config's attention shape (Llama-3.2-1B's microbatch B 2 S 4096,
+   Gemma2-27B local S 8192 and global S 4096 with
    the softcap, and its saturated case with q x 8, recurrentgemma-9b hd 256
    window 2048 MQA, hubert-xlarge hd 80 non-causal S 1000, internvl2-2b hd
    128), per element and per row (``FLASH_BWD_TOL``, ``FLASH_BWD_ROW_RTOL``,
@@ -400,8 +401,7 @@ MOE_FP32_FLIPS = 1e-4
 # sums of hd products in other orders, so their difference keeps ~1e-7 of
 # |dp|) is held at the others' scale, not at its own (in fp32 such a row
 # read 2.1e-4 of its norm at a floor of 1e-3, at Llama's microbatch on
-# the card).  fp32: the forward's gates (both sum the same fp32 products
-# in other orders).
+# the card).
 # bf16: the kernel's tensor cores sum exact products of the bf16 inputs
 # in fp32 and it rounds p and ds to bf16 before the dv, dk and dq
 # products (as SDPA's backward does), where the plain version keeps them
@@ -412,8 +412,15 @@ MOE_FP32_FLIPS = 1e-4
 # roundings and head split at Llama-3.2-1B's grouping, Gemma2-27B's
 # window, softcap and saturated softcap, hd 256 MQA with the split and a
 # ragged non-causal case); 1e-2 keeps a margin of about 1.5-2 over it.
-# fp32: the kernel's 3xTF32 products against the plain fp32 ones, dv, dk
-# and dq summed a tile at a time: scripts/flash_bwd_replay.py --fp32.
+# fp32: the forward's gates, against attention_bwd_ref's steps in float64
+# (on float64 copies of the same inputs).  At a causal first row an fp32
+# evaluation keeps only its rounding of dp - D, where the kernel's 3xTF32
+# sums and the plain version's fp32 sums round apart, so the two fp32
+# results can differ there by more than the row gate; each fp32 line
+# prints the kernel's row errors against the fp32 plain version and the
+# fp32 plain version's from float64 beside the gated ones.  The kernel's
+# arithmetic (dv, dk and dq summed a tile at a time) is replayed on the
+# CPU by scripts/flash_bwd_replay.py --fp32.
 FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
 FLASH_BWD_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 FLASH_BWD_ROW_FLOOR = 1e-2
@@ -2379,6 +2386,12 @@ def flash_bwd_errors(got, ref, dname):
     return err, tol, row
 
 
+def flash_bwd_rows(grads, refs) -> str:
+    """The fp32 per-row errors (with the row floor) of dq, dk and dv."""
+    return " ".join(f"{n} {flash_bwd_errors(x, r, 'float32')[2]:.3g}"
+                    for n, x, r in zip(("dq", "dk", "dv"), grads, refs))
+
+
 def flash_bwd_ptxas() -> list:
     """One line per backward kernel instance of the build log: kernel, head
     dim and type, ptxas' registers and spill bytes, and for the dk/dv and
@@ -2398,10 +2411,12 @@ def flash_bwd_ptxas() -> list:
             m = re.search(
                 r"flash_bwd_(fp32|bf16)\d+flash_bwd_(dkdv|dq)_kernelILi(\d+)E", line)
             d = re.search(r"flash_bwd_dot_kernelI(f|13__nv_bfloat16)", line)
-            r = re.search(r"flash_bwd_(fp32|bf16)\d+flash_bwd_reduce_kernel", line)
+            r = re.search(r"flash_bwd_reduce_kernelI(f|13__nv_bfloat16)", line)
+            kind = d or r
             head = (f"flash_bwd {m.group(2)} hd {m.group(3)} {m.group(1)}" if m
-                    else f"flash_bwd dot {'fp32' if d.group(1) == 'f' else 'bf16'}"
-                    if d else f"flash_bwd reduce {r.group(1)}" if r else None)
+                    else f"flash_bwd {'dot' if d else 'reduce'} "
+                    f"{'fp32' if kind.group(1) == 'f' else 'bf16'}"
+                    if kind else None)
             shared = ""
             if m:
                 n = smem(int(m.group(3)), int(m.group(1) == "bf16"),
@@ -2463,7 +2478,20 @@ def check_flash_bwd(hw, cells, saturated=(), plain_timed=(), bit_equal=()):
             grads = torch.autograd.grad(o, leaves, do)
             o = o.detach()
             del leaves
-            refs = attention_bwd_ref(q, k, v, o, do, lse, causal, window, cap)
+            args = (q, k, v, o, do, lse)
+            plain_text = ""
+            if dtype == torch.float32:
+                # Held to the plain steps in float64 (FLASH_BWD_ROW_FLOOR's
+                # note); the fp32 plain version's distances printed beside.
+                refs = attention_bwd_ref(*(a.double() for a in args), causal,
+                                         window, cap)
+                plain = attention_bwd_ref(*args, causal, window, cap)
+                plain_text = (f"; row_err against the fp32 plain version "
+                              f"{flash_bwd_rows(grads, plain)}, the fp32 plain "
+                              f"version's from float64 {flash_bwd_rows(plain, refs)}")
+                del plain
+            else:
+                refs = attention_bwd_ref(*args, causal, window, cap)
             lse_err = float((lse - attention_ref_lse(q, k, v, causal, window,
                                                      cap)[1]).abs().max())
             torch.cuda.synchronize()
@@ -2478,6 +2506,7 @@ def check_flash_bwd(hw, cells, saturated=(), plain_timed=(), bit_equal=()):
             text = " ".join(f"{n}: max_abs_err={e:.3g} (tol {t:.3g}) row_err="
                             f"{r:.3g} (tol {row_tol:.3g})"
                             for n, (e, t, r) in zip(("dq", "dk", "dv"), errs))
+            text += plain_text
             if not ok:
                 raise AssertionError(f"{label}: kernel disagrees with its plain "
                                      f"version: {text}; lse err {lse_err:.3g}")
@@ -2498,7 +2527,6 @@ def check_flash_bwd(hw, cells, saturated=(), plain_timed=(), bit_equal=()):
             if cell in saturated:
                 log(f"kernel {label} (q x 8): {text}; lse err {lse_err:.3g}")
                 continue
-            args = (q, k, v, o, do, lse)
             ms = cuda_ms(lambda *a: flash_attention_bwd(*a, causal, window, cap),
                          args, rounds=3)
             plain_ms = (cuda_ms(lambda *a: attention_bwd_ref(

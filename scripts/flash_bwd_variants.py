@@ -42,7 +42,10 @@ both:
                     flash_attention_bwd.cu and its headers as they are;
                     its entry is called with this tree's arguments, and
                     an entry without the head split ignores the two last
-                    (in fp32 it is given split 1, the parent's only one).
+                    (in fp32 it is given split 1, the parent's only one);
+  as built split N  with ``--splits N ...``: the as-built body called
+                    with head split N where N divides the query heads of
+                    a KV head (else with the rule's split).
 
 Each is built by nvcc with the port's flags into its own library under
 ``build/flash_bwd_variants/`` (from the kernels directory, so ``-I csrc``
@@ -55,7 +58,8 @@ global layers with the softcap, recurrentgemma-9b's MQA at hd 256,
 hubert-xlarge, internvl2-2b), in ``--dtype`` (bf16 by default): the
 forward kernel's output and lse, then each
 build's dq, dk and dv held against the plain version (``attention_bwd_ref``
-on the same out and lse) at chip_smoke.py's gates (``FLASH_BWD_TOL``,
+on the same out and lse; in fp32 its steps in float64, as chip_smoke.py's
+phase 8f) at chip_smoke.py's gates (``FLASH_BWD_TOL``,
 ``FLASH_BWD_ROW_RTOL``), two calls of the as-built one compared bit for
 bit, and the builds timed in turns (A B C ... C B A), each call on its
 own cold copy of its operands (the copies together exceed twice the L2).
@@ -65,7 +69,7 @@ call's device time by kernel (``torch.profiler``: the row dot, dk/dv,
 the split's reduce, dq).
 
     PYTHONPATH=src python scripts/flash_bwd_variants.py [--parent DIR] \
-        [--variants] [--profile] [--dtype fp32]
+        [--variants] [--profile] [--dtype fp32] [--splits N ...]
 """
 from __future__ import annotations
 
@@ -192,21 +196,28 @@ def build(variants: dict, parent: Path | None, body: str) -> dict:
     return fns
 
 
-def head_split(q, k, parent: bool = False) -> int:
-    """ops.flash_attention_bwd's head split; 1 for the parent in fp32."""
+def head_split(q, k, name: str = "as built") -> int:
+    """ops.flash_attention_bwd's head split for the build ``name``: 1 for
+    the parent in fp32, N for "as built split N" where N divides the
+    query heads of a KV head (else the rule's)."""
     b, _, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    if parent and q.dtype == torch.float32:
+    if name == "parent" and q.dtype == torch.float32:
         return 1
+    if name.startswith("as built split "):
+        split = int(name.split()[-1])
+        if (h // kv) % split == 0:
+            return split
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     return ops.bwd_head_split(b, kv, sk, h // kv, hd, sms)
 
 
-def call(fn, q, k, v, o, do, lse, causal, window, cap, parent=False):
-    """One call of a build's entry, as ops.flash_attention_bwd makes it."""
+def call(fn, q, k, v, o, do, lse, causal, window, cap, name="as built"):
+    """One call of a build's entry, as ops.flash_attention_bwd makes it,
+    with ``head_split``'s split for the build ``name``."""
     b, s, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    split = head_split(q, k, parent)
+    split = head_split(q, k, name)
     ws = (torch.empty(ops.bwd_workspace_shape(split, b, sk, kv, hd),
                       dtype=torch.float32, device=q.device)
           if split > 1 else None)
@@ -268,12 +279,14 @@ def run_case(fns, name, dtype, shape, prof: bool) -> bool:
     lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
     o = ops._forward_cuda(q, k, v, causal, window, cap, lse)
     args = (q, k, v, o, do, lse)
-    refs = attention_bwd_ref(*args, causal, window, cap)
+    # fp32 against the plain steps in float64, as chip_smoke.py's phase 8f.
+    refs = attention_bwd_ref(*(a.double() if dtype == torch.float32 else a
+                               for a in args), causal, window, cap)
     tol, row_tol = TOL[dtype]
     ok = True
     text = []
     for bname, fn in fns.items():
-        grads = call(fn, *args, causal, window, cap, bname == "parent")
+        grads = call(fn, *args, causal, window, cap, bname)
         errs = [errors(x, r) for x, r in zip(grads, refs)]
         good = all(e <= tol and r <= row_tol for e, r in errs)
         if bname == "as built":
@@ -290,8 +303,8 @@ def run_case(fns, name, dtype, shape, prof: bool) -> bool:
     times = {n: [] for n in fns}
     for bname in order:
         times[bname].append(cold_ms(
-            lambda *a, fn=fns[bname], par=bname == "parent": call(
-                fn, *a, causal, window, cap, par), args))
+            lambda *a, fn=fns[bname], n=bname: call(
+                fn, *a, causal, window, cap, n), args))
     split = head_split(q, k)
     dname = str(dtype).split(".")[-1]
     print(f"{name} {dname} split {split}: " + "; ".join(text), flush=True)
@@ -314,6 +327,8 @@ def main() -> int:
                     help="the as-built call's device time by kernel")
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16",
                     help="the inputs' type, and so the body timed")
+    ap.add_argument("--splits", type=int, nargs="*", default=(),
+                    help="also time the as-built body at these head splits")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -325,6 +340,8 @@ def main() -> int:
     variants = FP32_VARIANTS if fp32 else VARIANTS
     fns = build(variants if args.variants else {"as built": []}, args.parent,
                 args.dtype)
+    for n in args.splits:
+        fns[f"as built split {n}"] = fns["as built"]
     dtype = torch.float32 if fp32 else torch.bfloat16
     ok = True
     for name, shape in CASES.items():

@@ -5,7 +5,9 @@
 // (winograd/csrc/winograd_fused_16.cu) runs its products on mma.sync and
 // its C split's reduce here; the 16-bit GEMM, implicit-GEMM conv and tuple
 // multiply run theirs on wgmma (csrc/wgmma16.cuh) and take the
-// conversions, activation and ldmatrix from here.
+// conversions, activation and ldmatrix from here; the flash-attention
+// backward sums its head split's partials with the reduce, in bf16 and
+// fp32.
 //
 // Math.  mma.sync.aligned.m16n8k16.row.col.f32.{bf16,f16}.{bf16,f16}.f32:
 // the product of two 16-bit values is exact in fp32, so a sum is an fp32
@@ -21,6 +23,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 // Internal linkage, as every kernel source here: nothing in this header is
 // shared between the libraries that include it.
@@ -153,8 +156,9 @@ __device__ __forceinline__ int b_frag_n(int lane) { return (lane >> 4) * 8; }
 // The ordered split-K reduce.
 
 // out[i .. i + V) = act(sum over the splits of ws[., i .. i + V) + bias)
-// rounded to T, the partials added in split order (V = 4 needs cols % 4 ==
-// 0 and 8-byte aligned rows of out), i from the thread's global index.
+// rounded to T (float: stored as summed), the partials added in split
+// order (V = 4 needs cols % 4 == 0 and rows of out aligned to 4 values:
+// 8 bytes in 16 bits, 16 in fp32), i from the thread's global index.
 template <class T, int V>
 __device__ __forceinline__ void splitk_reduce(const float* __restrict__ ws,
                                               const float* __restrict__ bias,
@@ -179,7 +183,12 @@ __device__ __forceinline__ void splitk_reduce(const float* __restrict__ ws,
 #pragma unroll
   for (int e = 0; e < V; ++e)
     s[e] = activate(s[e] + (bias != nullptr ? __ldg(bias + c + e) : 0.f), act);
-  if constexpr (V == 4) {
+  if constexpr (std::is_same<T, float>::value && V == 4) {
+    *reinterpret_cast<float4*>(out + i) = make_float4(s[0], s[1], s[2], s[3]);
+  } else if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) out[i + e] = s[e];
+  } else if constexpr (V == 4) {
     *reinterpret_cast<uint2*>(out + i) =
         make_uint2(pack2<T>(s[0], s[1]), pack2<T>(s[2], s[3]));
   } else {

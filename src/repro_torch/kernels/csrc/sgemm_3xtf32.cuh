@@ -4,8 +4,9 @@
 // gemm/csrc/gemm.cu (the 1x1-conv GEMM, with split-K) and
 // winograd/csrc/winograd_3pass.cu (the tuple multiply, one position per
 // blockIdx.z); each owns its grid, its K range and its epilogue.
-// winograd/csrc/winograd_fused.cu uses only its device helpers
-// (split_tf32, mma_tf32, the cp.async wrappers), not the tile loop.
+// winograd/csrc/winograd_fused.cu and the fp32 flash-attention forward
+// and backward use only its device helpers (split_tf32, mma_tf32,
+// mma_3xtf32, the cp.async wrappers), not the tile loop.
 //
 // Math.  mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32; 4 warps
 // (128 threads) in a 2x2 layout, each warp a 32x32 quarter of the tile:
@@ -117,6 +118,19 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c (16x8) += a . b as 3xTF32 from split operands: lo.hi, hi.lo, then
+// hi.hi (the flash-attention kernels' products; the tile loop below runs
+// the same three terms over its whole fragment).
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
 }
 
 // A row-major (M, K), B row-major (K, N); vec: 16-byte copies of the

@@ -34,7 +34,8 @@
 //   2. flash_bwd_dkdv_kernel: dk and dv, one block a (batch, KV head, key
 //      block), looping over the query heads of its KV head and the query
 //      tiles that hold a valid pair for its keys;
-//   3. with split > 1 only: flash_bwd_reduce_kernel, twice (dk, dv);
+//   3. with split > 1 only: flash_bwd_reduce_kernel, twice (dk, dv),
+//      for both bodies;
 //   4. flash_bwd_dq_kernel: dq, one block a (batch, head, query block),
 //      looping over the key tiles of its rows.
 // The dk/dv launch may split the G query heads of a KV head into
@@ -52,6 +53,7 @@
 #include "flash_attention_bwd_bf16.cuh"
 #include "flash_attention_bwd_fp32.cuh"
 #include "flash_common.cuh"
+#include "hmma16.cuh"
 #include "per_device.cuh"
 
 namespace {
@@ -99,6 +101,29 @@ void launch_dot(const void* o, const void* dO, float* D, int B, int S, int H,
                    rows, S, H, hd);
 }
 
+// dk or dv of a split launch: the groups' fp32 partials ws[groups][n]
+// summed in group order, so the result does not depend on the order the
+// groups ran in, and rounded once to T (hmma16.cuh's ordered split-K
+// reduce; hd % 4 == 0, so n is too).
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_reduce_kernel(const float* __restrict__ ws, T* __restrict__ out,
+                        size_t n, int hd, int groups) {
+  hmma16::splitk_reduce<T, 4>(ws, nullptr, out, n, hd, groups, 0);
+}
+
+// The reduce launches of a split dk/dv launch: dk's groups, then dv's.
+template <typename T>
+void launch_reduce(const float* ws, void* dk, void* dv, int B, int Sk, int KV,
+                   int hd, int split, cudaStream_t stream) {
+  const size_t n = (size_t)B * Sk * KV * hd;
+  const unsigned blocks = (unsigned)((n / 4 + 255) / 256);
+  flash_bwd_reduce_kernel<T><<<blocks, 256, 0, stream>>>(
+      ws, static_cast<T*>(dk), n, hd, split);
+  flash_bwd_reduce_kernel<T><<<blocks, 256, 0, stream>>>(
+      ws + split * n, static_cast<T*>(dv), n, hd, split);
+}
+
 template <int HD>
 int launch_fp32(const void* q, const void* k, const void* v, const void* o,
                 const void* dO, const float* lse, float* D, void* dq,
@@ -139,13 +164,8 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* o,
       <<<dim3(B * KV, k_blocks, split), C::THREADS, C::SMEM_DKDV, stream>>>(
           qt, kt, vt, gt, lse, D, dkt, dvt, ws, S, Sk, H, KV, causal, window,
           sc);
-  if (split > 1) {
-    const size_t n = (size_t)B * Sk * KV * HD;
-    const unsigned blocks = (unsigned)((n / 4 + 255) / 256);
-    f::flash_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(ws, dkt, n, split);
-    f::flash_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(ws + split * n,
-                                                           dvt, n, split);
-  }
+  if (split > 1)
+    launch_reduce<float>(ws, dk, dv, B, Sk, KV, HD, split, stream);
   f::flash_bwd_dq_kernel<HD>
       <<<dim3(B * H, q_blocks), C::THREADS, C::SMEM_DQ, stream>>>(
           qt, kt, vt, gt, lse, D, static_cast<float*>(dq), S, Sk, H, KV,
@@ -194,14 +214,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
       <<<dim3(B * KV, k_blocks, split), C::THREADS, C::SMEM_DKDV, stream>>>(
           qt, kt, vt, gt, lse, D, dkt, dvt, ws, S, Sk, H, KV, causal, window,
           sc);
-  if (split > 1) {
-    const size_t n = (size_t)B * Sk * KV * HD;
-    const unsigned blocks = (unsigned)((n / 4 + 255) / 256);
-    f::flash_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(ws, dkt, n, HD,
-                                                           split);
-    f::flash_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(ws + split * n,
-                                                           dvt, n, HD, split);
-  }
+  if (split > 1)
+    launch_reduce<bf16>(ws, dk, dv, B, Sk, KV, HD, split, stream);
   f::flash_bwd_dq_kernel<HD>
       <<<dim3(B * H, q_blocks), C::THREADS, C::SMEM_DQ, stream>>>(
           qt, kt, vt, gt, lse, D, static_cast<bf16*>(dq), S, Sk, H, KV,

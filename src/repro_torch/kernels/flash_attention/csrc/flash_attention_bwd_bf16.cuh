@@ -392,15 +392,6 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dk or dv of a split launch: the groups' fp32 partials ws[groups][n]
-// summed in group order and rounded once to bf16 (hmma16.cuh's ordered
-// reduce; hd % 4 == 0, so n is too).
-__global__ void __launch_bounds__(256)
-flash_bwd_reduce_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
-                        size_t n, int hd, int groups) {
-  hm::splitk_reduce<bf16, 4>(ws, nullptr, out, n, hd, groups, 0);
-}
-
 template <int HD>
 __global__ void __launch_bounds__(Cfg<HD>::THREADS, Cfg<HD>::DQ_BLOCKS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,

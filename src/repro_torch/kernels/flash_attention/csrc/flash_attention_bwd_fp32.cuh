@@ -150,19 +150,6 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src, int n,
   }
 }
 
-// c (16x8) += a . b as 3xTF32: lo.hi, hi.lo, then hi.hi (the fp32
-// forward's helper; flash_attention_fp32.cuh keeps its own copy, which
-// scripts/flash_fp32_variants.py edits).
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const uint32_t (&bh)[2],
-                                           const uint32_t (&bl)[2]) {
-  tc::mma_tf32(c, al, bh);
-  tc::mma_tf32(c, ah, bl);
-  tc::mma_tf32(c, ah, bh);
-}
-
 // The A fragment (16 x 8) of a [row][LD] array, split: p is the element
 // (row g, column t4) of the fragment; the others are rows + 8, columns + 4.
 template <int LD>
@@ -220,7 +207,7 @@ __device__ __forceinline__ void acc_times_b(float (&acc)[DT][4],
       for (int j = j0; j < j0 + J; ++j) {
         uint32_t bh[2], bl[2];
         b_frag(bp + j * 8 * LD + d * 8, LD, bh, bl);
-        mma_3xtf32(part, ah[j], al[j], bh, bl);
+        tc::mma_3xtf32(part, ah[j], al[j], bh, bl);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[d][e] += part[e];
@@ -345,9 +332,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           for (int j = 0; j < NT; ++j) {
             uint32_t bh[2], bl[2];
             b_frag(qp + j * 8 * LD, 4, bh, bl);
-            mma_3xtf32(ps[j], kh, kl, bh, bl);
+            tc::mma_3xtf32(ps[j], kh, kl, bh, bl);
             b_frag(op + j * 8 * LD, 4, bh, bl);
-            mma_3xtf32(pd[j], vh, vl, bh, bl);
+            tc::mma_3xtf32(pd[j], vh, vl, bh, bl);
           }
         }
         add_to(st, ps);
@@ -423,25 +410,6 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           make_float2(dv_acc[d][2], dv_acc[d][3]);
     }
   }
-}
-
-// dk or dv of a split launch: the groups' fp32 partials ws[groups][n]
-// summed in group order from 0 (n % 4 == 0, as hd % 4 == 0), so the
-// result does not depend on the order the groups ran in.
-__global__ void __launch_bounds__(256)
-flash_bwd_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                        size_t n, int groups) {
-  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (i >= n) return;
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int p = 0; p < groups; ++p) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(ws + p * n + i));
-    s.x += t.x;
-    s.y += t.y;
-    s.z += t.z;
-    s.w += t.w;
-  }
-  *reinterpret_cast<float4*>(out + i) = s;
 }
 
 template <int HD>
@@ -533,9 +501,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < NT; ++j) {
           uint32_t bh[2], bl[2];
           b_frag(kp + j * 8 * LD, 4, bh, bl);
-          mma_3xtf32(ps[j], qh, ql, bh, bl);
+          tc::mma_3xtf32(ps[j], qh, ql, bh, bl);
           b_frag(vp + j * 8 * LD, 4, bh, bl);
-          mma_3xtf32(pd[j], oh, ol, bh, bl);
+          tc::mma_3xtf32(pd[j], oh, ol, bh, bl);
         }
       }
       add_to(s, ps);

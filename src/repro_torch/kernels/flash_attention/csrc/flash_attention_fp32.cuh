@@ -97,17 +97,6 @@ struct Cfg {
   static constexpr int SMEM = (BQ + 4 * BK) * LD * 4;
 };
 
-// c (16x8) += a . b as 3xTF32: lo.hi, hi.lo, then hi.hi.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const uint32_t (&bh)[2],
-                                           const uint32_t (&bl)[2]) {
-  tc::mma_tf32(c, al, bh);
-  tc::mma_tf32(c, ah, bl);
-  tc::mma_tf32(c, ah, bh);
-}
-
 // The hi and lo TF32 halves of a B fragment: (row 0, row `stride` on).
 __device__ __forceinline__ void b_frag(const float* p, int stride,
                                        uint32_t (&bh)[2], uint32_t (&bl)[2]) {
@@ -232,7 +221,7 @@ flash_attention_fp32_kernel(const float* __restrict__ q,
         b_frag(kp + j * 8 * LD, 4, bh, bl);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          mma_3xtf32(s[mt][j], ah[mt], al[mt], bh, bl);
+          tc::mma_3xtf32(s[mt][j], ah[mt], al[mt], bh, bl);
       }
     }
 
@@ -274,7 +263,7 @@ flash_attention_fp32_kernel(const float* __restrict__ q,
           b_frag(vp + jc * 8 * LD + d * 8, LD, bh, bl);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
-            mma_3xtf32(part[mt], ah[jc][mt], al[jc][mt], bh, bl);
+            tc::mma_3xtf32(part[mt], ah[jc][mt], al[jc][mt], bh, bl);
         }
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)

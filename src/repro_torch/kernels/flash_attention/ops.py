@@ -65,8 +65,12 @@ _BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [_F] + [_P] + [_I] + [_P]
 #: csrc/flash_attention_bwd_fp32.cuh).
 BWD_BLOCK_KEYS = {hd: 32 if hd == 256 else 64 for hd in HEAD_DIMS}
 #: dk/dv blocks an SM the head split aims for: two are resident at every
-#: head dim, so fewer leave an SM's second slot idle (fp32 at hd 256 holds
-#: one, and there the rule gives two waves).
+#: head dim but fp32's hd 256, so fewer leave an SM's second slot idle.
+#: fp32 at hd 256 holds one, and there the rule's split of 4 for
+#: recurrentgemma-9b's MQA gives 512 blocks, about 3.9 waves over 132
+#: SMs; split 2 (256 blocks) timed 14 % slower there and split 8 2 %
+#: faster on an H100 (scripts/flash_bwd_variants.py --dtype fp32
+#: --splits 2 4 8).
 BWD_BLOCKS_PER_SM = 2
 
 

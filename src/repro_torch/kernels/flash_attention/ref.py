@@ -83,26 +83,34 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       logit_cap: float = 0.0
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in the inputs' dtypes, step by step as the backward
-    kernel computes them, in fp32, one (batch, KV head) group at a time:
-    p = exp2(s~ log2 e - lse) on a valid pair (else 0); D = rowsum(dout o
-    out); dv = p^T dout; dp = dout v^T; ds = p (dp - D) / sqrt(hd) times
-    1 - tanh^2(y / cap) with a softcap; dq = ds k; dk = ds^T q, dk and dv
-    summed over the group's query heads."""
+    kernel computes them, in fp32 (in float64 for float64 inputs), one
+    (batch, KV head) group at a time: p = exp2(s~ log2 e - lse) on a valid
+    pair (else 0); D = rowsum(dout o out); dv = p^T dout; dp = dout v^T;
+    ds = p (dp - D) / sqrt(hd) times 1 - tanh^2(y / cap) with a softcap;
+    dq = ds k; dk = ds^T q, dk and dv summed over the group's query heads.
+
+    Given float64 copies of fp32 inputs (lse too), it computes the same
+    steps to float64's rounding, and the fp32 gates hold the kernel
+    against that: where a row's gradient cancels (a causal first row: one
+    key, p = 1, dp = D), an fp32 evaluation keeps only the rounding of dp
+    and D, two sums of the same hd products in other orders, and two fp32
+    evaluations may differ there by more than the row gate."""
     b, s, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
     mask = attention_mask(s, sk, causal, window, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     for bi in range(b):
         for j in range(kv):
             heads = slice(j * g, (j + 1) * g)
-            qg = q[bi, :, heads].float().transpose(0, 1)            # (G, S, hd)
-            og = out[bi, :, heads].float().transpose(0, 1)
-            dog = dout[bi, :, heads].float().transpose(0, 1)
-            kj, vj = k[bi, :, j].float(), v[bi, :, j].float()       # (Sk, hd)
+            qg = q[bi, :, heads].to(acc).transpose(0, 1)            # (G, S, hd)
+            og = out[bi, :, heads].to(acc).transpose(0, 1)
+            dog = dout[bi, :, heads].to(acc).transpose(0, 1)
+            kj, vj = k[bi, :, j].to(acc), v[bi, :, j].to(acc)       # (Sk, hd)
             y, scores = _scaled(qg, kj, logit_cap)
-            p = torch.where(mask, torch.exp2(scores * LOG2E
-                                             - lse[bi, heads, :, None]), 0.0)
+            p = torch.where(mask, torch.exp2(
+                scores * LOG2E - lse[bi, heads, :, None].to(acc)), 0.0)
             rowdot = (dog * og).sum(-1, keepdim=True)               # (G, S, 1)
             dv[bi, :, j] = torch.einsum("gqk,gqd->kd", p, dog).to(v.dtype)
             ds = p * (dog @ vj.T - rowdot) / math.sqrt(hd)

@@ -40,7 +40,6 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     ops,
 )
-from repro_torch.kernels.flash_attention.ref import LOG2E, attention_mask
 
 REPO = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location(
@@ -352,39 +351,22 @@ def _fp32_case(case, seed=6):
     return (q, k, v, do), t, out, lse, (causal, window, cap)
 
 
-def _plain_f64(q, k, v, out, dout, lse, causal, window, cap):
-    """dq of attention_bwd_ref's steps in float64 from the same (out, lse,
-    dout): p = exp2(s~ log2 e - lse), D = rowsum(dout o out), ds = p (dp -
-    D) / sqrt(hd) (times 1 - tanh^2 with a cap), dq = ds k."""
-    b, s, h, hd = q.shape
-    sk, kv = k.shape[1], k.shape[2]
-    g = h // kv
-    mask = attention_mask(s, sk, causal, window)
-    dq = torch.empty(q.shape, dtype=torch.float64)
-    for bi in range(b):
-        for j in range(kv):
-            heads = slice(j * g, (j + 1) * g)
-            qg, og, dog = (t[bi, :, heads].double().transpose(0, 1)
-                           for t in (q, out, dout))
-            kj, vj = k[bi, :, j].double(), v[bi, :, j].double()
-            y = qg @ kj.T / np.sqrt(hd)
-            sc = torch.tanh(y / cap) * cap if cap > 0 else y
-            p = torch.where(mask, torch.exp2(sc * LOG2E
-                                             - lse[bi, heads, :, None].double()),
-                            0.0)
-            ds = p * (dog @ vj.T - (dog * og).sum(-1, keepdim=True)) / np.sqrt(hd)
-            if cap > 0:
-                ds = ds * (1 - torch.tanh(y / cap).square())
-            dq[bi, :, heads] = (ds @ kj).transpose(0, 1)
-    return dq
+def _plain_f64(t, out, lse, mask):
+    """attention_bwd_ref on float64 copies of the fp32 inputs: its steps
+    to float64's rounding, which the card's fp32 gates hold the kernel
+    against."""
+    return attention_bwd_ref(*(x.double() for x in (t[0], t[1], t[2], out,
+                                                     t[3], lse)), *mask)
 
 
 @pytest.mark.parametrize("case", FP32_REPLAY_CASES)
 def test_fp32_replay_holds_the_card_gates(case):
-    """The fp32 replay against jax.vjp of attention_naive and against the
-    plain backward, on the same numpy inputs and the plain forward's out
-    and lse: each element within 2e-4 of max(1, max|ref|), each row within
-    1e-4 of its norm (floored at 1e-2 of the largest row's).
+    """The fp32 replay against jax.vjp of attention_naive, against the
+    plain backward, and against the plain backward's steps in float64
+    (``attention_bwd_ref`` on float64 copies of the same inputs), on the
+    same numpy inputs and the plain forward's out and lse: each element
+    within 2e-4 of max(1, max|ref|), each row within 1e-4 of its norm
+    (floored at 1e-2 of the largest row's).
 
     At hd 256 the causal first row's dq, whose true value cancels to ~0
     (one key: p = 1, dp = D), is held at the floor, and there the plain
@@ -392,24 +374,22 @@ def test_fp32_replay_holds_the_card_gates(case):
     float64 over eight draws (its dp, a GEMM, and D, a row sum, round the
     same dot product in two orders), the replay 2.2e-5 to 5.7e-5: the two
     fp32 results differ by more than the gate (up to 1.9e-4) on six draws
-    of fourteen.  So at
-    hd 256 dq is held against jax (which takes D from p dp and cancels
-    that row exactly) and against the plain version's steps in float64
-    from the same (out, lse), at the same gates; dk and dv, and every other
-    case, against all three."""
+    of fourteen.  So at hd 256 dq is held against jax (which takes D from
+    p dp and cancels that row exactly) and the float64 steps, as the card
+    holds the kernel; dk and dv, and every other case, against all three."""
     b, s, sk, h, kv, hd, causal, window, cap, _ = FP32_REPLAY_CASES[case]
     arrays, t, out, lse, mask = _fp32_case(case)
     got = replay_mod.replay_fp32(t[0], t[1], t[2], out, t[3], lse, *mask)
     _, j_grads = _jax_grads(*arrays, *mask)
-    plain = list(attention_bwd_ref(t[0], t[1], t[2], out, t[3], lse, *mask))
-    f64 = _plain_f64(t[0], t[1], t[2], out, t[3], lse, *mask)
-    if hd == 256:
-        plain[0] = f64
-    for refs in ([torch.tensor(j) for j in j_grads], plain, [f64]):
-        for x, ref in zip(got, refs):
-            assert x.dtype == torch.float32 and torch.isfinite(x).all()
-            elem, row = replay_mod.errors(x, ref)
-            assert elem <= FP32_TOL and row <= FP32_ROW_TOL, (elem, row)
+    plain = attention_bwd_ref(t[0], t[1], t[2], out, t[3], lse, *mask)
+    pairs = [*zip(got, (torch.tensor(j) for j in j_grads)),
+             *zip(got, _plain_f64(t, out, lse, mask)),
+             *zip(got[hd == 256:], plain[hd == 256:])]
+    assert len(pairs) == (8 if hd == 256 else 9)
+    for x, ref in pairs:
+        assert x.dtype == torch.float32 and torch.isfinite(x).all()
+        elem, row = replay_mod.errors(x, ref)
+        assert elem <= FP32_TOL and row <= FP32_ROW_TOL, (elem, row)
 
 
 @pytest.mark.parametrize("terms", [2, 1])
@@ -417,9 +397,10 @@ def test_fp32_replay_holds_the_card_gates(case):
                                   "mqa hd 256 split"])
 def test_fp32_replay_without_a_correction_term_fails(case, terms):
     """The margin: with the hi.lo term dropped (2), or as plain TF32 (1),
-    some gradient breaks the fp32 gates where the three terms pass."""
+    some gradient breaks the fp32 gates (against the float64 steps, as on
+    the card) where the three terms pass."""
     _, t, out, lse, mask = _fp32_case(case)
-    plain = attention_bwd_ref(t[0], t[1], t[2], out, t[3], lse, *mask)
+    plain = _plain_f64(t, out, lse, mask)
     got = replay_mod.replay_fp32(t[0], t[1], t[2], out, t[3], lse, *mask,
                                  terms=terms)
     worst = [replay_mod.errors(x, r) for x, r in zip(got, plain)]
@@ -478,9 +459,10 @@ def test_fp32_replay_tiles_and_split_keys_are_the_kernels():
     assert ops.bwd_head_split(2, 8, 4096, 4, 64) == 1
     # Every product on the shared 3xTF32 helpers: no CUDA-core FMA loop,
     # no p or ds array in shared memory.
-    assert "tc::mma_tf32(c, al, bh);\n  tc::mma_tf32(c, ah, bl);\n" in fp32
-    assert not re.search(r"fmaf\(|\bP[sS]\b|\bdS[sS]\b", fp32)
     header = _build._KERNELS_DIR / _build.SHARED_INCLUDE / "sgemm_3xtf32.cuh"
     assert header in _build.included_headers(FP32_SOURCE)
+    assert fp32.count("tc::mma_3xtf32(") == 5
+    assert "mma_tf32(c, al, bh);\n  mma_tf32(c, ah, bl);\n" in header.read_text()
+    assert not re.search(r"fmaf\(|\bP[sS]\b|\bdS[sS]\b", fp32)
     assert "(dtype == 0 && split != 1)" not in (
         _build._KERNELS_DIR / _build.SOURCES["flash_attention_bwd"]).read_text()

@@ -30,6 +30,8 @@ replay_mod = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(replay_mod)
 
 SOURCE = Path(flash_ops.__file__).parent / "csrc" / "flash_attention_fp32.cuh"
+HEADER = (Path(flash_ops.__file__).parents[1] / "csrc"
+          / "sgemm_3xtf32.cuh")
 
 # (b, s, h, kv, hd, causal, window, cap, q scale, bq, bk): the five cases
 # of tests/test_flash_attention.py, GQA with G = 4, a window across kv
@@ -118,7 +120,8 @@ def test_permuted_keys_give_the_plain_product():
 def test_replay_tiles_are_the_kernels():
     """The replay's kv tile (32 keys at hd <= 64, 16 at hd 128) and P.V
     partial (JC k8 steps) are the kernel's Cfg<HD>::BK and JC, read from
-    the source; so is the term order."""
+    the source; so is the term order, in the shared header's
+    ``mma_3xtf32`` that both products call."""
     text = SOURCE.read_text()
     m = re.search(r"int BK = HD <= (\d+) \? (\d+) : (\d+);", text)
     assert m, "Cfg<HD>::BK not found"
@@ -126,5 +129,7 @@ def test_replay_tiles_are_the_kernels():
     for hd in flash_ops.HEAD_DIMS:
         assert replay_mod.block_keys(hd) == (small if hd <= edge else large)
     assert f"int JC = {replay_mod.JC};" in text
-    assert ("tc::mma_tf32(c, al, bh);\n  tc::mma_tf32(c, ah, bl);\n"
-            "  tc::mma_tf32(c, ah, bh);") in text
+    # Both products through the shared header's 3xTF32 helper.
+    assert text.count("tc::mma_3xtf32(") == 2
+    assert ("mma_tf32(c, al, bh);\n  mma_tf32(c, ah, bl);\n"
+            "  mma_tf32(c, ah, bh);") in HEADER.read_text()
