@@ -269,7 +269,8 @@ Phases, each on its own printed lines:
 8f. LM training (``repro_torch.train``): the flash backward kernel
    (``flash_attention_bwd.cu``; ptxas lines a kernel instance) against
    ``attention_bwd_ref`` from the kernel forward's own output and lse, in
-   bf16 and fp32 (fp32 against its steps in float64), at each trained
+   bf16 and fp32 (fp32 against its steps in float64 and, but at the
+   saturated softcap, the fp32 plain version), at each trained
    config's attention shape (Llama-3.2-1B's microbatch B 2 S 4096,
    Gemma2-27B local S 8192 and global S 4096 with
    the softcap, and its saturated case with q x 8, recurrentgemma-9b hd 256
@@ -293,6 +294,21 @@ Phases, each on its own printed lines:
    layers, two periods, where a period is one layer), its gradients
    gated the same way
    (MoE: the routing gated as in phase 8e) and its launches counted;
+8g. the distributed side of the LM stack, from phase 8f's Llama-3.2-1B
+   state: ``repro_torch.launch.dryrun`` of that step on a 1 x 1 mesh (its
+   batch of 4 in 2 microbatches, S 4096, remat "full", fp32 moments),
+   traced on fake tensors on the host: its compute, memory and
+   collective terms, dominant term, model FLOPs and peak GiB, beside the
+   step's measured ms (MFU: model FLOPs over the step's seconds times
+   the 989 TFLOP/s bf16 peak; the compute term's and the bound's shares
+   of the step) and phase 8f's measured peak; then on one NCCL rank
+   (``init_process_group("nccl", world_size=1)``, a ``file://``
+   rendezvous; no other backend) ``distributed.zero``'s step against
+   ``make_train_step``'s from the same state and batch, params, moments,
+   step and loss bit for bit, its flash launches exact, both timed in
+   turns; and ``compressed_allreduce_mean`` over every gradient leaf of
+   that step, twice, each mean and error bit for bit the local
+   ``dequantize(quantize(g + e))``, with the gradient's compression ratio;
 9. one JSON line with every kernel's numbers — its launches in the forward
    its ``cell`` names (YOLOv3-tiny 416 b1 for the GEMM, im2col and fused
    Winograd kernels, VGG-16 224 b8 with ``winograd_fused=False`` for the
@@ -413,12 +429,16 @@ MOE_FP32_FLIPS = 1e-4
 # window, softcap and saturated softcap, hd 256 MQA with the split and a
 # ragged non-causal case); 1e-2 keeps a margin of about 1.5-2 over it.
 # fp32: the forward's gates, against attention_bwd_ref's steps in float64
-# (on float64 copies of the same inputs).  At a causal first row an fp32
-# evaluation keeps only its rounding of dp - D, where the kernel's 3xTF32
-# sums and the plain version's fp32 sums round apart, so the two fp32
-# results can differ there by more than the row gate; each fp32 line
-# prints the kernel's row errors against the fp32 plain version and the
-# fp32 plain version's from float64 beside the gated ones.  The kernel's
+# (on float64 copies of the same inputs) and against the fp32 plain
+# version, which takes D as rowsum(p o dp) over the row sum of p, as
+# jax.vjp does, so its causal first row cancels to 0 and what the gate
+# reads there is the kernel's own rounding of dp - D; each fp32 line prints
+# the fp32 plain version's row errors from float64 beside.  At the
+# saturated softcap (q x 8) the scores' exponents reach ~72, which fp32
+# rounds to ~8e-6, and rows near one-hot cancel: there the fp32 plain
+# version's own dq rows lie 9.63e-5 of the floor from float64 (the
+# kernel's 4.14e-5), so it is printed, and the kernel held to float64
+# alone.  The kernel's
 # arithmetic (dv, dk and dq summed a tile at a time) is replayed on the
 # CPU by scripts/flash_bwd_replay.py --fp32.
 FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
@@ -1707,15 +1727,6 @@ def plan_cache_check(model, params, x, name) -> None:
 # Phase 8: the LM stack
 
 
-def unmasked_pairs(s: int, sk: int, causal: bool, window: int) -> int:
-    """The (query, key) pairs an attention call must compute: keys below
-    Sk, at or before the query (causal) and inside its window."""
-    q = np.arange(s)
-    hi = np.minimum(q, sk - 1) if causal else np.full(s, sk - 1)
-    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(s, np.int64)
-    return int(np.maximum(0, hi - lo + 1).sum())
-
-
 def flash_errors(got, ref, dname):
     """(max |got - ref|, its gate, the largest per-row relative error)."""
     got, ref = got.float(), ref.float()
@@ -1761,7 +1772,7 @@ def check_flash(hw, cells, saturated=()):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_mask
+    from repro_torch.kernels.flash_attention.ref import attention_mask, unmasked_pairs
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     out = {}
@@ -2460,7 +2471,7 @@ def check_flash_bwd(hw, cells, saturated=(), plain_timed=(), bit_equal=()):
         flash_attention_bwd,
     )
     from repro_torch.kernels.flash_attention.ops import bwd_head_split
-    from repro_torch.kernels.flash_attention.ref import attention_mask
+    from repro_torch.kernels.flash_attention.ref import attention_mask, unmasked_pairs
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     out = {}
@@ -2479,16 +2490,23 @@ def check_flash_bwd(hw, cells, saturated=(), plain_timed=(), bit_equal=()):
             o = o.detach()
             del leaves
             args = (q, k, v, o, do, lse)
-            plain_text = ""
+            plain_text, plain_errs = "", []
             if dtype == torch.float32:
-                # Held to the plain steps in float64 (FLASH_BWD_ROW_FLOOR's
-                # note); the fp32 plain version's distances printed beside.
+                # Held to the plain steps in float64 and to the fp32 plain
+                # version, both gated, but at a saturated cell, where the
+                # fp32 plain version is printed (FLASH_BWD_ROW_FLOOR's note).
                 refs = attention_bwd_ref(*(a.double() for a in args), causal,
                                          window, cap)
                 plain = attention_bwd_ref(*args, causal, window, cap)
-                plain_text = (f"; row_err against the fp32 plain version "
-                              f"{flash_bwd_rows(grads, plain)}, the fp32 plain "
-                              f"version's from float64 {flash_bwd_rows(plain, refs)}")
+                errs32 = [flash_bwd_errors(x, r, dname)
+                          for x, r in zip(grads, plain)]
+                plain_errs = [] if cell in saturated else errs32
+                plain_text = (f"; against the fp32 plain version"
+                              f"{' (printed, not gated)' if cell in saturated else ''}"
+                              f": max_abs_err {max(e for e, _, _ in errs32):.3g} "
+                              f"row_err {flash_bwd_rows(grads, plain)}; the fp32 "
+                              f"plain version's row_err from float64 "
+                              f"{flash_bwd_rows(plain, refs)}")
                 del plain
             else:
                 refs = attention_bwd_ref(*args, causal, window, cap)
@@ -2502,7 +2520,8 @@ def check_flash_bwd(hw, cells, saturated=(), plain_timed=(), bit_equal=()):
             row_tol = FLASH_BWD_ROW_RTOL[dname]
             ok = (all(bool(torch.isfinite(x).all()) and x.dtype == dtype
                       for x in grads) and lse_err <= 1e-4 * max(1.0, float(lse.abs().max()))
-                  and all(e <= t and r <= row_tol for e, t, r in errs))
+                  and all(e <= t and r <= row_tol
+                          for e, t, r in errs + plain_errs))
             text = " ".join(f"{n}: max_abs_err={e:.3g} (tol {t:.3g}) row_err="
                             f"{r:.3g} (tol {row_tol:.3g})"
                             for n, (e, t, r) in zip(("dq", "dk", "dv"), errs))
@@ -2733,8 +2752,10 @@ def train_llama(lm_configs, flash_bwd_ms):
     falling, ms per step, tokens/s and peak memory; one step profiled;
     then ``train`` started again from its checkpoint (the state restored
     bit for bit at the saved step) and one step with int8 moments.
-    Returns (the backward kernel's summary for the kernels line, its
-    launches)."""
+    Returns (the cell's name, the backward kernel's summary for the
+    kernels line, its launches, the restored state on the host with the
+    cell's config, shape, optimizer, microbatches, ms per step and peak
+    GiB)."""
     import shutil
     import tempfile
 
@@ -2820,6 +2841,12 @@ def train_llama(lm_configs, flash_bwd_ms):
         if not (same and again["start_step"] == TRAIN_STEPS):
             raise AssertionError(f"train {name}: resume is not at step "
                                  f"{TRAIN_STEPS} with the saved state")
+        # Phase 8g starts from this state: held on the host meanwhile.
+        trained = dict(params=tree_lib.tree_map(lambda t: t.cpu(), again["params"]),
+                       opt_state=tree_lib.tree_map(lambda t: t.cpu(),
+                                                   again["opt_state"]),
+                       cfg=cfg, shape=shape, opt=opt, accum=accum, ms=ms,
+                       peak_gib=peak)
         del state, again
         gc.collect()
         torch.cuda.empty_cache()
@@ -2847,7 +2874,7 @@ def train_llama(lm_configs, flash_bwd_ms):
         bound_ms=n * f["bound_ms"],
         ops_ms=n * f["bound_ms"] if f["bound_by"] == "operations" else 0.0,
         bytes_ms=n * f["bound_ms"] if f["bound_by"] == "bytes" else 0.0)}
-    return name, summary, counts
+    return name, summary, counts, trained
 
 
 def train_families(lm_configs):
@@ -2911,7 +2938,8 @@ def train_phase(lm_configs):
     """Phase 8f: the flash backward kernel at each trained config's
     attention shape, Llama-3.2-1B trained at full width, and one step of
     every other config but arctic.  Returns (the Llama cell's name, the
-    backward kernel's summary, the cell's launches)."""
+    backward kernel's summary, the cell's launches, the trained Llama
+    state on the host with its cell's figures, for phase 8g)."""
     from repro_torch.hw import H100
 
     for line in flash_bwd_ptxas():
@@ -2932,9 +2960,154 @@ def train_phase(lm_configs):
     }, saturated=("gemma2-27b attn S4096 softcap saturated",),
         plain_timed=(llama, "recurrentgemma-9b local S4096"),
         bit_equal=(llama, "recurrentgemma-9b local S4096"))
-    name, summary, counts = train_llama(lm_configs, flash[llama, "bfloat16"])
+    name, summary, counts, trained = train_llama(lm_configs, flash[llama, "bfloat16"])
     train_families(lm_configs)
-    return name, summary, counts
+    return name, summary, counts, trained
+
+
+# ---------------------------------------------------------------------------
+# Phase 8g: the dry run, the ZeRO step and the compressed all-reduce
+
+
+def dryrun_vs_measured(trained) -> None:
+    """``repro_torch.launch.dryrun`` of phase 8f's Llama step on a 1 x 1
+    mesh (its batch, microbatches, remat and moments), traced on fake
+    tensors on the host: its three terms, dominant term, model FLOPs and
+    peak beside the step phase 8f measured (MFU = model FLOPs over the
+    step's seconds times the bf16 peak; the compute term's and the
+    bound's share of the step) and the measured peak."""
+    from repro_torch.distributed.context import MeshShape
+    from repro_torch.hw import H100
+    from repro_torch.launch import dryrun
+
+    cfg, shape = trained["cfg"], trained["shape"]
+    t0 = time.perf_counter()
+    r = dryrun.build_cell(
+        cfg.name, "train_4k", overrides={"grad_accum": trained["accum"],
+                                         "moment_dtype": trained["opt"].moment_dtype},
+        mesh=MeshShape(("data", "model"), (1, 1)), shape=shape, cfg=cfg)
+    trace_s = time.perf_counter() - t0
+    if r.get("skipped") or "error" in r:
+        raise AssertionError(f"dry run of {cfg.name}: {r}")
+    rl, step_s = r["roofline"], trained["ms"] / 1e3
+    bound_s = max(rl["compute_s"], rl["memory_s"], rl["collective_s"])
+    mfu = rl["model_flops"] / (step_s * H100.peak_flops_bf16)
+    log(f"dryrun {cfg.name} train S{shape.seq_len} b{shape.global_batch} accum "
+        f"{trained['accum']} on 1x1: {dryrun.summary(r)}; traced in {trace_s:.1f} s")
+    log(f"dryrun vs measured: step {trained['ms']:.1f} ms (phase 8f); model FLOPs "
+        f"{rl['model_flops']:.6g}, MFU {mfu:.4f} (bf16 peak "
+        f"{H100.peak_flops_bf16:.4g}); traced FLOPs {rl['hlo_flops_global']:.6g} "
+        f"(attention at every pair {r['attention']['hlo_flops_global_dense_attention']:.6g});"
+        f" compute term {rl['compute_s'] * 1e3:.2f} ms = {rl['compute_s'] / step_s:.4f} "
+        f"of the step, bound {bound_s * 1e3:.2f} ms ({rl['dominant']}) = "
+        f"{bound_s / step_s:.4f} of the step, roofline_frac {rl['roofline_frac']:.4f};"
+        f" peak dry run {r['memory']['total_per_device_gib']:.2f} GiB (arguments "
+        f"{r['memory']['argument_bytes'] / 2 ** 30:.2f}, temporaries "
+        f"{r['memory']['temp_bytes'] / 2 ** 30:.2f}) vs measured "
+        f"{trained['peak_gib']:.2f} GiB")
+    if not (rl["compute_s"] > 0 and rl["memory_s"] > 0 and 0 < mfu < 1):
+        raise AssertionError(f"dry run of {cfg.name}: terms {rl}")
+
+
+def zero_and_compression(trained) -> None:
+    """On one NCCL rank (a ``file://`` rendezvous in a temporary
+    directory): ``distributed.zero``'s step from phase 8f's state against
+    ``make_train_step``'s on the same batch, params and moments bit for
+    bit, its flash launches exact, both timed in turns (zero, plain,
+    plain, zero); then ``compressed_allreduce_mean`` over every gradient
+    leaf of that step, twice (the second call on the first's error), each
+    mean bit for bit the local ``dequantize(quantize(g + e))``, and the
+    gradient's compression ratio.  No other backend: a failed NCCL group
+    fails the phase."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import batch_for
+    from repro_torch.distributed import compression, zero
+    from repro_torch.train.step import accumulated_grads, make_train_step
+
+    cfg, shape, opt, accum = (trained[k] for k in ("cfg", "shape", "opt", "accum"))
+    name = f"{cfg.name} train S{shape.seq_len} b{shape.global_batch} accum {accum}"
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        params = tree_lib.tree_map(lambda t: t.cuda(), trained["params"])
+        full = tree_lib.tree_map(lambda t: t.cuda(), trained["opt_state"])
+        batch = batch_for(cfg, shape, TRAIN_STEPS, seed=SEED, device="cuda")
+        plain = make_train_step(cfg, opt, accum, "cuda")
+        zstep = zero.make_zero_train_step(cfg, opt, grad_accum=accum, impl="cuda")
+        shard = zero.shard_opt_state(full, params)
+        ref_p, ref_o, ref_m = plain(params, full, batch)
+        reset_counts()
+        got_p, got_o, got_m = zstep(params, shard, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {"flash_attention": accum * 2 * cfg.num_layers,
+                "flash_attention_bwd": accum * cfg.num_layers}
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves([ref_p, ref_o]), tree_lib.leaves([got_p, got_o])))
+        loss_same = float(ref_m["loss"]) == float(got_m["loss"])
+        del ref_p, ref_o, got_p, got_o
+        gc.collect()
+        times = {"zero": [], "plain": []}
+        for which in ("zero", "plain", "plain", "zero"):
+            fn, st = (zstep, shard) if which == "zero" else (plain, full)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(params, st, batch)
+            torch.cuda.synchronize()
+            times[which].append(1e3 * (time.perf_counter() - t0))
+            del out
+        zms, pms = (statistics.median(times[k]) for k in ("zero", "plain"))
+        log(f"zero {name} on 1 NCCL rank: params, moments and step bit-equal to "
+            f"make_train_step's: {same}; loss {float(got_m['loss']):.6f} (equal: "
+            f"{loss_same}); launches {counts} (want {want}); ms per step zero "
+            f"{zms:.1f} plain {pms:.1f} ({times}); overhead {zms / pms - 1:+.4f}")
+        if not (same and loss_same and counts == want):
+            raise AssertionError(f"zero {name}: not bit-equal to the unsharded "
+                                 f"step or launches {counts} != {want}")
+        del shard, full
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        _, grads = accumulated_grads(cfg, params, batch, accum, "cuda")
+        t0 = time.perf_counter()
+        n_leaves, fp32_bytes, wire_bytes, bad = 0, 0, 0, []
+        for path, g in tree_lib.leaves_with_paths(grads):
+            err = torch.zeros(g.shape, dtype=torch.float32, device="cuda")
+            for _ in range(2):
+                mean, new_err = compression.compressed_allreduce_mean(g, err)
+                q, sc = compression.quantize_int8(g.float() + err)
+                local = compression.dequantize_int8(q, sc, g.shape)
+                if not (torch.equal(mean, local)
+                        and torch.equal(new_err, g.float() + err - local)):
+                    bad.append(path)
+                err = new_err
+            n_leaves += 1
+            fp32_bytes += 4 * g.numel()
+            wire_bytes += q.numel() + 4 * sc.numel()
+        torch.cuda.synchronize()
+        log(f"compression {name}: compressed_allreduce_mean over {n_leaves} "
+            f"gradient leaves ({fp32_bytes / 2 ** 30:.2f} GiB in fp32), twice each: "
+            f"every mean and error bit-equal to the local round trip: {not bad}; "
+            f"compression ratio {fp32_bytes / wire_bytes:.4f} "
+            f"(compression_ratio((1024, 1024)) "
+            f"{compression.compression_ratio((1024, 1024)):.4f}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        if bad:
+            raise AssertionError(f"compression {name}: not bit-equal at {bad[:5]}")
+        del grads, params, batch
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3962,10 +4135,19 @@ def main() -> int:
 
     # Phase 8f: LM training.
     t8f = time.perf_counter()
-    train_cell, summaries[train_cell], launches[train_cell] = train_phase(
+    train_cell, summaries[train_cell], launches[train_cell], trained = train_phase(
         lm_configs)
     log(f"phase 8f done at {time.perf_counter() - t_start:.1f} s "
         f"(its own {time.perf_counter() - t8f:.1f} s)")
+
+    # Phase 8g: the dry run and roofline of phase 8f's step, the ZeRO step
+    # and the compressed all-reduce on one NCCL rank.
+    t8g = time.perf_counter()
+    dryrun_vs_measured(trained)
+    zero_and_compression(trained)
+    del trained
+    log(f"phase 8g done at {time.perf_counter() - t_start:.1f} s "
+        f"(its own {time.perf_counter() - t8g:.1f} s)")
 
     # Phase 9: the kernels line, then the last line.
     kernels = []

@@ -15,6 +15,9 @@ Each bound divides by the peak of the units the kernel's work needs:
   GEMM and the int8 conv run on (through mma.sync).
 - ``peak_flops_bf16``, dense bf16 on the tensor cores: the units the bf16
   flash-attention kernel runs on (through mma.sync).
+- ``nvlink_bandwidth`` and ``ib_bandwidth``, a direction, within a node of
+  ``gpus_per_node`` and between nodes: the links the roofline
+  (``roofline/analysis.py``) prices a collective on.
 
 ``peak_rate(unit)`` names those units for the cost model
 (core/smem_model.py): 'tf32x3' (fp32 products as three TF32 products,
@@ -43,6 +46,15 @@ class ChipSpec:
     # FLOP/s, dense bf16 tensor cores (NVIDIA H100 SXM data sheet, without
     # sparsity).
     peak_flops_bf16: float = 989e12
+    # B/s a direction between two GPUs of one node: NVLink 4 gives each
+    # H100 SXM 900 GB/s, both directions together (NVIDIA H100 data
+    # sheet).
+    nvlink_bandwidth: float = 450e9
+    # B/s a direction between nodes: one ConnectX-7 NDR port of 400 Gb/s
+    # a GPU (NVIDIA DGX H100 user guide).
+    ib_bandwidth: float = 50e9
+    # GPUs a node share NVLink among (a DGX H100, HGX H100 8-GPU).
+    gpus_per_node: int = 8
     # Shared memory of one SM (228 KB), of which one block may take
     # ``smem_per_block_bytes``: bounds the resident blocks of a tile.
     smem_per_sm_bytes: int = 233_472

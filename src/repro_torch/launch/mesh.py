@@ -1,5 +1,8 @@
 """Device lists for multi-device CNN inference: the counterpart of the
-reference's ``make_stage_mesh`` (``repro/launch/mesh.py``).
+reference's ``make_stage_mesh`` (``repro/launch/mesh.py``); and the
+production LM meshes as shapes (``production_mesh_shape``, its
+``make_production_mesh``), which the partition rules and the dry run
+read.
 
 The port drives every stage and shard from one process, so a "mesh" is a
 plain list of ``torch.device``s, one entry per stage or shard.  A device
@@ -37,3 +40,14 @@ def stage_devices(n_stages: int,
         raise ValueError(f"pipeline needs {n_stages} devices, only "
                          f"{len(devices)} given")
     return devices[:n_stages]
+
+
+def production_mesh_shape(multi_pod: bool = False):
+    """The reference's production meshes (``make_production_mesh``) as
+    shapes: (16, 16) ``("data", "model")`` for one pod, (2, 16, 16)
+    ``("pod", "data", "model")`` for two (512 devices)."""
+    from repro_torch.distributed.context import MeshShape
+
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))

@@ -19,7 +19,7 @@ copied; ``tests/test_torch_optim.py`` shows both).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -88,11 +88,16 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_lib.leaves(tree)))
 
 
-def update(cfg: AdamWConfig, grads, state: AdamWState, params
+def update(cfg: AdamWConfig, grads, state: AdamWState, params,
+           grad_norm: Optional[torch.Tensor] = None
            ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
-    """One AdamW step.  Returns (new params, new state, metrics)."""
+    """One AdamW step.  Returns (new params, new state, metrics).
+
+    ``grad_norm``: the global norm to clip by, where ``grads`` are a
+    slice of the gradients (ZeRO, ``distributed/zero.py``); by default
+    ``global_norm(grads)``."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = (cfg.grad_clip_norm / gnorm.clamp_min(1e-9)).clamp(max=1.0)
     lr = cfg.lr(step)
     stepf = step.to(torch.float32)

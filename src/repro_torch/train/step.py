@@ -112,35 +112,42 @@ def value_and_grad(cfg: ModelConfig, params, batch, impl: str = "cuda"):
             tree_lib.tree_map(lambda _: next(grads), params))
 
 
+def accumulated_grads(cfg: ModelConfig, params, batch, grad_accum: int = 1,
+                      impl: str = "cuda"):
+    """(metrics, gradients) of one step's batch: with ``grad_accum`` > 1
+    the batch is split along its first axis into that many microbatches,
+    one forward and backward each, their gradients summed in fp32 and
+    divided by ``grad_accum`` (metrics: the mean loss); else the
+    gradients come in the params' dtype."""
+    if grad_accum <= 1:
+        (_, metrics), grads = value_and_grad(cfg, params, batch, impl)
+        return metrics, grads
+    rows = next(iter(batch.values())).shape[0]
+    if rows % grad_accum:
+        raise ValueError(f"a batch of {rows} does not split into "
+                         f"{grad_accum} microbatches")
+    micro = [{k: v.chunk(grad_accum)[i] for k, v in batch.items()}
+             for i in range(grad_accum)]
+    g_sum, loss_sum = None, 0.0
+    for mb in micro:
+        (_, m), g = value_and_grad(cfg, params, mb, impl)
+        g_sum = (tree_lib.tree_map(lambda x: x.float(), g)
+                 if g_sum is None else
+                 tree_lib.tree_map(lambda a, b: a.add_(b), g_sum, g))
+        loss_sum = loss_sum + m["loss"]
+        del g
+    grads = tree_lib.tree_map(lambda g: g / grad_accum, g_sum)
+    return {"loss": loss_sum / grad_accum}, grads
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     grad_accum: int = 1, impl: str = "cuda") -> Callable:
-    """train_step(params, opt_state, batch) -> (params, opt_state, metrics).
-
-    With ``grad_accum`` > 1 the batch is split along its first axis into
-    that many microbatches, one forward and backward each, their
-    gradients summed in fp32 and divided by ``grad_accum`` (metrics: the
-    mean loss); else the gradients come in the params' dtype."""
+    """train_step(params, opt_state, batch) -> (params, opt_state, metrics):
+    ``accumulated_grads`` over ``grad_accum`` microbatches, then
+    ``adamw.update``."""
 
     def train_step(params, opt_state, batch):
-        if grad_accum > 1:
-            rows = next(iter(batch.values())).shape[0]
-            if rows % grad_accum:
-                raise ValueError(f"a batch of {rows} does not split into "
-                                 f"{grad_accum} microbatches")
-            micro = [{k: v.chunk(grad_accum)[i] for k, v in batch.items()}
-                     for i in range(grad_accum)]
-            g_sum, loss_sum = None, 0.0
-            for mb in micro:
-                (_, m), g = value_and_grad(cfg, params, mb, impl)
-                g_sum = (tree_lib.tree_map(lambda x: x.float(), g)
-                         if g_sum is None else
-                         tree_lib.tree_map(lambda a, b: a.add_(b), g_sum, g))
-                loss_sum = loss_sum + m["loss"]
-                del g
-            grads = tree_lib.tree_map(lambda g: g / grad_accum, g_sum)
-            metrics = {"loss": loss_sum / grad_accum}
-        else:
-            (_, metrics), grads = value_and_grad(cfg, params, batch, impl)
+        metrics, grads = accumulated_grads(cfg, params, batch, grad_accum, impl)
         new_params, new_opt, opt_metrics = adamw.update(opt_cfg, grads,
                                                         opt_state, params)
         return new_params, new_opt, {**metrics, **opt_metrics}

@@ -40,6 +40,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     ops,
 )
+from repro_torch.kernels.flash_attention.ref import attention_mask
 
 REPO = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location(
@@ -368,28 +369,91 @@ def test_fp32_replay_holds_the_card_gates(case):
     within 2e-4 of max(1, max|ref|), each row within 1e-4 of its norm
     (floored at 1e-2 of the largest row's).
 
-    At hd 256 the causal first row's dq, whose true value cancels to ~0
-    (one key: p = 1, dp = D), is held at the floor, and there the plain
-    version's own fp32 dq is 3.7e-5 to 1.2e-4 per row from its steps in
-    float64 over eight draws (its dp, a GEMM, and D, a row sum, round the
-    same dot product in two orders), the replay 2.2e-5 to 5.7e-5: the two
-    fp32 results differ by more than the gate (up to 1.9e-4) on six draws
-    of fourteen.  So at hd 256 dq is held against jax (which takes D from
-    p dp and cancels that row exactly) and the float64 steps, as the card
-    holds the kernel; dk and dv, and every other case, against all three."""
-    b, s, sk, h, kv, hd, causal, window, cap, _ = FP32_REPLAY_CASES[case]
+    The fp32 plain version takes D as jax does (rowsum(p o dp), over the
+    row sum of p), so the causal first row's dq,
+    whose true value cancels to ~0 (one key: p = 1), is 0 in both, and
+    the replay's own rounding of that row (its D is rowsum(dout o out))
+    is what the three comparisons read there."""
     arrays, t, out, lse, mask = _fp32_case(case)
     got = replay_mod.replay_fp32(t[0], t[1], t[2], out, t[3], lse, *mask)
     _, j_grads = _jax_grads(*arrays, *mask)
     plain = attention_bwd_ref(t[0], t[1], t[2], out, t[3], lse, *mask)
     pairs = [*zip(got, (torch.tensor(j) for j in j_grads)),
              *zip(got, _plain_f64(t, out, lse, mask)),
-             *zip(got[hd == 256:], plain[hd == 256:])]
-    assert len(pairs) == (8 if hd == 256 else 9)
+             *zip(got, plain)]
+    assert len(pairs) == 9
     for x, ref in pairs:
         assert x.dtype == torch.float32 and torch.isfinite(x).all()
         elem, row = replay_mod.errors(x, ref)
         assert elem <= FP32_TOL and row <= FP32_ROW_TOL, (elem, row)
+
+
+@pytest.mark.parametrize("lse_ulps", [0, 4])
+@pytest.mark.parametrize("case", ["llama grouping", "mqa hd 256 split",
+                                  "gemma2 window softcap"])
+def test_fp32_plain_causal_first_row_cancels_as_jax(case, lse_ulps):
+    """The fp32 plain backward's dq at the causal first row (one key, p =
+    1, so its true gradient is 0) against ``jax.vjp`` of the reference's
+    ``attention_naive`` on the same inputs: within 1e-6 of the row floor
+    (1e-2 of the largest dq row's norm), every head; from the plain
+    forward's lse and from one moved by up to ``lse_ulps`` units of its
+    last place, as another forward's (the kernel's) may be."""
+    arrays, t, out, lse, mask = _fp32_case(case)
+    if lse_ulps:
+        g = torch.Generator().manual_seed(1)
+        steps = torch.randint(-lse_ulps, lse_ulps + 1, lse.shape, generator=g)
+        lse = lse + steps * (torch.nextafter(lse.abs(), torch.tensor(np.inf))
+                             - lse.abs())
+    _, j_grads = _jax_grads(*arrays, *mask)
+    dq = attention_bwd_ref(t[0], t[1], t[2], out, t[3], lse, *mask)[0]
+    ref = torch.tensor(j_grads[0])
+    floor = 1e-2 * float(ref.norm(dim=-1).max())
+    first = (dq[:, 0] - ref[:, 0]).norm(dim=-1)            # (B, H)
+    assert float(first.max()) <= 1e-6 * floor, float(first.max()) / floor
+
+
+def test_fp32_plain_backward_with_an_empty_row():
+    """Rows with no valid key (causal, window 3, S 12 over Sk 6: rows 8 to
+    11) have p = 0, so D = 0 there, not 0 / 0: every fp32 plain gradient
+    is finite, those rows' dq is 0, and each gradient is within the fp32
+    gates of the plain steps in float64 (whose D reads out)."""
+    b, s, sk, h, kv, hd, causal, window = 1, 12, 6, 4, 2, 16, True, 3
+    t = [torch.tensor(a) for a in _inputs(b, s, sk, h, kv, hd, seed=3)]
+    out, lse = attention_ref_lse(*t[:3], causal, window)
+    empty = ~attention_mask(s, sk, causal, window, "cpu").any(-1)
+    assert empty.tolist() == [False] * 8 + [True] * 4
+    got = attention_bwd_ref(t[0], t[1], t[2], out, t[3], lse, causal, window)
+    want = _plain_f64(t, out, lse, (causal, window, 0.0))
+    for x, ref in zip(got, want):
+        assert torch.isfinite(x).all()
+        elem, row = replay_mod.errors(x, ref)
+        assert elem <= FP32_TOL and row <= FP32_ROW_TOL, (elem, row)
+    assert not got[0][:, empty].any()
+
+
+def test_fp32_plain_rows_at_the_saturated_softcap_cell():
+    """Why the card holds the fp32 kernel at its saturated softcap cell to
+    the float64 steps alone: there the fp32 plain version's own dq rows
+    lie more than half the row gate (1e-4) from its float64 steps.  One KV
+    group of that cell (S 4096, two query heads, hd 128, causal, softcap
+    50, q x 8: exponents near 72, rows near one-hot) against the same
+    inputs unsaturated (q x 1), where they lie under 5 % of it; dk and dv
+    within the gate at both."""
+    b, s, h, kv, hd, cap = 1, 4096, 2, 1, 128, 50.0
+    rows = {}
+    for scale in (8.0, 1.0):
+        q, k, v, do = _inputs(b, s, s, h, kv, hd, seed=6, q_scale=scale)
+        t = [torch.tensor(a) for a in (q, k, v, do)]
+        out, lse = attention_ref_lse(*t[:3], True, 0, cap)
+        plain = attention_bwd_ref(t[0], t[1], t[2], out, t[3], lse, True, 0, cap)
+        f64 = _plain_f64(t, out, lse, (True, 0, cap))
+        rows[scale] = [replay_mod.errors(x, r)[1] for x, r in zip(plain, f64)]
+        del plain, f64
+    print(f"fp32 plain rows from float64 (dq, dk, dv): saturated {rows[8.0]}, "
+          f"unsaturated {rows[1.0]}")
+    assert 0.5 * FP32_ROW_TOL < rows[8.0][0] <= FP32_ROW_TOL, rows
+    assert rows[1.0][0] < 0.05 * FP32_ROW_TOL, rows
+    assert max(rows[8.0][1:] + rows[1.0][1:]) <= FP32_ROW_TOL, rows
 
 
 @pytest.mark.parametrize("terms", [2, 1])

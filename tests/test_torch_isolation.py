@@ -54,13 +54,19 @@ def test_port_sources_import_no_jax_or_reference():
 @pytest.mark.parametrize("module", [
     "core/cost_rule.py", "serving/cnn_engine.py", "serving/faults.py",
     "serving/resilience.py", "serving/engine.py", "distributed/pipeline.py",
-    "launch/mesh.py", "core/netplan.py", "graphs.py"])
+    "launch/mesh.py", "core/netplan.py", "graphs.py",
+    "distributed/context.py", "distributed/sharding.py",
+    "distributed/compression.py", "distributed/zero.py",
+    "roofline/analysis.py", "roofline/table.py", "launch/dryrun.py",
+    "launch/opt_sweep.py"])
 def test_the_planner_rule_and_serving_modules_are_walked(module):
-    """The cost rule, the serving modules and the multi-device modules
-    (the pipeline partition in core/netplan.py, the schedule, the device
-    lists), which copy the reference's logic, are among the walked sources
-    and import neither JAX nor the reference (the rule's crossovers and
-    the pipeline's tick overhead are constants of their own)."""
+    """The cost rule, the serving modules, the multi-device modules (the
+    pipeline partition in core/netplan.py, the schedule, the device
+    lists), and the LM side of distributed/ with the roofline and the dry
+    run, which copy the reference's logic, are among the walked sources
+    and import neither JAX nor the reference (the rule's crossovers, the
+    pipeline's tick overhead, the partition rules and the ring model are
+    copies of their own)."""
     path = PORT / module
     assert path in _port_files()
     assert not [m for m in _imported_modules(path)
